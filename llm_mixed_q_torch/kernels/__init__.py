@@ -1,0 +1,39 @@
+"""Packed BFP storage and the Hopper kernels of the serving path."""
+
+from .attention_decode import (
+    packed_attention_decode_batch_cuda,
+    packed_attention_decode_cuda,
+)
+from .dequant_matmul import bfp_matmul, bfp_matmul_cuda, bfp_matmul_subbyte_t_cuda
+from .packing import (
+    PACKED_TYPES,
+    PackedBFP,
+    PackedBFPSub,
+    PackedBFPSubT,
+    pack_block_fp,
+    pack_block_fp_subbyte,
+    pack_block_fp_subbyte_t,
+    packed_nbytes,
+    transpose_subbyte,
+    unpack,
+    unpack_block_fp,
+    unpack_block_fp_subbyte,
+    unpack_block_fp_subbyte_t,
+)
+
+# every kernel wrapper, by the name its launch count is reported under
+KERNEL_WRAPPERS = {
+    "bfp_matmul_subbyte_t": bfp_matmul_subbyte_t_cuda,
+    "bfp_matmul_int8": bfp_matmul_cuda,
+    "attn_decode_pos_major": packed_attention_decode_batch_cuda,
+    "attn_decode_head_major": packed_attention_decode_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts():
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

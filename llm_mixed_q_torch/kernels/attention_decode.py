@@ -1,0 +1,272 @@
+"""Decode attention over the packed KV cache (counterpart of the JAX
+package's ``kernels/attention_decode.py``).
+
+Per decode step and kv head:
+    scores  = q @ dequant(K) / sqrt(hd), masked to pos <= positions[b]
+    probs   = softmax_f32(scores)
+    probs_q = block_fp qdq of probs over [1, bs] runs of positions
+    ctx     = probs_q @ dequant(V)
+
+Two Hopper kernels (``csrc/attention_decode.cu``, one device function read
+with two sets of strides) replace the TPU kernels:
+
+- K4 ``packed_attention_decode_batch_cuda``: the pos-major cache, flat
+  [b, rows, S*nkv] arrays with lane = pos*nkv + head, K and V both stored
+  [hd, lanes] (replaces ``packed_attention_decode_batch`` /
+  ``_attn_kernel_batch``);
+- K5 ``packed_attention_decode_cuda``: the head-major cache, K [b, nkv, hd,
+  S], V [b, nkv, S, hd] (replaces ``packed_attention_decode`` /
+  ``_attn_kernel``).
+
+Each wrapper launches its kernel for CUDA tensors (counting launches) and
+computes the plain version, the dense dequantize + einsum path of
+serving, for CPU tensors.
+
+The softmax denominator is summed in float64 and rounded to float32, in
+the kernels and in the plain version alike. With block_fp-quantized q the
+scores are exact in float32 whatever the summation order, so the kernel
+and the plain version then agree on every probability bit and quantize
+them identically; a float32 sum taken in two orders would differ in the
+last bit and flip a rounding of the prob quantizer now and then. This
+departs from the JAX reference, which sums in float32 (ROADMAP, faults).
+
+On the card a packed cache goes through the kernels or raises
+(``attention_kernel_error`` names the limit); ``attend_dense`` serves the
+float32 fake-quant cache, and a packed cache only on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.quantizers.block_fp import _block_fp_qdq
+from . import _cuda
+from .packing import effective_block_len
+
+NEG_INF = float(np.finfo(np.float32).min)
+_REP_MAX = 8  # GQA query rows per kv head the kernels take
+_THREADS = 256
+_SMEM_MAX = 227 * 1024
+
+# pos-major cache when nkv * max_len fits this many lanes (the JAX
+# package's batch-folded kernel budget; the layout choice is kept so a
+# cache has the same shapes in both packages)
+BATCH_KERNEL_MAX_LANES = 8192
+
+
+def softmax_lastdim(s: torch.Tensor) -> torch.Tensor:
+    """float32 softmax whose denominator is summed in float64 (the JAX
+    reference sums it in float32)."""
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / e.double().sum(dim=-1, keepdim=True).float()
+
+
+def attend_dense(qg, k_all_t, v_all, positions_b, prob_quantizer=None):
+    """Dense decode attention. qg [b, nkv, rep, hd]; k_all_t [b, nkv, hd, S];
+    v_all [b, nkv, S, hd]; positions_b [b] (last valid index, inclusive);
+    ``prob_quantizer`` maps probs [b*nh, 1, S] to their quantized values.
+    -> ctx [b, nkv, rep, hd]."""
+    b, nkv, rep, hd = qg.shape
+    s_len = v_all.shape[2]
+    # a tensor divisor keeps this a true division on the card, as in the
+    # kernels (a Python scalar divisor becomes a reciprocal multiply there)
+    sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32, device=qg.device)
+    scores = torch.einsum("bkrd,bkds->bkrs", qg, k_all_t) / sqrt_hd
+    valid = (
+        torch.arange(s_len, device=qg.device)[None, None, None, :]
+        <= positions_b[:, None, None, None]
+    )
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    probs = softmax_lastdim(scores)
+    if prob_quantizer is not None:
+        probs = prob_quantizer(probs.reshape(b * nkv * rep, 1, s_len)).reshape(
+            b, nkv, rep, s_len
+        )
+    return torch.einsum("bkrs,bksd->bkrd", probs, v_all)
+
+
+def _prob_qdq_fn(prob_q):
+    if prob_q is None:
+        return None
+    bs, width, ew, eb = prob_q
+    return lambda p: _block_fp_qdq(p, width, ew, eb, [1, bs], skip_first_dim=True)
+
+
+def _dequant_rows(codes, scales, bs, axis):
+    """codes * scales broadcast over blocks of ``bs`` along ``axis``."""
+    return codes.to(torch.float32) * scales.repeat_interleave(bs, dim=axis)
+
+
+def packed_attention_decode_batch_plain(q, k_codes, k_scales, v_codes, v_scales,
+                                        positions, bs_k, bs_v, nkv, rep=1,
+                                        prob_q=None):
+    """Plain version of K4: dequantize the pos-major cache to the dense
+    layouts and run ``attend_dense``. -> ctx [b, nh, hd]."""
+    b, nh, hd = q.shape
+    lanes = k_codes.shape[2]
+    s_len = lanes // nkv
+    k_all_t = (
+        _dequant_rows(k_codes, k_scales, bs_k, 1)
+        .reshape(b, hd, s_len, nkv).permute(0, 3, 1, 2)
+    )
+    v_all = (
+        _dequant_rows(v_codes, v_scales, bs_v, 1)
+        .reshape(b, hd, s_len, nkv).permute(0, 3, 2, 1)
+    )
+    ctx = attend_dense(q.reshape(b, nkv, rep, hd), k_all_t, v_all,
+                       positions.reshape(b), _prob_qdq_fn(prob_q))
+    return ctx.reshape(b, nh, hd)
+
+
+def packed_attention_decode_plain(q, k_codes_t, k_scales_t, v_codes, v_scales,
+                                  positions, bs_k, bs_v, prob_q=None):
+    """Plain version of K5 over the head-major cache. -> [b, nkv, rep, hd]."""
+    k_all_t = _dequant_rows(k_codes_t, k_scales_t, bs_k, 2)
+    v_all = _dequant_rows(v_codes, v_scales, bs_v, 3)
+    return attend_dense(q, k_all_t, v_all, positions.reshape(q.shape[0]),
+                        _prob_qdq_fn(prob_q))
+
+
+def _prob_q_args(prob_q):
+    """(on, bs, width, emin, emax) for the C interface."""
+    if prob_q is None:
+        return (0, 1, 1, 0, 0)
+    bs, width, ew, eb = prob_q
+    if eb in (None, "none", "None"):
+        eb = 2 ** (ew - 1) - 1
+    eb = int(eb)
+    return (1, bs, width, -eb, 2**ew - 1 - eb)
+
+
+def kernel_shape_error(rep: int, hd: int, s_len: int) -> str | None:
+    """Why the decode-attention kernels cannot take ``rep`` query rows per
+    kv head, head_dim ``hd`` and a cache of ``s_len`` positions, or None.
+    These are the limits of ``csrc/attention_decode.cu``: one block of
+    256 threads per (batch element, kv head) holding q, the scores of
+    every position and the P.V partials in shared memory."""
+    if not 1 <= rep <= _REP_MAX:
+        return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
+    if hd > _THREADS or _THREADS % hd or hd % 16:
+        return f"head_dim {hd} does not divide {_THREADS} or is not a multiple of 16"
+    smem = 4 * rep * (hd + s_len + _THREADS)
+    if smem > _SMEM_MAX:
+        return (f"a cache of {s_len} positions needs {smem} bytes of shared "
+                f"memory at rep {rep} (at most {_SMEM_MAX})")
+    return None
+
+
+def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
+                      s_len, bs_k, bs_v, prob_q):
+    tensors = (q, kc, ks, vc, vs)
+    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{fn_name}: q and the cache must be contiguous on one device")
+    if q.dtype != torch.float32 or kc.dtype != torch.int8 or vc.dtype != torch.int8:
+        raise ValueError(f"{fn_name}: q float32, codes int8 expected")
+    if hd % bs_k or hd % bs_v:
+        raise ValueError(f"{fn_name}: blocks {bs_k}/{bs_v} do not divide {hd}")
+    if prob_q is not None and prob_q[0] < 1:
+        raise ValueError(f"{fn_name}: bad prob block {prob_q[0]}")
+    error = kernel_shape_error(rep, hd, s_len)
+    if error:
+        raise ValueError(f"{fn_name}: {error}")
+    b = q.shape[0]
+    pos = positions.to(device=q.device, dtype=torch.int32).reshape(b).contiguous()
+    out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
+    lib = _cuda.lib()
+    rc = getattr(lib, fn_name)(
+        q.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(), vs.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), b, nkv, rep, hd, s_len, bs_k, bs_v,
+        math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q),
+    )
+    _cuda.check(rc, fn_name)
+    return out
+
+
+def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
+                                       positions, bs_k, bs_v, nkv, rep=1,
+                                       prob_q=None):
+    """K4: decode attention over the pos-major packed cache.
+    q [b, nh, hd] f32 (rows grouped by kv head); codes int8 [b, hd, S*nkv];
+    scales f32 [b, hd/bs, S*nkv]; positions [b]. -> ctx [b, nh, hd] f32."""
+    if not q.is_cuda:
+        return packed_attention_decode_batch_plain(
+            q, k_codes, k_scales, v_codes, v_scales, positions, bs_k, bs_v,
+            nkv, rep, prob_q)
+    b, nh, hd = q.shape
+    if nh != nkv * rep:
+        raise ValueError(f"{nh} query heads != nkv {nkv} * rep {rep}")
+    out = _launch_attention(
+        "lmq_attn_decode_pos_major", q, k_codes, k_scales, v_codes, v_scales,
+        positions, nkv, rep, hd, k_codes.shape[2] // nkv, bs_k, bs_v, prob_q)
+    packed_attention_decode_batch_cuda.launches += 1
+    return out
+
+
+def packed_attention_decode_cuda(q, k_codes_t, k_scales_t, v_codes, v_scales,
+                                 positions, bs_k, bs_v, prob_q=None):
+    """K5: decode attention over the head-major packed cache.
+    q [b, nkv, rep, hd] f32; K codes [b, nkv, hd, S], K scales
+    [b, nkv, hd/bs, S]; V codes [b, nkv, S, hd], V scales [b, nkv, S, hd/bs].
+    -> ctx [b, nkv, rep, hd] f32."""
+    if not q.is_cuda:
+        return packed_attention_decode_plain(
+            q, k_codes_t, k_scales_t, v_codes, v_scales, positions, bs_k, bs_v,
+            prob_q)
+    b, nkv, rep, hd = q.shape
+    out = _launch_attention(
+        "lmq_attn_decode_head_major", q, k_codes_t, k_scales_t, v_codes,
+        v_scales, positions, nkv, rep, hd, v_codes.shape[2], bs_k, bs_v, prob_q)
+    packed_attention_decode_cuda.launches += 1
+    return out.reshape(b, nkv, rep, hd)
+
+
+packed_attention_decode_batch_cuda.launches = 0
+packed_attention_decode_cuda.launches = 0
+
+
+def prob_q_spec(mm1_cfg: dict, max_len: int):
+    """(bs, width, exp_width, exp_bias) of one layer's prob quantizer, or
+    None for a bypass data_in. Raises ValueError when the layer cannot use
+    the kernels (non-block_fp probs, width > 9, a block that does not tile
+    max_len, or a non-power-of-two block)."""
+    if mm1_cfg.get("bypass", False):
+        return None
+    if mm1_cfg.get("name") != "block_fp" or mm1_cfg.get("data_in_width", 99) > 9:
+        raise ValueError(f"matmul_1 data_in not kernel-eligible: {mm1_cfg}")
+    bs = effective_block_len(mm1_cfg["data_in_block_size"], max_len)
+    if bs is None or max_len % bs != 0:
+        raise ValueError(
+            f"prob block {mm1_cfg['data_in_block_size']} does not tile "
+            f"max_len {max_len}"
+        )
+    if bs & (bs - 1):
+        raise ValueError(f"prob block {bs} is not a power of two")
+    return (
+        bs,
+        mm1_cfg["data_in_width"],
+        mm1_cfg.get("data_in_exponent_width", 8),
+        mm1_cfg.get("data_in_exponent_bias"),
+    )
+
+
+def attention_kernel_error(config, max_len: int) -> str | None:
+    """Why the packed decode-attention kernels cannot serve this config at
+    this cache length, or None when every layer can decode through them."""
+    from ..models.llama.modeling import _node_cfg
+
+    rep = config.num_attention_heads // config.num_key_value_heads
+    error = kernel_shape_error(rep, config.head_dim, max_len)
+    if error:
+        return error
+    try:
+        for i in range(config.num_hidden_layers):
+            prob_q_spec(
+                _node_cfg(config.quant_config, i, "self_attn", "matmul_1"), max_len
+            )
+    except (ValueError, KeyError) as e:
+        return f"prob quantizer: {e}"
+    return None

@@ -1,0 +1,215 @@
+"""Quantized Llama in PyTorch (counterpart of the JAX package's
+``models/llama/modeling.py``): plain functions over a parameter dict, with
+weights in the torch ``[out, in]`` layout.
+
+Numerics follow the reference: RMSNorm variance in float32; RoPE cos/sin
+tables quantized per the rope node, rotation in full precision; quantized
+matmul_0 = q @ k^T, then / sqrt(head_dim); additive causal + padding mask
+clamped at finfo.min; float32 softmax; quantized matmul_1 = probs @ v.
+GQA repeats the kv heads.
+
+Not ported yet: the chunked attention path (``attention_chunk``) and the
+sequence-classification head.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...ops.functions import quantized_apply_rotary_pos_emb, quantized_matmul
+from ...ops.linear import quantized_linear
+from .configuration import LlamaQuantizedConfig
+
+NEG_INF = float(np.finfo(np.float32).min)
+
+_BYPASS = {"bypass": True, "name": "integer"}
+
+
+def _node_cfg(quant_config, layer_idx: int, group: str, name: str) -> dict:
+    if quant_config is None:
+        return _BYPASS
+    return quant_config[f"model_layer_{layer_idx}"][group][name]
+
+
+def rms_norm(x, weight, eps: float):
+    input_dtype = x.dtype
+    xf = x.to(torch.float32)
+    variance = xf.square().mean(dim=-1, keepdim=True)
+    return (weight * (xf * torch.rsqrt(variance + eps))).to(input_dtype)
+
+
+def rope_tables(seq_len: int, head_dim: int, base: float, device=None,
+                dtype=torch.float32):
+    """cos/sin [seq_len, head_dim], computed in numpy float32 as the JAX
+    package does."""
+    inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    t = np.arange(seq_len, dtype=np.float32)
+    emb = np.concatenate([np.outer(t, inv_freq)] * 2, axis=-1)
+    return (torch.as_tensor(np.cos(emb), dtype=dtype, device=device),
+            torch.as_tensor(np.sin(emb), dtype=dtype, device=device))
+
+
+def make_causal_mask(attention_mask, q_len: int, kv_len: int, past_len: int = 0,
+                     device=None):
+    """Additive mask [b, 1, q, kv]: 0 where attendable, finfo.min otherwise;
+    queries sit at the end of the kv axis."""
+    ok = torch.ones((q_len, kv_len), dtype=torch.bool, device=device).tril(past_len)
+    ok = ok[None, None]
+    if attention_mask is not None:
+        ok = ok & attention_mask[:, None, None, :].to(torch.bool)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _repeat_kv(x, n_rep: int):
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def project_qkv(params, hidden, config, layer_idx, quantize_weights):
+    """q [b, nh, s, hd], k and v [b, nkv, s, hd] (fused or separate nodes)."""
+    b, q_len, _ = hidden.shape
+    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
+                   config.head_dim)
+    qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
+
+    def heads(out, nheads):
+        return out.reshape(b, q_len, nheads, hd).transpose(1, 2)
+
+    if "qkv_proj" in params:
+        # fused packed projection: member configs are identical, so
+        # q_proj's config speaks for all three
+        node = params["qkv_proj"]
+        fused = quantized_linear(hidden, node["weight"], node.get("bias"),
+                                 qc("q_proj"), quantize_weights)
+        nq, nk, _ = node["splits"]
+        return (heads(fused[..., :nq], nh), heads(fused[..., nq:nq + nk], nkv),
+                heads(fused[..., nq + nk:], nkv))
+
+    def proj(name, nheads):
+        node = params[name]
+        return heads(quantized_linear(hidden, node["weight"], node.get("bias"),
+                                      qc(name), quantize_weights), nheads)
+
+    return proj("q_proj", nh), proj("k_proj", nkv), proj("v_proj", nkv)
+
+
+def attention(params, hidden, mask, position_ids, cos, sin,
+              config: LlamaQuantizedConfig, layer_idx: int,
+              quantize_weights: bool):
+    if getattr(config, "attention_chunk", None):
+        raise NotImplementedError("chunked attention is not ported yet")
+    b, q_len, _ = hidden.shape
+    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
+                   config.head_dim)
+    qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
+    q, k, v = project_qkv(params, hidden, config, layer_idx, quantize_weights)
+    q, k = quantized_apply_rotary_pos_emb(
+        q, k, cos, sin, position_ids, qc("rotary_positional_encoding"))
+    new_kv = (k, v)
+
+    k = _repeat_kv(k, nh // nkv)
+    v = _repeat_kv(v, nh // nkv)
+    attn = quantized_matmul(q, k.transpose(2, 3), qc("matmul_0")) / math.sqrt(hd)
+    if mask is not None:
+        attn = torch.clamp_min(attn + mask, NEG_INF)
+    attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
+    out = quantized_matmul(attn, v, qc("matmul_1"))
+    out = out.transpose(1, 2).reshape(b, q_len, nh * hd)
+    out = quantized_linear(out, params["o_proj"]["weight"],
+                           params["o_proj"].get("bias"), qc("o_proj"),
+                           quantize_weights)
+    return out, new_kv
+
+
+def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
+    qc = partial(_node_cfg, config.quant_config, layer_idx, "mlp")
+    if "gate_up_proj" in params:
+        node = params["gate_up_proj"]
+        gu = quantized_linear(hidden, node["weight"], node.get("bias"),
+                              qc("gate_proj"), quantize_weights)
+        gate, up = gu[..., : node["splits"][0]], gu[..., node["splits"][0]:]
+    else:
+        gate = quantized_linear(hidden, params["gate_proj"]["weight"], None,
+                                qc("gate_proj"), quantize_weights)
+        up = quantized_linear(hidden, params["up_proj"]["weight"], None,
+                              qc("up_proj"), quantize_weights)
+    return quantized_linear(F.silu(gate) * up, params["down_proj"]["weight"],
+                            None, qc("down_proj"), quantize_weights)
+
+
+def decoder_layer(params, hidden, mask, position_ids, cos, sin, config,
+                  layer_idx: int, quantize_weights: bool):
+    residual = hidden
+    h = rms_norm(hidden, params["input_layernorm"]["weight"], config.rms_norm_eps)
+    h, new_kv = attention(params["self_attn"], h, mask, position_ids, cos, sin,
+                          config, layer_idx, quantize_weights)
+    hidden = residual + h
+    residual = hidden
+    h = rms_norm(hidden, params["post_attention_layernorm"]["weight"],
+                 config.rms_norm_eps)
+    h = mlp(params["mlp"], h, config, layer_idx, quantize_weights)
+    return residual + h, new_kv
+
+
+def embed(params, input_ids):
+    # a bf16 table (pack_llama_params(bf16_embed=True)) upcasts at the lookup
+    return params["embed_tokens"]["weight"][input_ids].to(torch.float32)
+
+
+def lm_logits(params, hidden, config):
+    """Logits in float32. A bf16 table rounds hidden to bf16 first; the
+    products of two bf16 values are exact in float32, so the product runs
+    in float32 (the JAX package's bf16 dot with float32 accumulation)."""
+    name = "embed_tokens" if config.tie_word_embeddings else "lm_head"
+    lm_w = params.get(name, params["embed_tokens"])["weight"]
+    if lm_w.dtype != torch.float32:
+        hidden = hidden.to(lm_w.dtype)
+    return torch.matmul(hidden.to(torch.float32), lm_w.to(torch.float32).t())
+
+
+def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
+                quantize_weights: bool = True, position_ids=None):
+    """Backbone forward -> (final hidden [b, s, h], per-layer (k, v))."""
+    b, q_len = input_ids.shape
+    device = input_ids.device
+    hidden = embed(params, input_ids)
+    if position_ids is None:
+        position_ids = torch.arange(q_len, device=device)[None, :].expand(b, q_len)
+    cos, sin = rope_tables(q_len, config.head_dim, config.rope_theta, device)
+    if attention_mask is None:
+        attention_mask = torch.ones((b, q_len), dtype=torch.int32, device=device)
+    mask = make_causal_mask(attention_mask, q_len, q_len, device=device)
+    new_kvs = []
+    for i, layer_params in enumerate(params["layers"]):
+        hidden, new_kv = decoder_layer(layer_params, hidden, mask, position_ids,
+                                       cos, sin, config, i, quantize_weights)
+        new_kvs.append(new_kv)
+    hidden = rms_norm(hidden, params["norm"]["weight"], config.rms_norm_eps)
+    return hidden, new_kvs
+
+
+def llama_for_causal_lm(params, input_ids, attention_mask=None, labels=None,
+                        config: LlamaQuantizedConfig = None,
+                        quantize_weights: bool = True, position_ids=None):
+    """-> dict(logits=[b, s, vocab] float32, past_kvs=[(k, v)], loss=...)."""
+    hidden, new_kvs = llama_model(params, input_ids, attention_mask, config,
+                                  quantize_weights, position_ids)
+    out = {"logits": lm_logits(params, hidden, config), "past_kvs": new_kvs}
+    if labels is not None:
+        out["loss"] = causal_lm_loss(out["logits"], labels)
+    return out
+
+
+def causal_lm_loss(logits, labels, ignore_index: int = -100):
+    """Shifted cross-entropy."""
+    return F.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]).to(torch.float32),
+        labels[:, 1:].reshape(-1).long(), ignore_index=ignore_index)

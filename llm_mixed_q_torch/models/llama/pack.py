@@ -1,0 +1,82 @@
+"""Convert Llama linear weights to packed BFP storage (counterpart of the
+JAX package's ``models/llama/pack.py``).
+
+``subbyte=False`` (default) stores int8 codes + f32 scales; ``subbyte=True``
+stores bit-packed sub-byte words in the transposed serving layout.
+``fuse=True`` merges q/k/v into one ``qkv_proj`` node and gate/up into
+``gate_up_proj`` whenever the member configs are identical: one kernel
+launch and one activation quantize instead of three / two.
+``bf16_embed=True`` stores the embedding table and lm_head in bfloat16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import resolve_device
+from ..pack_common import pack_fused_nodes, pack_linear_node
+from .prepare import _LLAMA_LINEARS
+
+_FUSE_GROUPS = {
+    "self_attn": ("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+    "mlp": ("gate_up_proj", ("gate_proj", "up_proj")),
+}
+
+
+def pack_llama_layer(layer: dict, layer_cfg: dict, subbyte: bool = False,
+                     fuse: bool = True) -> dict:
+    """Pack one decoder layer's linear nodes (already packed nodes pass)."""
+    new_layer = dict(layer)
+    for group, names in _LLAMA_LINEARS.items():
+        new_group = dict(layer[group])
+        done = set()
+        if fuse and group in _FUSE_GROUPS:
+            fused_name, members = _FUSE_GROUPS[group]
+            if all(m in new_group for m in members):
+                fused = pack_fused_nodes(
+                    [new_group[m] for m in members],
+                    [layer_cfg[group][m] for m in members], subbyte,
+                )
+                if fused is not None:
+                    new_group[fused_name] = fused
+                    for m in members:
+                        del new_group[m]
+                    done.update(members)
+        for name in names:
+            if name in done or name not in new_group:
+                continue
+            new_group[name] = pack_linear_node(
+                new_group[name], layer_cfg[group][name], subbyte)
+        new_layer[group] = new_group
+    return new_layer
+
+
+@torch.no_grad()
+def pack_llama_params(params: dict, config, subbyte: bool = False,
+                      fuse: bool = True, bf16_embed: bool = False,
+                      device=None) -> dict:
+    """Pack every layer on ``device`` (the card unless ``device="cpu"``),
+    moving one layer there at a time. ``bf16_embed`` also stores the
+    embedding table and an untied lm_head in bfloat16 (the serving option:
+    it halves the largest dense weight stream of a decode step; the
+    backbone still computes in float32)."""
+    from ..hf_loader import tree_map_tensors
+
+    device = resolve_device(device)
+    to_dev = lambda tree: tree_map_tensors(lambda t: t.to(device), tree)
+    new_params = {k: to_dev(v) for k, v in params.items() if k != "layers"}
+    if config.quant_config is None:
+        new_params["layers"] = [to_dev(layer) for layer in params["layers"]]
+        return new_params
+    if bf16_embed:
+        for name in ("embed_tokens", "lm_head"):
+            if name in new_params:
+                node = dict(new_params[name])
+                node["weight"] = node["weight"].to(torch.bfloat16)
+                new_params[name] = node
+    new_params["layers"] = [
+        pack_llama_layer(to_dev(layer), config.quant_config[f"model_layer_{i}"],
+                         subbyte, fuse)
+        for i, layer in enumerate(params["layers"])
+    ]
+    return new_params

@@ -1,0 +1,55 @@
+"""Quantized linear (counterpart of the JAX package's ``ops/linear.py``).
+
+Weights keep the ``[out_features, in_features]`` layout. Modes:
+- bypass: plain ``x @ W^T + b``;
+- PTQ (``quantize_weights=False``): weights were fake-quantized once at
+  prepare time, only activations are quantized per call;
+- QAT / one-shot (``quantize_weights=True``): activations, weights and bias
+  are fake-quantized every call;
+- packed: ``w`` is a ``PackedBFP`` / ``PackedBFPSub`` / ``PackedBFPSubT``
+  and the product goes through ``bfp_matmul`` (the Hopper kernels at
+  decode sizes), with the data_in quantizer folded into the kernel when it
+  is eligible.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.dequant_matmul import actq_spec, bfp_matmul
+from ..kernels.packing import PACKED_TYPES
+from .functions import make_entry_quantizer
+
+
+def quantize_weight(w, config: dict):
+    """Fake-quantize a weight with the node's weight_* keys."""
+    if config.get("bypass", False):
+        return w
+    return make_entry_quantizer(config, "weight", skip_first_dim=False)(w)
+
+
+def quantize_bias(b, config: dict):
+    """Fake-quantize a bias with the bias_* keys, when the config has them."""
+    if b is None or config.get("bypass", False) or "bias_width" not in config:
+        return b
+    return make_entry_quantizer(config, "bias", skip_first_dim=False)(b)
+
+
+def quantized_linear(x, w, b, config: dict, quantize_weights: bool):
+    """y = q_a(x) @ q_w(W)^T + q_b(b); ``w`` is [out, in] or a packed tensor."""
+    if isinstance(w, PACKED_TYPES):
+        aq = None
+        if not config.get("bypass", False):
+            aq = actq_spec(config)
+            if aq is None:
+                x = make_entry_quantizer(config, "data_in", skip_first_dim=True)(x)
+        out = bfp_matmul(x, w, actq=aq)
+        return out if b is None else out + b
+
+    if not config.get("bypass", False):
+        x = make_entry_quantizer(config, "data_in", skip_first_dim=True)(x)
+        if quantize_weights:
+            w = quantize_weight(w, config)
+            b = quantize_bias(b, config)
+    out = torch.matmul(x, w.t())
+    return out if b is None else out + b

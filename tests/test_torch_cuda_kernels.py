@@ -1,0 +1,163 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+at edge shapes the serving path does not reach: ragged M, N and K, every
+sub-byte width, other block sizes, GQA up to rep 8, positions at both ends
+of the cache.
+
+Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
+JAX, so it runs on a GPU host without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances are the JAX package's own: 1e-4 of max|y| for the matmuls
+(float32 sums in another order), rtol 2e-4 / atol 2e-5 for decode
+attention."""
+
+import pytest
+import torch
+
+from llm_mixed_q_torch import kernels as tk
+from llm_mixed_q_torch.kernels import attention_decode as ad
+from llm_mixed_q_torch.kernels import dequant_matmul as dm
+from llm_mixed_q_torch.kernels import packing as tp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _qdq(x, bs=16, width=6):
+    from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+
+    return _block_fp_qdq(x, width, 8, None, [1, bs], True)
+
+
+def _weight(n, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((n, k), generator=g) * 0.05
+    w.view(-1)[::37] = 0.0
+    return w
+
+
+def _close_rel(got, want, tol=1e-4):
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("width", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m,n,k,bs", [(1, 48, 700, 16), (9, 100, 1100, 32),
+                                      (17, 33, 640, 8), (40, 300, 4096, 16)])
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (32, 4, 8, 127)])
+def test_subbyte_t_kernel_matches_plain(dev, width, m, n, k, bs, actq):
+    packed = tp.pack_block_fp_subbyte_t(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    if actq is None:
+        x = _qdq(x)
+    before = dm.bfp_matmul_subbyte_t_cuda.launches
+    got = dm.bfp_matmul_subbyte_t_cuda(x, packed, actq)
+    assert dm.bfp_matmul_subbyte_t_cuda.launches == before + 1
+    _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
+
+
+@pytest.mark.parametrize("m,n,k,bs,k_stride", [(1, 1, 64, 4, None), (9, 100, 1100, 8, 1024),
+                                               (17, 33, 700, 16, None), (40, 300, 4096, 32, 1024),
+                                               (8, 64, 1500, 128, None)])
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (4, 8, 8, 127)])
+def test_int8_kernel_matches_plain(dev, m, n, k, bs, k_stride, actq):
+    packed = tp.pack_block_fp(_weight(n, k, bs).to(dev), 6, 8, None, [1, bs], k_stride=k_stride)
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    if actq is None:
+        x = _qdq(x)
+    before = dm.bfp_matmul_cuda.launches
+    got = dm.bfp_matmul_cuda(x, packed, actq)
+    assert dm.bfp_matmul_cuda.launches == before + 1
+    _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
+
+
+def test_matmul_rows_do_not_depend_on_the_batch(dev):
+    """A row's result is the same bits whatever M and the other rows are
+    (what lets the batcher reproduce generate)."""
+    x = _qdq(torch.randn((24, 1100), generator=torch.Generator().manual_seed(0))).to(dev)
+    w = _weight(200, 1100, 1).to(dev)
+    for packed, fn in ((tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
+                        dm.bfp_matmul_subbyte_t_cuda),
+                       (tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024),
+                        dm.bfp_matmul_cuda)):
+        full = fn(x, packed, (16, 6, 8, 127))
+        for rows in (slice(0, 1), slice(3, 8), slice(5, 22)):
+            part = fn(x[rows].contiguous(), packed, (16, 6, 8, 127))
+            torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+
+
+def test_long_actq_block_is_quantized_outside_the_kernels(dev):
+    """A data_in block longer than the kernels' run of lanes (64 > 32)."""
+    x = torch.randn((4, 1024), generator=torch.Generator().manual_seed(3)).to(dev)
+    actq = (64, 6, 8, 127)
+    for packed in (tp.pack_block_fp_subbyte_t(_weight(64, 1024, 0).to(dev), 6, 8, None, [1, 16]),
+                   tp.pack_block_fp(_weight(64, 1024, 0).to(dev), 6, 8, None, [1, 16])):
+        _close_rel(dm.bfp_matmul(x, packed, actq), dm.bfp_matmul_plain(x, packed, actq))
+
+
+def test_lane_major_subbyte_raises_on_the_card(dev):
+    packed = tp.pack_block_fp_subbyte(_weight(16, 640, 0).to(dev), 6, 8, None, [1, 16])
+    with pytest.raises(NotImplementedError):
+        dm.bfp_matmul(torch.zeros((2, 640), device=dev), packed)
+
+
+def _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randn((b, nkv, s_len, hd), generator=g).to(dev)
+    v = torch.randn((b, nkv, s_len, hd), generator=g).to(dev)
+    kc, ks = tp.bfp_encode_lastdim(k, 6, 8, None, bs_k)
+    vc, vs = tp.bfp_encode_lastdim(v, 6, 8, None, bs_v)
+    if pos_major:
+        flat = lambda t: t.permute(0, 3, 2, 1).reshape(b, t.shape[3], s_len * nkv).contiguous()
+        return flat(kc), flat(ks), flat(vc), flat(vs)
+    return (kc.transpose(2, 3).contiguous(), ks.transpose(2, 3).contiguous(),
+            vc.contiguous(), vs.contiguous())
+
+
+ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q
+    (2, 2, 1, 128, 64, 16, 16, (16, 6, 8, None)),
+    (3, 1, 8, 128, 96, 32, 16, (32, 6, 8, None)),
+    (2, 4, 2, 64, 256, 16, 64, None),
+    (1, 2, 4, 128, 512, 16, 16, (16, 4, 8, None)),
+]
+
+
+@pytest.mark.parametrize("pos_major", [True, False])
+@pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs_k,bs_v,prob_q", ATTN_CASES)
+def test_attention_kernels_match_plain(dev, pos_major, b, nkv, rep, hd, s_len, bs_k, bs_v,
+                                       prob_q):
+    cache = _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed=s_len)
+    q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(1)))
+    # first position only, last position, and one in between
+    positions = torch.tensor([0, s_len - 1, s_len // 3][:b], dtype=torch.int32).to(dev)
+    if pos_major:
+        q = q.reshape(b, nkv * rep, hd).to(dev)
+        fn, plain = ad.packed_attention_decode_batch_cuda, ad.packed_attention_decode_batch_plain
+        args = (q, *cache, positions, bs_k, bs_v, nkv, rep, prob_q)
+    else:
+        q = q.reshape(b, nkv, rep, hd).to(dev)
+        fn, plain = ad.packed_attention_decode_cuda, ad.packed_attention_decode_plain
+        args = (q, *cache, positions, bs_k, bs_v, prob_q)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, plain(*args), rtol=2e-4, atol=2e-5)
+
+
+def test_launch_counts_reset(dev):
+    tk.reset_launch_counts()
+    packed = tp.pack_block_fp(_weight(32, 64, 0).to(dev), 6, 8, None, [1, 16])
+    dm.bfp_matmul(torch.zeros((3, 64), device=dev), packed)
+    counts = tk.launch_counts()
+    assert counts["bfp_matmul_int8"] == 1
+    assert sum(counts.values()) == 1
+    tk.reset_launch_counts()
+    assert set(tk.launch_counts().values()) == {0}

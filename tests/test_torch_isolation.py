@@ -1,0 +1,52 @@
+"""The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
+import, it imports (chip_smoke.py included) and runs one decode step on the
+CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r'''
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "llm_mixed_q_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "llm_mixed_q_tpu"):
+        del sys.modules[mod]
+
+import pkgutil
+import numpy as np
+import torch
+import llm_mixed_q_torch
+import chip_smoke  # noqa: F401  (imports only; main() needs a card)
+for info in pkgutil.walk_packages(llm_mixed_q_torch.__path__, "llm_mixed_q_torch."):
+    __import__(info.name)
+
+from llm_mixed_q_torch.models.hf_loader import init_llama_params
+from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
+
+config = LlamaQuantizedConfig(vocab_size=64, hidden_size=128, intermediate_size=256,
+                              num_hidden_layers=1, num_attention_heads=1,
+                              quant_config="configs/quantization/bfp_6bit.toml")
+params = init_llama_params(config, seed=0, device="cpu",
+                           pack=dict(subbyte=True, bf16_embed=True))
+out = generate(params, config, np.array([[3, 4, 5]]), max_new_tokens=2, device="cpu")
+assert out.shape == (1, 2)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
+print("ISOLATED-OK")
+'''
+
+
+def test_port_imports_and_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
