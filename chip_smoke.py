@@ -5,7 +5,8 @@
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` (nvcc, sm_90a);
 2. holds each kernel against its plain PyTorch version on the card at the
    Llama-2-7B decode shapes (batch 8; the matmuls also at the 256 rows of a
-   prefill) and times kernel, plain version, library yardstick and the
+   prefill; the sub-byte matmuls K1 and K3 also at the OPT-6.7B fc1/fc2
+   shapes) and times kernel, plain version, library yardstick and the
    memory/compute bound;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
@@ -17,7 +18,15 @@
    prompts;
 5. holds one decode step's logits, kernel path against plain path (the
    plain path patches the wrappers here, in this script), and counts the
-   launches of that step.
+   launches of that step;
+6. frees the Llama trees and builds OPT-6.7B widths (32 layers, random
+   weights seed 0, W6A6 block_fp) twice: packed by ``init_opt_params``
+   (transposed sub-byte words: K1) and with ``pack_common._to_t`` patched
+   to the identity here (lane-major ``PackedBFPSub`` words: K3); runs OPT
+   ``generate`` on each tree with the launch counters reset and read around
+   it (K1 only, then K3 only; OPT decodes on a float32 cache, so no
+   attention kernel), and holds a decode step of each tree against the
+   plain path.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
@@ -51,6 +60,11 @@ MATMUL_SHAPES = {  # name: (N, K) of one decoder layer's projections
     "gate_up_proj": (2 * INTER, HIDDEN),
     "down_proj": (HIDDEN, INTER),
 }
+# OPT-6.7B widths (config.json of facebook/opt-6.7b)
+OPT_HIDDEN, OPT_FFN, OPT_LAYERS, OPT_HEADS, OPT_VOCAB = 4096, 16384, 32, 32, 50272
+# the OPT shapes K1/K3 meet that no Llama shape above covers (q/k/v/out_proj
+# are o_proj's 4096 x 4096)
+OPT_MLP_SHAPES = {"fc1": (OPT_FFN, OPT_HIDDEN), "fc2": (OPT_HIDDEN, OPT_FFN)}
 SPIN_CYCLES = 2_000_000  # ~1 ms of card time ahead of each timed call
 # published peaks (NVIDIA data sheets): memory bytes/s, float32 CUDA-core flop/s
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
@@ -106,6 +120,7 @@ def plain_path():
     from llm_mixed_q_torch.models.llama import serving
 
     with mock.patch.object(dm, "bfp_matmul_subbyte_t_cuda", dm.bfp_matmul_plain), \
+            mock.patch.object(dm, "bfp_matmul_subbyte_cuda", dm.bfp_matmul_plain), \
             mock.patch.object(dm, "bfp_matmul_cuda", dm.bfp_matmul_plain), \
             mock.patch.object(serving, "packed_attention_decode_batch_cuda",
                               ad.packed_attention_decode_batch_plain), \
@@ -119,60 +134,78 @@ def bound(nbytes, flops, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush):
+    """Hold one kernel against its plain version at decode rows (batch 8)
+    and at the 256 prefill rows of a batch of 8 prompts of 32 tokens (the
+    largest M bfp_matmul sends to the kernels); time it at batch 8."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
+    from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
+
+    x = torch.randn((BATCH, k), generator=gen, device="cuda")
+    for m in (BATCH, 256):
+        xm = x if m == BATCH else torch.randn((m, k), generator=gen, device="cuda")
+        y = wrapper(xm, packed, ACTQ)
+        ref = bfp_matmul_plain(xm, packed, ACTQ)
+        torch.cuda.synchronize()
+        e = (y - ref).abs().max().item()
+        rel = e / ref.abs().max().item()
+        # tolerance of the JAX package's own kernel test: 1e-4 of max|y|
+        # (float32 sums in another order)
+        check(rel <= 1e-4, f"{kname} N={n} K={k} M={m}: rel err {rel}")
+        if m == BATCH:
+            err, err_rel = e, rel
+    ms = cuda_ms(lambda: wrapper(x, packed, ACTQ), flush=flush)
+    plain_ms = cuda_ms(lambda: bfp_matmul_plain(x, packed, ACTQ), reps=5, flush=flush)
+    w_bf16 = unpack(packed, torch.bfloat16)
+    x_bf16 = x.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush=flush)
+    del w_bf16
+    nbytes = packed_nbytes(packed) + 4 * BATCH * (k + n)
+    flops = 2 * BATCH * n * k
+    b_ms = (nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3)
+    log(f"  {kname} N={n} K={k}: max_abs_err={err:.3e} (rel {err_rel:.2e}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(b_ms):.4f} "
+        f"library_ms(bf16 matmul on the pre-dequantized weight)={library_ms:.4f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_bytes_ms=b_ms[0], bound_ops_ms=b_ms[1],
+                library_ms=library_ms, max_abs_err=err)
+
+
 def check_matmul_kernels(peaks, flush):
+    """Rows: sums over one Llama-2-7B layer's four projections at batch 8;
+    K1 and K3 also report the OPT-6.7B MLP shapes, on lines of their own
+    (``opt_mlp_ms``)."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
-        bfp_matmul_cuda, bfp_matmul_plain, bfp_matmul_subbyte_t_cuda)
+        bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
-        pack_block_fp, pack_block_fp_subbyte_t, packed_nbytes, unpack)
+        pack_block_fp, pack_block_fp_subbyte, pack_block_fp_subbyte_t)
     from llm_mixed_q_torch.models.pack_common import _k_stride
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = {
+        "bfp_matmul_subbyte_t": (bfp_matmul_subbyte_t_cuda, pack_block_fp_subbyte_t),
+        "bfp_matmul_int8": (bfp_matmul_cuda, lambda w, *a: pack_block_fp(
+            w, *a, k_stride=_k_stride(16, w.shape[1]))),
+        "bfp_matmul_subbyte": (bfp_matmul_subbyte_cuda, pack_block_fp_subbyte),
+    }
     rows = {}
-    for kname, wrapper in (("bfp_matmul_subbyte_t", bfp_matmul_subbyte_t_cuda),
-                           ("bfp_matmul_int8", bfp_matmul_cuda)):
+    for kname, (wrapper, packer) in kernels.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_bytes_ms=0.0, bound_ops_ms=0.0,
                    library_ms=0.0, max_abs_err=0.0)
-        for sname, (n, k) in MATMUL_SHAPES.items():
+        shapes = dict(MATMUL_SHAPES)
+        if kname != "bfp_matmul_int8":
+            shapes.update(OPT_MLP_SHAPES)
+            tot["opt_mlp_ms"] = {}
+        for sname, (n, k) in shapes.items():
             w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
-            x = torch.randn((BATCH, k), generator=gen, device="cuda")
-            if kname == "bfp_matmul_subbyte_t":
-                packed = pack_block_fp_subbyte_t(w, 6, 8, 127, [1, 16])
-            else:
-                packed = pack_block_fp(w, 6, 8, 127, [1, 16], k_stride=_k_stride(16, k))
+            packed = packer(w, 6, 8, 127, [1, 16])
             del w
-            # decode rows (batch 8) and the prefill rows of a batch of 8
-            # prompts of 32 tokens (256: the largest M the kernels take)
-            for m in (BATCH, 256):
-                xm = x if m == BATCH else torch.randn((m, k), generator=gen, device="cuda")
-                y = wrapper(xm, packed, ACTQ)
-                ref = bfp_matmul_plain(xm, packed, ACTQ)
-                torch.cuda.synchronize()
-                e = (y - ref).abs().max().item()
-                rel = e / ref.abs().max().item()
-                # tolerance of the JAX package's own kernel test: 1e-4 of
-                # max|y| (float32 sums in another order)
-                check(rel <= 1e-4, f"{kname} {sname} M={m}: rel err {rel}")
-                if m == BATCH:
-                    err = e
-            ms = cuda_ms(lambda: wrapper(x, packed, ACTQ), flush=flush)
-            plain_ms = cuda_ms(lambda: bfp_matmul_plain(x, packed, ACTQ), reps=5, flush=flush)
-            w_bf16 = unpack(packed, torch.bfloat16)
-            x_bf16 = x.to(torch.bfloat16)
-            library_ms = cuda_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush=flush)
-            del w_bf16
-            nbytes = packed_nbytes(packed) + 4 * BATCH * (k + n)
-            flops = 2 * BATCH * n * k
-            b_ms = (nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3)
-            log(f"  {kname} {sname} N={n} K={k}: max_abs_err={err:.3e} "
-                f"(rel {rel:.2e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={max(b_ms):.4f} library_ms(bf16 matmul on the "
-                f"pre-dequantized weight)={library_ms:.4f}")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_bytes_ms"] += b_ms[0]
-            tot["bound_ops_ms"] += b_ms[1]
-            tot["library_ms"] += library_ms
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            r = _measure_matmul(f"{kname} {sname}", wrapper, packed, n, k, gen, peaks, flush)
+            tot["max_abs_err"] = max(tot["max_abs_err"], r.pop("max_abs_err"))
+            if sname in OPT_MLP_SHAPES:
+                tot["opt_mlp_ms"][sname] = r["ms"]
+                continue
+            for key, v in r.items():
+                tot[key] += v
         rows[kname] = tot
     return rows
 
@@ -249,27 +282,26 @@ def check_attention_kernels(peaks, flush):
     return rows
 
 
-def profile_decode(params, config, cache, tok, lengths, steps=4):
+def profile_decode(label, step, steps=4):
     """Wall time of a decode step (host clock, no profiler) and the card's
-    busy time in it by kernel (torch.profiler, a second window of steps)."""
+    busy time in it by kernel (torch.profiler, a second window of steps);
+    ``step(i)`` runs the i-th step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from llm_mixed_q_torch.models.llama import decode_step
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        decode_step(params, tok, cache, lengths + i, config)
+        step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
-            decode_step(params, tok, cache, lengths + steps + i, config)
+            step(steps + i)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-    log(f"decode step profile (sub-byte, batch {BATCH}, max_len 256, {steps} steps): "
+    log(f"decode step profile ({label}, {steps} steps): "
         f"wall {wall_ms:.2f} ms a step, card busy {busy_ms:.2f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}); {len(kernels)} kernel names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -292,50 +324,36 @@ def ragged_prompts(rng, n, vocab):
     return prompts, ids, mask
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
-              "an NVIDIA GPU", file=sys.stderr)
-        sys.exit(2)
-    if not (ROOT / "llm_mixed_q_torch").is_dir():
-        print(f"chip_smoke: no llm_mixed_q_torch package beside {__file__}; run it "
-              "from a checkout of the repository", file=sys.stderr)
-        sys.exit(2)
-    from llm_mixed_q_torch.kernels import _cuda, launch_counts, reset_launch_counts
+# the kernels each main path must launch (and no other), by path
+PATHS = {
+    "generate": ("bfp_matmul_subbyte_t", "attn_decode_pos_major"),
+    "ContinuousBatcher": ("bfp_matmul_int8", "attn_decode_head_major"),
+    "opt_generate_t": ("bfp_matmul_subbyte_t",),
+    "opt_generate_lane_major": ("bfp_matmul_subbyte",),
+}
+
+
+def check_path_counts(path_counts):
+    for path, counts in path_counts.items():
+        log(f"launches of the {path} run: {counts}")
+        for kname, c in counts.items():
+            if kname in PATHS[path]:
+                check(c > 0, f"kernel {kname} was not launched by the {path} run")
+            else:
+                check(c == 0, f"kernel {kname} was launched by the {path} run")
+
+
+def run_llama():
+    """Llama-2-7B widths: generate (K1 + K4), ContinuousBatcher (K2 + K5),
+    decode steps against the plain path, a profiled step. -> launch counts
+    by path. The trees are freed on return."""
+    from llm_mixed_q_torch.kernels import launch_counts, reset_launch_counts
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import (
         ContinuousBatcher, LlamaQuantizedConfig, decode_step, generate,
         prefill_into_cache)
     from llm_mixed_q_torch.models.llama.serving import (
         init_packed_kv_cache, kv_cache_pack_spec)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    peaks = card_peaks(name)
-    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"peaks used for bounds: {peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} "
-        f"TFLOP/s float32")
-
-    t0 = time.perf_counter()
-    _cuda.lib()
-    built = (f"built here, nvcc {_cuda.BUILD_SECONDS:.1f} s" if _cuda.BUILD_SECONDS
-             else "library already built from these sources")
-    log(f"kernels: {time.perf_counter() - t0:.1f} s ({built})")
-    for line in _cuda.build_log().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-
-    flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    flush = lambda: flush_buf.zero_()
-    log("kernels vs plain versions at 7B decode shapes, batch 8:")
-    rows = check_matmul_kernels(peaks, flush)
-    rows.update(check_attention_kernels(peaks, flush))
-    for r in rows.values():
-        if "bound_by" not in r:
-            r["bound_ms"] = max(r["bound_bytes_ms"], r["bound_ops_ms"])
-            r["bound_by"] = "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "operations"
 
     config = LlamaQuantizedConfig(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
@@ -358,8 +376,6 @@ def main():
 
     # each path runs with every launch count set to 0 just before it and
     # read just after it; the reference runs come after both readings
-    paths = {"generate": ("bfp_matmul_subbyte_t", "attn_decode_pos_major"),
-             "ContinuousBatcher": ("bfp_matmul_int8", "attn_decode_head_major")}
     path_counts = {}
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -379,13 +395,7 @@ def main():
     torch.cuda.synchronize()
     t_srv = time.perf_counter() - t0
     path_counts["ContinuousBatcher"] = launch_counts()
-    for path, counts in path_counts.items():
-        log(f"launches of the {path} run: {counts}")
-        for kname, c in counts.items():
-            if kname in paths[path]:
-                check(c > 0, f"kernel {kname} was not launched by the {path} run")
-            else:
-                check(c == 0, f"kernel {kname} was launched by the {path} run")
+    check_path_counts(path_counts)
     ref = np.concatenate([
         generate(int8, config, b_ids[i:i + 8], b_mask[i:i + 8],
                  max_new_tokens=new_tokens, max_len=512)
@@ -435,27 +445,174 @@ def main():
     cache = init_packed_kv_cache(config, BATCH, 256, kv_cache_pack_spec(config), "cuda")
     logits, lengths = prefill_into_cache(sub, torch.as_tensor(g_ids, device="cuda"),
                                          torch.as_tensor(g_mask, device="cuda"), cache, config)
-    profile_decode(sub, config, cache, torch.argmax(logits, -1)[:, None], lengths)
+    tok = torch.argmax(logits, -1)[:, None]
+    profile_decode(f"Llama sub-byte, batch {BATCH}, max_len 256",
+                   lambda i: decode_step(sub, tok, cache, lengths + i, config))
+    return path_counts
+
+
+def run_opt():
+    """OPT-6.7B widths, one tree packed as the package packs it (transposed
+    sub-byte words: K1) and one left lane-major (``PackedBFPSub``: K3), from
+    the same seed: generate on each with the launch counters reset and read
+    around it, then a decode step of each against the plain path and a
+    profiled window of steps. -> launch counts by path."""
+    from llm_mixed_q_torch.kernels import (
+        PackedBFPSub, PackedBFPSubT, launch_counts, reset_launch_counts,
+        transpose_subbyte)
+    from llm_mixed_q_torch.models import pack_common
+    from llm_mixed_q_torch.models.hf_loader import init_opt_params
+    from llm_mixed_q_torch.models.opt import OPTQuantizedConfig, opt_generate
+    from llm_mixed_q_torch.models.opt.serving import (
+        decode_step, init_kv_cache, prefill_into_cache)
+
+    config = OPTQuantizedConfig(
+        vocab_size=OPT_VOCAB, hidden_size=OPT_HIDDEN, ffn_dim=OPT_FFN,
+        num_hidden_layers=OPT_LAYERS, num_attention_heads=OPT_HEADS,
+        max_position_embeddings=2048, word_embed_proj_dim=OPT_HIDDEN,
+        do_layer_norm_before=True, activation_function="relu", enable_bias=True,
+        quant_config=str(ROOT / "configs/quantization/bfp_6bit.toml"))
+    t0 = time.perf_counter()
+    trees = {"opt_generate_t": init_opt_params(config, seed=SEED, pack=dict(subbyte=True))}
+    # the package has no switch for the lane-major layout: every packer
+    # transposes (pack_common._to_t); the identity in its place leaves the
+    # PackedBFPSub words that K3 reads
+    with mock.patch.object(pack_common, "_to_t", lambda p: p):
+        trees["opt_generate_lane_major"] = init_opt_params(config, seed=SEED,
+                                                           pack=dict(subbyte=True))
+    torch.cuda.synchronize()
+    log(f"model: OPT-6.7B widths, {OPT_LAYERS} layers (depth not cut), W6A6 "
+        f"block_fp, random weights seed {SEED}; init + pack of both layouts "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    for layer_t, layer_l in zip(trees["opt_generate_t"]["layers"],
+                                trees["opt_generate_lane_major"]["layers"]):
+        for wt, wl in ((layer_t["fc1"]["weight"], layer_l["fc1"]["weight"]),
+                       (layer_t["self_attn"]["q_proj"]["weight"],
+                        layer_l["self_attn"]["q_proj"]["weight"])):
+            check(isinstance(wt, PackedBFPSubT) and isinstance(wl, PackedBFPSub),
+                  "the OPT trees do not hold the two sub-byte layouts")
+            tl = transpose_subbyte(wl)
+            check(torch.equal(tl.words, wt.words) and torch.equal(tl.scales, wt.scales),
+                  "the lane-major codes differ from the transposed tree's")
+
+    rng = np.random.default_rng(SEED + 1)
+    _, ids, mask = ragged_prompts(rng, BATCH, OPT_VOCAB)
+    new_tokens, max_len = 32, 64
+    path_counts, tokens, seconds = {}, {}, {}
+    for path, params in trees.items():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens[path] = opt_generate(params, config, ids, mask, max_new_tokens=new_tokens,
+                                    max_len=max_len)
+        torch.cuda.synchronize()
+        seconds[path] = time.perf_counter() - t0
+        path_counts[path] = launch_counts()
+        tok = tokens[path]
+        check(tok.shape == (BATCH, new_tokens) and (tok >= 0).all() and (tok < OPT_VOCAB).all(),
+              f"OPT generate returned bad tokens {tok.shape}")
+    check_path_counts(path_counts)
+    differ = int((tokens["opt_generate_t"] != tokens["opt_generate_lane_major"]).sum())
+    for path in trees:
+        log(f"OPT generate ({path}, batch {BATCH}, max_len {max_len}): "
+            f"{BATCH * new_tokens / seconds[path]:.1f} tokens/s incl. prefill "
+            f"({seconds[path]:.2f} s)")
+    log(f"OPT generate: tokens where the K1 and K3 trees differ: {differ} of "
+        f"{BATCH * new_tokens}")
+
+    ids_t = torch.as_tensor(ids, device="cuda")
+    mask_t = torch.as_tensor(mask, device="cuda")
+    for path, params in trees.items():
+        cache = init_kv_cache(config, BATCH, max_len, "cuda")
+        logits, lengths = prefill_into_cache(params, ids_t, mask_t, cache, config)
+        tok = torch.argmax(logits, -1)[:, None]
+        cache2 = cache.clone()
+        reset_launch_counts()
+        got = decode_step(params, tok, cache, lengths, config)
+        step_counts = launch_counts()
+        with plain_path():
+            want = decode_step(params, tok, cache2, lengths, config)
+        check(launch_counts() == step_counts, "the plain path launched a kernel")
+        log(f"launches in one OPT decode step ({path}): "
+            f"{ {k: c for k, c in step_counts.items() if c} }")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"OPT decode step logits, kernel vs plain ({path}): max err {rel:.3e} "
+            f"of max|logit|, argmax agreement {agree:.3f}")
+        check(rel <= 5e-2, f"OPT decode logits differ: {rel}")
+        profile_decode(f"OPT {path}, batch {BATCH}, max_len {max_len}",
+                       lambda i: decode_step(params, tok, cache, lengths + 1 + i, config))
+    return path_counts
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
+    if not (ROOT / "llm_mixed_q_torch").is_dir():
+        print(f"chip_smoke: no llm_mixed_q_torch package beside {__file__}; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        sys.exit(2)
+    from llm_mixed_q_torch.kernels import _cuda
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"peaks used for bounds: {peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} "
+        f"TFLOP/s float32")
+
+    t0 = time.perf_counter()
+    _cuda.lib()
+    built = (f"built here, nvcc {_cuda.BUILD_SECONDS:.1f} s" if _cuda.BUILD_SECONDS
+             else "library already built from these sources")
+    log(f"kernels: {time.perf_counter() - t0:.1f} s ({built})")
+    for line in _cuda.build_log().splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+
+    flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    flush = lambda: flush_buf.zero_()
+    log("kernels vs plain versions at 7B decode shapes, batch 8:")
+    rows = check_matmul_kernels(peaks, flush)
+    rows.update(check_attention_kernels(peaks, flush))
+    for r in rows.values():
+        if "bound_by" not in r:
+            r["bound_ms"] = max(r["bound_bytes_ms"], r["bound_ops_ms"])
+            r["bound_by"] = "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "operations"
+
+    path_counts = run_llama()
+    torch.cuda.empty_cache()
+    path_counts.update(run_opt())
 
     kernels = []
-    sources = {"bfp_matmul_subbyte_t": ("llm_mixed_q_torch/csrc/dequant_matmul.cu",
-                                        "llm_mixed_q_tpu/kernels/dequant_matmul.py:349"),
-               "bfp_matmul_int8": ("llm_mixed_q_torch/csrc/dequant_matmul.cu",
-                                   "llm_mixed_q_tpu/kernels/dequant_matmul.py:118"),
-               "attn_decode_pos_major": ("llm_mixed_q_torch/csrc/attention_decode.cu",
+    matmul_cu = "llm_mixed_q_torch/csrc/dequant_matmul.cu"
+    attention_cu = "llm_mixed_q_torch/csrc/attention_decode.cu"
+    sources = {"bfp_matmul_subbyte_t": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:349"),
+               "bfp_matmul_int8": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:118"),
+               "bfp_matmul_subbyte": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:221"),
+               "attn_decode_pos_major": (attention_cu,
                                          "llm_mixed_q_tpu/kernels/attention_decode.py:190"),
-               "attn_decode_head_major": ("llm_mixed_q_torch/csrc/attention_decode.cu",
+               "attn_decode_head_major": (attention_cu,
                                           "llm_mixed_q_tpu/kernels/attention_decode.py:352")}
     for kname, r in rows.items():
         src, replaces = sources[kname]
-        path = next(p for p, names in paths.items() if kname in names)
+        # launches: the sum over the main paths that take the kernel, each
+        # counted from 0 around its own run (K1 serves Llama and OPT)
+        by_path = {p: path_counts[p][kname] for p, names in PATHS.items() if kname in names}
+        extra = {"opt_mlp_ms": r["opt_mlp_ms"]} if "opt_mlp_ms" in r else {}
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
-                            path=path, launches=path_counts[path][kname],
-                            max_abs_err=r["max_abs_err"],
+                            path=", ".join(by_path), launches=sum(by_path.values()),
+                            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    log("(matmul rows: sums over one layer's four projections at batch 8; "
-        "attention rows: one call at batch 8, 32 heads)")
+                            bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))
+    log("(matmul rows: sums over one Llama-2-7B layer's four projections at batch "
+        "8, opt_mlp_ms: OPT-6.7B fc1 and fc2 at batch 8; attention rows: one call "
+        "at batch 8, 32 heads)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

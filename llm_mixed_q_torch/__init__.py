@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of ``llm_mixed_q_tpu`` for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference; this package mirrors its layout and
-names (``ops/``, ``kernels/``, ``models/llama/``) so each module has an
-obvious counterpart. It imports torch, numpy and the standard library only.
+names (``ops/``, ``kernels/``, ``models/llama/``, ``models/opt/``) so each
+module has an obvious counterpart. It imports torch, numpy and the
+standard library only.
 
-Entry points (``generate``, ``ContinuousBatcher``, ``init_llama_params``,
-``pack_llama_params``) run on ``cuda`` unless the caller passes
+Entry points (``generate``, ``ContinuousBatcher``, ``opt_generate``,
+``init_llama_params``, ``init_opt_params``, ``pack_llama_params``,
+``pack_opt_params``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; without CUDA the default raises instead of silently
 running on the CPU.
 

@@ -4,7 +4,12 @@ from .attention_decode import (
     packed_attention_decode_batch_cuda,
     packed_attention_decode_cuda,
 )
-from .dequant_matmul import bfp_matmul, bfp_matmul_cuda, bfp_matmul_subbyte_t_cuda
+from .dequant_matmul import (
+    bfp_matmul,
+    bfp_matmul_cuda,
+    bfp_matmul_subbyte_cuda,
+    bfp_matmul_subbyte_t_cuda,
+)
 from .packing import (
     PACKED_TYPES,
     PackedBFP,
@@ -25,6 +30,7 @@ from .packing import (
 KERNEL_WRAPPERS = {
     "bfp_matmul_subbyte_t": bfp_matmul_subbyte_t_cuda,
     "bfp_matmul_int8": bfp_matmul_cuda,
+    "bfp_matmul_subbyte": bfp_matmul_subbyte_cuda,
     "attn_decode_pos_major": packed_attention_decode_batch_cuda,
     "attn_decode_head_major": packed_attention_decode_cuda,
 }

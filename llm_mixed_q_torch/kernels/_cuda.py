@@ -40,6 +40,7 @@ _SIGNATURES = {
     # x, words, scales, y, M, N, K, k_pad, width, bs, aq_on, aq_bs,
     # aq_width, aq_emin, aq_emax, stream
     "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+    "lmq_bfp_matmul_subbyte": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     # x, codes, scales, y, M, N, K, k_pad, bs, aq_on, aq_bs, aq_width,
     # aq_emin, aq_emax, stream
     "lmq_bfp_matmul_int8": [_P, _P, _P, _P] + [_I] * 10 + [_P],

@@ -1,25 +1,23 @@
 """Fused dequant-matmul: y = actq(x) @ unpack(W)^T (counterpart of the JAX
 package's ``kernels/dequant_matmul.py``).
 
-Two Hopper kernels (``csrc/dequant_matmul.cu``) replace the TPU kernels on
-the serving path:
+Three Hopper kernels (``csrc/dequant_matmul.cu``) replace the TPU kernels:
 
 - K1 ``bfp_matmul_subbyte_t_cuda``: ``PackedBFPSubT`` sub-byte weights
   (replaces ``bfp_matmul_subbyte_t_pallas`` / ``_subbyte_t_kernel``);
 - K2 ``bfp_matmul_cuda``: ``PackedBFP`` int8 codes
-  (replaces ``bfp_matmul_pallas`` / ``_dequant_matmul_kernel``).
+  (replaces ``bfp_matmul_pallas`` / ``_dequant_matmul_kernel``);
+- K3 ``bfp_matmul_subbyte_cuda``: lane-major ``PackedBFPSub`` sub-byte
+  weights (replaces ``bfp_matmul_subbyte_pallas`` / ``_subbyte_kernel``;
+  its ``tps`` tiling knob has no counterpart).
 
-Both fold the block_fp data_in quantizer (``actq``, blocks of at most 32
+All fold the block_fp data_in quantizer (``actq``, blocks of at most 32
 along K; longer blocks are quantized before the call) into their prologue
 and accumulate in float32. Each wrapper launches its kernel for a CUDA tensor
 (counting the launch in its ``launches`` attribute) and computes the plain
 version for a CPU tensor. ``bfp_matmul`` routes M <= 256 rows to the
 kernels and larger M to unpack + ``torch.matmul``, as the JAX package
 leaves large-M products to XLA.
-
-The lane-major ``PackedBFPSub`` kernel (``bfp_matmul_subbyte_pallas``) is
-not ported: no model packer emits that format. On the card it raises; on
-the CPU it takes the plain version.
 """
 
 from __future__ import annotations
@@ -79,7 +77,7 @@ def _actq_qdq(x2, actq):
 
 
 def bfp_matmul_plain(x2: torch.Tensor, packed, actq=None) -> torch.Tensor:
-    """Plain version of K1/K2: actq through ``_block_fp_qdq`` with [1, bs]
+    """Plain version of K1/K2/K3: actq through ``_block_fp_qdq`` with [1, bs]
     blocks, unpack, float32 matmul."""
     if actq is not None:
         x2 = _actq_qdq(x2, actq)
@@ -108,12 +106,9 @@ def _check_operands(x2, packed, name):
         raise ValueError(f"{name}: packed codes must be 4-byte aligned")
 
 
-def bfp_matmul_subbyte_t_cuda(x2: torch.Tensor, packed: PackedBFPSubT,
-                              actq=None) -> torch.Tensor:
-    """K1: x [M, K] @ unpack(packed)^T -> [M, N] float32."""
-    if not x2.is_cuda:
-        return bfp_matmul_plain(x2, packed, actq)
-    name = "bfp_matmul_subbyte_t_cuda"
+def _launch_subbyte(entry: str, name: str, x2, packed, actq) -> tuple[torch.Tensor, bool]:
+    """Run a sub-byte kernel (K1 or K3) through C entry point ``entry`` ->
+    (y, whether it launched: an empty product launches nothing)."""
     _check_operands(x2, packed, name)
     if actq is not None and _KERNEL_ACTQ_BLOCK % actq[0]:
         raise ValueError(f"{name}: actq block {actq[0]} does not divide {_KERNEL_ACTQ_BLOCK}")
@@ -121,15 +116,35 @@ def bfp_matmul_subbyte_t_cuda(x2: torch.Tensor, packed: PackedBFPSubT,
     n = packed.out_features
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
     if m == 0 or n == 0:
-        return y
-    lib = _cuda.lib()
-    rc = lib.lmq_bfp_matmul_subbyte_t(
+        return y, False
+    rc = getattr(_cuda.lib(), entry)(
         x2.data_ptr(), packed.words.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
         m, n, packed.in_features, _k_padded(packed), packed.width,
         packed.block_size, *_actq_args(actq), _cuda.stream_ptr(x2),
     )
     _cuda.check(rc, name)
-    bfp_matmul_subbyte_t_cuda.launches += 1
+    return y, True
+
+
+def bfp_matmul_subbyte_t_cuda(x2: torch.Tensor, packed: PackedBFPSubT,
+                              actq=None) -> torch.Tensor:
+    """K1: x [M, K] @ unpack(packed)^T -> [M, N] float32."""
+    if not x2.is_cuda:
+        return bfp_matmul_plain(x2, packed, actq)
+    y, launched = _launch_subbyte("lmq_bfp_matmul_subbyte_t", "bfp_matmul_subbyte_t_cuda",
+                                  x2, packed, actq)
+    bfp_matmul_subbyte_t_cuda.launches += launched
+    return y
+
+
+def bfp_matmul_subbyte_cuda(x2: torch.Tensor, packed: PackedBFPSub,
+                            actq=None) -> torch.Tensor:
+    """K3: x [M, K] @ unpack(packed)^T -> [M, N] float32, lane-major words."""
+    if not x2.is_cuda:
+        return bfp_matmul_plain(x2, packed, actq)
+    y, launched = _launch_subbyte("lmq_bfp_matmul_subbyte", "bfp_matmul_subbyte_cuda",
+                                  x2, packed, actq)
+    bfp_matmul_subbyte_cuda.launches += launched
     return y
 
 
@@ -161,6 +176,7 @@ def bfp_matmul_cuda(x2: torch.Tensor, packed: PackedBFP, actq=None) -> torch.Ten
 
 
 bfp_matmul_subbyte_t_cuda.launches = 0
+bfp_matmul_subbyte_cuda.launches = 0
 bfp_matmul_cuda.launches = 0
 
 
@@ -181,13 +197,8 @@ def bfp_matmul(x: torch.Tensor, packed, actq: tuple | None = None) -> torch.Tens
         out = bfp_matmul_plain(x2, packed, actq)
     elif isinstance(packed, PackedBFPSubT):
         out = bfp_matmul_subbyte_t_cuda(x2, packed, actq)
-    elif isinstance(packed, PackedBFP):
-        out = bfp_matmul_cuda(x2, packed, actq)
-    elif x2.is_cuda:
-        raise NotImplementedError(
-            "the lane-major PackedBFPSub kernel is not ported; pack with "
-            "transpose_subbyte (PackedBFPSubT)"
-        )
+    elif isinstance(packed, PackedBFPSub):
+        out = bfp_matmul_subbyte_cuda(x2, packed, actq)
     else:
-        out = bfp_matmul_plain(x2, packed, actq)
+        out = bfp_matmul_cuda(x2, packed, actq)
     return out.reshape(*lead_shape, packed.out_features)

@@ -1,10 +1,12 @@
-"""Llama parameters for the port (counterpart of the Llama part of the JAX
-package's ``models/hf_loader.py``).
+"""Llama and OPT parameters for the port (counterpart of the Llama and OPT
+parts of the JAX package's ``models/hf_loader.py``).
 
-- ``init_llama_params``: random weights from a ``torch.Generator``, made on
-  the target device one layer at a time; with ``pack=`` each layer is
-  packed as soon as it exists, so a 7B model never holds all its float32
-  weights at once.
+- ``init_llama_params`` / ``init_opt_params``: random weights from a
+  ``torch.Generator``, made on the target device one layer at a time; with
+  ``pack=`` each layer is packed as soon as it exists, so a 7B model never
+  holds all its float32 weights at once.
+- ``opt_params_from_flat``: a flat ``{hf_name: array}`` dict (numpy or
+  torch, e.g. read from a local checkpoint) as the port's OPT tree.
 - ``params_from_jax``: the JAX package's parameter tree, given as numpy
   arrays (``jax.tree.map(np.asarray, params)``), as the port's tree. Packed
   nodes (``PackedBFP``, ``PackedBFPSub``, ``PackedBFPSubT``) keep their
@@ -91,6 +93,109 @@ def init_llama_params(config, task: str = "lm", seed: int = 0, device=None,
     if bf16_embed:
         params = pack_llama_params(params, config, bf16_embed=True,
                                    device=device, **pack)
+    return params
+
+
+@torch.no_grad()
+def init_opt_params(config, task: str = "lm", seed: int = 0, device=None,
+                    pack: dict | None = None) -> dict:
+    """Random-init OPT parameter dict, the tree of ``opt_params_from_flat``:
+    N(0, 0.02) weights and embeddings, zero biases, unit layer norms; with a
+    ``word_embed_proj_dim`` other than ``hidden_size`` also project_in/out.
+    ``pack``: keyword arguments of ``pack_opt_params`` (``subbyte``) to pack
+    each layer as it is made."""
+    from .opt.pack import pack_opt_layer
+
+    if task != "lm":
+        raise NotImplementedError("only the causal-LM head is ported")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, ffn, v, d = (config.hidden_size, config.ffn_dim, config.vocab_size,
+                    config.word_embed_proj_dim)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    def lin(out, inp):
+        return {"weight": w(out, inp), "bias": torch.zeros(out, device=device)}
+
+    def ln(n):
+        return {"weight": torch.ones(n, device=device), "bias": torch.zeros(n, device=device)}
+
+    layers = []
+    for i in range(config.num_hidden_layers):
+        layer = {
+            "self_attn": {n: lin(h, h) for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "self_attn_layer_norm": ln(h),
+            "fc1": lin(ffn, h),
+            "fc2": lin(h, ffn),
+            "final_layer_norm": ln(h),
+        }
+        if pack is not None and config.quant_config is not None:
+            layer = pack_opt_layer(layer, config.quant_config[f"model_layer_{i}"], **pack)
+        layers.append(layer)
+    params = {
+        "embed_tokens": {"weight": w(v, d)},
+        # +2 offset rows (the reference's OPTLearnedPositionalEmbedding)
+        "embed_positions": {"weight": w(config.max_position_embeddings + 2, h)},
+        "layers": layers,
+        "final_layer_norm": ln(h),
+    }
+    if d != h:
+        params["project_in"] = {"weight": w(h, d)}
+        params["project_out"] = {"weight": w(d, h)}
+    return params
+
+
+def opt_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> dict:
+    """HF OPT names (with or without the ``model.decoder.`` / ``decoder.``
+    prefix) -> the port's tree, float32 on ``device``."""
+    if task != "lm":
+        raise NotImplementedError("only the causal-LM head is ported")
+    device = resolve_device(device)
+    flat = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            .to(device=device, dtype=torch.float32) for k, v in flat.items()}
+    pre = ""
+    for cand in ("model.decoder.", "decoder.", ""):
+        if any(k.startswith(cand + "embed_tokens.") for k in flat):
+            pre = cand
+            break
+
+    def leaf(name):
+        if name not in flat:
+            raise KeyError(f"Missing weight: {name}")
+        return flat[name]
+
+    def linear(prefix):
+        node = {"weight": leaf(f"{prefix}.weight")}
+        if f"{prefix}.bias" in flat:
+            node["bias"] = flat[f"{prefix}.bias"]
+        return node
+
+    layers = []
+    for i in range(config.num_hidden_layers):
+        lp = f"{pre}layers.{i}."
+        layers.append({
+            "self_attn": {n: linear(lp + f"self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "self_attn_layer_norm": linear(lp + "self_attn_layer_norm"),
+            "fc1": linear(lp + "fc1"),
+            "fc2": linear(lp + "fc2"),
+            "final_layer_norm": linear(lp + "final_layer_norm"),
+        })
+    params = {
+        "embed_tokens": {"weight": leaf(pre + "embed_tokens.weight")},
+        "embed_positions": {"weight": leaf(pre + "embed_positions.weight")},
+        "layers": layers,
+    }
+    if pre + "final_layer_norm.weight" in flat:
+        params["final_layer_norm"] = linear(pre + "final_layer_norm")
+    for proj in ("project_in", "project_out"):
+        if f"{pre}{proj}.weight" in flat:
+            params[proj] = {"weight": flat[f"{pre}{proj}.weight"]}
+    if "lm_head.weight" in flat and not config.tie_word_embeddings:
+        params["lm_head"] = {"weight": flat["lm_head.weight"]}
     return params
 
 

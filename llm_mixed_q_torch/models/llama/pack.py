@@ -11,10 +11,11 @@ launch and one activation quantize instead of three / two.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from ... import resolve_device
-from ..pack_common import pack_fused_nodes, pack_linear_node
+from ..pack_common import pack_fused_nodes, pack_linear_node, pack_params
 from .prepare import _LLAMA_LINEARS
 
 _FUSE_GROUPS = {
@@ -60,23 +61,12 @@ def pack_llama_params(params: dict, config, subbyte: bool = False,
     embedding table and an untied lm_head in bfloat16 (the serving option:
     it halves the largest dense weight stream of a decode step; the
     backbone still computes in float32)."""
-    from ..hf_loader import tree_map_tensors
-
-    device = resolve_device(device)
-    to_dev = lambda tree: tree_map_tensors(lambda t: t.to(device), tree)
-    new_params = {k: to_dev(v) for k, v in params.items() if k != "layers"}
-    if config.quant_config is None:
-        new_params["layers"] = [to_dev(layer) for layer in params["layers"]]
-        return new_params
-    if bf16_embed:
+    new_params = pack_params(params, config,
+                             partial(pack_llama_layer, subbyte=subbyte, fuse=fuse), device)
+    if bf16_embed and config.quant_config is not None:
         for name in ("embed_tokens", "lm_head"):
             if name in new_params:
                 node = dict(new_params[name])
                 node["weight"] = node["weight"].to(torch.bfloat16)
                 new_params[name] = node
-    new_params["layers"] = [
-        pack_llama_layer(to_dev(layer), config.quant_config[f"model_layer_{i}"],
-                         subbyte, fuse)
-        for i, layer in enumerate(params["layers"])
-    ]
     return new_params

@@ -442,18 +442,29 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
 
     logits, lengths = prefill_into_cache(params, input_ids, attention_mask, cache,
                                          config, quantize_weights)
+    return decode_loop(
+        lambda last, positions: decode_step(params, last[:, None], cache, positions,
+                                            config, quantize_weights),
+        logits, lengths, max_new_tokens, eos_token_id, sample)
+
+
+def decode_loop(step, logits, lengths, max_new_tokens: int, eos_token_id, sample
+                ) -> np.ndarray:
+    """Tokens after the prefill: ``step(last [b], positions [b])`` runs one
+    decode step and returns its logits; token t's input lands at cache
+    offset lengths + t - 1. A sequence stops at its first EOS and holds EOS
+    from there on; the loop ends when all have stopped.
+    -> int32 [b, max_new_tokens]."""
     eos = -1 if eos_token_id is None else eos_token_id
     last = sample(logits)
     done = last == eos
-    tokens = torch.full((b, max_new_tokens), eos, dtype=torch.int64, device=device)
+    tokens = torch.full((logits.shape[0], max_new_tokens), eos, dtype=torch.int64,
+                        device=logits.device)
     tokens[:, 0] = last
     for t in range(1, max_new_tokens):
         if eos_token_id is not None and bool(done.all()):
             break  # the remaining columns already hold EOS
-        # token t's input lands at cache offset lengths + t - 1
-        logits = decode_step(params, last[:, None], cache, lengths + (t - 1),
-                             config, quantize_weights)
-        nxt = sample(logits)
+        nxt = sample(step(last, lengths + (t - 1)))
         if eos_token_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
             done = done | (nxt == eos)

@@ -1,0 +1,6 @@
+from .configuration import OPTQuantizedConfig
+from .modeling import opt_for_causal_lm, opt_model
+from .prepare import quantize_opt_params_ptq
+from .quant_config import parse_opt_quantized_config
+from .serving import generate as opt_generate
+from .serving import generate_greedy as opt_generate_greedy

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_device
 from ..kernels.packing import (
     _SLICE,
     PACKED_TYPES,
@@ -23,6 +24,7 @@ from ..kernels.packing import (
     transpose_subbyte,
 )
 from ..ops.linear import quantize_bias, quantize_weight
+from .hf_loader import tree_map_tensors
 
 
 def _k_stride(bs: int, in_features: int) -> int | None:
@@ -114,3 +116,19 @@ def pack_linear_node(node: dict, node_cfg: dict, subbyte: bool = True) -> dict:
     if node.get("bias") is not None:
         node["bias"] = quantize_bias(node["bias"], node_cfg)
     return node
+
+
+@torch.no_grad()
+def pack_params(params: dict, config, pack_layer, device=None) -> dict:
+    """``params`` moved to ``device`` (the card unless ``device="cpu"``) one
+    layer at a time, each layer packed by ``pack_layer(layer, layer_cfg)``
+    as it arrives; without a quant config the layers only move."""
+    device = resolve_device(device)
+    to_dev = lambda tree: tree_map_tensors(lambda t: t.to(device), tree)
+    new_params = {k: to_dev(v) for k, v in params.items() if k != "layers"}
+    qc = config.quant_config
+    new_params["layers"] = [
+        to_dev(layer) if qc is None else pack_layer(to_dev(layer), qc[f"model_layer_{i}"])
+        for i, layer in enumerate(params["layers"])
+    ]
+    return new_params

@@ -1,5 +1,8 @@
-"""Quantized op functions: entry-quantizer factory, matmul, RoPE
-(counterpart of the JAX package's ``ops/functions.py``)."""
+"""Quantized op functions: entry-quantizer factory, matmul/bmm, RoPE
+(counterpart of the JAX package's ``ops/functions.py``).
+
+As in the JAX package, a block_log matmul quantizes only x (the reference
+builds its y quantizer and never applies it)."""
 
 from __future__ import annotations
 
@@ -45,13 +48,20 @@ def _quantize_matmul_operand(x, config: dict, entry: str):
     return make_entry_quantizer(config, entry)(x)
 
 
-def quantized_matmul(x, y, config: dict):
-    """q(x) @ q(y): x takes the data_in_* keys, y the weight_* keys."""
+def quantized_matmul(x, y, config: dict, style: str = "matmul"):
+    """q(x) @ q(y): x takes the data_in_* keys, y the weight_* keys.
+    ``style`` ("matmul" | "bmm") names the reference op; ``torch.matmul``
+    covers both."""
     if config.get("bypass", False):
         return torch.matmul(x, y)
     x = _quantize_matmul_operand(x, config, "data_in")
-    y = _quantize_matmul_operand(y, config, "weight")
+    if config["name"] != "block_log":
+        y = _quantize_matmul_operand(y, config, "weight")
     return torch.matmul(x, y)
+
+
+def quantized_bmm(x, y, config: dict):
+    return quantized_matmul(x, y, config, style="bmm")
 
 
 def _rotate_half(x):

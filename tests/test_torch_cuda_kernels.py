@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 at edge shapes the serving path does not reach: ragged M, N and K, every
-sub-byte width, other block sizes, GQA up to rep 8, positions at both ends
+sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
 of the cache.
 
 Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
@@ -64,6 +64,35 @@ def test_subbyte_t_kernel_matches_plain(dev, width, m, n, k, bs, actq):
     _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
 
 
+@pytest.mark.parametrize("width", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m,n,k,bs", [(1, 48, 700, 16), (9, 100, 1100, 32),
+                                      (17, 33, 640, 8), (256, 300, 4096, 16)])
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (32, 4, 8, 127), (4, 8, 8, 127)])
+def test_subbyte_kernel_matches_plain(dev, width, m, n, k, bs, actq):
+    """K3, lane-major words: K short of a whole tile, N not a multiple of
+    the 32-column block, M from 1 to the 256 rows bfp_matmul sends."""
+    packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    if actq is None:
+        x = _qdq(x)
+    before = dm.bfp_matmul_subbyte_cuda.launches
+    got = dm.bfp_matmul_subbyte_cuda(x, packed, actq)
+    assert dm.bfp_matmul_subbyte_cuda.launches == before + 1
+    _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
+
+
+def test_subbyte_kernel_raises_on_bad_operands(dev):
+    packed = tp.pack_block_fp_subbyte(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    x = torch.randn((3, 700), device=dev)
+    on_cpu = packed._replace(words=packed.words.cpu())
+    for args, match in (((x, on_cpu), "packed buffers"),
+                        ((x.t().contiguous().t(), packed), "contiguous"),
+                        ((x[:, :640].contiguous(), packed), "in_features"),
+                        ((x, packed, (64, 6, 8, 127)), "does not divide")):
+        with pytest.raises(ValueError, match=match):
+            dm.bfp_matmul_subbyte_cuda(*args)
+
+
 @pytest.mark.parametrize("m,n,k,bs,k_stride", [(1, 1, 64, 4, None), (9, 100, 1100, 8, 1024),
                                                (17, 33, 700, 16, None), (40, 300, 4096, 32, 1024),
                                                (8, 64, 1500, 128, None)])
@@ -86,6 +115,8 @@ def test_matmul_rows_do_not_depend_on_the_batch(dev):
     w = _weight(200, 1100, 1).to(dev)
     for packed, fn in ((tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
                         dm.bfp_matmul_subbyte_t_cuda),
+                       (tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16]),
+                        dm.bfp_matmul_subbyte_cuda),
                        (tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024),
                         dm.bfp_matmul_cuda)):
         full = fn(x, packed, (16, 6, 8, 127))
@@ -98,15 +129,23 @@ def test_long_actq_block_is_quantized_outside_the_kernels(dev):
     """A data_in block longer than the kernels' run of lanes (64 > 32)."""
     x = torch.randn((4, 1024), generator=torch.Generator().manual_seed(3)).to(dev)
     actq = (64, 6, 8, 127)
-    for packed in (tp.pack_block_fp_subbyte_t(_weight(64, 1024, 0).to(dev), 6, 8, None, [1, 16]),
-                   tp.pack_block_fp(_weight(64, 1024, 0).to(dev), 6, 8, None, [1, 16])):
+    w = _weight(64, 1024, 0).to(dev)
+    for packed in (tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
+                   tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16]),
+                   tp.pack_block_fp(w, 6, 8, None, [1, 16])):
         _close_rel(dm.bfp_matmul(x, packed, actq), dm.bfp_matmul_plain(x, packed, actq))
 
 
-def test_lane_major_subbyte_raises_on_the_card(dev):
+def test_lane_major_subbyte_takes_k3_on_the_card(dev):
+    """bfp_matmul sends a PackedBFPSub at M <= 256 to K3 (it raised before
+    K3 was ported) and a larger M to unpack + torch.matmul."""
     packed = tp.pack_block_fp_subbyte(_weight(16, 640, 0).to(dev), 6, 8, None, [1, 16])
-    with pytest.raises(NotImplementedError):
-        dm.bfp_matmul(torch.zeros((2, 640), device=dev), packed)
+    tk.reset_launch_counts()
+    for m in (2, 256, 257):
+        x = _qdq(torch.randn((m, 640), generator=torch.Generator().manual_seed(m))).to(dev)
+        _close_rel(dm.bfp_matmul(x, packed), dm.bfp_matmul_plain(x, packed))
+    assert tk.launch_counts() == {**dict.fromkeys(tk.KERNEL_WRAPPERS, 0),
+                                  "bfp_matmul_subbyte": 2}
 
 
 def _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed):

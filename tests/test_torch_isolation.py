@@ -1,6 +1,6 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
-import, it imports (chip_smoke.py included) and runs one decode step on the
-CPU."""
+import, it imports (chip_smoke.py included) and runs Llama and OPT
+generation on the CPU."""
 
 import subprocess
 import sys
@@ -39,6 +39,19 @@ config = LlamaQuantizedConfig(vocab_size=64, hidden_size=128, intermediate_size=
 params = init_llama_params(config, seed=0, device="cpu",
                            pack=dict(subbyte=True, bf16_embed=True))
 out = generate(params, config, np.array([[3, 4, 5]]), max_new_tokens=2, device="cpu")
+assert out.shape == (1, 2)
+
+from llm_mixed_q_torch.models.hf_loader import init_opt_params
+from llm_mixed_q_torch.models.opt import OPTQuantizedConfig, opt_for_causal_lm, opt_generate
+
+opt_config = OPTQuantizedConfig(vocab_size=64, hidden_size=64, ffn_dim=128,
+                                num_hidden_layers=1, num_attention_heads=4,
+                                quant_config="configs/quantization/bfp_6bit.toml")
+opt_params = init_opt_params(opt_config, seed=0, device="cpu", pack=dict(subbyte=True))
+logits = opt_for_causal_lm(opt_params, torch.tensor([[3, 4, 5]]), config=opt_config)["logits"]
+assert logits.shape == (1, 3, 64) and bool(torch.isfinite(logits).all())
+out = opt_generate(opt_params, opt_config, np.array([[3, 4, 5]]), max_new_tokens=2,
+                   device="cpu")
 assert out.shape == (1, 2)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")

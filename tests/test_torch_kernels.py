@@ -33,26 +33,32 @@ def _w(shape):
     return w
 
 
-def _pack_both(fmt, w):
+def _pack_both(fmt, w, width=6):
     if fmt == "int8":
-        return (jp.pack_block_fp(jnp.asarray(w), 6, 8, None, [1, 16]),
-                tp.pack_block_fp(torch.from_numpy(w), 6, 8, None, [1, 16]))
-    j = jp.pack_block_fp_subbyte(jnp.asarray(w), 6, 8, None, [1, 16])
-    t = tp.pack_block_fp_subbyte(torch.from_numpy(w), 6, 8, None, [1, 16])
+        return (jp.pack_block_fp(jnp.asarray(w), width, 8, None, [1, 16]),
+                tp.pack_block_fp(torch.from_numpy(w), width, 8, None, [1, 16]))
+    j = jp.pack_block_fp_subbyte(jnp.asarray(w), width, 8, None, [1, 16])
+    t = tp.pack_block_fp_subbyte(torch.from_numpy(w), width, 8, None, [1, 16])
     if fmt == "subbyte_t":
         return jp.transpose_subbyte(j), tp.transpose_subbyte(t)
     return j, t
 
 
-@pytest.mark.parametrize("fmt,m,n,k", [("int8", 5, 32, 704),
-                                        ("subbyte_t", 8, 48, 704),
-                                        ("subbyte", 8, 48, 256)])
+# the lane-major sub-byte cases (K3) cover widths 4, 5 and 6 (tiles of 1024,
+# 768 and 640), K short of a whole tile (1344 = 2.1 tiles at width 6) and N
+# not a multiple of the CUDA kernel's 32-column block
+@pytest.mark.parametrize("fmt,width,m,n,k", [("int8", 6, 5, 32, 704),
+                                              ("subbyte_t", 6, 8, 48, 704),
+                                              ("subbyte", 6, 8, 48, 256),
+                                              ("subbyte", 6, 3, 45, 1344),
+                                              ("subbyte", 5, 8, 40, 700),
+                                              ("subbyte", 4, 5, 33, 1100)])
 @pytest.mark.parametrize("actq", [None, ACTQ])
-def test_matmul_plain_matches_jax_kernel(fmt, m, n, k, actq):
+def test_matmul_plain_matches_jax_kernel(fmt, width, m, n, k, actq):
     x = RNG.standard_normal((m, k)).astype(np.float32)
     if actq is None:  # as in the pipeline: activations arrive quantized
         x = np.asarray(_jax_qdq(jnp.asarray(x), 6, 8, None, [1, 16], True))
-    jpk, tpk = _pack_both(fmt, _w((n, k)))
+    jpk, tpk = _pack_both(fmt, _w((n, k)), width)
     want = np.asarray(jmm.bfp_matmul(jnp.asarray(x), jpk, use_pallas=True,
                                      interpret=True, actq=actq))
     tk.reset_launch_counts()
