@@ -1,13 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the whole run
+    python3 chip_smoke.py --k1-only   # build, then K1's checks and times only
 
-1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` (nvcc, sm_90a);
+1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` (nvcc, sm_90a)
+   and counts the HMMA (tensor-core) instructions of K1's SASS
+   (``cuobjdump -sass``; the whole run fails if there are none);
 2. holds each kernel against its plain PyTorch version on the card at the
    Llama-2-7B decode shapes (batch 8; the matmuls also at the 256 rows of a
    prefill; the sub-byte matmuls K1 and K3 also at the OPT-6.7B fc1/fc2
    shapes) and times kernel, plain version, library yardstick and the
-   memory/compute bound;
+   memory/compute bound (K1 also at 256 rows, ``prefill_*``; its operations
+   bound at the bf16 tensor-core peak, the others' at the float32 one);
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
 4. runs ``generate`` on sub-byte weights (pos-major cache: K1 + K4) and
@@ -66,9 +70,12 @@ OPT_HIDDEN, OPT_FFN, OPT_LAYERS, OPT_HEADS, OPT_VOCAB = 4096, 16384, 32, 32, 502
 # are o_proj's 4096 x 4096)
 OPT_MLP_SHAPES = {"fc1": (OPT_FFN, OPT_HIDDEN), "fc2": (OPT_HIDDEN, OPT_FFN)}
 SPIN_CYCLES = 2_000_000  # ~1 ms of card time ahead of each timed call
-# published peaks (NVIDIA data sheets): memory bytes/s, float32 CUDA-core flop/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# published peaks (NVIDIA data sheets): memory bytes/s, float32 CUDA-core
+# flop/s, dense bf16 tensor-core flop/s
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12), "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
+PREFILL_M = 256  # rows of a batch of 8 prompts of 32 tokens: the largest M bfp_matmul
+# sends to the kernels
 
 
 def log(*a):
@@ -134,16 +141,18 @@ def bound(nbytes, flops, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush):
+def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_cores=False):
     """Hold one kernel against its plain version at decode rows (batch 8)
-    and at the 256 prefill rows of a batch of 8 prompts of 32 tokens (the
-    largest M bfp_matmul sends to the kernels); time it at batch 8."""
+    and at the PREFILL_M rows of a prefill; time it at batch 8, and a
+    tensor-core kernel (K1) also at PREFILL_M rows (``prefill_*``). The
+    operations bound is taken at the peak of the units the kernel runs on:
+    bf16 tensor cores for K1, float32 CUDA cores for the others."""
     from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
     from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
 
-    x = torch.randn((BATCH, k), generator=gen, device="cuda")
-    for m in (BATCH, 256):
-        xm = x if m == BATCH else torch.randn((m, k), generator=gen, device="cuda")
+    xs = {m: torch.randn((m, k), generator=gen, device="cuda") for m in (BATCH, PREFILL_M)}
+    errs = {}
+    for m, xm in xs.items():
         y = wrapper(xm, packed, ACTQ)
         ref = bfp_matmul_plain(xm, packed, ACTQ)
         torch.cuda.synchronize()
@@ -152,28 +161,38 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush):
         # tolerance of the JAX package's own kernel test: 1e-4 of max|y|
         # (float32 sums in another order)
         check(rel <= 1e-4, f"{kname} N={n} K={k} M={m}: rel err {rel}")
-        if m == BATCH:
-            err, err_rel = e, rel
-    ms = cuda_ms(lambda: wrapper(x, packed, ACTQ), flush=flush)
-    plain_ms = cuda_ms(lambda: bfp_matmul_plain(x, packed, ACTQ), reps=5, flush=flush)
+        errs[m] = (e, rel)
     w_bf16 = unpack(packed, torch.bfloat16)
-    x_bf16 = x.to(torch.bfloat16)
-    library_ms = cuda_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush=flush)
+    op_peak = peaks[2] if tensor_cores else peaks[1]
+    out = {}
+    for m in (BATCH, PREFILL_M) if tensor_cores else (BATCH,):
+        x, x_bf16 = xs[m], xs[m].to(torch.bfloat16)
+        pre = "" if m == BATCH else "prefill_"
+        out[pre + "ms"] = cuda_ms(lambda: wrapper(x, packed, ACTQ), flush=flush)
+        out[pre + "library_ms"] = cuda_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush=flush)
+        nbytes = packed_nbytes(packed) + 4 * m * (k + n)
+        out[pre + "bound_bytes_ms"] = nbytes / peaks[0] * 1e3
+        out[pre + "bound_ops_ms"] = 2 * m * n * k / op_peak * 1e3
+    out["plain_ms"] = cuda_ms(lambda: bfp_matmul_plain(xs[BATCH], packed, ACTQ), reps=5,
+                              flush=flush)
     del w_bf16
-    nbytes = packed_nbytes(packed) + 4 * BATCH * (k + n)
-    flops = 2 * BATCH * n * k
-    b_ms = (nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3)
-    log(f"  {kname} N={n} K={k}: max_abs_err={err:.3e} (rel {err_rel:.2e}) "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(b_ms):.4f} "
-        f"library_ms(bf16 matmul on the pre-dequantized weight)={library_ms:.4f}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_bytes_ms=b_ms[0], bound_ops_ms=b_ms[1],
-                library_ms=library_ms, max_abs_err=err)
+    for m in (BATCH, PREFILL_M) if tensor_cores else (BATCH,):
+        pre = "" if m == BATCH else "prefill_"
+        log(f"  {kname} N={n} K={k} M={m}: max_abs_err={errs[m][0]:.3e} "
+            f"(rel {errs[m][1]:.2e}) kernel_ms={out[pre + 'ms']:.4f} "
+            f"bound_ms={max(out[pre + 'bound_bytes_ms'], out[pre + 'bound_ops_ms']):.4f} "
+            f"library_ms(bf16 matmul on the pre-dequantized weight)="
+            f"{out[pre + 'library_ms']:.4f}")
+    log(f"  {kname} N={n} K={k} M={BATCH}: plain_ms={out['plain_ms']:.4f}")
+    out["max_abs_err"] = max(e for e, _ in errs.values())
+    return out
 
 
-def check_matmul_kernels(peaks, flush):
-    """Rows: sums over one Llama-2-7B layer's four projections at batch 8;
-    K1 and K3 also report the OPT-6.7B MLP shapes, on lines of their own
-    (``opt_mlp_ms``)."""
+def check_matmul_kernels(peaks, flush, only=None):
+    """Rows: sums over one Llama-2-7B layer's four projections at batch 8
+    (K1 also at PREFILL_M rows); K1 and K3 also report the OPT-6.7B MLP
+    shapes, on lines of their own (``opt_mlp_ms``, K1 also
+    ``opt_mlp_prefill_ms``). ``only``: the one kernel to measure."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -189,23 +208,30 @@ def check_matmul_kernels(peaks, flush):
     }
     rows = {}
     for kname, (wrapper, packer) in kernels.items():
-        tot = dict(ms=0.0, plain_ms=0.0, bound_bytes_ms=0.0, bound_ops_ms=0.0,
-                   library_ms=0.0, max_abs_err=0.0)
+        if only is not None and kname != only:
+            continue
+        tensor_cores = kname == "bfp_matmul_subbyte_t"
+        tot = {"max_abs_err": 0.0}
         shapes = dict(MATMUL_SHAPES)
         if kname != "bfp_matmul_int8":
             shapes.update(OPT_MLP_SHAPES)
             tot["opt_mlp_ms"] = {}
+            if tensor_cores:
+                tot["opt_mlp_prefill_ms"] = {}
         for sname, (n, k) in shapes.items():
             w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
             packed = packer(w, 6, 8, 127, [1, 16])
             del w
-            r = _measure_matmul(f"{kname} {sname}", wrapper, packed, n, k, gen, peaks, flush)
+            r = _measure_matmul(f"{kname} {sname}", wrapper, packed, n, k, gen, peaks, flush,
+                                tensor_cores)
             tot["max_abs_err"] = max(tot["max_abs_err"], r.pop("max_abs_err"))
             if sname in OPT_MLP_SHAPES:
                 tot["opt_mlp_ms"][sname] = r["ms"]
+                if tensor_cores:
+                    tot["opt_mlp_prefill_ms"][sname] = r["prefill_ms"]
                 continue
             for key, v in r.items():
-                tot[key] += v
+                tot[key] = tot.get(key, 0.0) + v
         rows[kname] = tot
     return rows
 
@@ -280,6 +306,27 @@ def check_attention_kernels(peaks, flush):
         rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=library_ms, max_abs_err=err)
     return rows
+
+
+def count_sass(lib_path, function, opcode):
+    """How many ``opcode`` instructions the SASS of the kernels whose name
+    holds ``function`` has in the built library (cuobjdump -sass)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = name if function in name else None
+            if current is not None:
+                counts.setdefault(current, 0)
+        elif current is not None and f" {opcode}" in line:
+            counts[current] = counts.get(current, 0) + 1
+    check(counts, f"no SASS function named like {function} in {lib_path}")
+    return counts
 
 
 def profile_decode(label, step, steps=4):
@@ -546,7 +593,7 @@ def run_opt():
     return path_counts
 
 
-def main():
+def main(k1_only=False):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -564,7 +611,8 @@ def main():
     peaks = card_peaks(name)
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"peaks used for bounds: {peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} "
-        f"TFLOP/s float32")
+        f"TFLOP/s float32, {peaks[2] / 1e12} TFLOP/s bf16 tensor cores")
+    log(f"nvidia-smi name, power limit: {smi}")
 
     t0 = time.perf_counter()
     _cuda.lib()
@@ -574,16 +622,26 @@ def main():
     for line in _cuda.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    hmma = count_sass(_cuda.build(), "subbyte_t_kernel", "HMMA")
+    log(f"HMMA instructions in K1's SASS: {hmma}")
 
     flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    log("kernels vs plain versions at 7B decode shapes, batch 8:")
+    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 also "
+        f"{PREFILL_M} rows):")
+    if k1_only:
+        # K1's times alone, for comparing two versions of it in one call
+        log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte_t")))
+        return
+    check(all(hmma.values()), f"K1 does not run on the tensor cores: {hmma}")
     rows = check_matmul_kernels(peaks, flush)
     rows.update(check_attention_kernels(peaks, flush))
     for r in rows.values():
-        if "bound_by" not in r:
-            r["bound_ms"] = max(r["bound_bytes_ms"], r["bound_ops_ms"])
-            r["bound_by"] = "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "operations"
+        for pre in ("", "prefill_"):
+            if pre + "bound_bytes_ms" in r:
+                r[pre + "bound_ms"] = max(r[pre + "bound_bytes_ms"], r[pre + "bound_ops_ms"])
+                r[pre + "bound_by"] = ("bytes" if r[pre + "bound_bytes_ms"] >= r[pre + "bound_ops_ms"]
+                                       else "operations")
 
     path_counts = run_llama()
     torch.cuda.empty_cache()
@@ -604,7 +662,9 @@ def main():
         # launches: the sum over the main paths that take the kernel, each
         # counted from 0 around its own run (K1 serves Llama and OPT)
         by_path = {p: path_counts[p][kname] for p, names in PATHS.items() if kname in names}
-        extra = {"opt_mlp_ms": r["opt_mlp_ms"]} if "opt_mlp_ms" in r else {}
+        extra = {key: r[key] for key in (
+            "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
+            "opt_mlp_ms", "opt_mlp_prefill_ms") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
                             path=", ".join(by_path), launches=sum(by_path.values()),
                             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
@@ -621,4 +681,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(k1_only="--k1-only" in sys.argv[1:])

@@ -21,17 +21,32 @@
 // 2*M flops per weight element and reads the packed weight once, so its
 // bytes (the packed weight, plus 4*M*(K+N) for x and y) over the 3.35 TB/s
 // memory rate bound it (Llama-2-7B: ~6.9 bits per element sub-byte, 10 bits
-// int8; K1 and K3 read the same bytes, in two layouts);
-// at M = 8 the float32 FMAs on the CUDA cores (67 TFLOP/s) cost about as
-// much. Design: a block owns 32 output columns and up to 16 rows, and its
-// 8 warps share the work of those columns, so a 4096-wide projection
-// already spreads over 128 blocks (the whole card) with 8 warps on each SM
-// to hide latency:
-// - K1: lane = column (the words' N axis is the fastest, so a warp's loads
-//   are coalesced); warp w takes word rows 16w..16w+15 of every packing
-//   tile and keeps the next tile's 16 words in flight in registers while it
-//   decodes the current ones. x is staged [k][row], so one 16-byte shared
-//   load feeds four rows.
+// int8; K1 and K3 read the same bytes, in two layouts). Every block owns 32
+// output columns, so a 4096-wide projection spreads over 128 blocks, and
+// redoes the activation quantizer for them.
+// - K1 runs on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
+//   accumulators), with A and B swapped so that N fills the mma's 16-row
+//   side and the batch its 8-column side: at M = 8 no tensor-core work goes
+//   to padding rows. Its operands are exact in bf16: code - cmax has at
+//   most 8 bits and the scale is a power of two; x is carried as hi =
+//   bf16(x) plus lo = bf16(x - hi), and the lo product runs only for a tile
+//   where some row has a nonzero lo (block_fp activations of width <= 9 have
+//   none; raw float32 x does), leaving about 2^-17 of |x| (absolute 2^-134
+//   below 2^-117, where bf16 is subnormal). So K1 differs from the plain
+//   version only in the order of its float32 sums. The words and scale
+//   bytes of a packing tile go to a 3-tile ring in shared memory by cp.async
+//   (16 bytes a thread, coalesced along N); the next tile's x is loaded into
+//   registers (a float4 a lane) while the block computes this one, then
+//   quantized (a quantizer block is 1..8 lanes of 4 values) and stored as B
+//   fragments in one of two buffers, so one barrier a tile suffices. 16 word
+//   rows at one shift are one k16 step: a warp's 8 words of a 16 x 16 block
+//   feed per_word steps. Warp w takes the 16 columns (w % 2) and word-row
+//   groups w / 2 and w / 2 + 4 of every tile; the 4 warps of a column tile
+//   are summed in a fixed order at the end. At M = 8 it is not bound by
+//   the weight bytes (~9x its byte bound on an H100, see PERF.md): each
+//   32-column block still stages and quantizes all of x, and 2 blocks of
+//   128 registers a thread leave 4 warps a scheduler to hide the latency of
+//   a tile's barrier and dependent mma chain.
 // - K2: lanes run along K (codes are [N, K]: 4 codes per lane, 128 per warp
 //   load, coalesced); warp w takes 4 columns and reuses each x load for
 //   all 4. A chunk's codes are loaded before its x is staged, so the loads
@@ -39,21 +54,22 @@
 // - K3: lanes run along K as in K2 (a column's words are contiguous: lane
 //   r holds word rows r, r+32, r+64, r+96 of a tile, 128 bytes a warp
 //   load); warp w takes 4 columns and keeps the next tile's 16 words in
-//   flight in registers, as K1 does. Slice j of a word is K row
-//   j*128 + 32g + lane of the tile, so x is staged [k][row] as in K1 and
-//   one 16-byte shared load feeds four rows of all 4 columns. The tile's
-//   scales of the block's 32 columns are one contiguous run of bytes
-//   (scales[t, col0:col0+32, :]); the block decodes them into shared
-//   memory once a tile instead of every thread reading bytes.
+//   flight in registers. Slice j of a word is K row j*128 + 32g + lane of
+//   the tile, so x is staged [k][row] and one 16-byte shared load feeds four
+//   rows of all 4 columns. The tile's scales of the block's 32 columns are
+//   one contiguous run of bytes (scales[t, col0:col0+32, :]); the block
+//   decodes them into shared memory once a tile instead of every thread
+//   reading bytes.
 // Staging loads a K position of every row at once (ROWS loads in flight a
 // thread) and quantizes on the way: the quantizer's block max is a shuffle
 // reduction over a run of lanes, and divisions by powers of two are exact
 // multiplications. Each row is summed in a fixed order (per warp, then the
 // warps or lanes combined in a fixed order): a row's result does not depend
-// on M or on the other rows (no split across blocks, no atomics).
-// Accumulation is float32 on the CUDA cores; the tensor cores stay idle.
+// on M or on the other rows (no split across blocks, no atomics). K2 and K3
+// accumulate in float32 on the CUDA cores.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "bfp_common.cuh"
@@ -63,8 +79,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 32;                      // output columns per block
-constexpr int kSlice = 128;                    // K1, K3: words per column and packing tile
-constexpr int kRowsPerWarp = kSlice / kWarps;  // K1: word rows per warp and tile
+constexpr int kSlice = 128;                    // K1, K3: word rows of a packing tile
 constexpr int kColsPerWarp = kCols / kWarps;   // K2, K3: columns per warp
 constexpr int kLaneWords = kSlice / 32;        // K3: words per lane, column and tile
 constexpr int kChunk = 512;                    // K2: K per step, 4 codes per lane x 4
@@ -72,19 +87,6 @@ constexpr int kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float scale_from_e8(uint8_t e8) {
   return lmq::exact_exp2i((int)e8 - 128);
-}
-
-// acc[m] += xk[m] * wv for every row; xk is 16-byte aligned, ROWS % 4 == 0
-template <int ROWS>
-__device__ __forceinline__ void fma_rows(float (&acc)[ROWS], const float* xk, float wv) {
-#pragma unroll
-  for (int m = 0; m < ROWS; m += 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(xk + m);
-    acc[m] = fmaf(xv.x, wv, acc[m]);
-    acc[m + 1] = fmaf(xv.y, wv, acc[m + 1]);
-    acc[m + 2] = fmaf(xv.z, wv, acc[m + 2]);
-    acc[m + 3] = fmaf(xv.w, wv, acc[m + 3]);
-  }
 }
 
 // Stage x rows m0 .. m0 + ROWS - 1 at K positions k0 .. k0 + len - 1 into
@@ -114,99 +116,338 @@ __device__ __forceinline__ void stage_x_rows(float* xs, const float* __restrict_
 
 // ---------------------------------------------------------------- K1
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kK1Stages = 3;                  // packing tiles of words in flight
+constexpr int kK1TileWords = kSlice * kCols;  // words of one tile of a block's columns
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 (or 4) bytes global -> shared, asynchronously; bytes past `valid`
+// are zero-filled (valid = 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// d += a . b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
+// d 16 x 8 float32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// two floats -> bf16x2 (the first in the low half), round to nearest even
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Word (row, col) of a tile's [kSlice][kCols] words in shared memory. The
+// XOR spreads the 4 word rows an A fragment load touches over all banks.
+__device__ __forceinline__ int k1_word_slot(int row, int col) {
+  return row * kCols + (col ^ (((row >> 1) & 3) << 3));
+}
+
+// Bytes of a ring slot: the tile's words, then its nsb scale rows of kCols
+// bytes, rounded up to 16.
+__host__ __device__ __forceinline__ int k1_slot_bytes(int nsb) {
+  return 4 * kK1TileWords + (nsb * kCols + 15) / 16 * 16;
+}
+
+// Queue tile t's words and scale bytes of columns col0 .. col0 + kCols - 1
+// into ring slot `dst` (zero past N): 16-byte copies where the rows allow
+// them (N % 4 == 0 for words, N % 16 == 0 for scales: a run of columns is
+// then all in or all out), else 4-byte ones, else (scales with N % 4 != 0)
+// plain loads.
+__device__ __forceinline__ void k1_load_tile(uint8_t* dst, const uint32_t* __restrict__ words,
+                                             const uint8_t* __restrict__ scales, int t,
+                                             int nsb, int col0, int N) {
+  uint32_t* dw = reinterpret_cast<uint32_t*>(dst);
+  const uint32_t* src = words + (size_t)t * kSlice * N;
+  if (N % 4 == 0) {
+    for (int i = threadIdx.x; i < kK1TileWords / 4; i += kThreads) {
+      const int row = i / (kCols / 4), col = 4 * (i % (kCols / 4));
+      const bool in = col0 + col < N;
+      cp_async16(dw + k1_word_slot(row, col), in ? src + (size_t)row * N + col0 + col : words,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kK1TileWords; i += kThreads) {
+      const int row = i / kCols, col = i % kCols;
+      const bool in = col0 + col < N;
+      cp_async4(dw + k1_word_slot(row, col), in ? src + (size_t)row * N + col0 + col : words,
+                in ? 4 : 0);
+    }
+  }
+  uint8_t* ds = dst + 4 * kK1TileWords;  // [nsb][kCols]
+  const uint8_t* ssrc = scales + (size_t)t * nsb * N + col0;
+  if (N % 16 == 0) {
+    for (int i = threadIdx.x; i < nsb * (kCols / 16); i += kThreads) {
+      const int row = i / (kCols / 16), col = 16 * (i % (kCols / 16));
+      const bool in = col0 + col < N;
+      cp_async16(ds + row * kCols + col, in ? ssrc + (size_t)row * N + col : scales, in ? 16 : 0);
+    }
+  } else if (N % 4 == 0) {
+    for (int i = threadIdx.x; i < nsb * (kCols / 4); i += kThreads) {
+      const int row = i / (kCols / 4), col = 4 * (i % (kCols / 4));
+      const bool in = col0 + col < N;
+      cp_async4(ds + row * kCols + col, in ? ssrc + (size_t)row * N + col : scales, in ? 4 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nsb * kCols; i += kThreads) {
+      const int row = i / kCols, col = i % kCols;
+      ds[i] = col0 + col < N ? __ldg(ssrc + (size_t)row * N + col) : 0;
+    }
+  }
+}
+
+// Block_fp fake-quantization of x given its block's abs max, equal to
+// lmq::bfp_qdq: ceil(log2) from the exponent bits (block_max > 1e-8 is a
+// normal float) and one multiplication by 2^(mbits - e) in place of the
+// two by 2^-e and 2^mbits (they differ only where the mantissa rounds to 0
+// either way); exponents near the ends of the range take lmq::bfp_qdq_exp.
+__device__ __forceinline__ float k1_qdq(float x, float block_max, const lmq::BfpSpec& aq) {
+  if (fabsf(x) <= 1e-8f) return x;
+  const uint32_t bits = __float_as_uint(block_max);
+  int e = (int)(bits >> 23) - 127 + ((bits & 0x7fffffu) != 0u);
+  e = max(aq.emin, min(aq.emax, e));
+  if (e > 120 || e < -100) return lmq::bfp_qdq_exp(x, e, aq);
+  const int mbits = aq.width - 1;
+  const float scaled = __fmul_rn(__fadd_rn(fabsf(x), 1e-9f), lmq::exact_exp2i(mbits - e));
+  const float mant = fminf(rintf(scaled), (float)((1 << mbits) - 1));
+  const float r = __fmul_rn(mant, lmq::exact_exp2i(e - mbits));
+  return x > 0.f ? r : -r;
+}
+
+// Load this thread's x of tile k0 .. k0 + tile - 1 into registers: unit i
+// is warp unit wu = warp + kWarps i, row wu % R and K positions
+// 128 (wu / R) + 4 lane .. + 3 of the tile; 0 past K and past the live
+// rows. The next tile's x is in flight while the block computes this one.
+template <int R, int P>
+__device__ __forceinline__ void k1_load_x(float (&v)[P][4], const float* __restrict__ x,
+                                          int k0, int m0, int rows, int K, bool vec) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int wu = warp + kWarps * i, m = wu % R;
+    const int k = k0 + kSlice * (wu / R) + 4 * lane;
+    const float* src = x + (size_t)(m0 + m) * K + k;
+    if (m >= rows || k >= K) {
+      v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
+    } else if (vec && k + 3 < K) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+      v[i][0] = f.x, v[i][1] = f.y, v[i][2] = f.z, v[i][3] = f.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[i][u] = k + u < K ? __ldg(src + u) : 0.f;
+    }
+  }
+}
+
+// Quantize the loaded x and store it as the B fragments of the mma: bf16
+// hi = bf16(v) and lo = bf16(v - hi), each [tile / 16 k-steps][R / 8 row
+// tiles][32 lanes][4 bf16], the lanes of k-step s XOR-permuted by
+// 4 (s % 8) so that a warp's stores spread over the banks. Returns whether
+// this thread stored a nonzero lo. A quantizer block (aq.bs | 32) is held
+// by one thread (bs <= 4) or by a run of bs / 4 lanes.
+template <int R, int P>
+__device__ __forceinline__ bool k1_store_x(uint32_t* xhi, uint32_t* xlo, float (&v)[P][4],
+                                           const lmq::BfpSpec& aq) {
+  constexpr int NT = R / 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  uint32_t lo_bits = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int wu = warp + kWarps * i, m = wu % R;
+    float q[4] = {v[i][0], v[i][1], v[i][2], v[i][3]};
+    if (aq.on) {
+      float a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = fabsf(q[u]);
+      if (aq.bs >= 2) {
+        a[0] = a[1] = fmaxf(a[0], a[1]);
+        a[2] = a[3] = fmaxf(a[2], a[3]);
+      }
+      if (aq.bs >= 4) a[0] = a[1] = a[2] = a[3] = fmaxf(a[0], a[2]);
+      for (int o = 1; o < aq.bs / 4; o <<= 1)
+        a[0] = a[1] = a[2] = a[3] = fmaxf(a[0], __shfl_xor_sync(0xffffffffu, a[0], o));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) q[u] = k1_qdq(q[u], a[u], aq);
+    }
+    // K position kk = 128 (wu / R) + 4 lane + u of the tile: k-step kk / 16,
+    // k16 = 4 (lane % 4) + u, i.e. register k16 / 8 of lane
+    // (m % 8) * 4 + (k16 % 8) / 2; the pair u = 2p, 2p + 1 is one word
+    const int step = kSlice / 16 * (wu / R) + lane / 4;
+    const int perm = (step & 7) << 2;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k16 = 4 * (lane & 3) + 2 * p;
+      const int slot = ((step * NT + m / 8) * 32 + (((m & 7) * 4 + ((k16 & 7) >> 1)) ^ perm)) * 2 +
+                       (k16 >> 3);
+      const uint32_t hi = pack_bf16x2(q[2 * p], q[2 * p + 1]);
+      const uint32_t lo = pack_bf16x2(q[2 * p] - __uint_as_float(hi << 16),
+                                      q[2 * p + 1] - __uint_as_float(hi & 0xffff0000u));
+      xhi[slot] = hi;
+      xlo[slot] = lo;
+      lo_bits |= lo & 0x7fff7fffu;
+    }
+  }
+  return lo_bits != 0;
+}
+
+// R: rows a block (a multiple of 8); P = per_word * R / kWarps: units of
+// 4 x values a thread stages per tile.
+template <int R, int P>
+__global__ void __launch_bounds__(kThreads, 2)
 subbyte_t_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words,
                  const uint8_t* __restrict__ scales, float* __restrict__ y,
                  int M, int N, int K, int k_pad, int width, int bs, lmq::BfpSpec aq) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr int NT = R / 8;  // n8 tiles of rows
+  extern __shared__ __align__(16) uint8_t smem_k1[];
   const int per_word = 32 / width;
   const int tile = per_word * kSlice;
-  const int nsb = tile / bs;       // scale rows per tile
-  float* xs = smem;                // [tile][ROWS]: x of the current tile
-  float* ss = xs + tile * ROWS;    // [nsb][kCols]: its decoded scales
+  const int nsb = tile / bs;  // scale rows per tile
+  const int slot_bytes = k1_slot_bytes(nsb);
+  uint8_t* ring = smem_k1;                                            // [kK1Stages] slots
+  uint32_t* xs = reinterpret_cast<uint32_t*>(ring + kK1Stages * slot_bytes);  // [2][hi, lo][tile * R / 2]
   const uint32_t mask = (1u << width) - 1u;
-  const int cmax = (1 << (width - 1)) - 1;
+  // code - cmax = float(0x4B000000 | code) - (2^23 + cmax), exactly
+  const float magic = 8388608.f + (float)((1 << (width - 1)) - 1);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ct = warp & 1;   // this warp's 16-column tile of the block
+  const int q = warp >> 1;   // and its word-row groups q and q + 4 of every tile
+  const int n_lo = ct * 16 + g;  // this lane's columns n_lo and n_lo + 8
   const int col0 = blockIdx.x * kCols;
-  const int n = col0 + lane;
-  const bool live = n < N;
-  const int m0 = blockIdx.y * ROWS;
-  const int rows = min(ROWS, M - m0);
+  const int m0 = blockIdx.y * R;
+  const int rows = min(R, M - m0);
+  const int live_nt = (rows + 7) / 8;
   const int n_tiles = k_pad / tile;
-  const int r0 = warp * kRowsPerWarp;  // this warp's word rows in a tile
 
-  float acc[ROWS];
+  float acc[NT][4];
 #pragma unroll
-  for (int m = 0; m < ROWS; ++m) acc[m] = 0.f;
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 
-  uint32_t nxt[kRowsPerWarp];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-    nxt[i] = live ? __ldg(words + (size_t)(r0 + i) * N + n) : 0u;
+  for (int s = 0; s < kK1Stages - 1; ++s) {
+    if (s < n_tiles) k1_load_tile(ring + s * slot_bytes, words, scales, s, nsb, col0, N);
+    cp_async_commit();
+  }
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  float xv[P][4];
+  k1_load_x<R, P>(xv, x, 0, m0, rows, K, vec);
 
   for (int t = 0; t < n_tiles; ++t) {
-    uint32_t cur[kRowsPerWarp];
+    // tile t's x goes into buffer t % 2, last read two tiles ago (before the
+    // barrier of tile t - 1)
+    uint32_t* xhi = xs + (t & 1) * tile * R;
+    uint32_t* xlo = xhi + tile * R / 2;
+    const bool lo_here = k1_store_x<R, P>(xhi, xlo, xv, aq);
+    if (t + 1 < n_tiles) k1_load_x<R, P>(xv, x, (t + 1) * tile, m0, rows, K, vec);
+    cp_async_wait<kK1Stages - 2>();  // this thread's copies of tile t have landed
+    // everyone's copies and x are visible, and everyone is done with tile
+    // t - 1; the lo terms run only where some row of the tile has one (a
+    // zero lo adds exactly 0)
+    const bool any_lo = __syncthreads_or(lo_here);
+    if (t + kK1Stages - 1 < n_tiles)
+      k1_load_tile(ring + ((t + kK1Stages - 1) % kK1Stages) * slot_bytes, words, scales,
+                   t + kK1Stages - 1, nsb, col0, N);
+    cp_async_commit();
+
+    const uint8_t* slot = ring + (t % kK1Stages) * slot_bytes;
+    const uint32_t* wt = reinterpret_cast<const uint32_t*>(slot);
+    const uint8_t* es = slot + 4 * kK1TileWords;
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) cur[i] = nxt[i];
-    if (t + 1 < n_tiles) {
+    for (int gi = 0; gi < 2; ++gi) {
+      const int r0 = (q + 4 * gi) * 16 + 2 * tig;  // word rows r0, r0+1, r0+8, r0+9
+      uint32_t w[4][2];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        nxt[i] = live ? __ldg(words + (size_t)((t + 1) * kSlice + r0 + i) * N + n) : 0u;
-    }
-    __syncthreads();  // the previous tile's xs / ss are no longer read
-    // scales: up to 8 loads in flight per thread
-    for (int i0 = threadIdx.x; i0 < nsb * kCols; i0 += 8 * kThreads) {
-      uint8_t e8[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads, c = col0 + i % kCols;
-        e8[u] = (i < nsb * kCols && c < N)
-                    ? __ldg(scales + (size_t)(t * nsb + i / kCols) * N + c) : 0;
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + (i & 1) + 8 * (i >> 1);
+        w[i][0] = wt[k1_word_slot(row, n_lo)];
+        w[i][1] = wt[k1_word_slot(row, n_lo + 8)];
       }
+      for (int j = 0; j < per_word; ++j) {
+        const int sh = width * j;
+        const int kr = j * kSlice + r0;  // K row in the tile of word row r0
+        // scale of (word row r0 + dr, column n_lo + 8 c)
+        float s[4][2];
+        if (bs >= 16) {  // the 16 rows of the k-step share one scale block
+          const uint8_t* e = es + (kr / bs) * kCols + n_lo;
+          const float s0 = scale_from_e8(e[0]), s1 = scale_from_e8(e[8]);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < nsb * kCols) ss[i] = scale_from_e8(e8[u]);
-      }
-    }
-    stage_x_rows<ROWS>(xs, x, t * tile, tile, m0, rows, K, aq);  // tile % 32 == 0
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < per_word; ++j) {
-      const int kb = j * kSlice + r0;  // K row (in the tile) of cur[0], slice j
-      const int sh = width * j;
-      if (bs >= kRowsPerWarp) {  // the warp's 16 rows share one scale block
-        const float s = ss[(kb / bs) * kCols + lane];
+          for (int i = 0; i < 4; ++i) {
+            s[i][0] = s0;
+            s[i][1] = s1;
+          }
+        } else {
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const int code = (int)((cur[i] >> sh) & mask) - cmax;
-          fma_rows<ROWS>(acc, xs + (kb + i) * ROWS, (float)code * s);
+          for (int i = 0; i < 4; ++i) {
+            const uint8_t* e = es + ((kr + (i & 1) + 8 * (i >> 1)) / bs) * kCols + n_lo;
+            s[i][0] = scale_from_e8(e[0]);
+            s[i][1] = scale_from_e8(e[8]);
+          }
         }
-      } else {
+        float wv[4][2];
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float s = ss[((kb + i) / bs) * kCols + lane];
-          const int code = (int)((cur[i] >> sh) & mask) - cmax;
-          fma_rows<ROWS>(acc, xs + (kb + i) * ROWS, (float)code * s);
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            wv[i][c] = (__uint_as_float(((w[i][c] >> sh) & mask) | 0x4B000000u) - magic) * s[i][c];
+        // A fragment: rows n_lo / n_lo + 8, k = 2 tig (+1) and 2 tig + 8 (+9)
+        const uint32_t a[4] = {pack_bf16x2(wv[0][0], wv[1][0]), pack_bf16x2(wv[0][1], wv[1][1]),
+                               pack_bf16x2(wv[2][0], wv[3][0]), pack_bf16x2(wv[2][1], wv[3][1])};
+        const int step = kr >> 4;  // (j * kSlice + (q + 4 gi) * 16) / 16
+        const int bl_lane = lane ^ ((step & 7) << 2);
+        const uint2* bh = reinterpret_cast<const uint2*>(xhi) + step * NT * 32 + bl_lane;
+        const uint2* bl = reinterpret_cast<const uint2*>(xlo) + step * NT * 32 + bl_lane;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= live_nt) break;
+          mma_bf16(acc[nt], a, bh[nt * 32]);
+          if (any_lo) mma_bf16(acc[nt], a, bl[nt * 32]);
         }
       }
     }
   }
 
-  // combine the warps' partial sums, warp 0 first
-  float* red = smem;  // [kWarps][ROWS][kCols] fits in xs (tile >= 512)
+  // combine the 4 word-row warps of each column tile, q = 0 first
+  float* red = reinterpret_cast<float*>(xs);  // [4 q][2 ct][NT][32 lanes][4]; fits in x
   __syncthreads();
 #pragma unroll
-  for (int m = 0; m < ROWS; ++m) red[(warp * ROWS + m) * kCols + lane] = acc[m];
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(((q * 2 + ct) * NT + nt) * 32 + lane) * 4 + i] = acc[nt][i];
   __syncthreads();
-  for (int o = threadIdx.x; o < ROWS * kCols; o += kThreads) {
-    const int m = o / kCols, c = o % kCols;
-    if (m >= rows || col0 + c >= N) continue;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[(w * ROWS + m) * kCols + c];
-    y[(size_t)(m0 + m) * N + col0 + c] = s;
+  for (int o = threadIdx.x; o < R * kCols; o += kThreads) {
+    const int m = o / kCols, n = o % kCols;
+    if (m >= rows || col0 + n >= N) continue;
+    // accumulator element of (n, m): column tile n / 16, lane (n % 8) * 4 +
+    // (m % 8) / 2, register (m % 2) + 2 ((n % 16) / 8)
+    const int c = n >> 4, src_lane = (n & 7) * 4 + ((m & 7) >> 1);
+    const int reg = (m & 1) + 2 * ((n & 15) >> 3);
+    float sum = 0.f;
+    for (int w = 0; w < 4; ++w)
+      sum += red[(((w * 2 + c) * NT + (m >> 3)) * 32 + src_lane) * 4 + reg];
+    y[(size_t)(m0 + m) * N + col0 + n] = sum;
   }
 }
 
@@ -439,20 +680,43 @@ cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int ROWS>
+int k1_smem_bytes(int R, int width, int bs) {
+  const int tile = (32 / width) * kSlice;
+  return kK1Stages * k1_slot_bytes(tile / bs) + 2 * 2 * 2 * tile * R;
+}
+
+template <int R, int P>
 int launch_subbyte_t(const void* x, const void* words, const void* scales, void* y,
                      int M, int N, int K, int k_pad, int width, int bs, lmq::BfpSpec aq,
                      cudaStream_t stream) {
   const int tile = (32 / width) * kSlice;
-  const int smem = 4 * (tile * ROWS + (tile / bs) * kCols);
-  if (smem > kSmemMax || k_pad % tile) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(subbyte_t_kernel<ROWS>, smem);
+  const int smem = k1_smem_bytes(R, width, bs);
+  if (smem > kSmemMax || k_pad % tile || (32 / width) * R / kWarps != P)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(subbyte_t_kernel<R, P>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kCols - 1) / kCols, (M + ROWS - 1) / ROWS);
-  subbyte_t_kernel<ROWS><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((N + kCols - 1) / kCols, (M + R - 1) / R);
+  subbyte_t_kernel<R, P><<<grid, kThreads, smem, stream>>>(
       (const float*)x, (const uint32_t*)words, (const uint8_t*)scales, (float*)y,
       M, N, K, k_pad, width, bs, aq);
   return (int)cudaGetLastError();
+}
+
+// R rows a block; P = per_word * R / kWarps
+template <int R>
+int launch_subbyte_t_p(const void* x, const void* words, const void* scales, void* y,
+                       int M, int N, int K, int k_pad, int width, int bs, lmq::BfpSpec aq,
+                       cudaStream_t stream) {
+#define LMQ_K1_CASE(P) \
+  case P: return launch_subbyte_t<R, P>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, stream);
+  if constexpr (R == 8) {
+    switch (32 / width) { LMQ_K1_CASE(4) LMQ_K1_CASE(5) LMQ_K1_CASE(6) LMQ_K1_CASE(8)
+                          LMQ_K1_CASE(10) LMQ_K1_CASE(16) }
+  } else {
+    switch (32 / width * 2) { LMQ_K1_CASE(8) LMQ_K1_CASE(10) LMQ_K1_CASE(12) LMQ_K1_CASE(16) }
+  }
+#undef LMQ_K1_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int ROWS>
@@ -497,9 +761,12 @@ int lmq_bfp_matmul_subbyte_t(const void* x, const void* words, const void* scale
   if (width < 2 || width > 8 || bs < 1 || kSlice % bs || (aq_on && 32 % aq_bs))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  // the row block never changes a row's result, only how many share a pass
-  if (M <= 8) return launch_subbyte_t<8>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
-  return launch_subbyte_t<16>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
+  // the row block never changes a row's result (each row is its own column
+  // of the mma), only how many rows share a pass over the weights
+  // (16 rows a block where the x a thread holds in flight stays <= 64 floats)
+  if (M > 8 && 32 / width <= 8 && k1_smem_bytes(16, width, bs) <= kSmemMax)
+    return launch_subbyte_t_p<16>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
+  return launch_subbyte_t_p<8>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
 }
 
 int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales,

@@ -13,7 +13,10 @@ Three Hopper kernels (``csrc/dequant_matmul.cu``) replace the TPU kernels:
 
 All fold the block_fp data_in quantizer (``actq``, blocks of at most 32
 along K; longer blocks are quantized before the call) into their prologue
-and accumulate in float32. Each wrapper launches its kernel for a CUDA tensor
+and accumulate in float32. K1 multiplies on the tensor cores, in bf16
+operands that are exact (codes times powers of two; x as a bf16 sum of two
+terms), so it differs from the plain version only in the order of its
+sums; K2 and K3 multiply in float32 on the CUDA cores. Each wrapper launches its kernel for a CUDA tensor
 (counting the launch in its ``launches`` attribute) and computes the plain
 version for a CPU tensor. ``bfp_matmul`` routes M <= 256 rows to the
 kernels and larger M to unpack + ``torch.matmul``, as the JAX package

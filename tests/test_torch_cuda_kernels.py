@@ -9,8 +9,9 @@ JAX, so it runs on a GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are the JAX package's own: 1e-4 of max|y| for the matmuls
-(float32 sums in another order), rtol 2e-4 / atol 2e-5 for decode
-attention."""
+(float32 sums in another order: K1 sums bf16-exact products on the tensor
+cores), rtol 2e-4 / atol 2e-5 for decode attention; and a row's matmul
+result is bit-exact whatever M."""
 
 import pytest
 import torch
@@ -108,10 +109,41 @@ def test_int8_kernel_matches_plain(dev, m, n, k, bs, k_stride, actq):
     _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
 
 
+@pytest.mark.parametrize("width", [2, 6, 8])
+@pytest.mark.parametrize("m,n,k,bs", [(8, 100, 1100, 16), (40, 300, 4096, 16),
+                                      (256, 64, 700, 32)])
+def test_subbyte_t_kernel_keeps_float32_x(dev, width, m, n, k, bs):
+    """Raw float32 x, no quantizer: K1's tensor cores take x as bf16 hi + lo
+    terms, and must keep float32 semantics (ROADMAP fault 3) to 1e-4 of
+    max|y|."""
+    packed = tp.pack_block_fp_subbyte_t(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    _close_rel(dm.bfp_matmul_subbyte_t_cuda(x, packed), dm.bfp_matmul_plain(x, packed))
+
+
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127)])
+def test_subbyte_t_kernel_keeps_subnormal_activations(dev, actq):
+    """Activations at the bottom of the exponent range: c * 2^-133 with
+    |c| < 128, block maxima near 2^-126, all bf16 subnormals (and all under
+    the quantizer's 1e-8 passthrough). Weights near 2^100 keep every product
+    normal, so only a tensor core that flushed subnormal inputs would lose
+    them."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(-127, 128, (8, 1100), generator=g).float() * 2.0**-133
+    w = torch.randn((64, 1100), generator=g) * 2.0**100
+    packed = tp.pack_block_fp_subbyte_t(w.to(dev), 6, 8, None, [1, 16])
+    x = x.to(dev)
+    want = dm.bfp_matmul_plain(x, packed, actq)
+    assert want.abs().max().item() > 2.0**-60
+    _close_rel(dm.bfp_matmul_subbyte_t_cuda(x, packed, actq), want)
+
+
 def test_matmul_rows_do_not_depend_on_the_batch(dev):
     """A row's result is the same bits whatever M and the other rows are
-    (what lets the batcher reproduce generate)."""
-    x = _qdq(torch.randn((24, 1100), generator=torch.Generator().manual_seed(0))).to(dev)
+    (what lets the batcher reproduce generate), up to the 256 rows
+    bfp_matmul sends to the kernels (K1 takes 8 rows a block at M <= 8 and
+    32 above)."""
+    x = _qdq(torch.randn((256, 1100), generator=torch.Generator().manual_seed(0))).to(dev)
     w = _weight(200, 1100, 1).to(dev)
     for packed, fn in ((tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
                         dm.bfp_matmul_subbyte_t_cuda),
@@ -120,7 +152,7 @@ def test_matmul_rows_do_not_depend_on_the_batch(dev):
                        (tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024),
                         dm.bfp_matmul_cuda)):
         full = fn(x, packed, (16, 6, 8, 127))
-        for rows in (slice(0, 1), slice(3, 8), slice(5, 22)):
+        for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(9, 41), slice(100, 256)):
             part = fn(x[rows].contiguous(), packed, (16, 6, 8, 127))
             torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
 

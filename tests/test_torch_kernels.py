@@ -78,6 +78,44 @@ def test_matmul_large_m_takes_unpack_path():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+# The premise of K1's tensor-core design: its bf16 operands are exact.
+
+@pytest.mark.parametrize("width", [2, 3, 4, 5, 6, 7, 8])
+def test_subbyte_t_weights_are_bf16_exact(width):
+    """code * 2^e has at most 8 significant bits for every scale exponent
+    e in [-126, 127] (scale bytes 2..255), so dequantizing to bf16 loses
+    nothing (2^127 times a code of 2 or more is inf in both)."""
+    w = torch.from_numpy(_w((48, 700)))
+    packed = tp.pack_block_fp_subbyte_t(w, width, 8, None, [1, 16])
+    e8 = torch.from_numpy(RNG.integers(2, 256, packed.scales.shape).astype(np.uint8))
+    e8.view(-1)[::5] = 2
+    e8.view(-1)[1::5] = 255
+    packed = packed._replace(scales=e8)
+    want = tp.unpack(packed)
+    got = tp.unpack(packed, torch.bfloat16).float()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("width", [2, 3, 4, 5, 6, 7, 8, 9])
+def test_block_fp_activations_are_bf16_exact(width):
+    """block_fp at data_in width <= 9 (exponent width 8) leaves at most 8
+    significant bits in every element it quantizes (|x| > 1e-8), so it
+    survives bf16; elements it passes through come back unchanged, so K1
+    carries their bf16 remainder. Row 3's blocks sit below 2^-127: their
+    exponent is clipped at -bias and every element passes through."""
+    from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+
+    x = RNG.standard_normal((16, 256)) * np.exp2(RNG.integers(-20, 20, (16, 1)))
+    x[3] = RNG.integers(-63, 64, 256) * 2.0**-133  # bf16 subnormals
+    x = torch.from_numpy(x.astype(np.float32))
+    q = _block_fp_qdq(x, width, 8, None, [1, 16], True)
+    quantized = x.abs() > 1e-8
+    assert not quantized[3].any() and quantized.float().mean() > 0.9
+    assert torch.equal(q[~quantized], x[~quantized])
+    assert torch.equal(q[quantized].to(torch.bfloat16).float(), q[quantized])
+    assert torch.equal(q[3].to(torch.bfloat16).float(), q[3])
+
+
 def _cache(b, nkv, s_len, hd, pos_major):
     k = RNG.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
     v = RNG.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
