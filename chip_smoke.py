@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the whole run
-    python3 chip_smoke.py --k1-only   # build, then K1's checks and times only
+    python3 chip_smoke.py                 # the whole run
+    python3 chip_smoke.py --k1-only       # build, then K1's checks and times only
+    python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
 
-1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` (nvcc, sm_90a)
-   and counts the HMMA (tensor-core) instructions of K1's SASS
-   (``cuobjdump -sass``; the whole run fails if there are none);
+1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
+   kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
+   nvcc started at once, sm_90a) and counts the HMMA (tensor-core)
+   instructions of K1's and P8's SASS (``cuobjdump -sass``; the whole run
+   fails if there are none);
 2. holds each kernel against its plain PyTorch version on the card at the
    Llama-2-7B decode shapes (batch 8; the matmuls also at the 256 rows of a
    prefill; the sub-byte matmuls K1 and K3 also at the OPT-6.7B fc1/fc2
@@ -30,7 +33,18 @@
    ``generate`` on each tree with the launch counters reset and read around
    it (K1 only, then K3 only; OPT decodes on a float32 cache, so no
    attention kernel), and holds a decode step of each tree against the
-   plain path.
+   plain path;
+7. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
+   (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
+   at the four Llama-2-7B projection shapes; P11, decode attention's
+   knock-outs, at the probe's b = 32, S = 256) against its plain version,
+   and each probe's copy of its production kernel against that kernel
+   (transposed ship == K1 and lane-major ship == K3 on bf16 x with no
+   activation quantizer, the quant stage with float32 dots == K4), then
+   drives the two probe entry points (``ksub.run``, ``aprobe.run``) with
+   the launch counters set to 0 before each and read after it. The probe
+   rows' ``ms`` come from those runs; every serving path above launches
+   no probe.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
@@ -41,7 +55,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -69,11 +82,6 @@ OPT_HIDDEN, OPT_FFN, OPT_LAYERS, OPT_HEADS, OPT_VOCAB = 4096, 16384, 32, 32, 502
 # the OPT shapes K1/K3 meet that no Llama shape above covers (q/k/v/out_proj
 # are o_proj's 4096 x 4096)
 OPT_MLP_SHAPES = {"fc1": (OPT_FFN, OPT_HIDDEN), "fc2": (OPT_HIDDEN, OPT_FFN)}
-SPIN_CYCLES = 2_000_000  # ~1 ms of card time ahead of each timed call
-# published peaks (NVIDIA data sheets): memory bytes/s, float32 CUDA-core
-# flop/s, dense bf16 tensor-core flop/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12), "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
 PREFILL_M = 256  # rows of a batch of 8 prompts of 32 tokens: the largest M bfp_matmul
 # sends to the kernels
 
@@ -87,33 +95,18 @@ def check(ok, msg):
         raise RuntimeError(msg)
 
 
-def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no published peaks for {name!r}")
+def all_launch_counts() -> dict[str, int]:
+    """Launch counts of the serving kernels and of the probes."""
+    from llm_mixed_q_torch import kernels, tools
+
+    return {**kernels.launch_counts(), **tools.launch_counts()}
 
 
-def cuda_ms(fn, reps=20, warmup=3, flush=None):
-    """Median ms of ``fn`` on the card, over CUDA events. Before each rep the
-    card spins for about a millisecond, so ``fn`` is enqueued before the card
-    reaches the start event and the interval holds no host time; ``flush``
-    then runs untimed (to evict the 50 MB L2, as a decode step finds it
-    cold)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(SPIN_CYCLES)
-        if flush is not None:
-            flush()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def reset_all_launch_counts():
+    from llm_mixed_q_torch import kernels, tools
+
+    kernels.reset_launch_counts()
+    tools.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -149,6 +142,7 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_core
     bf16 tensor cores for K1, float32 CUDA cores for the others."""
     from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
     from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
+    from llm_mixed_q_torch.tools.timing import cuda_ms
 
     xs = {m: torch.randn((m, k), generator=gen, device="cuda") for m in (BATCH, PREFILL_M)}
     errs = {}
@@ -256,6 +250,7 @@ def check_attention_kernels(peaks, flush):
         packed_attention_decode_batch_cuda, packed_attention_decode_batch_plain,
         packed_attention_decode_cuda, packed_attention_decode_plain)
     from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+    from llm_mixed_q_torch.tools.timing import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     nkv, hd = HEADS, HIDDEN // HEADS
@@ -378,13 +373,24 @@ PATHS = {
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
     "opt_generate_lane_major": ("bfp_matmul_subbyte",),
 }
+# the probe entry points: each probe kernel and the production kernels
+# they print beside it
+PROBE_PATHS = {
+    "ksub": ("probe_subbyte_t", "probe_subbyte", "bfp_matmul_subbyte_t", "bfp_matmul_subbyte"),
+    "aprobe": ("probe_attention", "attn_decode_pos_major"),
+}
+PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
+    "probe_subbyte_t": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:225"),
+    "probe_subbyte": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:270"),
+    "probe_attention": ("llm_mixed_q_torch/csrc/probes/attention_probe.cu", "tools/aprobe.py:122"),
+}
 
 
 def check_path_counts(path_counts):
     for path, counts in path_counts.items():
         log(f"launches of the {path} run: {counts}")
         for kname, c in counts.items():
-            if kname in PATHS[path]:
+            if kname in {**PATHS, **PROBE_PATHS}[path]:
                 check(c > 0, f"kernel {kname} was not launched by the {path} run")
             else:
                 check(c == 0, f"kernel {kname} was launched by the {path} run")
@@ -394,7 +400,6 @@ def run_llama():
     """Llama-2-7B widths: generate (K1 + K4), ContinuousBatcher (K2 + K5),
     decode steps against the plain path, a profiled step. -> launch counts
     by path. The trees are freed on return."""
-    from llm_mixed_q_torch.kernels import launch_counts, reset_launch_counts
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import (
         ContinuousBatcher, LlamaQuantizedConfig, decode_step, generate,
@@ -424,24 +429,24 @@ def run_llama():
     # each path runs with every launch count set to 0 just before it and
     # read just after it; the reference runs come after both readings
     path_counts = {}
-    reset_launch_counts()
+    reset_all_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     g_tok = generate(sub, config, g_ids, g_mask, max_new_tokens=new_tokens, max_len=256)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    path_counts["generate"] = launch_counts()
+    path_counts["generate"] = all_launch_counts()
     srv = ContinuousBatcher(int8, config, num_slots=8, max_len=512,
                             max_new_tokens=new_tokens, prompt_bucket=32)
     for p in b_prompts:
         srv.submit(p)
-    reset_launch_counts()
+    reset_all_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = srv.run()
     torch.cuda.synchronize()
     t_srv = time.perf_counter() - t0
-    path_counts["ContinuousBatcher"] = launch_counts()
+    path_counts["ContinuousBatcher"] = all_launch_counts()
     check_path_counts(path_counts)
     ref = np.concatenate([
         generate(int8, config, b_ids[i:i + 8], b_mask[i:i + 8],
@@ -468,14 +473,14 @@ def run_llama():
             logits, lengths = prefill_into_cache(params, ids, mask, cache, config)
             tok = torch.argmax(logits, -1)[:, None]
             snapshot = [[t.clone() for t in f] for f in cache[:4]]
-            reset_launch_counts()
+            reset_all_launch_counts()
             got = decode_step(params, tok, cache, lengths, config)
-            step_counts = launch_counts()
+            step_counts = all_launch_counts()
             cache2 = cache._replace(**dict(zip(
                 ("k_codes", "k_scales", "v_codes", "v_scales"), snapshot)))
             with plain_path():
                 want = decode_step(params, tok, cache2, lengths, config)
-            check(launch_counts() == step_counts, "the plain path launched a kernel")
+            check(all_launch_counts() == step_counts, "the plain path launched a kernel")
             log(f"launches in one decode step ({label}, max_len {max_len}): "
                 f"{ {k: c for k, c in step_counts.items() if c} }")
             rel = ((got - want).abs().max() / want.abs().max()).item()
@@ -505,8 +510,7 @@ def run_opt():
     around it, then a decode step of each against the plain path and a
     profiled window of steps. -> launch counts by path."""
     from llm_mixed_q_torch.kernels import (
-        PackedBFPSub, PackedBFPSubT, launch_counts, reset_launch_counts,
-        transpose_subbyte)
+        PackedBFPSub, PackedBFPSubT, transpose_subbyte)
     from llm_mixed_q_torch.models import pack_common
     from llm_mixed_q_torch.models.hf_loader import init_opt_params
     from llm_mixed_q_torch.models.opt import OPTQuantizedConfig, opt_generate
@@ -548,14 +552,14 @@ def run_opt():
     new_tokens, max_len = 32, 64
     path_counts, tokens, seconds = {}, {}, {}
     for path, params in trees.items():
-        reset_launch_counts()
+        reset_all_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tokens[path] = opt_generate(params, config, ids, mask, max_new_tokens=new_tokens,
                                     max_len=max_len)
         torch.cuda.synchronize()
         seconds[path] = time.perf_counter() - t0
-        path_counts[path] = launch_counts()
+        path_counts[path] = all_launch_counts()
         tok = tokens[path]
         check(tok.shape == (BATCH, new_tokens) and (tok >= 0).all() and (tok < OPT_VOCAB).all(),
               f"OPT generate returned bad tokens {tok.shape}")
@@ -575,12 +579,12 @@ def run_opt():
         logits, lengths = prefill_into_cache(params, ids_t, mask_t, cache, config)
         tok = torch.argmax(logits, -1)[:, None]
         cache2 = cache.clone()
-        reset_launch_counts()
+        reset_all_launch_counts()
         got = decode_step(params, tok, cache, lengths, config)
-        step_counts = launch_counts()
+        step_counts = all_launch_counts()
         with plain_path():
             want = decode_step(params, tok, cache2, lengths, config)
-        check(launch_counts() == step_counts, "the plain path launched a kernel")
+        check(all_launch_counts() == step_counts, "the plain path launched a kernel")
         log(f"launches in one OPT decode step ({path}): "
             f"{ {k: c for k, c in step_counts.items() if c} }")
         rel = ((got - want).abs().max() / want.abs().max()).item()
@@ -592,8 +596,223 @@ def run_opt():
                        lambda i: decode_step(params, tok, cache, lengths + 1 + i, config))
     return path_counts
 
+def _close_to_max(got, want, tol, what):
+    """Fail unless max|got - want| <= tol * max|want|; -> max abs error."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    check(rel <= tol, f"{what}: rel err {rel:.3e} > {tol}")
+    return err
 
-def main(k1_only=False):
+
+def _add(d, key, value):
+    d[key] = d.get(key, 0.0) + value
+
+
+def check_subbyte_probes(peaks, flush):
+    """P8 (K1's layout) and P9 (K3's) at the four Llama-2-7B projection
+    shapes, M = 8: every variant against its plain version (1e-4 of max|y|,
+    float32 sums in another order), its plain time and bounds (operations
+    at the peak of the units the copy runs on), one bf16 matmul on the
+    pre-dequantized weight as ship's yardstick; then the copy's
+    faithfulness: ship on bf16 x equals the production kernel with no
+    activation quantizer (its lo term is then 0: the same product), timed
+    beside it and beside the production kernel with ACTQ. -> {probe: row},
+    sums over the four shapes."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import (
+        _k_padded, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
+    from llm_mixed_q_torch.kernels.packing import (
+        pack_block_fp_subbyte, packed_nbytes, transpose_subbyte, unpack)
+    from llm_mixed_q_torch.tools import ksub
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    probes = {  # name: (layout of the packed weight, production kernel, its name, op peak)
+        "probe_subbyte_t": (transpose_subbyte, bfp_matmul_subbyte_t_cuda, "K1", peaks[2]),
+        "probe_subbyte": (lambda p: p, bfp_matmul_subbyte_cuda, "K3", peaks[1]),
+    }
+    rows = {name: {"variants": {v: {"max_abs_err": 0.0, "library_ms": None}
+                                for v in ksub.VARIANTS}, "beside_ms": {}}
+            for name in probes}
+    for sname, (n, k) in ksub.SHAPES.items():
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        lane_major = pack_block_fp_subbyte(w, ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
+        del w
+        k_pad = _k_padded(lane_major)
+        x = torch.randn((ksub.M, k_pad), generator=gen, device="cuda")
+        xk = x[:, :k].contiguous()
+        x_bf = xk.to(torch.bfloat16).float()
+        for name, (layout, prod, pname, op_peak) in probes.items():
+            packed, row = layout(lane_major), rows[name]
+            nbytes = packed_nbytes(packed) + 4 * ksub.M * (k_pad + n)
+            for v in ksub.VARIANTS:
+                rv = row["variants"][v]
+                err = _close_to_max(ksub.subbyte_probe(x, packed, v),
+                                    ksub.subbyte_probe_plain(x, packed, v), 1e-4,
+                                    f"{name} {v} {sname}")
+                rv["max_abs_err"] = max(rv["max_abs_err"], err)
+                _add(rv, "plain_ms", cuda_ms(lambda: ksub.subbyte_probe_plain(x, packed, v),
+                                             reps=3, flush=flush))
+                k_ops = k_pad // packed.per_word if v == "stream" else k_pad
+                _add(rv, "bound_bytes_ms", nbytes / peaks[0] * 1e3)
+                _add(rv, "bound_ops_ms", 2 * ksub.M * n * k_ops / op_peak * 1e3)
+            w_bf16, x16 = unpack(packed, torch.bfloat16), xk.to(torch.bfloat16)
+            rv = row["variants"]["ship"]
+            rv["library_ms"] = (rv["library_ms"] or 0.0) + cuda_ms(
+                lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
+            del w_bf16
+            err = _close_to_max(ksub.subbyte_probe(x_bf, packed, "ship"), prod(x_bf, packed, None),
+                                1e-4, f"{name} ship vs {pname} {sname}")
+            times = {"ship": cuda_ms(lambda: ksub.subbyte_probe(x_bf, packed, "ship"), flush=flush),
+                     pname: cuda_ms(lambda: prod(x_bf, packed, None), flush=flush),
+                     f"{pname} actq": cuda_ms(lambda: prod(xk, packed, ACTQ), flush=flush)}
+            for key, t in times.items():
+                _add(row["beside_ms"], key, t)
+            log(f"  {name} {sname} N={n} K={k}: ship == {pname} without actq on bf16 x "
+                f"(max abs err {err:.3e}); ms " + ", ".join(f"{key} {t:.4f}" for key, t in times.items()))
+    return rows
+
+
+def check_attention_probe(peaks, flush):
+    """P11 at the TPU probe's shape (b = 32, S = 256, nh = nkv = 32, hd = 128,
+    every position filled, inputs from seed 0, q quantized as the serving
+    path quantizes it, so the scores are exact in float32 whatever the order
+    of their sums, as in K4's check): every stage and dot type against its
+    plain version (dma, dequant: bit-exact; matmul: 1e-4 of max|ctx| with
+    float32 dots, 1e-3 with bf16 dots; softmax, quant: rtol 2e-4 / atol
+    2e-5), its plain time and bound; SDPA on a dequantized float32 cache as
+    the quant stage's yardstick (as K4's); then the quant stage with float32
+    dots against K4, timed beside it. -> row."""
+    from llm_mixed_q_torch.kernels.attention_decode import packed_attention_decode_batch_cuda
+    from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+    from llm_mixed_q_torch.tools import aprobe
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    b, s_len, hd, nkv = 32, 256, aprobe.HD, aprobe.NKV
+    q, kc, ks, vc, vs, pos = aprobe.make_inputs(b, s_len, device="cuda")
+    q = _block_fp_qdq(q.reshape(-1, hd), *ACTQ[1:], [1, ACTQ[0]], True).reshape(q.shape)
+    inputs = (q, kc, ks, vc, vs, pos)
+    nbytes = sum(t.numel() * t.element_size() for t in inputs[1:5]) + 8 * q.numel() + 4 * b
+    row = {"variants": {}}
+    for stage in aprobe.STAGES:
+        for dot in aprobe.DOTS[stage]:
+            label = f"{stage}/{dot}"
+            run = lambda: aprobe.attention_probe(*inputs, stage, dot)
+            plain = lambda: aprobe.attention_probe_plain(*inputs, stage, dot)
+            got, want = run(), plain()
+            if stage in ("dma", "dequant"):
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"probe_attention {label}: not q")
+                err = 0.0
+            elif stage == "matmul":
+                err = _close_to_max(got, want, 1e-4 if dot == "f32" else 1e-3,
+                                    f"probe_attention {label}")
+            else:
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
+                      f"probe_attention {label}: max err {err}")
+            cols = b * aprobe.NH * (s_len * nkv if stage == "matmul" else s_len)
+            flops = 0 if stage in ("dma", "dequant") else 4 * hd * cols
+            b_ms, b_by = bound(nbytes, flops, peaks)
+            row["variants"][label] = dict(max_abs_err=err, plain_ms=cuda_ms(plain, reps=3, flush=flush),
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"  probe_attention {label}: max_abs_err={err:.3e} bound_ms={b_ms:.4f} ({b_by}) "
+                f"plain_ms={row['variants'][label]['plain_ms']:.4f}")
+    kd = torch.randn((b, nkv, s_len, hd), device="cuda")
+    vd = torch.randn_like(kd)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(b, nkv, 1, hd), kd, vd), flush=flush)
+    for dot in aprobe.DOTS["quant"]:
+        row["variants"][f"quant/{dot}"]["library_ms"] = library_ms
+    k4 = lambda: packed_attention_decode_batch_cuda(
+        q, kc, ks, vc, vs, pos, aprobe.BSK, aprobe.BSV, nkv=nkv, rep=aprobe.REP,
+        prob_q=aprobe.PROB_Q)
+    got, want = aprobe.attention_probe(*inputs, "quant"), k4()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=2e-4, atol=2e-5), f"quant/f32 vs K4: max err {err}")
+    row["beside_ms"] = {"quant/f32": cuda_ms(lambda: aprobe.attention_probe(*inputs, "quant"),
+                                             flush=flush), "K4": cuda_ms(k4, flush=flush)}
+    log(f"  probe_attention quant/f32 == K4 (max abs err {err:.3e}); ms "
+        + ", ".join(f"{key} {t:.4f}" for key, t in row["beside_ms"].items()))
+    return row
+
+
+def run_probes(peaks, flush):
+    """Phase 7: the probe kernels against their plain versions and their
+    production kernels, then the two probe entry points, each with the
+    launch counters set to 0 before it and read after it. -> (probe rows,
+    launch counts by probe path)."""
+    from llm_mixed_q_torch.tools import aprobe, ksub
+
+    log("probe kernels vs plain versions and vs their production kernels:")
+    rows = check_subbyte_probes(peaks, flush)
+    rows["probe_attention"] = check_attention_probe(peaks, flush)
+
+    counts = {}
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    ktimes = ksub.run(ksub.SHAPES, reps=3, log=log)
+    torch.cuda.synchronize()
+    counts["ksub"] = all_launch_counts()
+    reset_all_launch_counts()
+    atimes = aprobe.run(32, 256, reps=3, log=log)
+    torch.cuda.synchronize()
+    counts["aprobe"] = all_launch_counts()
+    check_path_counts(counts)
+
+    for name, layout in (("probe_subbyte_t", "transposed"), ("probe_subbyte", "lane_major")):
+        for v, rv in rows[name]["variants"].items():
+            rv["ms"] = sum(t[layout][v] for t in ktimes.values())
+            by_bytes = rv["bound_bytes_ms"] >= rv["bound_ops_ms"]
+            rv["bound_ms"] = max(rv.pop("bound_bytes_ms"), rv.pop("bound_ops_ms"))
+            rv["bound_by"] = "bytes" if by_bytes else "operations"
+        rows[name]["beside_ms"]["production with actq, ksub run"] = sum(
+            t[layout]["production"] for t in ktimes.values())
+    for label, rv in rows["probe_attention"]["variants"].items():
+        rv["ms"] = atimes[label]
+    rows["probe_attention"]["beside_ms"]["K4, aprobe run"] = atimes["K4"]
+    for name, row in rows.items():
+        head = row["variants"]["quant/f32" if name == "probe_attention" else "ship"]
+        row.update({key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")})
+        row["max_abs_err"] = max(rv["max_abs_err"] for rv in row["variants"].values())
+    return rows, counts
+
+
+def kernel_entries(rows, path_counts):
+    """The entries of the ``{"kernels": ...}`` line. launches: the sum over
+    the runs that take the kernel (serving paths for K1-K5, the probe
+    entry points for the probes), each counted from 0 around its own run."""
+    matmul_cu = "llm_mixed_q_torch/csrc/dequant_matmul.cu"
+    attention_cu = "llm_mixed_q_torch/csrc/attention_decode.cu"
+    sources = {"bfp_matmul_subbyte_t": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:349"),
+               "bfp_matmul_int8": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:118"),
+               "bfp_matmul_subbyte": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:221"),
+               "attn_decode_pos_major": (attention_cu,
+                                         "llm_mixed_q_tpu/kernels/attention_decode.py:190"),
+               "attn_decode_head_major": (attention_cu,
+                                          "llm_mixed_q_tpu/kernels/attention_decode.py:352"),
+               **PROBE_SOURCES}
+    kernels = []
+    for kname, r in rows.items():
+        src, replaces = sources[kname]
+        if kname in PROBE_SOURCES:  # every run's count: 0 on the serving paths
+            by_path = {p: c[kname] for p, c in path_counts.items()}
+            launches = sum(c for p, c in by_path.items() if p in PROBE_PATHS)
+        else:
+            by_path = {p: path_counts[p][kname] for p, names in PATHS.items() if kname in names}
+            launches = sum(by_path.values())
+        extra = {key: r[key] for key in (
+            "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
+            "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms") if key in r}
+        kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
+                            path=", ".join(p for p, c in by_path.items() if c), launches=launches,
+                            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))
+    return kernels
+
+def main(k1_only=False, probes_only=False):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -603,6 +822,7 @@ def main(k1_only=False):
               "from a checkout of the repository", file=sys.stderr)
         sys.exit(2)
     from llm_mixed_q_torch.kernels import _cuda
+    from llm_mixed_q_torch.tools.timing import card_peaks
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -615,25 +835,35 @@ def main(k1_only=False):
     log(f"nvidia-smi name, power limit: {smi}")
 
     t0 = time.perf_counter()
-    _cuda.lib()
-    built = (f"built here, nvcc {_cuda.BUILD_SECONDS:.1f} s" if _cuda.BUILD_SECONDS
-             else "library already built from these sources")
-    log(f"kernels: {time.perf_counter() - t0:.1f} s ({built})")
-    for line in _cuda.build_log().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-    hmma = count_sass(_cuda.build(), "subbyte_t_kernel", "HMMA")
-    log(f"HMMA instructions in K1's SASS: {hmma}")
+    libs = dict(zip(("kernels", "probes"), _cuda.build_all(("kernels", "probes"))))
+    for lib_name in libs:
+        _cuda.lib(lib_name)
+        secs = _cuda.BUILD_SECONDS.get(lib_name)
+        built = (f"built here, nvcc {secs:.1f} s" if secs
+                 else "library already built from these sources")
+        log(f"{lib_name} library: {built}")
+        for line in _cuda.build_log(lib_name).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"both libraries built and loaded in {time.perf_counter() - t0:.1f} s")
+    hmma = {**count_sass(libs["kernels"], "subbyte_t_kernel", "HMMA"),
+            **count_sass(libs["probes"], "probe_t_kernel", "HMMA")}
+    log(f"HMMA instructions in K1's and P8's SASS: {hmma}")
 
     flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 also "
-        f"{PREFILL_M} rows):")
     if k1_only:
         # K1's times alone, for comparing two versions of it in one call
+        log(f"K1 vs its plain version at 7B decode shapes, batch {BATCH} and {PREFILL_M} rows:")
         log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte_t")))
         return
-    check(all(hmma.values()), f"K1 does not run on the tensor cores: {hmma}")
+    check(all(hmma.values()), f"K1 or P8 does not run on the tensor cores: {hmma}")
+    if probes_only:
+        rows, path_counts = run_probes(peaks, flush)
+        log(json.dumps({"kernels": kernel_entries(rows, path_counts)}))
+        return
+    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 also "
+        f"{PREFILL_M} rows):")
     rows = check_matmul_kernels(peaks, flush)
     rows.update(check_attention_kernels(peaks, flush))
     for r in rows.values():
@@ -646,34 +876,17 @@ def main(k1_only=False):
     path_counts = run_llama()
     torch.cuda.empty_cache()
     path_counts.update(run_opt())
+    torch.cuda.empty_cache()
+    probe_rows, probe_counts = run_probes(peaks, flush)
+    rows.update(probe_rows)
+    path_counts.update(probe_counts)
 
-    kernels = []
-    matmul_cu = "llm_mixed_q_torch/csrc/dequant_matmul.cu"
-    attention_cu = "llm_mixed_q_torch/csrc/attention_decode.cu"
-    sources = {"bfp_matmul_subbyte_t": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:349"),
-               "bfp_matmul_int8": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:118"),
-               "bfp_matmul_subbyte": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:221"),
-               "attn_decode_pos_major": (attention_cu,
-                                         "llm_mixed_q_tpu/kernels/attention_decode.py:190"),
-               "attn_decode_head_major": (attention_cu,
-                                          "llm_mixed_q_tpu/kernels/attention_decode.py:352")}
-    for kname, r in rows.items():
-        src, replaces = sources[kname]
-        # launches: the sum over the main paths that take the kernel, each
-        # counted from 0 around its own run (K1 serves Llama and OPT)
-        by_path = {p: path_counts[p][kname] for p, names in PATHS.items() if kname in names}
-        extra = {key: r[key] for key in (
-            "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
-            "opt_mlp_ms", "opt_mlp_prefill_ms") if key in r}
-        kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
-                            path=", ".join(by_path), launches=sum(by_path.values()),
-                            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))
     log("(matmul rows: sums over one Llama-2-7B layer's four projections at batch "
         "8, opt_mlp_ms: OPT-6.7B fc1 and fc2 at batch 8; attention rows: one call "
-        "at batch 8, 32 heads)")
-    print(json.dumps({"kernels": kernels}), flush=True)
+        "at batch 8, 32 heads; probe rows: P8/P9 sums over the four projections "
+        "at M = 8, ms of ship, P11 one call at b = 32, S = 256, ms of quant/f32; "
+        "every variant under variants)")
+    print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -681,4 +894,4 @@ def main(k1_only=False):
 
 
 if __name__ == "__main__":
-    main(k1_only="--k1-only" in sys.argv[1:])
+    main(k1_only="--k1-only" in sys.argv[1:], probes_only="--probes-only" in sys.argv[1:])

@@ -1,11 +1,15 @@
 """Build and load the Hopper kernels.
 
 The CUDA C++ sources under ``llm_mixed_q_torch/csrc/`` have a plain C
-interface. At first use they are compiled for ``sm_90a`` with ``nvcc``
-(one process per source, all started together) and linked into one shared
-library, which is loaded with ``ctypes``. The library lands in
-``build/kernels/<hash of sources and flags>/`` at the repository root, so
-an edited source is rebuilt and an unchanged one is not. The kernels are
+interface. They form two source sets, each linked into a shared library of
+its own: ``kernels`` (``csrc/*.cu``, the serving kernels) and ``probes``
+(``csrc/probes/*.cu``, the stage knock-outs of ``llm_mixed_q_torch.tools``),
+so the probes add nothing to the serving library's build time. At first
+use a set is compiled for ``sm_90a`` with ``nvcc`` (one process per
+source, all started together), linked and loaded with ``ctypes``. The
+library lands in ``build/kernels/<hash of sources and flags>/`` at the
+repository root, so an edited source is rebuilt and an unchanged one is
+not; ``build_all`` builds several sets at once. The kernels are
 built from a checkout of the repository: an installed copy of the package
 carries no sources and raises when a kernel is first asked for.
 
@@ -21,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -35,23 +40,35 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (pointers and the stream are
-# c_void_p, so ctypes never cuts a 64-bit address)
+# c_void_p, so ctypes never cuts a 64-bit address), by source set
 _SIGNATURES = {
-    # x, words, scales, y, M, N, K, k_pad, width, bs, aq_on, aq_bs,
-    # aq_width, aq_emin, aq_emax, stream
-    "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-    "lmq_bfp_matmul_subbyte": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-    # x, codes, scales, y, M, N, K, k_pad, bs, aq_on, aq_bs, aq_width,
-    # aq_emin, aq_emax, stream
-    "lmq_bfp_matmul_int8": [_P, _P, _P, _P] + [_I] * 10 + [_P],
-    # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
-    # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
-    "lmq_attn_decode_pos_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
-    "lmq_attn_decode_head_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    "kernels": {
+        # x, words, scales, y, M, N, K, k_pad, width, bs, aq_on, aq_bs,
+        # aq_width, aq_emin, aq_emax, stream
+        "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+        "lmq_bfp_matmul_subbyte": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+        # x, codes, scales, y, M, N, K, k_pad, bs, aq_on, aq_bs, aq_width,
+        # aq_emin, aq_emax, stream
+        "lmq_bfp_matmul_int8": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+        # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
+        # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
+        "lmq_attn_decode_pos_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+        "lmq_attn_decode_head_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    },
+    "probes": {
+        # x, words, scales, y, M, N, Kx, k_pad, width, bs, layout, variant,
+        # stream
+        "lmq_probe_subbyte": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
+        # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stage, bf16,
+        # stream
+        "lmq_probe_attention": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
+    },
 }
+_SOURCE_DIRS = {"kernels": CSRC, "probes": CSRC / "probes"}
 
-_LIB = None
-BUILD_SECONDS = None  # wall time of the build, when this process built
+_LIBS = {}
+BUILD_SECONDS = {}  # source set -> wall time of its build, when this process built it
 
 
 def _nvcc() -> str:
@@ -62,8 +79,12 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _build_dir() -> Path:
-    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _build_dir(name: str) -> Path:
+    src_dir = _SOURCE_DIRS[name]
+    # a set's own sources and the shared headers of csrc/
+    sources = sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
+    if src_dir != CSRC:
+        sources += sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())
@@ -71,18 +92,18 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every ``csrc/*.cu`` in parallel and link them into one
-    library; returns its path. Raises with nvcc's output on failure.
+def build(name: str = "kernels") -> Path:
+    """Compile every source of set ``name`` in parallel and link them into
+    one library; returns its path. Raises with nvcc's output on failure.
     Objects carry the process id and the library is renamed into place, so
     processes that build at once do not clobber each other."""
-    global BUILD_SECONDS
-    if not any(CSRC.glob("*.cu")):
+    src_dir = _SOURCE_DIRS[name]
+    if not any(src_dir.glob("*.cu")):
         raise RuntimeError(
-            f"no CUDA sources in {CSRC}: the kernels build from a checkout of "
+            f"no CUDA sources in {src_dir}: the kernels build from a checkout of "
             "the repository (run from its root)")
-    out_dir = _build_dir()
-    lib_path = out_dir / "liblmq_kernels.so"
+    out_dir = _build_dir(name)
+    lib_path = out_dir / f"liblmq_{name}.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -90,7 +111,7 @@ def build() -> Path:
     pid = os.getpid()
     t0 = time.perf_counter()
     procs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(src_dir.glob("*.cu")):
         obj = out_dir / f"{src.stem}.{pid}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((cmd, obj, subprocess.Popen(
@@ -102,7 +123,7 @@ def build() -> Path:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
         objs.append(str(obj))
-    tmp = out_dir / f"liblmq_kernels.{pid}.so"
+    tmp = out_dir / f"liblmq_{name}.{pid}.so"
     cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
            "-o", str(tmp), *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -112,35 +133,42 @@ def build() -> Path:
     os.replace(tmp, lib_path)
     for obj in objs:
         os.remove(obj)
-    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     return lib_path
 
 
-def build_log() -> str:
+def build_all(names=tuple(_SOURCE_DIRS)) -> list[Path]:
+    """Build several source sets at once (every nvcc of every set starts
+    together); returns their library paths."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
+
+
+def build_log(name: str = "kernels") -> str:
     """nvcc's output of the build in use (ptxas registers, shared memory,
     spills of every kernel)."""
-    log = _build_dir() / "nvcc.log"
+    log = _build_dir(name) / "nvcc.log"
     return log.read_text() if log.exists() else ""
 
 
-def lib():
-    """The loaded kernel library (built at first use)."""
-    global _LIB
-    if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
+def lib(name: str = "kernels"):
+    """The loaded library of source set ``name`` (built at first use)."""
+    if name not in _LIBS:
+        handle = ctypes.CDLL(str(build(name)))
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(handle, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         handle.lmq_error_string.argtypes = [ctypes.c_int]
         handle.lmq_error_string.restype = ctypes.c_char_p
-        _LIB = handle
-    return _LIB
+        _LIBS[name] = handle
+    return _LIBS[name]
 
 
 def check(rc: int, name: str):
     if rc != 0:
-        msg = _LIB.lmq_error_string(rc).decode() if _LIB is not None else ""
+        any_lib = next(iter(_LIBS.values()), None)
+        msg = any_lib.lmq_error_string(rc).decode() if any_lib is not None else ""
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 

@@ -9,9 +9,9 @@ head_dim**-0.5 BEFORE the bmm_0 quantizer; bmm_0 / bmm_1 on rank-3
 path); additive mask clamped at finfo(float32).min; float32 softmax;
 pre- or post-LN per ``do_layer_norm_before``; optional project_in/out.
 
-``ACT2FN["gelu"]`` is the exact (erf) GELU, as the reference's
-transformers mapping has it; the JAX package maps "gelu" to
-``jax.nn.gelu``, whose default is the tanh approximation.
+``ACT2FN["gelu"]`` is the tanh approximation, as the JAX package's
+``jax.nn.gelu`` default has it (the reference's transformers mapping uses
+the exact erf GELU there; the port follows the JAX package).
 
 Not ported yet: the sequence-classification and question-answering heads.
 """
@@ -34,7 +34,7 @@ _BYPASS = {"bypass": True, "name": "integer"}
 
 ACT2FN = {
     "relu": F.relu,
-    "gelu": F.gelu,
+    "gelu": partial(F.gelu, approximate="tanh"),
     "silu": F.silu,
     "gelu_new": partial(F.gelu, approximate="tanh"),
 }

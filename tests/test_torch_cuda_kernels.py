@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 at edge shapes the serving path does not reach: ragged M, N and K, every
 sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
-of the cache.
+of the cache. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
+too: N not a multiple of 32, K not a multiple of the tile, a cache of one
+position.
 
 Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
 JAX, so it runs on a GPU host without it:
@@ -11,7 +13,10 @@ JAX, so it runs on a GPU host without it:
 Tolerances are the JAX package's own: 1e-4 of max|y| for the matmuls
 (float32 sums in another order: K1 sums bf16-exact products on the tensor
 cores), rtol 2e-4 / atol 2e-5 for decode attention; and a row's matmul
-result is bit-exact whatever M."""
+result is bit-exact whatever M. The attention probe's matmul stage, a dense
+sum over every lane of the cache, is held relative to max|ctx|: 1e-4 with
+float32 dots, 1e-3 with bf16 dots (a score whose float32 sum lands on the
+other side of a bf16 rounding point moves by one bf16 step)."""
 
 import pytest
 import torch
@@ -20,6 +25,8 @@ from llm_mixed_q_torch import kernels as tk
 from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.kernels import dequant_matmul as dm
 from llm_mixed_q_torch.kernels import packing as tp
+from llm_mixed_q_torch.tools import aprobe as tap
+from llm_mixed_q_torch.tools import ksub as tks
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +239,71 @@ def test_launch_counts_reset(dev):
     assert sum(counts.values()) == 1
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
+
+
+# every per_word instance of the transposed probe (widths 2..8), block
+# sizes 4..32, N off the 32-column block, K off the packing tile
+PROBE_MATMUL_CASES = [  # m, n, k, width, bs
+    (8, 100, 700, 6, 16), (3, 33, 1100, 4, 8), (17, 300, 640, 5, 32),
+    (8, 48, 4096, 2, 16), (1, 64, 1000, 8, 16), (9, 40, 1300, 3, 16), (8, 70, 900, 7, 4),
+]
+
+
+@pytest.mark.parametrize("layout", ["transposed", "lane_major"])
+@pytest.mark.parametrize("variant", tks.VARIANTS)
+@pytest.mark.parametrize("m,n,k,width,bs", PROBE_MATMUL_CASES)
+def test_subbyte_probe_matches_plain(dev, layout, variant, m, n, k, width, bs):
+    packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    if layout == "transposed":
+        packed = tp.transpose_subbyte(packed)
+    k_pad = dm._k_padded(packed)
+    x = torch.randn((m, k_pad), generator=torch.Generator().manual_seed(m)).to(dev)
+    for kx in (k_pad, k):  # x over K_pad, as ksub; x of K columns, as K1 and K3 take it
+        xs = x[:, :kx].contiguous()
+        before = tks.subbyte_probe.launches[layout]
+        got = tks.subbyte_probe(xs, packed, variant)
+        assert tks.subbyte_probe.launches[layout] == before + 1
+        _close_rel(got, tks.subbyte_probe_plain(xs, packed, variant))
+
+
+@pytest.mark.parametrize("layout", ["transposed", "lane_major"])
+def test_subbyte_probe_ship_is_the_production_kernel(dev, layout):
+    """On bf16 x with no activation quantizer, ship computes what K1 (K3)
+    computes."""
+    packed = tp.pack_block_fp_subbyte(_weight(100, 1100, 0).to(dev), 6, 8, None, [1, 16])
+    prod = dm.bfp_matmul_subbyte_cuda
+    if layout == "transposed":
+        packed, prod = tp.transpose_subbyte(packed), dm.bfp_matmul_subbyte_t_cuda
+    x = torch.randn((8, 1100), generator=torch.Generator().manual_seed(0)).to(dev)
+    x = x.to(torch.bfloat16).float()
+    _close_rel(tks.subbyte_probe(x, packed, "ship"), prod(x, packed, None))
+
+
+PROBE_ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs, positions
+    (2, 4, 1, 128, 1, 16, [0, 0]),
+    (3, 2, 2, 64, 37, 16, [36, 0, 20]),
+    (2, 1, 8, 128, 48, 32, [47, 9]),
+    (1, 32, 1, 128, 256, 16, [255]),
+]
+
+
+@pytest.mark.parametrize("stage,dot", [(s, d) for s in tap.STAGES for d in tap.DOTS[s]])
+@pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs,positions", PROBE_ATTN_CASES)
+def test_attention_probe_matches_plain(dev, stage, dot, b, nkv, rep, hd, s_len, bs, positions):
+    cache = _cache(b, nkv, s_len, hd, bs, bs, True, dev, seed=s_len)
+    # q quantized as serving quantizes it: the scores are then exact in
+    # float32 whatever the order of their sums (as in the K4/K5 test above)
+    q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(1)))
+    q = q.reshape(b, nkv * rep, hd).to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32).to(dev)
+    args = (q, *cache, pos, stage, dot, bs, bs, nkv, rep, (16, 6, 8, None))
+    before = tap.attention_probe.launches
+    got = tap.attention_probe(*args)
+    assert tap.attention_probe.launches == before + 1
+    want = tap.attention_probe_plain(*args)
+    if stage in ("dma", "dequant"):
+        assert torch.equal(got, q)
+    elif stage == "matmul":
+        _close_rel(got, want, 1e-4 if dot == "f32" else 1e-3)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)

@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
-import, it imports (chip_smoke.py included) and runs Llama and OPT
-generation on the CPU."""
+import, it imports (chip_smoke.py and the probes of
+``llm_mixed_q_torch.tools`` included) and runs Llama and OPT generation and
+the two probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -53,6 +54,13 @@ assert logits.shape == (1, 3, 64) and bool(torch.isfinite(logits).all())
 out = opt_generate(opt_params, opt_config, np.array([[3, 4, 5]]), max_new_tokens=2,
                    device="cpu")
 assert out.shape == (1, 2)
+from llm_mixed_q_torch.tools import aprobe, ksub
+
+assert "llm_mixed_q_torch.tools.timing" in sys.modules
+res = ksub.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
+assert set(res["tiny"]["transposed"]) == set(ksub.LADDER) | {"production"}
+res = aprobe.run(batch=1, s_len=4, device="cpu", log=lambda *a: None)
+assert "quant/bf16" in res and "K4" in res
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")
 '''

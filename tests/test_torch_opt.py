@@ -142,14 +142,14 @@ def test_opt_params_from_flat_matches_jax():
 
 
 def test_gelu_is_exact_where_jax_approximates():
-    """"gelu" is the exact GELU in the port (the reference's mapping); the
-    JAX package's jax.nn.gelu defaults to the tanh approximation. gelu_new
-    (tanh) agrees."""
+    """"gelu" follows the JAX package: jax.nn.gelu, whose default is the
+    tanh approximation (the reference's transformers mapping is the exact
+    erf GELU; the JAX package departs from it there). gelu_new (tanh)
+    agrees too."""
     x = np.linspace(-4, 4, 101, dtype=np.float32)
-    exact = ACT2FN["gelu"](torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(exact, np.asarray(jax.nn.gelu(x, approximate=False)),
-                               rtol=1e-6, atol=1e-6)
-    assert np.abs(exact - np.asarray(JAX_ACT2FN["gelu"](x))).max() > 1e-4
+    got = ACT2FN["gelu"](torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(JAX_ACT2FN["gelu"](x)), rtol=1e-6, atol=1e-6)
+    assert np.abs(got - np.asarray(jax.nn.gelu(x, approximate=False))).max() > 1e-4
     np.testing.assert_allclose(ACT2FN["gelu_new"](torch.from_numpy(x)).numpy(),
                                np.asarray(JAX_ACT2FN["gelu_new"](x)), rtol=1e-6, atol=1e-6)
 
