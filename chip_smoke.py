@@ -36,15 +36,19 @@
    plain path;
 7. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
    (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
-   at the four Llama-2-7B projection shapes; P11, decode attention's
-   knock-outs, at the probe's b = 32, S = 256) against its plain version,
-   and each probe's copy of its production kernel against that kernel
-   (transposed ship == K1 and lane-major ship == K3 on bf16 x with no
-   activation quantizer, the quant stage with float32 dots == K4), then
-   drives the two probe entry points (``ksub.run``, ``aprobe.run``) with
-   the launch counters set to 0 before each and read after it. The probe
-   rows' ``ms`` come from those runs; every serving path above launches
-   no probe.
+   P1 and P3, its dequant-arithmetic and scale-storage variants in both
+   layouts, and P2, bf16 and float32 scales for the int8 matmul, at the
+   four Llama-2-7B projection shapes; P11, decode attention's knock-outs,
+   at the probe's b = 32, S = 256) against its plain version, and each
+   probe's copy of its production kernel against that kernel on bf16 x
+   with no activation quantizer (transposed ship, v2 and v4 == K1;
+   lane-major ship, v2 and v4 == K3; P2 with either scale type == K2; v3
+   within 1e-5 of max|y|; the quant stage with float32 dots == K4), then
+   drives the four probe
+   entry points (``ksub.run``, ``kvariants.run``, ``kvariants2.run``,
+   ``aprobe.run``) with the launch counters set to 0 before each and read
+   after it. The probe rows' ``ms`` come from those runs; every serving
+   path above launches no probe.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
@@ -377,13 +381,29 @@ PATHS = {
 # they print beside it
 PROBE_PATHS = {
     "ksub": ("probe_subbyte_t", "probe_subbyte", "bfp_matmul_subbyte_t", "bfp_matmul_subbyte"),
+    "kvariants": ("probe_matmul_variant_t", "probe_matmul_variant", "bfp_matmul_subbyte_t",
+                  "bfp_matmul_subbyte"),
+    "kvariants2": ("probe_sub_variant_t", "probe_sub_variant", "probe_int8_variant",
+                   "bfp_matmul_subbyte_t", "bfp_matmul_subbyte", "bfp_matmul_int8"),
     "aprobe": ("probe_attention", "attn_decode_pos_major"),
 }
+_VARIANT_CU = "llm_mixed_q_torch/csrc/probes/variant_probe.cu"
 PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
     "probe_subbyte_t": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:225"),
     "probe_subbyte": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:270"),
+    "probe_matmul_variant_t": (_VARIANT_CU, "tools/kvariants.py:130"),
+    "probe_matmul_variant": (_VARIANT_CU, "tools/kvariants.py:130"),
+    "probe_sub_variant_t": (_VARIANT_CU, "tools/kvariants2.py:170"),
+    "probe_sub_variant": (_VARIANT_CU, "tools/kvariants2.py:170"),
+    "probe_int8_variant": ("llm_mixed_q_torch/csrc/probes/int8_probe.cu", "tools/kvariants2.py:90"),
     "probe_attention": ("llm_mixed_q_torch/csrc/probes/attention_probe.cu", "tools/aprobe.py:122"),
 }
+# the variant whose numbers stand in a probe's row (every variant is under
+# "variants")
+PROBE_HEADS = {"probe_subbyte_t": "ship", "probe_subbyte": "ship",
+               "probe_matmul_variant_t": "v2", "probe_matmul_variant": "v2",
+               "probe_sub_variant_t": "v4_bf16s", "probe_sub_variant": "v4_bf16s",
+               "probe_int8_variant": "int8_bf16s", "probe_attention": "quant/f32"}
 
 
 def check_path_counts(path_counts):
@@ -737,44 +757,136 @@ def check_attention_probe(peaks, flush):
     return row
 
 
+def check_variant_probes(peaks, flush):
+    """P1 (v2, v3) and P3 (v4_f32s, v4_bf16s) in K1's and K3's layouts, and
+    P2 (int8_f32s, int8_bf16s), at the four Llama-2-7B projection shapes,
+    M = 8: every variant against its plain version (1e-4 of max|y|: float32
+    sums in another order, v3's correction cancelling against a sum that
+    grows with K), its plain time and bounds (the scales at their stored
+    size: 1, 2 or 4 bytes a block; operations at the peak of the units the
+    copy runs on), one bf16 matmul on the pre-dequantized weight as every
+    variant's yardstick (each computes x . W); then faithfulness on bf16 x
+    without activation quantizer: v2 and v4 equal K1/K3 and P2 equals K2 to
+    max abs error 0, v3 is within 1e-5 of max|y|; the production kernels
+    timed beside them. -> {probe: row}, sums over the four shapes."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import (
+        _k_padded, bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
+    from llm_mixed_q_torch.kernels.packing import (
+        pack_block_fp, pack_block_fp_subbyte, transpose_subbyte, unpack)
+    from llm_mixed_q_torch.tools import ksub
+    from llm_mixed_q_torch.tools import kvariants as kv
+    from llm_mixed_q_torch.tools import kvariants2 as kv2
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    sub = {v: (kv2.sub_variant, kv2.sub_variant_plain, dt) for dt, v in kv2.SUB_VARIANTS.items()}
+    mm = {v: (kv.matmul_variant, kv.matmul_variant_plain, v) for v in kv.VARIANTS}
+    probes = {}  # name: (format, production kernel, its name, op peak, {variant: (fn, plain, arg)})
+    for suffix, fmt, prod, pname, op_peak in (
+            ("_t", "transposed", bfp_matmul_subbyte_t_cuda, "K1", peaks[2]),
+            ("", "lane_major", bfp_matmul_subbyte_cuda, "K3", peaks[1])):
+        probes["probe_matmul_variant" + suffix] = (fmt, prod, pname, op_peak, mm)
+        probes["probe_sub_variant" + suffix] = (fmt, prod, pname, op_peak, sub)
+    probes["probe_int8_variant"] = ("int8", bfp_matmul_cuda, "K2", peaks[1], {
+        v: (kv2.int8_variant, kv2.int8_variant_plain, dt) for dt, v in kv2.INT8_VARIANTS.items()})
+    rows = {name: {"variants": {v: {"max_abs_err": 0.0} for v in spec[4]}, "beside_ms": {}}
+            for name, spec in probes.items()}
+    for sname, (n, k) in ksub.SHAPES.items():
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        lane_major = pack_block_fp_subbyte(w, ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
+        packs = {"lane_major": lane_major, "transposed": transpose_subbyte(lane_major),
+                 "int8": pack_block_fp(w, ksub.WIDTH, 8, 127, [1, ksub.BLOCK])}
+        del w
+        x = torch.randn((ksub.M, k), generator=gen, device="cuda")
+        x_bf, x16 = x.to(torch.bfloat16).float(), x.to(torch.bfloat16)
+        library, prod_ms = {}, {}
+        for fmt in ("lane_major", "int8"):
+            w_bf16 = unpack(packs[fmt], torch.bfloat16)
+            library[fmt] = cuda_ms(lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
+            del w_bf16
+        for name, (fmt, prod, pname, op_peak, variants) in probes.items():
+            packed, row = packs[fmt], rows[name]
+            k_pad = packed.codes.shape[1] if fmt == "int8" else _k_padded(packed)
+            want = prod(x_bf, packed, None)
+            for v, (fn, plain, arg) in variants.items():
+                rv = row["variants"][v]
+                # P3's and P2's scales stored as the kernel reads them, outside the timed calls
+                op = packed if fn is kv.matmul_variant else kv2.stored_scales(packed, arg)
+                err = _close_to_max(fn(x, op, arg), plain(x, op, arg), 1e-4, f"{name} {v} {sname}")
+                rv["max_abs_err"] = max(rv["max_abs_err"], err)
+                _add(rv, "plain_ms", cuda_ms(lambda: plain(x, op, arg), reps=3, flush=flush))
+                _add(rv, "library_ms", library["int8" if fmt == "int8" else "lane_major"])
+                nbytes = kv2.stored_nbytes(op) + 4 * ksub.M * (k + n)
+                flops = 2 * ksub.M * n * k_pad
+                if v == "v3":  # the block sums and the correction
+                    flops += ksub.M * k_pad + 2 * ksub.M * n * (k_pad // packed.block_size)
+                _add(rv, "bound_bytes_ms", nbytes / peaks[0] * 1e3)
+                _add(rv, "bound_ops_ms", flops / op_peak * 1e3)
+                got = fn(x_bf, op, arg)
+                if v == "v3":
+                    err = _close_to_max(got, want, 1e-5, f"{name} v3 vs {pname} {sname}")
+                else:
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    check(err == 0.0, f"{name} {v} vs {pname} {sname}: max abs err {err}")
+                log(f"  {name} {sname} N={n} K={k}: {v} vs {pname} without actq on bf16 x: "
+                    f"max abs err {err:.3e}; plain version {rv['max_abs_err']:.3e} so far")
+            if (fmt, sname) not in prod_ms:
+                prod_ms[fmt, sname] = cuda_ms(lambda: prod(x_bf, packed, None), flush=flush)
+            _add(row["beside_ms"], pname, prod_ms[fmt, sname])
+        del packs, lane_major
+    return rows
+
+
 def run_probes(peaks, flush):
     """Phase 7: the probe kernels against their plain versions and their
-    production kernels, then the two probe entry points, each with the
+    production kernels, then the four probe entry points, each with the
     launch counters set to 0 before it and read after it. -> (probe rows,
     launch counts by probe path)."""
-    from llm_mixed_q_torch.tools import aprobe, ksub
+    from llm_mixed_q_torch.tools import aprobe, ksub, kvariants, kvariants2
 
     log("probe kernels vs plain versions and vs their production kernels:")
     rows = check_subbyte_probes(peaks, flush)
+    rows.update(check_variant_probes(peaks, flush))
     rows["probe_attention"] = check_attention_probe(peaks, flush)
 
-    counts = {}
-    reset_all_launch_counts()
-    torch.cuda.synchronize()
-    ktimes = ksub.run(ksub.SHAPES, reps=3, log=log)
-    torch.cuda.synchronize()
-    counts["ksub"] = all_launch_counts()
-    reset_all_launch_counts()
-    atimes = aprobe.run(32, 256, reps=3, log=log)
-    torch.cuda.synchronize()
-    counts["aprobe"] = all_launch_counts()
+    counts, times = {}, {}
+    for path, run in (("ksub", lambda: ksub.run(ksub.SHAPES, reps=3, log=log)),
+                      ("kvariants", lambda: kvariants.run(ksub.SHAPES, reps=3, log=log)),
+                      ("kvariants2", lambda: kvariants2.run(ksub.SHAPES, reps=3, log=log)),
+                      ("aprobe", lambda: aprobe.run(32, 256, reps=3, log=log))):
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        times[path] = run()
+        torch.cuda.synchronize()
+        counts[path] = all_launch_counts()
     check_path_counts(counts)
 
-    for name, layout in (("probe_subbyte_t", "transposed"), ("probe_subbyte", "lane_major")):
+    # ms of each (probe, variant): sums over the four shapes of the entry
+    # points' chains; production: the kernel the entry point prints beside it
+    sources = {"probe_subbyte_t": ("ksub", "transposed"), "probe_subbyte": ("ksub", "lane_major"),
+               "probe_matmul_variant_t": ("kvariants", "transposed"),
+               "probe_matmul_variant": ("kvariants", "lane_major"),
+               "probe_sub_variant_t": ("kvariants2", "transposed"),
+               "probe_sub_variant": ("kvariants2", "lane_major"),
+               "probe_int8_variant": ("kvariants2", "int8")}
+    for name, (path, key) in sources.items():
         for v, rv in rows[name]["variants"].items():
-            rv["ms"] = sum(t[layout][v] for t in ktimes.values())
+            rv["ms"] = sum(t[key][v] for t in times[path].values())
             by_bytes = rv["bound_bytes_ms"] >= rv["bound_ops_ms"]
             rv["bound_ms"] = max(rv.pop("bound_bytes_ms"), rv.pop("bound_ops_ms"))
             rv["bound_by"] = "bytes" if by_bytes else "operations"
-        rows[name]["beside_ms"]["production with actq, ksub run"] = sum(
-            t[layout]["production"] for t in ktimes.values())
+        prod_key = "K2" if key == "int8" else "production"
+        label = "production with actq" if path == "ksub" else "production without actq"
+        rows[name]["beside_ms"][f"{label}, {path} run"] = sum(
+            t[key][prod_key] for t in times[path].values())
     for label, rv in rows["probe_attention"]["variants"].items():
-        rv["ms"] = atimes[label]
-    rows["probe_attention"]["beside_ms"]["K4, aprobe run"] = atimes["K4"]
+        rv["ms"] = times["aprobe"][label]
+    rows["probe_attention"]["beside_ms"]["K4, aprobe run"] = times["aprobe"]["K4"]
     for name, row in rows.items():
-        head = row["variants"]["quant/f32" if name == "probe_attention" else "ship"]
-        row.update({key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms")})
+        head = row["variants"][PROBE_HEADS[name]]
+        row.update({key: head.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")})
         row["max_abs_err"] = max(rv["max_abs_err"] for rv in row["variants"].values())
     return rows, counts
 
@@ -883,8 +995,9 @@ def main(k1_only=False, probes_only=False):
 
     log("(matmul rows: sums over one Llama-2-7B layer's four projections at batch "
         "8, opt_mlp_ms: OPT-6.7B fc1 and fc2 at batch 8; attention rows: one call "
-        "at batch 8, 32 heads; probe rows: P8/P9 sums over the four projections "
-        "at M = 8, ms of ship, P11 one call at b = 32, S = 256, ms of quant/f32; "
+        "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2 sums over the four "
+        "projections at M = 8, ms of ship (P8/P9), v2 (P1), v4_bf16s (P3), "
+        "int8_bf16s (P2), P11 one call at b = 32, S = 256, ms of quant/f32; "
         "every variant under variants)")
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)

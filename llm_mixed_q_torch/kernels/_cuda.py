@@ -59,6 +59,10 @@ _SIGNATURES = {
         # x, words, scales, y, M, N, Kx, k_pad, width, bs, layout, variant,
         # stream
         "lmq_probe_subbyte": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # the same arguments; variant: 0 v2, 1 v3, 2 v4_f32s, 3 v4_bf16s
+        "lmq_probe_variant": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # x, codes, scales, y, M, N, Kx, k_pad, bs, bf16 (scale type), stream
+        "lmq_probe_int8": [_P, _P, _P, _P] + [_I] * 6 + [_P],
         # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stage, bf16,
         # stream

@@ -75,20 +75,42 @@ def _layout(packed) -> str:
 
 
 def _lane_major_view(packed):
-    """(words int32 [N, n_tiles*128], scale bytes int32 [n_tiles, N, tile/bs])
-    of either layout."""
+    """(words int32 [N, n_tiles*128], block scales [n_tiles, N, tile/bs] in
+    their stored dtype) of either layout."""
     if isinstance(packed, PackedBFPSubT):
         nsb = packed.tile // packed.block_size
         nt = packed.scales.shape[0] // nsb
         words = packed.words.t()
-        e8 = packed.scales.reshape(nt, nsb, -1).permute(0, 2, 1)
+        scales = packed.scales.reshape(nt, nsb, -1).permute(0, 2, 1)
     else:
-        words, e8 = packed.words, packed.scales
-    return words.contiguous().view(torch.int32), e8.to(torch.int32)
+        words, scales = packed.words, packed.scales
+    return words.contiguous().view(torch.int32), scales
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
+
+
+def plain_operands(x: torch.Tensor, packed):
+    """What the sub-byte probes' plain versions start from, in either layout:
+    bf16(x) zero-padded to K_pad [M, K_pad] float32, the stored (biased)
+    fields int32 [N, K_pad] in K order, and the block scales [N, K_pad / bs]
+    in their stored dtype."""
+    words, scales = _lane_major_view(packed)
+    width = packed.width
+    per_word, n = 32 // width, words.shape[0]
+    nt = words.shape[1] // _SLICE
+    k_pad = nt * per_word * _SLICE
+    xb = _bf16(F.pad(x, (0, k_pad - x.shape[1])))
+    shifts = width * torch.arange(per_word, dtype=torch.int32, device=words.device)
+    fields = (words.reshape(n, nt, 1, _SLICE) >> shifts.reshape(1, 1, -1, 1)) & (2**width - 1)
+    return xb, fields.reshape(n, k_pad), scales.permute(1, 0, 2).reshape(n, -1)
+
+
+def probe_scale(e8: torch.Tensor) -> torch.Tensor:
+    """2^clip(e8 - 128, -126, 127) of int32 scale bytes, as ship decodes
+    them (and K3's TPU kernel)."""
+    return (((e8 - 128).clamp(-126, 127) + 127) << 23).view(torch.float32)
 
 
 def subbyte_probe_plain(x: torch.Tensor, packed, variant: str = "ship") -> torch.Tensor:
@@ -97,21 +119,16 @@ def subbyte_probe_plain(x: torch.Tensor, packed, variant: str = "ship") -> torch
     variant = SHIP_ALIASES.get(variant, variant)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    words, e8 = _lane_major_view(packed)
+    xb, fields, e8 = plain_operands(x, packed)
     width, bs = packed.width, packed.block_size
-    per_word, n = 32 // width, words.shape[0]
-    nt = words.shape[1] // _SLICE
-    k_pad = nt * per_word * _SLICE
-    xb = _bf16(F.pad(x, (0, k_pad - x.shape[1])))
     if variant == "stream":
         # the K rows of shift 0 of each tile against the raw words
-        xs = xb.reshape(-1, nt, per_word, _SLICE)[:, :, 0].reshape(-1, nt * _SLICE)
+        words = _lane_major_view(packed)[0]
+        nt = words.shape[1] // _SLICE
+        xs = xb.reshape(xb.shape[0], nt, 32 // width, _SLICE)[:, :, 0].reshape(-1, nt * _SLICE)
         return xs @ _bf16(words.float()).t()
-    shifts = (width * torch.arange(per_word, dtype=torch.int32, device=words.device))
-    fields = (words.reshape(n, nt, 1, _SLICE) >> shifts.reshape(1, 1, -1, 1)) & (2**width - 1)
-    fields = fields.reshape(n, k_pad)  # K row t*tile + j*128 + r
-    e8k = e8.permute(1, 0, 2).reshape(n, -1).repeat_interleave(bs, dim=1)  # [N, K_pad]
-    scale = (((e8k - 128).clamp(-126, 127) + 127) << 23).view(torch.float32)
+    e8k = e8.to(torch.int32).repeat_interleave(bs, dim=1)  # [N, K_pad]
+    scale = probe_scale(e8k)
     cf = (fields - (2 ** (width - 1) - 1)).float()
     if variant == "ship":
         w = cf * scale
@@ -128,6 +145,29 @@ def subbyte_probe_plain(x: torch.Tensor, packed, variant: str = "ship") -> torch
     return xb @ w.t()
 
 
+def launch_probe(entry: str, name: str, x: torch.Tensor, packed, variant_index: int):
+    """Launch the probe library's sub-byte entry point ``entry`` (the C
+    interface of ``lmq_probe_subbyte``) on x [M, Kx] f32 (Kx <= K_pad, zero
+    past Kx) -> (y [M, N] f32, the layout it launched on, or None for an
+    empty product, which launches nothing)."""
+    layout = _layout(packed)
+    k_pad = _k_padded(packed)
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous() or x.shape[1] > k_pad:
+        raise ValueError(f"{name}: x must be a contiguous [M, <= {k_pad}] float32 tensor")
+    if any(t.device != x.device or not t.is_contiguous() for t in packed[:2]):
+        raise ValueError(f"{name}: packed buffers must be contiguous on {x.device}")
+    m, n = x.shape[0], packed.out_features
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return y, None
+    rc = getattr(_cuda.lib("probes"), entry)(
+        x.data_ptr(), packed.words.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
+        m, n, x.shape[1], k_pad, packed.width, packed.block_size, LAYOUTS[layout],
+        variant_index, _cuda.stream_ptr(x))
+    _cuda.check(rc, name)
+    return y, layout
+
+
 def subbyte_probe(x: torch.Tensor, packed, variant: str = "ship") -> torch.Tensor:
     """A probe kernel (P8 for ``PackedBFPSubT``, P9 for ``PackedBFPSub``):
     x [M, Kx] f32 (Kx <= K_pad, zero past Kx) -> y [M, N] f32. Launches the
@@ -139,22 +179,9 @@ def subbyte_probe(x: torch.Tensor, packed, variant: str = "ship") -> torch.Tenso
     variant = SHIP_ALIASES.get(variant, variant)
     if variant not in VARIANTS:
         raise ValueError(f"{name}: unknown variant {variant!r}")
-    layout = _layout(packed)
-    k_pad = _k_padded(packed)
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous() or x.shape[1] > k_pad:
-        raise ValueError(f"{name}: x must be a contiguous [M, <= {k_pad}] float32 tensor")
-    if any(t.device != x.device or not t.is_contiguous() for t in packed[:2]):
-        raise ValueError(f"{name}: packed buffers must be contiguous on {x.device}")
-    m, n = x.shape[0], packed.out_features
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return y
-    rc = _cuda.lib("probes").lmq_probe_subbyte(
-        x.data_ptr(), packed.words.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
-        m, n, x.shape[1], k_pad, packed.width, packed.block_size, LAYOUTS[layout],
-        VARIANTS.index(variant), _cuda.stream_ptr(x))
-    _cuda.check(rc, name)
-    subbyte_probe.launches[layout] += 1
+    y, layout = launch_probe("lmq_probe_subbyte", name, x, packed, VARIANTS.index(variant))
+    if layout is not None:
+        subbyte_probe.launches[layout] += 1
     return y
 
 

@@ -27,6 +27,8 @@ from llm_mixed_q_torch.kernels import dequant_matmul as dm
 from llm_mixed_q_torch.kernels import packing as tp
 from llm_mixed_q_torch.tools import aprobe as tap
 from llm_mixed_q_torch.tools import ksub as tks
+from llm_mixed_q_torch.tools import kvariants as tkv
+from llm_mixed_q_torch.tools import kvariants2 as tkv2
 
 pytestmark = pytest.mark.cuda
 
@@ -307,3 +309,83 @@ def test_attention_probe_matches_plain(dev, stage, dot, b, nkv, rep, hd, s_len, 
         _close_rel(got, want, 1e-4 if dot == "f32" else 1e-3)
     else:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+# P1 (v2, v3) and P3 (v4 with float32 or bf16 scales) on both layouts, P2
+# (int8 codes, bf16 scales): M in {1, 3, 8, 9, 17}, N off the 32-column
+# block, K off the packing tile, x over K_pad and over K columns
+@pytest.mark.parametrize("layout", ["transposed", "lane_major"])
+@pytest.mark.parametrize("variant", ["v2", "v3", "v4_f32s", "v4_bf16s"])
+@pytest.mark.parametrize("m,n,k,width,bs", PROBE_MATMUL_CASES)
+def test_variant_probe_matches_plain(dev, layout, variant, m, n, k, width, bs):
+    packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    if layout == "transposed":
+        packed = tp.transpose_subbyte(packed)
+    if variant.startswith("v4"):
+        dtype = torch.float32 if variant == "v4_f32s" else torch.bfloat16
+        fn, plain, arg = tkv2.sub_variant, tkv2.sub_variant_plain, dtype
+    else:
+        fn, plain, arg = tkv.matmul_variant, tkv.matmul_variant_plain, variant
+    k_pad = dm._k_padded(packed)
+    x = torch.randn((m, k_pad), generator=torch.Generator().manual_seed(m)).to(dev)
+    for kx in (k_pad, k):
+        xs = x[:, :kx].contiguous()
+        before = fn.launches[layout]
+        got = fn(xs, packed, arg)
+        assert fn.launches[layout] == before + 1
+        _close_rel(got, plain(xs, packed, arg))
+
+
+# (3, 5, 92, 4): an odd number of bf16 scales, the last read alone
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,k,bs,k_stride", [(1, 1, 64, 4, None), (9, 100, 1100, 8, 1024),
+                                               (17, 33, 700, 16, None), (8, 300, 4096, 32, 1024),
+                                               (8, 64, 1500, 128, None), (3, 5, 92, 4, None)])
+def test_int8_variant_probe_matches_plain(dev, m, n, k, bs, k_stride, scale_dtype):
+    packed = tp.pack_block_fp(_weight(n, k, bs).to(dev), 6, 8, None, [1, bs], k_stride=k_stride)
+    k_pad = packed.codes.shape[1]
+    x = torch.randn((m, k_pad), generator=torch.Generator().manual_seed(m)).to(dev)
+    for kx in (k_pad, k):
+        xs = x[:, :kx].contiguous()
+        before = tkv2.int8_variant.launches
+        got = tkv2.int8_variant(xs, packed, scale_dtype)
+        assert tkv2.int8_variant.launches == before + 1
+        _close_rel(got, tkv2.int8_variant_plain(xs, packed, scale_dtype))
+
+
+@pytest.mark.parametrize("layout", ["transposed", "lane_major"])
+def test_variant_probes_are_the_production_kernels(dev, layout):
+    """On bf16 x with no activation quantizer, v2, v4_f32s and v4_bf16s
+    compute exactly what K1 (K3) computes, in the same order; v3 differs by
+    its correction's rounding; P2 with either scale type computes what K2
+    computes."""
+    w = _weight(100, 1100, 0).to(dev)
+    packed = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16])
+    prod = dm.bfp_matmul_subbyte_cuda
+    if layout == "transposed":
+        packed, prod = tp.transpose_subbyte(packed), dm.bfp_matmul_subbyte_t_cuda
+    x = torch.randn((8, 1100), generator=torch.Generator().manual_seed(0)).to(dev)
+    x = x.to(torch.bfloat16).float()
+    want = prod(x, packed, None)
+    for got in (tkv.matmul_variant(x, packed, "v2"), tkv2.sub_variant(x, packed, torch.float32),
+                tkv2.sub_variant(x, packed, torch.bfloat16)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    _close_rel(tkv.matmul_variant(x, packed, "v3"), want, 1e-5)
+    p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16])
+    for dt in (torch.bfloat16, torch.float32):
+        torch.testing.assert_close(tkv2.int8_variant(x, p8, dt), dm.bfp_matmul_cuda(x, p8, None),
+                                   rtol=0, atol=0)
+
+
+def test_variant_probes_raise_on_bad_operands(dev):
+    packed = tp.pack_block_fp_subbyte(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 2])
+    x = torch.randn((3, 700), device=dev)
+    with pytest.raises(ValueError, match="blocks of 4"):
+        tkv.matmul_variant(x, packed, "v2")
+    with pytest.raises(ValueError, match="blocks of 4"):
+        tkv2.sub_variant(x, packed, torch.float32)
+    packed = tp.pack_block_fp_subbyte(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    with pytest.raises(ValueError, match="uint8"):
+        tkv.matmul_variant(x, tkv2.stored_scales(packed, torch.float32), "v2")
+    with pytest.raises(ValueError, match="contiguous"):
+        tkv.matmul_variant(torch.randn((3, 2000), device=dev), packed, "v3")

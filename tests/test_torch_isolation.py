@@ -1,7 +1,7 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
 import, it imports (chip_smoke.py and the probes of
 ``llm_mixed_q_torch.tools`` included) and runs Llama and OPT generation and
-the two probe entry points on the CPU."""
+the four probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -61,6 +61,13 @@ res = ksub.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
 assert set(res["tiny"]["transposed"]) == set(ksub.LADDER) | {"production"}
 res = aprobe.run(batch=1, s_len=4, device="cpu", log=lambda *a: None)
 assert "quant/bf16" in res and "K4" in res
+from llm_mixed_q_torch.tools import kvariants, kvariants2
+
+res = kvariants.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
+assert set(res["tiny"]["lane_major"]) == {"production", "v2", "v3"}
+res = kvariants2.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
+assert set(res["tiny"]["int8"]) == {"K2", "int8_f32s", "int8_bf16s"}
+assert set(res["tiny"]["transposed"]) == {"production", "v4_f32s", "v4_bf16s"}
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")
 '''

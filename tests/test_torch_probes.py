@@ -234,8 +234,9 @@ def test_probe_wrappers_take_the_plain_version_on_the_cpu(packed, attn_inputs):
     tks.subbyte_probe(torch.from_numpy(x), tpk, "ship")
     tks.subbyte_probe(torch.from_numpy(x), tp.transpose_subbyte(tpk), "ship")
     tap.attention_probe(*attn_inputs[1], "softmax")
-    assert tools.launch_counts() == {"probe_subbyte_t": 0, "probe_subbyte": 0,
-                                     "probe_attention": 0}
+    counts = tools.launch_counts()
+    assert {"probe_subbyte_t", "probe_subbyte", "probe_attention"} <= set(counts)
+    assert set(counts.values()) == {0}
     with pytest.raises(ValueError, match="variant"):
         tks.subbyte_probe(torch.from_numpy(x), tpk, "nosuch")
     with pytest.raises(ValueError, match="stage"):
