@@ -37,18 +37,22 @@
 7. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
    (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
    P1 and P3, its dequant-arithmetic and scale-storage variants in both
-   layouts, and P2, bf16 and float32 scales for the int8 matmul, at the
-   four Llama-2-7B projection shapes; P11, decode attention's knock-outs,
-   at the probe's b = 32, S = 256) against its plain version, and each
-   probe's copy of its production kernel against that kernel on bf16 x
-   with no activation quantizer (transposed ship, v2 and v4 == K1;
-   lane-major ship, v2 and v4 == K3; P2 with either scale type == K2; v3
+   layouts, P2, bf16 and float32 scales for the int8 matmul, and the
+   tiling sweeps P4/P7 (``subbyte_tile``: K3's column tile and tiles a
+   step) and P6/P5 (``int8_tile``: K2's column tile, K a step and K bands,
+   with ``band_sum``), at the four Llama-2-7B projection shapes; P11,
+   decode attention's knock-outs, at the probe's b = 32, S = 256) against
+   its plain version, and each probe's copy of its production kernel
+   against that kernel on bf16 x with no activation quantizer (transposed
+   ship, v2 and v4 == K1; lane-major ship, v2, v4 and every
+   ``subbyte_tile`` instance == K3; P2 with either scale type and every
+   ``int8_tile`` instance without bands == K2; v3 and the band instance
    within 1e-5 of max|y|; the quant stage with float32 dots == K4), then
-   drives the four probe
-   entry points (``ksub.run``, ``kvariants.run``, ``kvariants2.run``,
-   ``aprobe.run``) with the launch counters set to 0 before each and read
-   after it. The probe rows' ``ms`` come from those runs; every serving
-   path above launches no probe.
+   drives the six probe entry points (``ksub.run``, ``kvariants.run``,
+   ``kvariants2.run``, ``aprobe.run``, ``kprobe.run``, ``ktune7b.run``)
+   with the launch counters set to 0 before each and read after it. The
+   probe rows' ``ms`` come from those runs (``band_sum``'s from a call of
+   its own); every serving path above launches no probe.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
@@ -386,8 +390,12 @@ PROBE_PATHS = {
     "kvariants2": ("probe_sub_variant_t", "probe_sub_variant", "probe_int8_variant",
                    "bfp_matmul_subbyte_t", "bfp_matmul_subbyte", "bfp_matmul_int8"),
     "aprobe": ("probe_attention", "attn_decode_pos_major"),
+    "kprobe": ("probe_subbyte_tile", "bfp_matmul_subbyte", "bfp_matmul_int8"),
+    "ktune7b": ("probe_int8_tile", "probe_band_sum", "probe_subbyte_tile", "bfp_matmul_int8",
+                "bfp_matmul_subbyte"),
 }
 _VARIANT_CU = "llm_mixed_q_torch/csrc/probes/variant_probe.cu"
+_INT8_TILE_CU = "llm_mixed_q_torch/csrc/probes/int8_tile_probe.cu"
 PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
     "probe_subbyte_t": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:225"),
     "probe_subbyte": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:270"),
@@ -397,13 +405,22 @@ PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
     "probe_sub_variant": (_VARIANT_CU, "tools/kvariants2.py:170"),
     "probe_int8_variant": ("llm_mixed_q_torch/csrc/probes/int8_probe.cu", "tools/kvariants2.py:90"),
     "probe_attention": ("llm_mixed_q_torch/csrc/probes/attention_probe.cu", "tools/aprobe.py:122"),
+    "probe_subbyte_tile": ("llm_mixed_q_torch/csrc/probes/subbyte_tile_probe.cu",
+                           "tools/kprobe.py:66"),
+    "probe_int8_tile": (_INT8_TILE_CU, "tools/ktune7b.py:100"),
+    "probe_band_sum": (_INT8_TILE_CU, "tools/ktune7b.py:84"),
 }
+# the other TPU probes a kernel's instances replace (P7: subbyte_tile's tps;
+# P5: int8_tile's bands, with band_sum)
+PROBE_ALSO_REPLACES = {"probe_subbyte_tile": ["tools/ktune7b.py:174"],
+                       "probe_int8_tile": ["tools/ktune7b.py:84"]}
 # the variant whose numbers stand in a probe's row (every variant is under
 # "variants")
 PROBE_HEADS = {"probe_subbyte_t": "ship", "probe_subbyte": "ship",
                "probe_matmul_variant_t": "v2", "probe_matmul_variant": "v2",
                "probe_sub_variant_t": "v4_bf16s", "probe_sub_variant": "v4_bf16s",
-               "probe_int8_variant": "int8_bf16s", "probe_attention": "quant/f32"}
+               "probe_int8_variant": "int8_bf16s", "probe_attention": "quant/f32",
+               "probe_subbyte_tile": "c32_t1", "probe_int8_tile": "c32_k512"}
 
 
 def check_path_counts(path_counts):
@@ -838,23 +855,125 @@ def check_variant_probes(peaks, flush):
     return rows
 
 
+def check_tile_probes(peaks, flush):
+    """P4/P7 (subbyte_tile, lane-major sub-byte) and P6/P5 (int8_tile) at the
+    four Llama-2-7B projection shapes, M = 8: every instance against its
+    plain version (1e-4 of max|y|, float32 sums in another order), the plain
+    version's time (one a shape, shared by the instances whose plain version
+    is the same product: all but the band's), bounds (the weight as stored,
+    x and y, and a band instance's workspace written and read; operations at
+    the float32 peak), one bf16 matmul on the pre-dequantized weight as the
+    yardstick; then faithfulness on bf16 x without activation quantizer:
+    every subbyte_tile instance equals K3 and every int8_tile instance
+    without bands K2 to max abs error 0, the band instance within 1e-5 of
+    max|y|. band_sum, on a workspace of the band instance's shape: equal to
+    its plain version, timed alone beside ``ws.sum(0)``. -> {probe: row},
+    sums over the four shapes."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import (
+        _k_padded, bfp_matmul_cuda, bfp_matmul_subbyte_cuda)
+    from llm_mixed_q_torch.kernels.packing import (
+        pack_block_fp, pack_block_fp_subbyte, packed_nbytes, unpack)
+    from llm_mixed_q_torch.tools import kprobe, ksub, ktune7b
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    probes = {  # name: (format, instances, kernel, plain version, production kernel, its name)
+        "probe_subbyte_tile": ("sub", kprobe.SUB_INSTANCES, kprobe.subbyte_tile,
+                               kprobe.subbyte_tile_plain, bfp_matmul_subbyte_cuda, "K3"),
+        "probe_int8_tile": ("int8", ktune7b.INT8_INSTANCES, ktune7b.int8_tile,
+                            ktune7b.int8_tile_plain, bfp_matmul_cuda, "K2"),
+    }
+    rows = {name: {"variants": {v: {"max_abs_err": 0.0, "faithful_err": 0.0}
+                                for v in spec[1]}} for name, spec in probes.items()}
+    band = {"max_abs_err": 0.0}
+    m = ksub.M
+    for sname, (n, k) in ksub.SHAPES.items():
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        packs = {"sub": pack_block_fp_subbyte(w, ksub.WIDTH, 8, 127, [1, ksub.BLOCK]),
+                 "int8": pack_block_fp(w, ksub.WIDTH, 8, 127, [1, ksub.BLOCK])}
+        del w
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        x_bf, x16 = x.to(torch.bfloat16).float(), x.to(torch.bfloat16)
+        for name, (fmt, instances, fn, plain, prod, pname) in probes.items():
+            packed = packs[fmt]
+            k_pad = packed.codes.shape[1] if fmt == "int8" else _k_padded(packed)
+            w_bf16 = unpack(packed, torch.bfloat16)
+            library = cuda_ms(lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
+            del w_bf16
+            want = prod(x_bf, packed, None)
+            plain_ms = {}
+            for v, args in instances.items():
+                rv = rows[name]["variants"][v]
+                err = _close_to_max(fn(x, packed, *args), plain(x, packed, *args), 1e-4,
+                                    f"{name} {v} {sname}")
+                rv["max_abs_err"] = max(rv["max_abs_err"], err)
+                band_k = args[2] if fmt == "int8" else None
+                if band_k not in plain_ms:
+                    plain_ms[band_k] = cuda_ms(lambda: plain(x, packed, *args), reps=3, flush=flush)
+                _add(rv, "plain_ms", plain_ms[band_k])
+                _add(rv, "library_ms", library)
+                ws_bytes = 2 * -(-k_pad // band_k) * m * n * 4 if band_k else 0
+                _add(rv, "bound_bytes_ms",
+                     (packed_nbytes(packed) + 4 * m * (k + n) + ws_bytes) / peaks[0] * 1e3)
+                _add(rv, "bound_ops_ms", 2 * m * n * k_pad / peaks[1] * 1e3)
+                got = fn(x_bf, packed, *args)
+                if band_k:
+                    err = _close_to_max(got, want, 1e-5, f"{name} {v} vs {pname} {sname}")
+                else:
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    check(err == 0.0, f"{name} {v} vs {pname} {sname}: max abs err {err}")
+                rv["faithful_err"] = max(rv["faithful_err"], err)
+            log(f"  {name} {sname} N={n} K={k}: every instance within 1e-4 of its plain version "
+                f"(max abs err {max(r['max_abs_err'] for r in rows[name]['variants'].values()):.3e}"
+                f" so far), == {pname} without actq on bf16 x (bands: "
+                f"{max(r['faithful_err'] for r in rows[name]['variants'].values()):.3e})")
+        # band_sum on a workspace of the band instance's shape
+        bands = -(-packs["int8"].codes.shape[1] // 1024)
+        ws = torch.randn((bands, m, n), generator=gen, device="cuda")
+        got = ktune7b.band_sum(ws)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ktune7b.band_sum_plain(ws)), f"band_sum {sname}: not its plain version")
+        for key, call in (("ms", lambda: ktune7b.band_sum(ws)),
+                          ("plain_ms", lambda: ktune7b.band_sum_plain(ws)),
+                          ("library_ms", lambda: ws.sum(0))):
+            _add(band, key, cuda_ms(call, flush=flush))
+        _add(band, "bound_bytes_ms", (bands + 1) * m * n * 4 / peaks[0] * 1e3)
+        _add(band, "bound_ops_ms", (bands - 1) * m * n / peaks[1] * 1e3)
+        del packs
+    rows["probe_band_sum"] = band
+    return rows
+
+
+def _bound_of(r):
+    """Set r's bound_ms and bound_by from its summed bytes and operations
+    bounds."""
+    by_bytes = r["bound_bytes_ms"] >= r["bound_ops_ms"]
+    r["bound_ms"] = max(r.pop("bound_bytes_ms"), r.pop("bound_ops_ms"))
+    r["bound_by"] = "bytes" if by_bytes else "operations"
+
+
 def run_probes(peaks, flush):
     """Phase 7: the probe kernels against their plain versions and their
-    production kernels, then the four probe entry points, each with the
+    production kernels, then the six probe entry points, each with the
     launch counters set to 0 before it and read after it. -> (probe rows,
     launch counts by probe path)."""
-    from llm_mixed_q_torch.tools import aprobe, ksub, kvariants, kvariants2
+    from llm_mixed_q_torch.tools import aprobe, kprobe, ksub, ktune7b, kvariants, kvariants2
 
+    t0 = time.perf_counter()
     log("probe kernels vs plain versions and vs their production kernels:")
     rows = check_subbyte_probes(peaks, flush)
     rows.update(check_variant_probes(peaks, flush))
     rows["probe_attention"] = check_attention_probe(peaks, flush)
+    rows.update(check_tile_probes(peaks, flush))
 
     counts, times = {}, {}
     for path, run in (("ksub", lambda: ksub.run(ksub.SHAPES, reps=3, log=log)),
                       ("kvariants", lambda: kvariants.run(ksub.SHAPES, reps=3, log=log)),
                       ("kvariants2", lambda: kvariants2.run(ksub.SHAPES, reps=3, log=log)),
-                      ("aprobe", lambda: aprobe.run(32, 256, reps=3, log=log))):
+                      ("aprobe", lambda: aprobe.run(32, 256, reps=3, log=log)),
+                      ("kprobe", lambda: kprobe.run(ksub.SHAPES, reps=3, log=log)),
+                      ("ktune7b", lambda: ktune7b.run(ksub.SHAPES, reps=3, log=log))):
         reset_all_launch_counts()
         torch.cuda.synchronize()
         times[path] = run()
@@ -873,9 +992,7 @@ def run_probes(peaks, flush):
     for name, (path, key) in sources.items():
         for v, rv in rows[name]["variants"].items():
             rv["ms"] = sum(t[key][v] for t in times[path].values())
-            by_bytes = rv["bound_bytes_ms"] >= rv["bound_ops_ms"]
-            rv["bound_ms"] = max(rv.pop("bound_bytes_ms"), rv.pop("bound_ops_ms"))
-            rv["bound_by"] = "bytes" if by_bytes else "operations"
+            _bound_of(rv)
         prod_key = "K2" if key == "int8" else "production"
         label = "production with actq" if path == "ksub" else "production without actq"
         rows[name]["beside_ms"][f"{label}, {path} run"] = sum(
@@ -883,11 +1000,38 @@ def run_probes(peaks, flush):
     for label, rv in rows["probe_attention"]["variants"].items():
         rv["ms"] = times["aprobe"][label]
     rows["probe_attention"]["beside_ms"]["K4, aprobe run"] = times["aprobe"]["K4"]
+    # the tiling probes: an instance's ms from the first entry point that
+    # runs it (P4's in kprobe, P7's and P6/P5's in ktune7b), with its steps,
+    # blocks and blocks an SM at each shape; beside: the production kernels
+    # and the yardstick in each run
+    for name, fmt, prod in (("probe_subbyte_tile", "sub", "K3"), ("probe_int8_tile", "int8", "K2")):
+        row = rows[name]
+        row["beside_ms"] = {}
+        for path in ("kprobe", "ktune7b"):
+            shapes = times[path].values()
+            for v, rv in row["variants"].items():
+                if v in next(iter(shapes))[fmt]:
+                    if "ms" in rv:
+                        row["beside_ms"][f"{v}, {path} run"] = sum(t[fmt][v] for t in shapes)
+                        continue
+                    rv["ms"] = sum(t[fmt][v] for t in shapes)
+                    rv["entry_point"] = path
+                    for key in ("steps", "blocks", "per_sm"):
+                        rv[key] = {s: t[key][v] for s, t in times[path].items()}
+            for key in (prod, prod + "_actq", "bf16"):
+                f = "bf16" if key == "bf16" else fmt
+                row["beside_ms"][f"{key}, {path} run"] = sum(t[f][key] for t in shapes)
+        for rv in row["variants"].values():
+            _bound_of(rv)
+    _bound_of(rows["probe_band_sum"])
     for name, row in rows.items():
+        if "variants" not in row:
+            continue
         head = row["variants"][PROBE_HEADS[name]]
         row.update({key: head.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms")})
         row["max_abs_err"] = max(rv["max_abs_err"] for rv in row["variants"].values())
+    log(f"phase 7 (probes) took {time.perf_counter() - t0:.1f} s")
     return rows, counts
 
 
@@ -917,6 +1061,8 @@ def kernel_entries(rows, path_counts):
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms") if key in r}
+        if kname in PROBE_ALSO_REPLACES:
+            extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
                             path=", ".join(p for p, c in by_path.items() if c), launches=launches,
                             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
@@ -995,10 +1141,11 @@ def main(k1_only=False, probes_only=False):
 
     log("(matmul rows: sums over one Llama-2-7B layer's four projections at batch "
         "8, opt_mlp_ms: OPT-6.7B fc1 and fc2 at batch 8; attention rows: one call "
-        "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2 sums over the four "
+        "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2/P4-P7 sums over the four "
         "projections at M = 8, ms of ship (P8/P9), v2 (P1), v4_bf16s (P3), "
-        "int8_bf16s (P2), P11 one call at b = 32, S = 256, ms of quant/f32; "
-        "every variant under variants)")
+        "int8_bf16s (P2), c32_t1 (P4/P7), c32_k512 (P6/P5), band_sum one call a "
+        "shape, P11 one call at b = 32, S = 256, ms of quant/f32; every variant under "
+        "variants)")
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 The CUDA C++ sources under ``llm_mixed_q_torch/csrc/`` have a plain C
 interface. They form two source sets, each linked into a shared library of
 its own: ``kernels`` (``csrc/*.cu``, the serving kernels) and ``probes``
-(``csrc/probes/*.cu``, the stage knock-outs of ``llm_mixed_q_torch.tools``),
+(``csrc/probes/*.cu``, the probe kernels of ``llm_mixed_q_torch.tools``),
 so the probes add nothing to the serving library's build time. At first
 use a set is compiled for ``sm_90a`` with ``nvcc`` (one process per
 source, all started together), linked and loaded with ``ctypes``. The
@@ -67,6 +67,16 @@ _SIGNATURES = {
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stage, bf16,
         # stream
         "lmq_probe_attention": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
+        # x, words, scales, y, M, N, Kx, k_pad, width, bs, cols, tps, stream
+        "lmq_probe_subbyte_tile": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # width, bs, cols, tps, &blocks
+        "lmq_probe_subbyte_tile_occupancy": [_I] * 4 + [_P],
+        # x, codes, scales, out, M, N, Kx, k_pad, bs, cols, kstep, band, stream
+        "lmq_probe_int8_tile": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # ws, y, bands, n, stream
+        "lmq_probe_band_sum": [_P, _P, _I, ctypes.c_int64, _P],
+        # cols, kstep, &blocks
+        "lmq_probe_int8_tile_occupancy": [_I, _I, _P],
     },
 }
 _SOURCE_DIRS = {"kernels": CSRC, "probes": CSRC / "probes"}

@@ -3,7 +3,8 @@ at edge shapes the serving path does not reach: ragged M, N and K, every
 sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
 of the cache. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
 too: N not a multiple of 32, K not a multiple of the tile, a cache of one
-position.
+position; and the tiling probes (P4-P7): N off every column tile, a short
+last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}.
 
 Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
 JAX, so it runs on a GPU host without it:
@@ -26,7 +27,9 @@ from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.kernels import dequant_matmul as dm
 from llm_mixed_q_torch.kernels import packing as tp
 from llm_mixed_q_torch.tools import aprobe as tap
+from llm_mixed_q_torch.tools import kprobe as tkp
 from llm_mixed_q_torch.tools import ksub as tks
+from llm_mixed_q_torch.tools import ktune7b as tkt
 from llm_mixed_q_torch.tools import kvariants as tkv
 from llm_mixed_q_torch.tools import kvariants2 as tkv2
 
@@ -389,3 +392,96 @@ def test_variant_probes_raise_on_bad_operands(dev):
         tkv.matmul_variant(x, tkv2.stored_scales(packed, torch.float32), "v2")
     with pytest.raises(ValueError, match="contiguous"):
         tkv.matmul_variant(torch.randn((3, 2000), device=dev), packed, "v3")
+
+
+# P4/P7 (subbyte_tile): N off every column tile, K off the packing tile, 3
+# and 7 packing tiles (a short last step at tps 2 and 4), widths 4-6
+TILE_CASES = [  # m, n, k, width, bs
+    (8, 100, 700, 6, 16), (1, 48, 1920, 6, 16), (8, 300, 4096, 6, 16), (9, 70, 1300, 4, 8),
+    (3, 33, 2600, 5, 32),
+]
+
+
+@pytest.mark.parametrize("instance", list(tkp.SUB_INSTANCES))
+@pytest.mark.parametrize("m,n,k,width,bs", TILE_CASES)
+def test_subbyte_tile_matches_plain(dev, instance, m, n, k, width, bs):
+    cols, tps = tkp.SUB_INSTANCES[instance]
+    packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    k_pad = dm._k_padded(packed)
+    x = torch.randn((m, k_pad), generator=torch.Generator().manual_seed(m)).to(dev)
+    for kx in (k_pad, k):
+        xs = x[:, :kx].contiguous()
+        before = tkp.subbyte_tile.launches
+        got = tkp.subbyte_tile(xs, packed, cols, tps)
+        assert tkp.subbyte_tile.launches == before + 1
+        _close_rel(got, tkp.subbyte_tile_plain(xs, packed, cols, tps))
+
+
+# P6/P5 (int8_tile, band_sum): K_pad 64 (one short step), 1100 off every
+# step, 2608 (bands of 1024, 1024, 560), 4096; N off every column tile
+INT8_TILE_CASES = [  # m, n, k, bs, k_stride
+    (1, 1, 64, 4, None), (9, 100, 1100, 8, 1024), (17, 33, 700, 16, None),
+    (8, 300, 4096, 32, None), (8, 64, 2600, 16, None),
+]
+
+
+@pytest.mark.parametrize("instance", list(tkt.INT8_INSTANCES))
+@pytest.mark.parametrize("m,n,k,bs,k_stride", INT8_TILE_CASES)
+def test_int8_tile_matches_plain(dev, instance, m, n, k, bs, k_stride):
+    cols, kstep, band = tkt.INT8_INSTANCES[instance]
+    packed = tp.pack_block_fp(_weight(n, k, bs).to(dev), 6, 8, None, [1, bs], k_stride=k_stride)
+    k_pad = packed.codes.shape[1]
+    x = torch.randn((m, k_pad), generator=torch.Generator().manual_seed(m)).to(dev)
+    for kx in (k_pad, k):
+        xs = x[:, :kx].contiguous()
+        before = (tkt.int8_tile.launches, tkt.band_sum.launches)
+        got = tkt.int8_tile(xs, packed, cols, kstep, band)
+        assert (tkt.int8_tile.launches, tkt.band_sum.launches) == (
+            before[0] + 1, before[1] + (band is not None))
+        _close_rel(got, tkt.int8_tile_plain(xs, packed, cols, kstep, band))
+
+
+@pytest.mark.parametrize("bands,m,n", [(1, 8, 100), (4, 8, 4096), (11, 3, 33)])
+def test_band_sum_adds_the_bands_in_order(dev, bands, m, n):
+    ws = torch.randn((bands, m, n), generator=torch.Generator().manual_seed(bands)).to(dev)
+    torch.testing.assert_close(tkt.band_sum(ws), tkt.band_sum_plain(ws), rtol=0, atol=0)
+
+
+def test_tile_probes_are_the_production_kernels(dev):
+    """On bf16 x with no activation quantizer, every subbyte_tile instance
+    computes K3's sums and every int8_tile instance without bands K2's, in
+    the same order; the band instance adds its bands' sums instead."""
+    w = _weight(300, 4096, 0).to(dev)
+    x = torch.randn((8, 4096), generator=torch.Generator().manual_seed(0)).to(dev)
+    x = x.to(torch.bfloat16).float()
+    packed = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16])
+    want = dm.bfp_matmul_subbyte_cuda(x, packed, None)
+    for cols, tps in tkp.SUB_INSTANCES.values():
+        torch.testing.assert_close(tkp.subbyte_tile(x, packed, cols, tps), want, rtol=0, atol=0)
+    p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16])
+    want = dm.bfp_matmul_cuda(x, p8, None)
+    for cols, kstep, band in tkt.INT8_INSTANCES.values():
+        got = tkt.int8_tile(x, p8, cols, kstep, band)
+        if band is None:
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        else:
+            _close_rel(got, want, 1e-5)
+
+
+def test_tile_probes_raise_on_bad_operands(dev):
+    packed = tp.pack_block_fp_subbyte(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    x = torch.randn((3, 700), device=dev)
+    with pytest.raises(ValueError, match="no subbyte_tile instance"):
+        tkp.subbyte_tile(x, packed, 24, 1)
+    with pytest.raises(TypeError, match="lane-major"):
+        tkp.subbyte_tile(x, tp.transpose_subbyte(packed), 32, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkp.subbyte_tile(torch.randn((3, 2000), device=dev), packed, 32, 1)
+    wide = tp.pack_block_fp_subbyte(_weight(40, 4096, 0).to(dev), 2, 8, None, [1, 16])
+    with pytest.raises(RuntimeError, match="CUDA error"):  # 4 tiles of width 2: > 227 KiB
+        tkp.subbyte_tile(torch.randn((3, 4096), device=dev), wide, 16, 4)
+    p8 = tp.pack_block_fp(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    with pytest.raises(ValueError, match="no int8_tile instance"):
+        tkt.int8_tile(x, p8, 32, 4096)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tkt.int8_tile(x, p8, 32, 512, band=1000)

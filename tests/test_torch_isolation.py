@@ -1,7 +1,7 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
 import, it imports (chip_smoke.py and the probes of
 ``llm_mixed_q_torch.tools`` included) and runs Llama and OPT generation and
-the four probe entry points on the CPU."""
+the six probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -68,6 +68,12 @@ assert set(res["tiny"]["lane_major"]) == {"production", "v2", "v3"}
 res = kvariants2.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
 assert set(res["tiny"]["int8"]) == {"K2", "int8_f32s", "int8_bf16s"}
 assert set(res["tiny"]["transposed"]) == {"production", "v4_f32s", "v4_bf16s"}
+from llm_mixed_q_torch.tools import kprobe, ktune7b
+
+res = kprobe.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
+assert set(res["tiny"]["sub"]) == {"c32_t1", "c16_t1", "c8_t1", "c64_t1", "K3", "K3_actq"}
+res = ktune7b.run({"tiny": (64, 1300)}, device="cpu", log=lambda *a: None)
+assert set(res["tiny"]["int8"]) == set(ktune7b.INT8_INSTANCES) | {"K2", "K2_actq"}
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")
 '''
