@@ -42,14 +42,20 @@
    step) and P6/P5 (``int8_tile``: K2's column tile, K a step and K bands,
    with ``band_sum``), at the four Llama-2-7B projection shapes; P11,
    decode attention's knock-outs, at the probe's b = 32, S = 256) against
-   its plain version, and each probe's copy of its production kernel
+   its plain version; P12 and P13, more of decode attention's knock-outs
+   and resident masks, at b = 32, S = 256 with every position filled and
+   with pos = 100 (mid-block); P10, the scale expansion, at L = 8192,
+   b = 32, its SASS showing that ``none`` keeps the scale loads), and each
+   probe's copy of its production kernel
    against that kernel on bf16 x with no activation quantizer (transposed
    ship, v2 and v4 == K1; lane-major ship, v2, v4 and every
    ``subbyte_tile`` instance == K3; P2 with either scale type and every
    ``int8_tile`` instance without bands == K2; v3 and the band instance
-   within 1e-5 of max|y|; the quant stage with float32 dots == K4), then
-   drives the six probe entry points (``ksub.run``, ``kvariants.run``,
-   ``kvariants2.run``, ``aprobe.run``, ``kprobe.run``, ``ktune7b.run``)
+   within 1e-5 of max|y|; the quant stage with float32 dots == K4; P12's
+   full and P13 == K4 on quantized q, P13 == P12's full bit for bit on raw
+   q), then drives the eight probe entry points (``ksub.run``,
+   ``kvariants.run``, ``kvariants2.run``, ``aprobe.run``, ``kprobe.run``,
+   ``ktune7b.run``, ``k3.run``, ``kexp.run``)
    with the launch counters set to 0 before each and read after it. The
    probe rows' ``ms`` come from those runs (``band_sum``'s from a call of
    its own); every serving path above launches no probe.
@@ -137,8 +143,11 @@ def plain_path():
         yield
 
 
-def bound(nbytes, flops, peaks):
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+def bound(nbytes, flops, peaks, bf16=False):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the memory
+    rate and the operations over the peak for their operand type (float32
+    CUDA cores, or bf16 tensor cores for bf16 operands)."""
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[2 if bf16 else 1] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -393,9 +402,12 @@ PROBE_PATHS = {
     "kprobe": ("probe_subbyte_tile", "bfp_matmul_subbyte", "bfp_matmul_int8"),
     "ktune7b": ("probe_int8_tile", "probe_band_sum", "probe_subbyte_tile", "bfp_matmul_int8",
                 "bfp_matmul_subbyte"),
+    "k3": ("probe_attention_v2", "probe_attention_v3", "attn_decode_pos_major"),
+    "kexp": ("probe_expand",),
 }
 _VARIANT_CU = "llm_mixed_q_torch/csrc/probes/variant_probe.cu"
 _INT8_TILE_CU = "llm_mixed_q_torch/csrc/probes/int8_tile_probe.cu"
+_ATTENTION_CU = "llm_mixed_q_torch/csrc/probes/attention_probe.cu"
 PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
     "probe_subbyte_t": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:225"),
     "probe_subbyte": ("llm_mixed_q_torch/csrc/probes/subbyte_probe.cu", "tools/ksub.py:270"),
@@ -404,7 +416,10 @@ PROBE_SOURCES = {  # name: (source, the TPU probe's pallas_call)
     "probe_sub_variant_t": (_VARIANT_CU, "tools/kvariants2.py:170"),
     "probe_sub_variant": (_VARIANT_CU, "tools/kvariants2.py:170"),
     "probe_int8_variant": ("llm_mixed_q_torch/csrc/probes/int8_probe.cu", "tools/kvariants2.py:90"),
-    "probe_attention": ("llm_mixed_q_torch/csrc/probes/attention_probe.cu", "tools/aprobe.py:122"),
+    "probe_attention": (_ATTENTION_CU, "tools/aprobe.py:122"),
+    "probe_attention_v2": (_ATTENTION_CU, "tools/k3.py:156"),
+    "probe_attention_v3": (_ATTENTION_CU, "tools/k3.py:221"),
+    "probe_expand": ("llm_mixed_q_torch/csrc/probes/expand_probe.cu", "tools/kexp.py:103"),
     "probe_subbyte_tile": ("llm_mixed_q_torch/csrc/probes/subbyte_tile_probe.cu",
                            "tools/kprobe.py:66"),
     "probe_int8_tile": (_INT8_TILE_CU, "tools/ktune7b.py:100"),
@@ -420,7 +435,9 @@ PROBE_HEADS = {"probe_subbyte_t": "ship", "probe_subbyte": "ship",
                "probe_matmul_variant_t": "v2", "probe_matmul_variant": "v2",
                "probe_sub_variant_t": "v4_bf16s", "probe_sub_variant": "v4_bf16s",
                "probe_int8_variant": "int8_bf16s", "probe_attention": "quant/f32",
-               "probe_subbyte_tile": "c32_t1", "probe_int8_tile": "c32_k512"}
+               "probe_subbyte_tile": "c32_t1", "probe_int8_tile": "c32_k512",
+               "probe_attention_v2": "full", "probe_attention_v3": "v3_masks",
+               "probe_expand": "index"}
 
 
 def check_path_counts(path_counts):
@@ -717,8 +734,9 @@ def check_attention_probe(peaks, flush):
     of their sums, as in K4's check): every stage and dot type against its
     plain version (dma, dequant: bit-exact; matmul: 1e-4 of max|ctx| with
     float32 dots, 1e-3 with bf16 dots; softmax, quant: rtol 2e-4 / atol
-    2e-5), its plain time and bound; SDPA on a dequantized float32 cache as
-    the quant stage's yardstick (as K4's); then the quant stage with float32
+    2e-5), its plain time and bound (bf16 dots at the bf16 tensor-core
+    peak); SDPA on a dequantized float32 cache as the yardstick of the
+    softmax and quant stages (as K4's); then the quant stage with float32
     dots against K4, timed beside it. -> row."""
     from llm_mixed_q_torch.kernels.attention_decode import packed_attention_decode_batch_cuda
     from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
@@ -750,7 +768,7 @@ def check_attention_probe(peaks, flush):
                       f"probe_attention {label}: max err {err}")
             cols = b * aprobe.NH * (s_len * nkv if stage == "matmul" else s_len)
             flops = 0 if stage in ("dma", "dequant") else 4 * hd * cols
-            b_ms, b_by = bound(nbytes, flops, peaks)
+            b_ms, b_by = bound(nbytes, flops, peaks, bf16=dot == "bf16")
             row["variants"][label] = dict(max_abs_err=err, plain_ms=cuda_ms(plain, reps=3, flush=flush),
                                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
             log(f"  probe_attention {label}: max_abs_err={err:.3e} bound_ms={b_ms:.4f} ({b_by}) "
@@ -759,8 +777,9 @@ def check_attention_probe(peaks, flush):
     vd = torch.randn_like(kd)
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q.reshape(b, nkv, 1, hd), kd, vd), flush=flush)
-    for dot in aprobe.DOTS["quant"]:
-        row["variants"][f"quant/{dot}"]["library_ms"] = library_ms
+    for stage in ("softmax", "quant"):
+        for dot in aprobe.DOTS[stage]:
+            row["variants"][f"{stage}/{dot}"]["library_ms"] = library_ms
     k4 = lambda: packed_attention_decode_batch_cuda(
         q, kc, ks, vc, vs, pos, aprobe.BSK, aprobe.BSV, nkv=nkv, rep=aprobe.REP,
         prob_q=aprobe.PROB_Q)
@@ -771,6 +790,136 @@ def check_attention_probe(peaks, flush):
                                              flush=flush), "K4": cuda_ms(k4, flush=flush)}
     log(f"  probe_attention quant/f32 == K4 (max abs err {err:.3e}); ms "
         + ", ".join(f"{key} {t:.4f}" for key, t in row["beside_ms"].items()))
+    return row
+
+
+def check_k3_probes(peaks, flush):
+    """P12 (every stage) and P13 at the TPU probe's shape (b = 32, S = 256,
+    nh = nkv = 32, hd = 128, inputs from seed 0), at pos = 255 (every
+    position filled) and pos = 100 (mid-block: qmax's block reaches 111),
+    q quantized as the serving path quantizes it (bf16-exact, so the
+    scores are exact in float32 whatever the order of their sums): each
+    against its plain version (dots: 1e-3 of max|ctx|; the others rtol
+    2e-4 / atol 2e-5), its plain time and bound at pos = 255; SDPA on a
+    dequantized float32 cache as the yardstick of softmax, full and masks (as
+    K4's); then faithfulness: full and masks each equal K4 (rtol 2e-4 /
+    atol 2e-5), and on the tool's raw q masks equals full to max abs error
+    0. -> (P12 row, P13 row)."""
+    from llm_mixed_q_torch.kernels.attention_decode import packed_attention_decode_batch_cuda
+    from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+    from llm_mixed_q_torch.tools import k3
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    b, s_len, hd, nh, nkv = 32, k3.S, k3.HD, k3.NH, k3.NKV
+    raw = k3.make_inputs(b, device="cuda")
+    qq = _block_fp_qdq(raw[0].reshape(-1, hd), *ACTQ[1:], [1, ACTQ[0]], True).reshape(raw[0].shape)
+    masks = k3.resident_masks(device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in raw[1:5])
+    nbytes = cache_bytes + 8 * qq.numel() + 4 * b
+    mask_bytes = 8 * nh * s_len  # the lanes the blocks read: one row's own lanes, from L2 after
+    calls = {f"v2_{st}": (lambda inp, st=st: k3.attention_v2(*inp, st),
+                          lambda inp, st=st: k3.attention_v2_plain(*inp, st)) for st in k3.STAGES}
+    calls["v3_masks"] = (lambda inp: k3.attention_v3(*inp, *masks),
+                         lambda inp: k3.attention_v3_plain(*inp, *masks))
+    k4 = lambda inp: packed_attention_decode_batch_cuda(
+        *inp, k3.BSK, k3.BSV, nkv=nkv, rep=k3.REP, prob_q=k3.PROB_Q)
+    v2 = {"variants": {}, "beside_ms": {}}
+    v3 = {"variants": {}, "beside_ms": {}}
+    for pos_at in (s_len - 1, 100):
+        pos = torch.full((b,), pos_at, dtype=torch.int32, device="cuda")
+        inputs = (qq, *raw[1:5], pos)
+        for label, (run, plain) in calls.items():
+            got, want = run(inputs), plain(inputs)
+            if label == "v2_dots":
+                err = _close_to_max(got, want, 1e-3, f"probe_attention_v2 dots pos {pos_at}")
+            else:
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
+                      f"{label} pos {pos_at}: max err {err}")
+            row = v3 if label == "v3_masks" else v2
+            key = label if label == "v3_masks" else label[3:]
+            rv = row["variants"].setdefault(key, {"max_abs_err": 0.0})
+            rv["max_abs_err"] = max(rv["max_abs_err"], err)
+            log(f"  {label} pos {pos_at}: max_abs_err={err:.3e} vs its plain version")
+            if pos_at != s_len - 1:
+                continue
+            cols = b * nh * (s_len * nkv if label == "v2_dots" else s_len)
+            b_ms, b_by = bound(nbytes + (mask_bytes if label == "v3_masks" else 0),
+                               4 * hd * cols, peaks, bf16=True)
+            rv.update(plain_ms=cuda_ms(lambda: plain(inputs), reps=3, flush=flush),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"  {label}: bound_ms={b_ms:.4f} ({b_by}) plain_ms={rv['plain_ms']:.4f}")
+        want = k4(inputs)
+        for label in ("v2_full", "v3_masks"):
+            got = calls[label][0](inputs)
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
+                  f"{label} vs K4 pos {pos_at}: max err {err}")
+            log(f"  {label} == K4 on quantized q, pos {pos_at} (max abs err {err:.3e})")
+        raw_in = (*raw[:5], pos)
+        got, want = calls["v3_masks"][0](raw_in), calls["v2_full"][0](raw_in)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err == 0.0, f"v3_masks vs v2_full on raw q, pos {pos_at}: max abs err {err}")
+        log(f"  v3_masks == v2_full on raw q, pos {pos_at} (max abs err {err})")
+    kd = torch.randn((b, nkv, s_len, hd), device="cuda")
+    vd = torch.randn_like(kd)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qq.reshape(b, nkv, 1, hd), kd, vd), flush=flush)
+    for rv in (v2["variants"]["softmax"], v2["variants"]["full"], v3["variants"]["v3_masks"]):
+        rv["library_ms"] = library_ms
+    inputs = (qq, *raw[1:5], raw[5])  # every position filled
+    for label, row in (("v2_full", v2), ("v3_masks", v3)):
+        row["beside_ms"] = {label: cuda_ms(lambda: calls[label][0](inputs), flush=flush),
+                            "K4": cuda_ms(lambda: k4(inputs), flush=flush)}
+    log(f"  SDPA on a dequantized float32 cache: {library_ms:.4f} ms; one call each: "
+        f"{v2['beside_ms']}, {v3['beside_ms']}")
+    return v2, v3
+
+
+def check_expand_probe(peaks, flush, lib_path):
+    """P10 at the TPU probe's shape (L = 8192, b = 32, inputs from seed 0):
+    every instance against its plain version (``none`` bit-exact; index
+    and staged within 1e-5 of max|y|, as every product is exact they are
+    bit-exact too), its plain time and bound; a batched bf16 ``torch.bmm``
+    on the pre-dequantized w as its yardstick; and the LDG (global load)
+    instructions of each instance's SASS: ``none`` must keep as many as
+    ``index``, or the compiler dropped its scale loads. -> row."""
+    from llm_mixed_q_torch.tools import kexp
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    l, b = 8192, 32
+    q, codes, scales = kexp.make_inputs(l, b, device="cuda")
+    nbytes = kexp.nbytes_of(l, b)
+    b_ms, b_by = bound(nbytes, 2 * b * kexp.ROWS * kexp.HD * l, peaks, bf16=True)
+    row = {"variants": {}}
+    for v in kexp.VARIANTS:
+        got, want = kexp.expand_probe(q, codes, scales, v), kexp.expand_probe_plain(q, codes, scales, v)
+        if v == "none":
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), "probe_expand none: not bit-exact")
+            err = 0.0
+        else:
+            err = _close_to_max(got, want, 1e-5, f"probe_expand {v}")
+        plain_ms = cuda_ms(lambda: kexp.expand_probe_plain(q, codes, scales, v), reps=3, flush=flush)
+        row["variants"][v] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None)
+        log(f"  probe_expand {v}: max_abs_err={err:.3e} bound_ms={b_ms:.4f} ({b_by}) "
+            f"plain_ms={plain_ms:.4f}")
+    w16 = (codes.float() * scales.repeat_interleave(kexp.BS, dim=1)).to(torch.bfloat16)
+    q16 = q.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.bmm(q16, w16), flush=flush)
+    for rv in row["variants"].values():
+        rv["library_ms"] = library_ms
+    del w16
+    ldg = count_sass(lib_path, "expand_probe_kernel", "LDG")
+    by_variant = {v: sum(c for name, c in ldg.items() if f"ILi{i}E" in name)
+                  for i, v in enumerate(kexp.VARIANTS)}
+    log(f"  bf16 torch.bmm on the pre-dequantized w: {library_ms:.4f} ms; LDG instructions "
+        f"by instance: {by_variant}")
+    check(by_variant["none"] >= by_variant["index"] > 0,
+          f"probe_expand none lost its scale loads: {by_variant}")
+    row["sass_ldg"] = by_variant
     return row
 
 
@@ -953,12 +1102,13 @@ def _bound_of(r):
     r["bound_by"] = "bytes" if by_bytes else "operations"
 
 
-def run_probes(peaks, flush):
+def run_probes(peaks, flush, probes_lib):
     """Phase 7: the probe kernels against their plain versions and their
-    production kernels, then the six probe entry points, each with the
+    production kernels, then the eight probe entry points, each with the
     launch counters set to 0 before it and read after it. -> (probe rows,
     launch counts by probe path)."""
-    from llm_mixed_q_torch.tools import aprobe, kprobe, ksub, ktune7b, kvariants, kvariants2
+    from llm_mixed_q_torch.tools import (aprobe, k3, kexp, kprobe, ksub, ktune7b, kvariants,
+                                         kvariants2)
 
     t0 = time.perf_counter()
     log("probe kernels vs plain versions and vs their production kernels:")
@@ -966,6 +1116,8 @@ def run_probes(peaks, flush):
     rows.update(check_variant_probes(peaks, flush))
     rows["probe_attention"] = check_attention_probe(peaks, flush)
     rows.update(check_tile_probes(peaks, flush))
+    rows["probe_attention_v2"], rows["probe_attention_v3"] = check_k3_probes(peaks, flush)
+    rows["probe_expand"] = check_expand_probe(peaks, flush, probes_lib)
 
     counts, times = {}, {}
     for path, run in (("ksub", lambda: ksub.run(ksub.SHAPES, reps=3, log=log)),
@@ -973,7 +1125,9 @@ def run_probes(peaks, flush):
                       ("kvariants2", lambda: kvariants2.run(ksub.SHAPES, reps=3, log=log)),
                       ("aprobe", lambda: aprobe.run(32, 256, reps=3, log=log)),
                       ("kprobe", lambda: kprobe.run(ksub.SHAPES, reps=3, log=log)),
-                      ("ktune7b", lambda: ktune7b.run(ksub.SHAPES, reps=3, log=log))):
+                      ("ktune7b", lambda: ktune7b.run(ksub.SHAPES, reps=3, log=log)),
+                      ("k3", lambda: k3.run(32, reps=3, log=log)),
+                      ("kexp", lambda: kexp.run(8192, 32, reps=3, log=log))):
         reset_all_launch_counts()
         torch.cuda.synchronize()
         times[path] = run()
@@ -1000,6 +1154,15 @@ def run_probes(peaks, flush):
     for label, rv in rows["probe_attention"]["variants"].items():
         rv["ms"] = times["aprobe"][label]
     rows["probe_attention"]["beside_ms"]["K4, aprobe run"] = times["aprobe"]["K4"]
+    for v, rv in rows["probe_attention_v2"]["variants"].items():
+        rv["ms"] = times["k3"][f"v2_{v}"]
+    rows["probe_attention_v3"]["variants"]["v3_masks"]["ms"] = times["k3"]["v3_masks"]
+    for name in ("probe_attention_v2", "probe_attention_v3"):
+        rows[name]["beside_ms"]["K4, k3 run"] = times["k3"]["K4"]
+    # an instance's ms: that of the TPU names it runs (timed once for all)
+    for name, instance in kexp.ALIASES.items():
+        rows["probe_expand"]["variants"][instance]["ms"] = times["kexp"][name]
+    rows["probe_expand"]["aliases"] = kexp.ALIASES
     # the tiling probes: an instance's ms from the first entry point that
     # runs it (P4's in kprobe, P7's and P6/P5's in ktune7b), with its steps,
     # blocks and blocks an SM at each shape; beside: the production kernels
@@ -1060,7 +1223,8 @@ def kernel_entries(rows, path_counts):
             launches = sum(by_path.values())
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
-            "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms") if key in r}
+            "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg")
+            if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
@@ -1117,7 +1281,7 @@ def main(k1_only=False, probes_only=False):
         return
     check(all(hmma.values()), f"K1 or P8 does not run on the tensor cores: {hmma}")
     if probes_only:
-        rows, path_counts = run_probes(peaks, flush)
+        rows, path_counts = run_probes(peaks, flush, libs["probes"])
         log(json.dumps({"kernels": kernel_entries(rows, path_counts)}))
         return
     log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 also "
@@ -1135,7 +1299,7 @@ def main(k1_only=False, probes_only=False):
     torch.cuda.empty_cache()
     path_counts.update(run_opt())
     torch.cuda.empty_cache()
-    probe_rows, probe_counts = run_probes(peaks, flush)
+    probe_rows, probe_counts = run_probes(peaks, flush, libs["probes"])
     rows.update(probe_rows)
     path_counts.update(probe_counts)
 
@@ -1144,8 +1308,9 @@ def main(k1_only=False, probes_only=False):
         "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2/P4-P7 sums over the four "
         "projections at M = 8, ms of ship (P8/P9), v2 (P1), v4_bf16s (P3), "
         "int8_bf16s (P2), c32_t1 (P4/P7), c32_k512 (P6/P5), band_sum one call a "
-        "shape, P11 one call at b = 32, S = 256, ms of quant/f32; every variant under "
-        "variants)")
+        "shape, P11 one call at b = 32, S = 256, ms of quant/f32, P12/P13 the same, ms of "
+        "full / v3_masks, P10 one call at L = 8192, b = 32, ms of index; every variant "
+        "under variants)")
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

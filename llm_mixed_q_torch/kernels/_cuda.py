@@ -67,6 +67,12 @@ _SIGNATURES = {
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stage, bf16,
         # stream
         "lmq_probe_attention": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
+        # q, kc, ks, vc, vs, positions, negb, posi, out, b, nkv, rep, hd, S,
+        # bs_k, bs_v, sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax,
+        # stage, stream
+        "lmq_probe_attention_v2": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
+        # q, codes, scales, out, B, L, variant, stream
+        "lmq_probe_expand": [_P] * 4 + [_I] * 3 + [_P],
         # x, words, scales, y, M, N, Kx, k_pad, width, bs, cols, tps, stream
         "lmq_probe_subbyte_tile": [_P, _P, _P, _P] + [_I] * 8 + [_P],
         # width, bs, cols, tps, &blocks

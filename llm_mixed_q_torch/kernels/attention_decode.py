@@ -65,21 +65,24 @@ def softmax_lastdim(s: torch.Tensor) -> torch.Tensor:
     return e / e.double().sum(dim=-1, keepdim=True).float()
 
 
-def attend_dense(qg, k_all_t, v_all, positions_b, prob_quantizer=None):
+def attend_dense(qg, k_all_t, v_all, positions_b, prob_quantizer=None, masks=None):
     """Dense decode attention. qg [b, nkv, rep, hd]; k_all_t [b, nkv, hd, S];
     v_all [b, nkv, S, hd]; positions_b [b] (last valid index, inclusive);
-    ``prob_quantizer`` maps probs [b*nh, 1, S] to their quantized values.
-    -> ctx [b, nkv, rep, hd]."""
+    ``prob_quantizer`` maps probs [b*nh, 1, S] to their quantized values;
+    ``masks`` (bias, key_pos), each [nkv, rep, S]: a bias added to the
+    scores and the key positions of the causal test, in place of 0 and
+    0..S-1. -> ctx [b, nkv, rep, hd]."""
     b, nkv, rep, hd = qg.shape
     s_len = v_all.shape[2]
     # a tensor divisor keeps this a true division on the card, as in the
     # kernels (a Python scalar divisor becomes a reciprocal multiply there)
     sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32, device=qg.device)
     scores = torch.einsum("bkrd,bkds->bkrs", qg, k_all_t) / sqrt_hd
-    valid = (
-        torch.arange(s_len, device=qg.device)[None, None, None, :]
-        <= positions_b[:, None, None, None]
-    )
+    key_pos = torch.arange(s_len, device=qg.device)
+    if masks is not None:
+        scores = scores + masks[0]
+        key_pos = masks[1]
+    valid = key_pos <= positions_b[:, None, None, None]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     probs = softmax_lastdim(scores)
     if prob_quantizer is not None:

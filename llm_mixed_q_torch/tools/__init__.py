@@ -14,14 +14,22 @@
   lane-major sub-byte one (P6, P5, P7; ``tools/ktune7b.py``);
 - ``python -m llm_mixed_q_torch.tools.aprobe``: stage knock-outs of decode
   attention over the pos-major cache (P11; the TPU probe
-  ``tools/aprobe.py``).
+  ``tools/aprobe.py``);
+- ``python -m llm_mixed_q_torch.tools.k3``: more of them with bf16 dots,
+  the prob quantizer taken apart (P12), and resident masks (P13;
+  ``tools/k3.py``);
+- ``python -m llm_mixed_q_torch.tools.kexp``: the scale expansion of a
+  block-scaled dequant (P10; ``tools/kexp.py``).
 
 Their kernels (``csrc/probes/``) are copies of the serving kernels with
-stages knocked out, the arithmetic varied or the grid reshaped, built into
-a library of their own; no serving path launches them.
+stages knocked out, the arithmetic varied or the grid reshaped, or (P10)
+a small kernel of its own, built into a library of their own; no serving
+path launches them.
 """
 
 from .aprobe import attention_probe
+from .k3 import attention_v2, attention_v3
+from .kexp import expand_probe
 from .kprobe import subbyte_tile
 from .ksub import subbyte_probe
 from .ktune7b import band_sum, int8_tile
@@ -39,6 +47,9 @@ def launch_counts() -> dict[str, int]:
             "probe_sub_variant": sub_variant.launches["lane_major"],
             "probe_int8_variant": int8_variant.launches,
             "probe_attention": attention_probe.launches,
+            "probe_attention_v2": attention_v2.launches,
+            "probe_attention_v3": attention_v3.launches,
+            "probe_expand": expand_probe.launches,
             "probe_subbyte_tile": subbyte_tile.launches,
             "probe_int8_tile": int8_tile.launches,
             "probe_band_sum": band_sum.launches}
@@ -47,5 +58,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts():
     for fn in (subbyte_probe, matmul_variant, sub_variant):
         fn.launches = dict.fromkeys(fn.launches, 0)
-    for fn in (int8_variant, attention_probe, subbyte_tile, int8_tile, band_sum):
+    for fn in (int8_variant, attention_probe, attention_v2, attention_v3, expand_probe,
+               subbyte_tile, int8_tile, band_sum):
         fn.launches = 0

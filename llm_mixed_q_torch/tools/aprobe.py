@@ -80,8 +80,7 @@ def attention_probe_plain(q, k_codes, k_scales, v_codes, v_scales, positions, st
         raise ValueError(f"no stage {stage!r} with {dot} dots")
     if stage in ("dma", "dequant"):
         return q.clone()
-    b, nh, hd = q.shape
-    s_len = k_codes.shape[2] // nkv
+    hd = q.shape[2]
     qd = _round(q, dot)
     kd = k_codes.float() * k_scales.repeat_interleave(bs_k, dim=1)  # [b, hd, lanes]
     vd = v_codes.float() * v_scales.repeat_interleave(bs_v, dim=1)
@@ -93,11 +92,40 @@ def attention_probe_plain(q, k_codes, k_scales, v_codes, v_scales, positions, st
     probs_fn = None
     if quantize is not None or dot == "bf16":
         probs_fn = lambda p: _round(quantize(p) if quantize is not None else p, dot)
+    return attend_cache(qd, kd, vd, positions, probs_fn, nkv, rep)
+
+
+def attend_cache(qd, kd, vd, positions, probs_fn=None, nkv=NKV, rep=REP, masks=None):
+    """``attend_dense`` over the dequantized pos-major cache: qd [b, nh, hd],
+    kd and vd [b, hd, S*nkv], ``probs_fn`` the map of the probabilities,
+    ``masks`` attend_dense's -> ctx [b, nh, hd]."""
+    b, nh, hd = qd.shape
+    s_len = kd.shape[2] // nkv
     ctx = attend_dense(qd.reshape(b, nkv, rep, hd),
                        kd.reshape(b, hd, s_len, nkv).permute(0, 3, 1, 2),
                        vd.reshape(b, hd, s_len, nkv).permute(0, 3, 2, 1),
-                       positions.reshape(b), probs_fn)
+                       positions.reshape(b), probs_fn, masks)
     return ctx.reshape(b, nh, hd)
+
+
+def check_operands(name, q, k_codes, k_scales, v_codes, v_scales, nkv, rep, dense, extra=()):
+    """Raise ValueError unless the operands suit the probe kernels: q float32
+    [b, nkv*rep, hd], int8 codes, every tensor (``extra`` too) contiguous on
+    q's device, and a shape the kernel takes (``dense``: a score for every
+    lane of the cache). -> S."""
+    tensors = (q, k_codes, k_scales, v_codes, v_scales, *extra)
+    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: q, the cache and the masks must be contiguous on one device")
+    if q.dtype != torch.float32 or k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
+        raise ValueError(f"{name}: q float32, codes int8 expected")
+    _, nh, hd = q.shape
+    s_len = k_codes.shape[2] // nkv
+    if nh != nkv * rep:
+        raise ValueError(f"{name}: {nh} query heads != nkv {nkv} * rep {rep}")
+    error = kernel_shape_error(rep, hd, s_len * (nkv if dense else 1))
+    if error:
+        raise ValueError(f"{name}: {error}")
+    return s_len
 
 
 def attention_probe(q, k_codes, k_scales, v_codes, v_scales, positions, stage, dot="f32",
@@ -111,20 +139,11 @@ def attention_probe(q, k_codes, k_scales, v_codes, v_scales, positions, stage, d
     name = "attention_probe"
     if stage not in STAGES or dot not in DOTS[stage]:
         raise ValueError(f"{name}: no stage {stage!r} with {dot} dots")
-    tensors = (q, k_codes, k_scales, v_codes, v_scales)
-    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: q and the cache must be contiguous on one device")
-    if q.dtype != torch.float32 or k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
-        raise ValueError(f"{name}: q float32, codes int8 expected")
-    b, nh, hd = q.shape
-    s_len = k_codes.shape[2] // nkv
-    if nh != nkv * rep:
-        raise ValueError(f"{name}: {nh} query heads != nkv {nkv} * rep {rep}")
+    s_len = check_operands(name, q, k_codes, k_scales, v_codes, v_scales, nkv, rep,
+                           dense=stage == "matmul")
     if stage == "quant" and prob_q is None:
         raise ValueError(f"{name}: the quant stage needs a prob quantizer")
-    error = kernel_shape_error(rep, hd, s_len * (nkv if stage == "matmul" else 1))
-    if error:
-        raise ValueError(f"{name}: {error}")
+    b, _, hd = q.shape
     pos = positions.to(device=q.device, dtype=torch.int32).reshape(b).contiguous()
     out = torch.empty_like(q)
     rc = _cuda.lib("probes").lmq_probe_attention(

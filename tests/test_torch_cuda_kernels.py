@@ -3,8 +3,11 @@ at edge shapes the serving path does not reach: ragged M, N and K, every
 sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
 of the cache. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
 too: N not a multiple of 32, K not a multiple of the tile, a cache of one
-position; and the tiling probes (P4-P7): N off every column tile, a short
-last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}.
+position; the tiling probes (P4-P7): N off every column tile, a short
+last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}; P12 and
+P13 at batch 1, 3 and 32, positions 0, 15, 16 and 100, rep 2 with a short
+last block; P10 with L off its 256-column tile and off its 4-column loads,
+and misaligned codes.
 
 Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
 JAX, so it runs on a GPU host without it:
@@ -17,7 +20,8 @@ cores), rtol 2e-4 / atol 2e-5 for decode attention; and a row's matmul
 result is bit-exact whatever M. The attention probe's matmul stage, a dense
 sum over every lane of the cache, is held relative to max|ctx|: 1e-4 with
 float32 dots, 1e-3 with bf16 dots (a score whose float32 sum lands on the
-other side of a bf16 rounding point moves by one bf16 step)."""
+other side of a bf16 rounding point moves by one bf16 step). P10 equals
+its plain version bit for bit (exact products summed in the same order)."""
 
 import pytest
 import torch
@@ -27,6 +31,8 @@ from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.kernels import dequant_matmul as dm
 from llm_mixed_q_torch.kernels import packing as tp
 from llm_mixed_q_torch.tools import aprobe as tap
+from llm_mixed_q_torch.tools import k3 as tk3
+from llm_mixed_q_torch.tools import kexp as tkx
 from llm_mixed_q_torch.tools import kprobe as tkp
 from llm_mixed_q_torch.tools import ksub as tks
 from llm_mixed_q_torch.tools import ktune7b as tkt
@@ -485,3 +491,99 @@ def test_tile_probes_raise_on_bad_operands(dev):
         tkt.int8_tile(x, p8, 32, 4096)
     with pytest.raises(ValueError, match="multiple of 128"):
         tkt.int8_tile(x, p8, 32, 512, band=1000)
+
+
+# P12 and P13 (tools.k3): the probe's S = 256 at batch 1, 3 and 32, positions
+# 0, 15, 16, 100 (mid-block: qmax reaches the end of the block) and the
+# last; rep 2 at S = 40, a short last block
+K3_CASES = [  # b, nkv, rep, hd, s_len, positions
+    (1, 32, 1, 128, 256, [0]),
+    (3, 32, 1, 128, 256, [15, 16, 100]),
+    (32, 32, 1, 128, 256, [255] * 16 + [100] * 16),
+    (3, 2, 2, 64, 40, [39, 0, 21]),
+]
+
+
+@pytest.mark.parametrize("stage", tk3.STAGES + ("v3_masks",))
+@pytest.mark.parametrize("b,nkv,rep,hd,s_len,positions", K3_CASES)
+def test_attention_v2_v3_match_plain(dev, stage, b, nkv, rep, hd, s_len, positions):
+    cache = _cache(b, nkv, s_len, hd, 16, 16, True, dev, seed=s_len + b)
+    # q quantized as serving quantizes it: bf16-exact, so the scores are
+    # exact in float32 whatever the order of their sums
+    q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(2)))
+    q = q.reshape(b, nkv * rep, hd).to(dev)
+    args = (q, *cache, torch.tensor(positions, dtype=torch.int32).to(dev))
+    kw = dict(nkv=nkv, rep=rep)
+    if stage == "v3_masks":
+        masks = tk3.resident_masks(nkv * rep, nkv, s_len, rep, dev)
+        before = tk3.attention_v3.launches
+        got = tk3.attention_v3(*args, *masks, **kw)
+        assert tk3.attention_v3.launches == before + 1
+        want = tk3.attention_v3_plain(*args, *masks, **kw)
+        assert torch.equal(got, tk3.attention_v2(*args, "full", **kw))
+    else:
+        before = tk3.attention_v2.launches
+        got = tk3.attention_v2(*args, stage, **kw)
+        assert tk3.attention_v2.launches == before + 1
+        want = tk3.attention_v2_plain(*args, stage, **kw)
+    if stage == "dots":
+        _close_rel(got, want, 1e-3)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_attention_v3_is_v2_full_on_raw_q(dev):
+    """On the tool's raw q the two kernels differ only in where the masks
+    come from: the same sums, bit for bit."""
+    inputs = tk3.make_inputs(32, device=dev)
+    pos = torch.tensor([255] * 16 + [100] * 16, dtype=torch.int32, device=dev)
+    inputs = (*inputs[:5], pos)
+    got = tk3.attention_v3(*inputs, *tk3.resident_masks(device=dev))
+    assert torch.equal(got, tk3.attention_v2(*inputs, "full"))
+
+
+def test_attention_v2_v3_raise_on_bad_operands(dev):
+    inputs = tk3.make_inputs(1, device=dev)
+    negb, posi = tk3.resident_masks(device=dev)
+    with pytest.raises(ValueError, match="stage"):
+        tk3.attention_v2(*inputs, "quant")
+    with pytest.raises(ValueError, match="negb float32"):
+        tk3.attention_v3(*inputs, negb[:, :-32].contiguous(), posi)
+    with pytest.raises(ValueError, match="negb float32"):
+        tk3.attention_v3(*inputs, negb, posi.float())
+
+
+# P10 (tools.kexp): L off the 256-column tile, odd L (no 4-column loads),
+# codes at an odd address (no vector loads), the probe's own shape
+@pytest.mark.parametrize("variant", tkx.VARIANTS)
+@pytest.mark.parametrize("b,l,misaligned", [(1, 256, False), (3, 1000, False), (2, 257, False),
+                                             (2, 1000, True), (32, 8192, False)])
+def test_expand_probe_matches_plain(dev, variant, b, l, misaligned):
+    q, codes, scales = tkx.make_inputs(l, b, seed=l, device=dev)
+    if misaligned:
+        codes = torch.empty(codes.numel() + 1, dtype=torch.int8, device=dev)[1:].view_as(
+            codes).copy_(codes)
+    before = tkx.expand_probe.launches
+    got = tkx.expand_probe(q, codes, scales, variant)
+    assert tkx.expand_probe.launches == before + 1
+    assert torch.equal(got, tkx.expand_probe_plain(q, codes, scales, variant))
+
+
+def test_expand_probe_takes_scales_in_bf16(dev):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 8, 128), generator=g).to(dev)
+    codes = torch.randint(-128, 128, (2, 128, 300), generator=g, dtype=torch.int8).to(dev)
+    scales = torch.rand((2, 8, 300), generator=g).to(dev) + 0.01
+    want = tkx.expand_probe_plain(q, codes, scales, "index")
+    for variant in ("index", "staged"):
+        assert torch.equal(tkx.expand_probe(q, codes, scales, variant), want)
+
+
+def test_expand_probe_raises_on_bad_operands(dev):
+    q, codes, scales = tkx.make_inputs(256, 2, device=dev)
+    with pytest.raises(ValueError, match="variant"):
+        tkx.expand_probe(q, codes, scales, "ship")
+    with pytest.raises(ValueError, match="expected"):
+        tkx.expand_probe(q[:, :4].contiguous(), codes, scales, "index")
+    with pytest.raises(ValueError, match="expected"):
+        tkx.expand_probe(q, codes, scales.double(), "index")

@@ -1,7 +1,7 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
 import, it imports (chip_smoke.py and the probes of
 ``llm_mixed_q_torch.tools`` included) and runs Llama and OPT generation and
-the six probe entry points on the CPU."""
+the eight probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -74,6 +74,12 @@ res = kprobe.run({"tiny": (64, 700)}, device="cpu", log=lambda *a: None)
 assert set(res["tiny"]["sub"]) == {"c32_t1", "c16_t1", "c8_t1", "c64_t1", "K3", "K3_actq"}
 res = ktune7b.run({"tiny": (64, 1300)}, device="cpu", log=lambda *a: None)
 assert set(res["tiny"]["int8"]) == set(ktune7b.INT8_INSTANCES) | {"K2", "K2_actq"}
+from llm_mixed_q_torch.tools import k3, kexp
+
+res = k3.run(batch=1, device="cpu", log=lambda *a: None)
+assert set(res) == {"K4", "v2_dots", "v2_softmax", "v2_qmax", "v2_qmath", "v2_full", "v3_masks"}
+res = kexp.run(l=256, b=1, device="cpu", log=lambda *a: None)
+assert set(res) == set(kexp.ALIASES)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")
 '''
