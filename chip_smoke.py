@@ -2,30 +2,34 @@
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --k1-only       # build, then K1's checks and times only
+    python3 chip_smoke.py --k2-only       # build, then K2's and actq_split's only
+    python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
     python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
    nvcc started at once, sm_90a) and counts the HMMA (tensor-core)
-   instructions of K1's and P8's SASS (``cuobjdump -sass``; the whole run
-   fails if there are none);
+   instructions of K1's, K2's and P8's SASS (``cuobjdump -sass``; the whole
+   run fails if there are none);
 2. holds each kernel against its plain PyTorch version on the card at the
    Llama-2-7B decode shapes (batch 8; the matmuls also at the 256 rows of a
    prefill; the sub-byte matmuls K1 and K3 also at the OPT-6.7B fc1/fc2
    shapes) and times kernel, plain version, library yardstick and the
-   memory/compute bound (K1 also at 256 rows, ``prefill_*``; its operations
-   bound at the bf16 tensor-core peak, the others' at the float32 one);
+   memory/compute bound (K1 and K2 also at 256 rows, ``prefill_*``; their
+   operations bound at the bf16 tensor-core peak, the others' at the
+   float32 one); K2's prologue ``actq_split`` alone, bit for bit;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
 4. runs ``generate`` on sub-byte weights (pos-major cache: K1 + K4) and
-   ``ContinuousBatcher`` on int8 weights (head-major cache: K2 + K5), each
-   with every launch counter set to 0 just before it and read just after
-   it (each run must launch its two kernels and no other); then the
+   ``ContinuousBatcher`` on int8 weights (head-major cache: K2 with its
+   ``actq_split`` + K5), each with every launch counter set to 0 just
+   before it and read just after it (each run must launch its kernels and
+   no other); then the
    batcher's tokens must equal reference ``generate`` rows for the same
    prompts;
 5. holds one decode step's logits, kernel path against plain path (the
    plain path patches the wrappers here, in this script), and counts the
-   launches of that step;
+   launches of that step; profiles decode steps of each format;
 6. frees the Llama trees and builds OPT-6.7B widths (32 layers, random
    weights seed 0, W6A6 block_fp) twice: packed by ``init_opt_params``
    (transposed sub-byte words: K1) and with ``pack_common._to_t`` patched
@@ -50,8 +54,10 @@
    against that kernel on bf16 x with no activation quantizer (transposed
    ship, v2 and v4 == K1; lane-major ship, v2, v4 and every
    ``subbyte_tile`` instance == K3; P2 with either scale type and every
-   ``int8_tile`` instance without bands == K2; v3 and the band instance
-   within 1e-5 of max|y|; the quant stage with float32 dots == K4; P12's
+   ``int8_tile`` instance without bands == ``int8_tile``'s c32_k512, the
+   copy of K2's CUDA-core design, and K2 on the tensor cores within 1e-5
+   of max|y| of it; v3 and the band instance within 1e-5 of max|y|; the
+   quant stage with float32 dots == K4; P12's
    full and P13 == K4 on quantized q, P13 == P12's full bit for bit on raw
    q), then drives the eight probe entry points (``ksub.run``,
    ``kvariants.run``, ``kvariants2.run``, ``aprobe.run``, ``kprobe.run``,
@@ -153,10 +159,11 @@ def bound(nbytes, flops, peaks, bf16=False):
 
 def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_cores=False):
     """Hold one kernel against its plain version at decode rows (batch 8)
-    and at the PREFILL_M rows of a prefill; time it at batch 8, and a
-    tensor-core kernel (K1) also at PREFILL_M rows (``prefill_*``). The
-    operations bound is taken at the peak of the units the kernel runs on:
-    bf16 tensor cores for K1, float32 CUDA cores for the others."""
+    and at the PREFILL_M rows of a prefill, with ACTQ and on raw float32 x;
+    time it at batch 8, and a tensor-core kernel (K1, K2) also at PREFILL_M
+    rows (``prefill_*``). The operations bound is taken at the peak of the
+    units the kernel runs on: bf16 tensor cores for K1 and K2, float32 CUDA
+    cores for K3."""
     from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
     from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
     from llm_mixed_q_torch.tools.timing import cuda_ms
@@ -164,15 +171,18 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_core
     xs = {m: torch.randn((m, k), generator=gen, device="cuda") for m in (BATCH, PREFILL_M)}
     errs = {}
     for m, xm in xs.items():
-        y = wrapper(xm, packed, ACTQ)
-        ref = bfp_matmul_plain(xm, packed, ACTQ)
-        torch.cuda.synchronize()
-        e = (y - ref).abs().max().item()
-        rel = e / ref.abs().max().item()
-        # tolerance of the JAX package's own kernel test: 1e-4 of max|y|
-        # (float32 sums in another order)
-        check(rel <= 1e-4, f"{kname} N={n} K={k} M={m}: rel err {rel}")
-        errs[m] = (e, rel)
+        for actq in (ACTQ, None):
+            y = wrapper(xm, packed, actq)
+            ref = bfp_matmul_plain(xm, packed, actq)
+            torch.cuda.synchronize()
+            e = (y - ref).abs().max().item()
+            rel = e / ref.abs().max().item()
+            # tolerance of the JAX package's own kernel test: 1e-4 of max|y|
+            # (float32 sums in another order; raw x as bf16 hi + lo on the
+            # tensor cores)
+            check(rel <= 1e-4, f"{kname} N={n} K={k} M={m} actq={actq}: rel err {rel}")
+            if m not in errs or e > errs[m][0]:
+                errs[m] = (e, rel)
     w_bf16 = unpack(packed, torch.bfloat16)
     op_peak = peaks[2] if tensor_cores else peaks[1]
     out = {}
@@ -201,7 +211,7 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_core
 
 def check_matmul_kernels(peaks, flush, only=None):
     """Rows: sums over one Llama-2-7B layer's four projections at batch 8
-    (K1 also at PREFILL_M rows); K1 and K3 also report the OPT-6.7B MLP
+    (K1 and K2 also at PREFILL_M rows); K1 and K3 also report the OPT-6.7B MLP
     shapes, on lines of their own (``opt_mlp_ms``, K1 also
     ``opt_mlp_prefill_ms``). ``only``: the one kernel to measure."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
@@ -221,7 +231,7 @@ def check_matmul_kernels(peaks, flush, only=None):
     for kname, (wrapper, packer) in kernels.items():
         if only is not None and kname != only:
             continue
-        tensor_cores = kname == "bfp_matmul_subbyte_t"
+        tensor_cores = kname in ("bfp_matmul_subbyte_t", "bfp_matmul_int8")
         tot = {"max_abs_err": 0.0}
         shapes = dict(MATMUL_SHAPES)
         if kname != "bfp_matmul_int8":
@@ -245,6 +255,99 @@ def check_matmul_kernels(peaks, flush, only=None):
                 tot[key] = tot.get(key, 0.0) + v
         rows[kname] = tot
     return rows
+
+
+def c32_k512(x, packed, actq=None):
+    """``int8_tile``'s c32_k512: the copy of K2's CUDA-core design (no
+    activation quantizer), the anchor of P2's and the int8_tile probes'
+    faithfulness and the former K2 of the M sweep."""
+    from llm_mixed_q_torch.tools import ktune7b
+
+    return ktune7b.int8_tile(x, packed, *ktune7b.INT8_INSTANCES["c32_k512"])
+
+
+def check_actq_split(peaks, flush):
+    """K2's prologue alone at the K of each Llama-2-7B projection (its
+    workspace padded as K2 pads it): equal to actq_split_plain bit for bit
+    (hi, lo and the rows with a lo) at batch 8 and PREFILL_M rows, with ACTQ
+    and on raw x; timed at batch 8, summed over the four projections. Its
+    bound: x read, hi and lo written; operations, 6 float32 ones an
+    element (|x|, block max, scaling, rounding, rescale, split). No single
+    PyTorch call computes it (library_ms null). -> row."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import actq_split_cuda, actq_split_plain
+    from llm_mixed_q_torch.models.pack_common import _k_stride
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_bytes_ms": 0.0,
+           "bound_ops_ms": 0.0, "library_ms": None}
+    for sname, (_, k) in MATMUL_SHAPES.items():
+        stride = _k_stride(16, k) or 16
+        k_pad = -(-k // stride) * stride
+        for m in (BATCH, PREFILL_M):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            for actq in (ACTQ, None):
+                got = actq_split_cuda(x, actq, k_pad)
+                want = actq_split_plain(x, actq, got[0].shape[1])
+                torch.cuda.synchronize()
+                for g_, w_ in zip(got[:2], want[:2]):
+                    check(torch.equal(g_.view(torch.int16), w_.view(torch.int16)),
+                          f"actq_split {sname} M={m} actq={actq}: not its plain version")
+                check(torch.equal(got[2], want[2]), f"actq_split {sname} M={m}: lo rows differ")
+            if m != BATCH:
+                continue
+            kw = got[0].shape[1]
+            row["ms"] += cuda_ms(lambda: actq_split_cuda(x, ACTQ, k_pad), flush=flush)
+            row["plain_ms"] += cuda_ms(lambda: actq_split_plain(x, ACTQ, kw), reps=5, flush=flush)
+            row["bound_bytes_ms"] += (4 * m * k + 4 * m * kw + m) / peaks[0] * 1e3
+            row["bound_ops_ms"] += 6 * m * k / peaks[1] * 1e3
+    log(f"  actq_split, four 7B projections' K at M={BATCH}: bit-exact; kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} bound_ms="
+        f"{max(row['bound_bytes_ms'], row['bound_ops_ms']):.5f}")
+    return row
+
+
+SWEEP_M = (8, 16, 32, 64, 128, 256)
+
+
+def m_sweep(flush):
+    """K1, K2 and K3 with ACTQ at M in SWEEP_M, each beside unpack +
+    torch.matmul of the same product (``bfp_matmul_plain``: the route
+    bfp_matmul takes above _FUSED_M_MAX), and int8_tile's c32_k512 (the
+    copy of K2's CUDA-core design, no activation quantizer) beside K2: ms
+    summed over one Llama-2-7B layer's four projections. -> {row: {M: ms}}."""
+    from llm_mixed_q_torch.kernels.dequant_matmul import (
+        bfp_matmul_cuda, bfp_matmul_plain, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
+    from llm_mixed_q_torch.kernels.packing import (
+        pack_block_fp, pack_block_fp_subbyte, pack_block_fp_subbyte_t)
+    from llm_mixed_q_torch.models.pack_common import _k_stride
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    kernels = {
+        "K1": (bfp_matmul_subbyte_t_cuda, pack_block_fp_subbyte_t),
+        "K2": (bfp_matmul_cuda, lambda w, *a: pack_block_fp(w, *a, k_stride=_k_stride(16, w.shape[1]))),
+        "K3": (bfp_matmul_subbyte_cuda, pack_block_fp_subbyte),
+    }
+    out = {}
+    for sname, (n, k) in MATMUL_SHAPES.items():
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        for kname, (wrapper, packer) in kernels.items():
+            packed = packer(w, 6, 8, 127, [1, 16])
+            for m in SWEEP_M:
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                calls = {kname: lambda: wrapper(x, packed, ACTQ),
+                         f"{kname} unpack+matmul": lambda: bfp_matmul_plain(x, packed, ACTQ)}
+                if kname == "K2":
+                    calls["c32_k512 (no actq)"] = lambda: c32_k512(x, packed)
+                for label, call in calls.items():
+                    out.setdefault(label, {}).setdefault(m, 0.0)
+                    out[label][m] += cuda_ms(call, reps=10, flush=flush)
+            del packed
+        del w
+    for label, by_m in out.items():
+        log(f"  M sweep {label}: " + ", ".join(f"M={m} {t:.4f}" for m, t in by_m.items()))
+    return out
 
 
 def _cache_inputs(gen, s_len, nkv, hd, pos_major):
@@ -386,7 +489,7 @@ def ragged_prompts(rng, n, vocab):
 # the kernels each main path must launch (and no other), by path
 PATHS = {
     "generate": ("bfp_matmul_subbyte_t", "attn_decode_pos_major"),
-    "ContinuousBatcher": ("bfp_matmul_int8", "attn_decode_head_major"),
+    "ContinuousBatcher": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
     "opt_generate_lane_major": ("bfp_matmul_subbyte",),
 }
@@ -397,11 +500,11 @@ PROBE_PATHS = {
     "kvariants": ("probe_matmul_variant_t", "probe_matmul_variant", "bfp_matmul_subbyte_t",
                   "bfp_matmul_subbyte"),
     "kvariants2": ("probe_sub_variant_t", "probe_sub_variant", "probe_int8_variant",
-                   "bfp_matmul_subbyte_t", "bfp_matmul_subbyte", "bfp_matmul_int8"),
+                   "bfp_matmul_subbyte_t", "bfp_matmul_subbyte", "bfp_matmul_int8", "actq_split"),
     "aprobe": ("probe_attention", "attn_decode_pos_major"),
-    "kprobe": ("probe_subbyte_tile", "bfp_matmul_subbyte", "bfp_matmul_int8"),
+    "kprobe": ("probe_subbyte_tile", "bfp_matmul_subbyte", "bfp_matmul_int8", "actq_split"),
     "ktune7b": ("probe_int8_tile", "probe_band_sum", "probe_subbyte_tile", "bfp_matmul_int8",
-                "bfp_matmul_subbyte"),
+                "actq_split", "bfp_matmul_subbyte"),
     "k3": ("probe_attention_v2", "probe_attention_v3", "attn_decode_pos_major"),
     "kexp": ("probe_expand",),
 }
@@ -451,7 +554,8 @@ def check_path_counts(path_counts):
 
 
 def run_llama():
-    """Llama-2-7B widths: generate (K1 + K4), ContinuousBatcher (K2 + K5),
+    """Llama-2-7B widths: generate (K1 + K4), ContinuousBatcher (K2 with
+    actq_split + K5),
     decode steps against the plain path, a profiled step. -> launch counts
     by path. The trees are freed on return."""
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
@@ -548,12 +652,14 @@ def run_llama():
 
     check(not mismatched, f"batcher requests {mismatched} != generate rows")
 
-    cache = init_packed_kv_cache(config, BATCH, 256, kv_cache_pack_spec(config), "cuda")
-    logits, lengths = prefill_into_cache(sub, torch.as_tensor(g_ids, device="cuda"),
-                                         torch.as_tensor(g_mask, device="cuda"), cache, config)
-    tok = torch.argmax(logits, -1)[:, None]
-    profile_decode(f"Llama sub-byte, batch {BATCH}, max_len 256",
-                   lambda i: decode_step(sub, tok, cache, lengths + i, config))
+    # profiled steps of each format, on the cache layout of its serving run
+    for label, params, max_len in (("sub-byte", sub, 256), ("int8", int8, 512)):
+        cache = init_packed_kv_cache(config, BATCH, max_len, kv_cache_pack_spec(config), "cuda")
+        logits, lengths = prefill_into_cache(params, torch.as_tensor(g_ids, device="cuda"),
+                                             torch.as_tensor(g_mask, device="cuda"), cache, config)
+        tok = torch.argmax(logits, -1)[:, None]
+        profile_decode(f"Llama {label}, batch {BATCH}, max_len {max_len}",
+                       lambda i: decode_step(params, tok, cache, lengths + i, config))
     return path_counts
 
 
@@ -932,9 +1038,11 @@ def check_variant_probes(peaks, flush):
     size: 1, 2 or 4 bytes a block; operations at the peak of the units the
     copy runs on), one bf16 matmul on the pre-dequantized weight as every
     variant's yardstick (each computes x . W); then faithfulness on bf16 x
-    without activation quantizer: v2 and v4 equal K1/K3 and P2 equals K2 to
-    max abs error 0, v3 is within 1e-5 of max|y|; the production kernels
-    timed beside them. -> {probe: row}, sums over the four shapes."""
+    without activation quantizer: v2 and v4 equal K1/K3 and P2 equals
+    int8_tile's c32_k512 (K2's CUDA-core design, which P2 copies) to max abs
+    error 0, v3 and K2 on the tensor cores are within 1e-5 of max|y| of
+    theirs; the production kernels timed beside them. -> {probe: row}, sums
+    over the four shapes."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         _k_padded, bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -953,7 +1061,7 @@ def check_variant_probes(peaks, flush):
             ("", "lane_major", bfp_matmul_subbyte_cuda, "K3", peaks[1])):
         probes["probe_matmul_variant" + suffix] = (fmt, prod, pname, op_peak, mm)
         probes["probe_sub_variant" + suffix] = (fmt, prod, pname, op_peak, sub)
-    probes["probe_int8_variant"] = ("int8", bfp_matmul_cuda, "K2", peaks[1], {
+    probes["probe_int8_variant"] = ("int8", c32_k512, "c32_k512", peaks[1], {
         v: (kv2.int8_variant, kv2.int8_variant_plain, dt) for dt, v in kv2.INT8_VARIANTS.items()})
     rows = {name: {"variants": {v: {"max_abs_err": 0.0} for v in spec[4]}, "beside_ms": {}}
             for name, spec in probes.items()}
@@ -974,6 +1082,11 @@ def check_variant_probes(peaks, flush):
             packed, row = packs[fmt], rows[name]
             k_pad = packed.codes.shape[1] if fmt == "int8" else _k_padded(packed)
             want = prod(x_bf, packed, None)
+            if fmt == "int8":
+                err = _close_to_max(bfp_matmul_cuda(x_bf, packed, None), want, 1e-5,
+                                    f"K2 vs c32_k512 {sname}")
+                log(f"  K2 {sname}: within 1e-5 of c32_k512 without actq on bf16 x "
+                    f"(max abs err {err:.3e})")
             for v, (fn, plain, arg) in variants.items():
                 rv = row["variants"][v]
                 # P3's and P2's scales stored as the kernel reads them, outside the timed calls
@@ -998,8 +1111,9 @@ def check_variant_probes(peaks, flush):
                 log(f"  {name} {sname} N={n} K={k}: {v} vs {pname} without actq on bf16 x: "
                     f"max abs err {err:.3e}; plain version {rv['max_abs_err']:.3e} so far")
             if (fmt, sname) not in prod_ms:
-                prod_ms[fmt, sname] = cuda_ms(lambda: prod(x_bf, packed, None), flush=flush)
-            _add(row["beside_ms"], pname, prod_ms[fmt, sname])
+                kern = bfp_matmul_cuda if fmt == "int8" else prod
+                prod_ms[fmt, sname] = cuda_ms(lambda: kern(x_bf, packed, None), flush=flush)
+            _add(row["beside_ms"], "K2" if fmt == "int8" else pname, prod_ms[fmt, sname])
         del packs, lane_major
     return rows
 
@@ -1014,8 +1128,9 @@ def check_tile_probes(peaks, flush):
     the float32 peak), one bf16 matmul on the pre-dequantized weight as the
     yardstick; then faithfulness on bf16 x without activation quantizer:
     every subbyte_tile instance equals K3 and every int8_tile instance
-    without bands K2 to max abs error 0, the band instance within 1e-5 of
-    max|y|. band_sum, on a workspace of the band instance's shape: equal to
+    without bands c32_k512 (K2's CUDA-core design) to max abs error 0, the
+    band instance and K2 on the tensor cores within 1e-5 of max|y| of it.
+    band_sum, on a workspace of the band instance's shape: equal to
     its plain version, timed alone beside ``ws.sum(0)``. -> {probe: row},
     sums over the four shapes."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
@@ -1030,7 +1145,7 @@ def check_tile_probes(peaks, flush):
         "probe_subbyte_tile": ("sub", kprobe.SUB_INSTANCES, kprobe.subbyte_tile,
                                kprobe.subbyte_tile_plain, bfp_matmul_subbyte_cuda, "K3"),
         "probe_int8_tile": ("int8", ktune7b.INT8_INSTANCES, ktune7b.int8_tile,
-                            ktune7b.int8_tile_plain, bfp_matmul_cuda, "K2"),
+                            ktune7b.int8_tile_plain, c32_k512, "c32_k512"),
     }
     rows = {name: {"variants": {v: {"max_abs_err": 0.0, "faithful_err": 0.0}
                                 for v in spec[1]}} for name, spec in probes.items()}
@@ -1050,6 +1165,11 @@ def check_tile_probes(peaks, flush):
             library = cuda_ms(lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
             del w_bf16
             want = prod(x_bf, packed, None)
+            if fmt == "int8":
+                err = _close_to_max(bfp_matmul_cuda(x_bf, packed, None), want, 1e-5,
+                                    f"K2 vs c32_k512 {sname}")
+                rows[name].setdefault("k2_vs_c32_k512_err", 0.0)
+                rows[name]["k2_vs_c32_k512_err"] = max(rows[name]["k2_vs_c32_k512_err"], err)
             plain_ms = {}
             for v, args in instances.items():
                 rv = rows[name]["variants"][v]
@@ -1206,6 +1326,8 @@ def kernel_entries(rows, path_counts):
     attention_cu = "llm_mixed_q_torch/csrc/attention_decode.cu"
     sources = {"bfp_matmul_subbyte_t": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:349"),
                "bfp_matmul_int8": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:118"),
+               # the data_in quantizer of _dequant_matmul_kernel, once a call
+               "actq_split": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:63"),
                "bfp_matmul_subbyte": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:221"),
                "attn_decode_pos_major": (attention_cu,
                                          "llm_mixed_q_tpu/kernels/attention_decode.py:190"),
@@ -1223,7 +1345,8 @@ def kernel_entries(rows, path_counts):
             launches = sum(by_path.values())
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
-            "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg")
+            "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
+            "k2_vs_c32_k512_err")
             if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
@@ -1234,7 +1357,7 @@ def kernel_entries(rows, path_counts):
                             bound_by=r["bound_by"], library_ms=r["library_ms"], **extra))
     return kernels
 
-def main(k1_only=False, probes_only=False):
+def main(only=None):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -1269,24 +1392,37 @@ def main(k1_only=False, probes_only=False):
                 log("  ptxas:", line.strip())
     log(f"both libraries built and loaded in {time.perf_counter() - t0:.1f} s")
     hmma = {**count_sass(libs["kernels"], "subbyte_t_kernel", "HMMA"),
+            **count_sass(libs["kernels"], "int8_kernel", "HMMA"),
             **count_sass(libs["probes"], "probe_t_kernel", "HMMA")}
-    log(f"HMMA instructions in K1's and P8's SASS: {hmma}")
+    log(f"HMMA instructions in K1's, K2's and P8's SASS: {hmma}")
 
     flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    if k1_only:
+    if only == "k1":
         # K1's times alone, for comparing two versions of it in one call
         log(f"K1 vs its plain version at 7B decode shapes, batch {BATCH} and {PREFILL_M} rows:")
         log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte_t")))
         return
-    check(all(hmma.values()), f"K1 or P8 does not run on the tensor cores: {hmma}")
-    if probes_only:
+    check(all(hmma.values()), f"K1, K2 or P8 does not run on the tensor cores: {hmma}")
+    if only == "k2":
+        log(f"K2 and actq_split vs their plain versions at 7B decode shapes, batch {BATCH} "
+            f"and {PREFILL_M} rows:")
+        log(json.dumps({"bfp_matmul_int8": check_matmul_kernels(peaks, flush,
+                                                                only="bfp_matmul_int8"),
+                        "actq_split": check_actq_split(peaks, flush)}))
+        return
+    if only == "m_sweep":
+        log(f"K1, K2, K3 over M (ms a 7B layer, {smi}):")
+        log(json.dumps(m_sweep(flush)))
+        return
+    if only == "probes":
         rows, path_counts = run_probes(peaks, flush, libs["probes"])
         log(json.dumps({"kernels": kernel_entries(rows, path_counts)}))
         return
-    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 also "
+    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 and K2 also "
         f"{PREFILL_M} rows):")
     rows = check_matmul_kernels(peaks, flush)
+    rows["actq_split"] = check_actq_split(peaks, flush)
     rows.update(check_attention_kernels(peaks, flush))
     for r in rows.values():
         for pre in ("", "prefill_"):
@@ -1303,8 +1439,9 @@ def main(k1_only=False, probes_only=False):
     rows.update(probe_rows)
     path_counts.update(probe_counts)
 
-    log("(matmul rows: sums over one Llama-2-7B layer's four projections at batch "
-        "8, opt_mlp_ms: OPT-6.7B fc1 and fc2 at batch 8; attention rows: one call "
+    log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
+        "at batch 8, K2's including its actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
+        "batch 8; attention rows: one call "
         "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2/P4-P7 sums over the four "
         "projections at M = 8, ms of ship (P8/P9), v2 (P1), v4_bf16s (P3), "
         "int8_bf16s (P2), c32_t1 (P4/P7), c32_k512 (P6/P5), band_sum one call a "
@@ -1319,4 +1456,6 @@ def main(k1_only=False, probes_only=False):
 
 
 if __name__ == "__main__":
-    main(k1_only="--k1-only" in sys.argv[1:], probes_only="--probes-only" in sys.argv[1:])
+    flags = {"--k1-only": "k1", "--k2-only": "k2", "--m-sweep": "m_sweep",
+             "--probes-only": "probes"}
+    main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

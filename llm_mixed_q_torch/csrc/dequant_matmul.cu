@@ -13,17 +13,22 @@
 //    [n_tiles, N, tile / bs]). The TPU kernel's `tps` (packing tiles a grid
 //    step) is a TPU tiling knob with no counterpart here, so its silent
 //    reset to 1 does not carry over.
-// All three fold the block_fp activation quantizer (_qdq_lanes_signed on the
-// TPU) into their prologue: each block quantizes its K-step of x on the way
-// into shared memory, a quantizer block being a run of 1..32 lanes of a warp.
+// K1 and K3 fold the block_fp activation quantizer (_qdq_lanes_signed on
+// the TPU) into their prologue: each block quantizes its K-step of x on the
+// way into shared memory, a quantizer block being a run of 1..32 lanes of a
+// warp. K2 runs it once a call, in a kernel of its own (actq_split), that
+// writes x as two bf16 terms into a workspace; the same C call then
+// launches K2's matmul on that workspace.
 //
 // What bounds them on an H100: at decode M (<= 16 rows) the product does
 // 2*M flops per weight element and reads the packed weight once, so its
 // bytes (the packed weight, plus 4*M*(K+N) for x and y) over the 3.35 TB/s
 // memory rate bound it (Llama-2-7B: ~6.9 bits per element sub-byte, 10 bits
-// int8; K1 and K3 read the same bytes, in two layouts). Every block owns 32
-// output columns, so a 4096-wide projection spreads over 128 blocks, and
-// redoes the activation quantizer for them.
+// int8; K1 and K3 read the same bytes, in two layouts; K2's bound is 0.0765
+// ms a layer at M = 8, and its operations at the bf16 tensor-core peak
+// pass its bytes only near M = 256). K1 and K3 give every block 32 output
+// columns, so a 4096-wide projection spreads over 128 blocks, and redo the
+// activation quantizer for them.
 // - K1 runs on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
 //   accumulators), with A and B swapped so that N fills the mma's 16-row
 //   side and the batch its 8-column side: at M = 8 no tensor-core work goes
@@ -47,11 +52,27 @@
 //   32-column block still stages and quantizes all of x, and 2 blocks of
 //   128 registers a thread leave 4 warps a scheduler to hide the latency of
 //   a tile's barrier and dependent mma chain.
-// - K2: lanes run along K (codes are [N, K]: 4 codes per lane, 128 per warp
-//   load, coalesced); warp w takes 4 columns and reuses each x load for
-//   all 4. A chunk's codes are loaded before its x is staged, so the loads
-//   overlap the staging.
-// - K3: lanes run along K as in K2 (a column's words are contiguous: lane
+// - K2 runs on the tensor cores as K1 does (N on the mma's 16 rows, the
+//   batch on its 8 columns, bf16 operands, float32 accumulators), from two
+//   kernels. actq_split quantizes x once a call (one block a row) and
+//   writes hi = bf16(q) and lo = bf16(q - hi) [M][kw] and a flag a row
+//   where lo is nonzero; with no quantizer it only splits, so raw float32 x
+//   keeps float32 semantics as in K1. int8_kernel then streams codes
+//   [N, K_pad] (A's natural row-major layout), float32 scales and x hi
+//   through a 4-stage cp.async ring (16 bytes a thread, coalesced along K);
+//   lo comes straight from the workspace, in L2, and its products run only
+//   when some row of the block has a lo. A code times its power-of-two
+//   scale is exact in bf16 down to scales of 2^-133; below that (no packer
+//   pairs such a scale with a nonzero code) the scale goes into the mma as
+//   s * 2^64 and 2^-64 is applied in float32. A block owns 32 columns
+//   where that leaves every SM 2 blocks, else 16 (N = 4096: 256 blocks),
+//   and 8 or 16 rows (3 blocks an SM at 32 columns and 8 rows, else 2:
+//   the ring's bytes in flight, not the arithmetic, bound it, see
+//   PERF.md); its 8 warps split the columns into 16-row tiles and
+//   K into 64-wide groups of every stage, summed in a fixed order at the
+//   end. Row blocks run next to each other, so at prefill M they share a
+//   column block's weights through L2.
+// - K3: lanes run along K (a column's words are contiguous: lane
 //   r holds word rows r, r+32, r+64, r+96 of a tile, 128 bytes a warp
 //   load); warp w takes 4 columns and keeps the next tile's 16 words in
 //   flight in registers. Slice j of a word is K row j*128 + 32g + lane of
@@ -60,13 +81,13 @@
 //   one contiguous run of bytes (scales[t, col0:col0+32, :]); the block
 //   decodes them into shared memory once a tile instead of every thread
 //   reading bytes.
-// Staging loads a K position of every row at once (ROWS loads in flight a
-// thread) and quantizes on the way: the quantizer's block max is a shuffle
-// reduction over a run of lanes, and divisions by powers of two are exact
-// multiplications. Each row is summed in a fixed order (per warp, then the
-// warps or lanes combined in a fixed order): a row's result does not depend
-// on M or on the other rows (no split across blocks, no atomics). K2 and K3
-// accumulate in float32 on the CUDA cores.
+// K3's staging loads a K position of every row at once (ROWS loads in
+// flight a thread) and quantizes on the way: the quantizer's block max is a
+// shuffle reduction over a run of lanes, and divisions by powers of two are
+// exact multiplications. Each row is summed in a fixed order (per warp,
+// then the warps or lanes combined in a fixed order): a row's result does
+// not depend on M or on the other rows (no split across blocks, no
+// atomics). K3 accumulates in float32 on the CUDA cores.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -80,9 +101,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 32;                      // output columns per block
 constexpr int kSlice = 128;                    // K1, K3: word rows of a packing tile
-constexpr int kColsPerWarp = kCols / kWarps;   // K2, K3: columns per warp
+constexpr int kColsPerWarp = kCols / kWarps;   // K3: columns per warp
 constexpr int kLaneWords = kSlice / 32;        // K3: words per lane, column and tile
-constexpr int kChunk = 512;                    // K2: K per step, 4 codes per lane x 4
 constexpr int kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float scale_from_e8(uint8_t e8) {
@@ -579,98 +599,294 @@ subbyte_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words,
 
 // ---------------------------------------------------------------- K2
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-int8_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
-            const float* __restrict__ scales, float* __restrict__ y,
-            int M, int N, int K, int k_pad, int bs, lmq::BfpSpec aq) {
-  __shared__ __align__(16) float xs[ROWS * kChunk];  // [ROWS][kChunk]
+// actq_split: x [M, K] float32 -> the workspace of K2: hi [M][kw] and lo
+// [M][kw] bf16 (hi = bf16(q), lo = bf16(q - hi), q = actq(x) or x itself,
+// 0 past K), then lo_rows [M] bytes (1 where a row has a nonzero lo). One
+// block a row; a thread takes 4 consecutive K, so a quantizer block
+// (aq.bs | 32) is held by one thread or by a run of aq.bs / 4 lanes; kw is
+// a multiple of 128, so every warp is either inside the row or past kw.
+constexpr int kSplitThreads = 1024;
+
+__global__ void __launch_bounds__(kSplitThreads)
+actq_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
+                  __nv_bfloat16* __restrict__ lo, uint8_t* __restrict__ lo_rows, int K, int kw,
+                  lmq::BfpSpec aq) {
+  const int row = blockIdx.x;
+  const float* xr = x + (size_t)row * K;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  uint32_t lo_bits = 0;
+  for (int k = 4 * threadIdx.x; k < kw; k += 4 * kSplitThreads) {
+    float q[4];
+    if (vec && k + 3 < K) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(xr + k));
+      q[0] = f.x, q[1] = f.y, q[2] = f.z, q[3] = f.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) q[u] = k + u < K ? __ldg(xr + k + u) : 0.f;
+    }
+    if (aq.on) {
+      float a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = fabsf(q[u]);
+      if (aq.bs >= 2) {
+        a[0] = a[1] = fmaxf(a[0], a[1]);
+        a[2] = a[3] = fmaxf(a[2], a[3]);
+      }
+      if (aq.bs >= 4) a[0] = a[1] = a[2] = a[3] = fmaxf(a[0], a[2]);
+      for (int o = 1; o < aq.bs / 4; o <<= 1)
+        a[0] = a[1] = a[2] = a[3] = fmaxf(a[0], __shfl_xor_sync(0xffffffffu, a[0], o));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) q[u] = lmq::bfp_qdq(q[u], a[u], aq);
+    }
+    uint32_t h[2], l[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      h[p] = pack_bf16x2(q[2 * p], q[2 * p + 1]);
+      l[p] = pack_bf16x2(q[2 * p] - __uint_as_float(h[p] << 16),
+                         q[2 * p + 1] - __uint_as_float(h[p] & 0xffff0000u));
+      lo_bits |= l[p] & 0x7fff7fffu;  // a -0 lo adds nothing either
+    }
+    *reinterpret_cast<uint2*>(hi + (size_t)row * kw + k) = make_uint2(h[0], h[1]);
+    *reinterpret_cast<uint2*>(lo + (size_t)row * kw + k) = make_uint2(l[0], l[1]);
+  }
+  const int any = __syncthreads_or(lo_bits != 0);
+  if (threadIdx.x == 0) lo_rows[row] = any ? 1 : 0;
+}
+
+// int8_kernel: y [M, N] = (hi + lo) . (codes * scales)^T on the tensor
+// cores. COLS output columns a block (16 or 32: one or two 16-row mma
+// tiles), R rows a block (8 or 16: one or two n8 tiles). Warp w takes the
+// column tile w % NCT and the K group w / NCT: 64 K of every ring stage,
+// four k16 steps. Within a group a thread's 16 consecutive K of a row
+// (one 16-byte load of codes, two of x) feed the four steps: step s uses K
+// 4s .. 4s + 3 of them as the mma's k 2 tig, +1, 2 tig + 8, +9, the same
+// permutation of K for A and B, so the products are the same.
+constexpr int kK2Stages = 4;     // ring stages in flight
+constexpr int kK2WarpK = 64;     // K of a warp's share of a stage
+constexpr int kK2WsK = 512;      // the workspace's K stride is a multiple of this
+// int8 code times a power-of-two scale is exact in bf16 from this scale up
+// (bf16 subnormals are multiples of 2^-133); a scale below it is applied
+// as s * 2^64 in the mma and 2^-64 in float32
+constexpr float kK2Bf16Scale = 0x1p-133f;
+constexpr float kK2Lift = 0x1p64f, kK2Drop = 0x1p-64f;
+
+template <int COLS>
+struct K2Tile {
+  static constexpr int NCT = COLS / 16;          // 16-column mma tiles
+  static constexpr int KG = kWarps / NCT;        // K groups of warps
+  static constexpr int KT = KG * kK2WarpK;       // K of a ring stage: 256 or 512
+  static constexpr int CSTR = KT + 64;           // bytes of a code row in a slot
+  static constexpr int XSTR = KT + 8;            // bf16 of an x row in a slot
+};
+
+__host__ __device__ __forceinline__ int k2_sstr(int kt, int lbs) { return (kt >> lbs) + 4; }
+
+// A ring slot: codes [COLS][CSTR] bytes, x hi [R][XSTR] bf16, scales
+// [COLS][sstr] float32. The row strides spread a warp's 16-byte loads
+// over all banks (codes: rows 64 bytes apart mod 128; x: 16).
+template <int COLS, int R>
+__host__ __device__ __forceinline__ int k2_slot_bytes(int lbs) {
+  using T = K2Tile<COLS>;
+  return COLS * T::CSTR + 2 * R * T::XSTR + 4 * COLS * k2_sstr(T::KT, lbs);
+}
+
+// Queue stage t (K t*KT ..) of the block's codes, scales and x hi into
+// `slot`, zero past N, past k_pad and past the live rows: 16-byte copies
+// where the rows allow them, else 4-byte ones.
+template <int COLS, int R>
+__device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __restrict__ codes,
+                                              const float* __restrict__ scales,
+                                              const __nv_bfloat16* __restrict__ xhi, int t,
+                                              int col0, int m0, int M, int N, int k_pad, int kw,
+                                              int lbs, bool codes16, bool scales16) {
+  using T = K2Tile<COLS>;
+  const int k0 = t * T::KT;
+  if (codes16) {
+    for (int i = threadIdx.x; i < COLS * T::KT / 16; i += kThreads) {
+      const int r = i / (T::KT / 16), c = 16 * (i % (T::KT / 16));
+      const bool in = col0 + r < N && k0 + c < k_pad;
+      cp_async16(slot + r * T::CSTR + c, in ? codes + (size_t)(col0 + r) * k_pad + k0 + c : codes,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < COLS * T::KT / 4; i += kThreads) {
+      const int r = i / (T::KT / 4), c = 4 * (i % (T::KT / 4));
+      const bool in = col0 + r < N && k0 + c < k_pad;
+      cp_async4(slot + r * T::CSTR + c, in ? codes + (size_t)(col0 + r) * k_pad + k0 + c : codes,
+                in ? 4 : 0);
+    }
+  }
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * T::CSTR);
+  for (int i = threadIdx.x; i < R * T::KT / 8; i += kThreads) {
+    const int r = i / (T::KT / 8), c = 8 * (i % (T::KT / 8));
+    const bool in = m0 + r < M;
+    cp_async16(xs + r * T::XSTR + c, in ? xhi + (size_t)(m0 + r) * kw + k0 + c : xhi, in ? 16 : 0);
+  }
+  float* ss = reinterpret_cast<float*>(slot + COLS * T::CSTR + 2 * R * T::XSTR);
+  const int spr = T::KT >> lbs, sstr = spr + 4, nb = k_pad >> lbs, s0 = k0 >> lbs;
+  if (scales16) {
+    for (int i = threadIdx.x; i < COLS * spr / 4; i += kThreads) {
+      const int r = i / (spr / 4), c = 4 * (i % (spr / 4));
+      const bool in = col0 + r < N && s0 + c < nb;
+      cp_async16(ss + r * sstr + c, in ? scales + (size_t)(col0 + r) * nb + s0 + c : scales,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < COLS * spr; i += kThreads) {
+      const int r = i / spr, c = i % spr;
+      const bool in = col0 + r < N && s0 + c < nb;
+      cp_async4(ss + r * sstr + c, in ? scales + (size_t)(col0 + r) * nb + s0 + c : scales,
+                in ? 4 : 0);
+    }
+  }
+}
+
+// code j of a word of four int8 codes, as float: 2^23 + (code + 128),
+// built from bits, minus 2^23 + 128, exactly
+__device__ __forceinline__ float k2_code(uint32_t biased, int j) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+}
+
+// The A fragment of step s: rows n_lo (c0) and n_lo + 8 (c1), their codes
+// 4s .. 4s + 3 (words wd0, wd1, biased by 0x80 a byte) times scales s0, s1.
+__device__ __forceinline__ void k2_a_frag(uint32_t (&a)[4], uint32_t wd0, uint32_t wd1, float s0,
+                                          float s1) {
+  a[0] = pack_bf16x2(k2_code(wd0, 0) * s0, k2_code(wd0, 1) * s0);
+  a[1] = pack_bf16x2(k2_code(wd1, 0) * s1, k2_code(wd1, 1) * s1);
+  a[2] = pack_bf16x2(k2_code(wd0, 2) * s0, k2_code(wd0, 3) * s0);
+  a[3] = pack_bf16x2(k2_code(wd1, 2) * s1, k2_code(wd1, 3) * s1);
+}
+
+// 3 blocks an SM where 3 rings fit (32 columns, 8 rows: 66 KB a block at
+// blocks of 16; ptxas then holds it to 80 registers), else 2
+template <int COLS, int R>
+__global__ void __launch_bounds__(kThreads, COLS == 32 && R == 8 ? 3 : 2)
+int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restrict__ xlo,
+            const uint8_t* __restrict__ lo_rows, const int8_t* __restrict__ codes,
+            const float* __restrict__ scales, float* __restrict__ y, int M, int N, int k_pad,
+            int kw, int lbs, bool codes16, bool scales16) {
+  using T = K2Tile<COLS>;
+  constexpr int NT = R / 8;
+  extern __shared__ __align__(16) uint8_t smem_k2[];
+  const int slot_bytes = k2_slot_bytes<COLS, R>(lbs);
+  const int sstr = k2_sstr(T::KT, lbs);
+
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int col0 = blockIdx.x * kCols + warp * kColsPerWarp;  // this warp's columns
-  const int m0 = blockIdx.y * ROWS;
-  const int rows = min(ROWS, M - m0);
-  const int nb = k_pad / bs;  // scales per weight row
+  const int g = lane >> 2, tig = lane & 3;
+  const int ct = warp % T::NCT, q = warp / T::NCT;
+  const int n_lo = ct * 16 + g;                 // this lane's columns n_lo and n_lo + 8
+  const int kb = q * kK2WarpK + 16 * tig;       // and its 16 K of every stage
+  const int m0 = blockIdx.x * R, col0 = blockIdx.y * COLS;
+  const int rows = min(R, M - m0);
+  const int live_nt = (rows + 7) / 8;
+  const int n_tiles = (k_pad + T::KT - 1) / T::KT;
+  // the lo products run only where some row of the block has a lo term (a
+  // zero lo adds exactly 0 to the others)
+  const bool any_lo = __syncthreads_or(threadIdx.x < rows && lo_rows[m0 + threadIdx.x] != 0);
 
-  float acc[kColsPerWarp][ROWS];
+  float acc[NT][4], fix[NT][4];
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int m = 0; m < ROWS; ++m) acc[c][m] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[nt][i] = fix[nt][i] = 0.f;
+  bool fixed = false;  // warp-uniform: some scale of this warp was below kK2Bf16Scale
 
-  for (int k0 = 0; k0 < k_pad; k0 += kChunk) {
-    const int len = min(kChunk, k_pad - k0);  // a multiple of 4
-    // lane: codes k0 + 128 g + 4 lane .. + 3 of each column (one scale block,
-    // since bs is a multiple of 4)
-    int cw[kColsPerWarp][4];
-    float sc[kColsPerWarp][4];
 #pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
+  for (int s = 0; s < kK2Stages - 1; ++s) {
+    if (s < n_tiles)
+      k2_load_stage<COLS, R>(smem_k2 + s * slot_bytes, codes, scales, xhi, s, col0, m0, M, N,
+                             k_pad, kw, lbs, codes16, scales16);
+    cp_async_commit();
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kK2Stages - 2>();  // this thread's copies of stage t have landed
+    __syncthreads();                 // everyone's have, and everyone is done with t - 1
+    if (t + kK2Stages - 1 < n_tiles)
+      k2_load_stage<COLS, R>(smem_k2 + ((t + kK2Stages - 1) % kK2Stages) * slot_bytes, codes,
+                             scales, xhi, t + kK2Stages - 1, col0, m0, M, N, k_pad, kw, lbs,
+                             codes16, scales16);
+    cp_async_commit();
+
+    const uint8_t* slot = smem_k2 + (t % kK2Stages) * slot_bytes;
+    const uint4 c0 = *reinterpret_cast<const uint4*>(slot + n_lo * T::CSTR + kb);
+    const uint4 c1 = *reinterpret_cast<const uint4*>(slot + (n_lo + 8) * T::CSTR + kb);
+    const uint32_t w0[4] = {c0.x ^ 0x80808080u, c0.y ^ 0x80808080u, c0.z ^ 0x80808080u,
+                            c0.w ^ 0x80808080u};
+    const uint32_t w1[4] = {c1.x ^ 0x80808080u, c1.y ^ 0x80808080u, c1.z ^ 0x80808080u,
+                            c1.w ^ 0x80808080u};
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(slot + COLS * T::CSTR);
+    const float* ss = reinterpret_cast<const float*>(slot + COLS * T::CSTR + 2 * R * T::XSTR);
+    // B: row (column of the mma) nt * 8 + g, this lane's 16 K: 8 bf16x2 words
+    uint32_t bh[NT][8], bl[NT][8];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const int kk = g * 128 + 4 * lane;
-        const bool ok = col0 + c < N && kk < len;
-        const size_t row = (size_t)(col0 + c);
-        cw[c][g] = ok ? __ldg(reinterpret_cast<const int*>(codes + row * k_pad + k0 + kk)) : 0;
-        sc[c][g] = ok ? __ldg(scales + row * nb + (k0 + kk) / bs) : 0.f;
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint4* src = reinterpret_cast<const uint4*>(xs + (nt * 8 + g) * T::XSTR + kb);
+      const uint4 u0 = src[0], u1 = src[1];
+      bh[nt][0] = u0.x, bh[nt][1] = u0.y, bh[nt][2] = u0.z, bh[nt][3] = u0.w;
+      bh[nt][4] = u1.x, bh[nt][5] = u1.y, bh[nt][6] = u1.z, bh[nt][7] = u1.w;
+    }
+    if (any_lo) {  // straight from the workspace (in L2 after actq_split)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = m0 + nt * 8 + g;
+        uint4 u0 = make_uint4(0, 0, 0, 0), u1 = u0;
+        if (nt < live_nt && m < M) {
+          const uint4* src = reinterpret_cast<const uint4*>(xlo + (size_t)m * kw + t * T::KT + kb);
+          u0 = __ldg(src);
+          u1 = __ldg(src + 1);
+        }
+        bl[nt][0] = u0.x, bl[nt][1] = u0.y, bl[nt][2] = u0.z, bl[nt][3] = u0.w;
+        bl[nt][4] = u1.x, bl[nt][5] = u1.y, bl[nt][6] = u1.z, bl[nt][7] = u1.w;
       }
     }
-    __syncthreads();  // the previous chunk's xs is no longer read
-    // x: a thread loads one K position of all ROWS rows at once, the lanes of
-    // a warp hold consecutive K (the activation quantizer's blocks are runs
-    // of lanes)
-    for (int kk = threadIdx.x; kk < kChunk; kk += kThreads) {
-      const int k = k0 + kk;
-      float v[ROWS];
 #pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-        v[m] = (m < rows && kk < len && k < K) ? __ldg(x + (size_t)(m0 + m) * K + k) : 0.f;
-      if (aq.on) {
+    for (int s = 0; s < 4; ++s) {
+      const int si = (kb + 4 * s) >> lbs;  // 4 | bs: one scale a row and step
+      float s0 = ss[n_lo * sstr + si], s1 = ss[(n_lo + 8) * sstr + si];
+      const bool t0 = s0 > 0.f && s0 < kK2Bf16Scale, t1 = s1 > 0.f && s1 < kK2Bf16Scale;
+      uint32_t a[4];
+      k2_a_frag(a, w0[s], w1[s], t0 ? 0.f : s0, t1 ? 0.f : s1);
 #pragma unroll
-        for (int m = 0; m < ROWS; ++m) v[m] = lmq::bfp_qdq_lanes(v[m], aq);
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= live_nt) break;
+        mma_bf16(acc[nt], a, make_uint2(bh[nt][2 * s], bh[nt][2 * s + 1]));
+        if (any_lo) mma_bf16(acc[nt], a, make_uint2(bl[nt][2 * s], bl[nt][2 * s + 1]));
       }
+      if (__any_sync(0xffffffffu, t0 || t1)) {
+        fixed = true;
+        k2_a_frag(a, w0[s], w1[s], t0 ? s0 * kK2Lift : 0.f, t1 ? s1 * kK2Lift : 0.f);
 #pragma unroll
-      for (int m = 0; m < ROWS; ++m) xs[m * kChunk + kk] = v[m];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int kk = g * 128 + 4 * lane;
-      float wv[kColsPerWarp][4];  // dequantized weights, each used for every row
-#pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wv[c][i] = (float)(int8_t)((cw[c][g] >> (8 * i)) & 0xff) * sc[c][g];
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + m * kChunk + kk);
-#pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-          float a = acc[c][m];
-          a = fmaf(xv.x, wv[c][0], a);
-          a = fmaf(xv.y, wv[c][1], a);
-          a = fmaf(xv.z, wv[c][2], a);
-          a = fmaf(xv.w, wv[c][3], a);
-          acc[c][m] = a;
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= live_nt) break;
+          mma_bf16(fix[nt], a, make_uint2(bh[nt][2 * s], bh[nt][2 * s + 1]));
+          if (any_lo) mma_bf16(fix[nt], a, make_uint2(bl[nt][2 * s], bl[nt][2 * s + 1]));
         }
       }
     }
   }
 
-  // sum each (column, row) over the warp's lanes; lane 0 holds the result
+  // combine the K groups of each column tile, q = 0 first
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_k2);  // [KG][NCT][NT][32 lanes][4]; fits in a slot
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int m = 0; m < ROWS; ++m)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[c][m] += __shfl_down_sync(0xffffffffu, acc[c][m], o);
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-        if (m < rows && col0 + c < N) y[(size_t)(m0 + m) * N + col0 + c] = acc[c][m];
+    for (int i = 0; i < 4; ++i)
+      red[(((q * T::NCT + ct) * NT + nt) * 32 + lane) * 4 + i] =
+          fixed ? acc[nt][i] + fix[nt][i] * kK2Drop : acc[nt][i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < R * COLS; o += kThreads) {
+    const int m = o / COLS, n = o % COLS;
+    if (m >= rows || col0 + n >= N) continue;
+    // accumulator element of (n, m): as in K1
+    const int c = n >> 4, src_lane = (n & 7) * 4 + ((m & 7) >> 1);
+    const int reg = (m & 1) + 2 * ((n & 15) >> 3);
+    float sum = 0.f;
+    for (int w = 0; w < T::KG; ++w)
+      sum += red[(((w * T::NCT + c) * NT + (m >> 3)) * 32 + src_lane) * 4 + reg];
+    y[(size_t)(m0 + m) * N + col0 + n] = sum;
   }
 }
 
@@ -735,15 +951,39 @@ int launch_subbyte(const void* x, const void* words, const void* scales, void* y
   return (int)cudaGetLastError();
 }
 
-template <int ROWS>
-int launch_int8(const void* x, const void* codes, const void* scales, void* y, int M,
-                int N, int K, int k_pad, int bs, lmq::BfpSpec aq, cudaStream_t stream) {
-  const dim3 grid((N + kCols - 1) / kCols, (M + ROWS - 1) / ROWS);
-  int8_kernel<ROWS><<<grid, kThreads, 0, stream>>>(
-      (const float*)x, (const int8_t*)codes, (const float*)scales, (float*)y,
-      M, N, K, k_pad, bs, aq);
+template <int COLS, int R>
+int launch_int8(const void* ws, const void* codes, const void* scales, void* y, int M, int N,
+                int k_pad, int kw, int lbs, cudaStream_t stream) {
+  using T = K2Tile<COLS>;
+  const int smem = kK2Stages * k2_slot_bytes<COLS, R>(lbs);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(int8_kernel<COLS, R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(ws);
+  const __nv_bfloat16* lo = hi + (size_t)M * kw;
+  const uint8_t* lo_rows = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
+  const bool codes16 = k_pad % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  const bool scales16 = (T::KT >> lbs) % 4 == 0 && (k_pad >> lbs) % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  // rows fastest: the row blocks of a column block run together and share
+  // its weights through L2
+  const dim3 grid((M + R - 1) / R, (N + COLS - 1) / COLS);
+  int8_kernel<COLS, R><<<grid, kThreads, smem, stream>>>(
+      hi, lo, lo_rows, (const int8_t*)codes, (const float*)scales, (float*)y, M, N, k_pad, kw,
+      lbs, codes16, scales16);
   return (int)cudaGetLastError();
 }
+
+int launch_actq_split(const void* x, void* ws, int M, int K, int kw, lmq::BfpSpec aq,
+                      cudaStream_t stream) {
+  __nv_bfloat16* hi = static_cast<__nv_bfloat16*>(ws);
+  __nv_bfloat16* lo = hi + (size_t)M * kw;
+  actq_split_kernel<<<M, kSplitThreads, 0, stream>>>(
+      (const float*)x, hi, lo, reinterpret_cast<uint8_t*>(lo + (size_t)M * kw), K, kw, aq);
+  return (int)cudaGetLastError();
+}
+
+bool actq_ok(const lmq::BfpSpec& aq) { return !aq.on || (aq.bs >= 1 && 32 % aq.bs == 0); }
 
 }  // namespace
 
@@ -781,16 +1021,40 @@ int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales,
   return launch_subbyte<16>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
 }
 
-int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales,
-                        void* y, int M, int N, int K, int k_pad, int bs,
-                        int aq_on, int aq_bs, int aq_width, int aq_emin,
-                        int aq_emax, void* stream) {
+int lmq_actq_split(const void* x, void* ws, int M, int K, int kw, int aq_on, int aq_bs,
+                   int aq_width, int aq_emin, int aq_emax, void* stream) {
   const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
-  if (bs < 4 || kSlice % bs || k_pad % bs || (aq_on && (32 % aq_bs || k_pad % aq_bs)))
+  if (M < 1 || K > kw || kw % kK2WsK || !actq_ok(aq)) return (int)cudaErrorInvalidValue;
+  return launch_actq_split(x, ws, M, K, kw, aq, static_cast<cudaStream_t>(stream));
+}
+
+// K2: actq_split into the workspace ws (hi, lo [M][kw] bf16, lo_rows [M]
+// bytes), then int8_kernel from it, on one stream.
+int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, void* y,
+                        void* ws, int M, int N, int K, int k_pad, int kw, int bs,
+                        int aq_on, int aq_bs, int aq_width, int aq_emin, int aq_emax,
+                        void* stream) {
+  const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
+  int lbs = 0;
+  while ((1 << lbs) < bs) ++lbs;
+  if (bs < 4 || kSlice % bs || k_pad % bs || K > k_pad || k_pad > kw || kw % kK2WsK || M < 1 ||
+      N < 1 || !actq_ok(aq))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch_int8<8>(x, codes, scales, y, M, N, K, k_pad, bs, aq, s);
-  return launch_int8<16>(x, codes, scales, y, M, N, K, k_pad, bs, aq, s);
+  int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
+  if (rc) return rc;
+  // 32 columns a block where that leaves every SM at least 2 blocks, else
+  // 16 (N = 4096: 256 blocks on 132 SMs); a choice by N alone, so a row's
+  // sums never depend on M
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool wide = (N + 31) / 32 >= 2 * sms;
+  if (M <= 8)
+    return wide ? launch_int8<32, 8>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+                : launch_int8<16, 8>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+  return wide ? launch_int8<32, 16>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+              : launch_int8<16, 16>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
 }
 
 }  // extern "C"

@@ -9,11 +9,13 @@
 //    copy in x's staging, so the copy with each scale type isolates the
 //    type.
 //
-// It is a copy of K2 (csrc/dequant_matmul.cu, int8_kernel at 8 rows a
-// block, held to K2's 128 registers) that reads float32 or bf16 scales
-// (widened to float32 by a shift) and stages bf16(x) with no quantizer; on
-// bf16 x K2 without its quantizer computes the same sums in the same
-// order. What bounds it on an H100, as K2: the codes and scales over the
+// It is a copy of K2's CUDA-core design (csrc/dequant_matmul.cu's
+// int8_kernel at 8 rows a block, held to its 128 registers, before K2
+// moved to the tensor cores) that reads float32 or bf16 scales (widened
+// to float32 by a shift) and stages bf16(x) with no quantizer; on bf16 x
+// that design without its quantizer, int8_tile's c32_k512, computes the
+// same sums in the same order. What bounds it on an H100, as K2: the codes
+// and scales over the
 // 3.35 TB/s memory rate at M = 8, 1 + 2 / bs bytes an element with bf16
 // scales (float32: 1 + 4 / bs). Lanes run along K (4 codes a lane, 128 a
 // warp load, coalesced), warp w takes 4 columns and reuses each x load for

@@ -12,8 +12,10 @@
 // float32 block scales [N, K_pad / bs]), w = code * s, x rounded to bf16 as
 // the TPU probes do and never quantized, float32 sums.
 //
-// The kernel is K2 (csrc/dequant_matmul.cu, int8_kernel at 8 rows a block)
-// without its activation quantizer, templated on the Hopper knobs the TPU
+// The kernel is K2's CUDA-core design (csrc/dequant_matmul.cu's int8_kernel
+// at 8 rows a block, before K2 moved to the tensor cores and to a
+// prologue of its own for the quantizer) without its activation
+// quantizer, templated on the Hopper knobs the TPU
 // tile sizes map to (relative to K2's shipped bn 1024 / bk 1024 <-> 32 /
 // 512):
 //   COLS   output columns a block (COLS / 8 a warp): 8, 16, 32 or 64
@@ -28,11 +30,13 @@
 // (b + 1) * band - 1 (the last band short) and writes its partial sums to a
 // float32 workspace [bands, M, N]; band_sum_kernel then adds the bands in
 // order, a second launch of this file, with no atomics, so the result does
-// not depend on the schedule. COLS = 32, KSTEP = 512 with no band is K2
-// without its quantizer. Lane r sums K rows 128 G + 4 r .. + 3 (G = 0, 1,
-// ...) in increasing order whatever COLS and KSTEP are, so those instances
-// compute K2's sums bit for bit; a band instance adds its bands' sums
-// instead, in another order.
+// not depend on the schedule. COLS = 32, KSTEP = 512 with no band is that
+// design without its quantizer (c32_k512, the anchor the other probe
+// copies of it are held to). Lane r sums K rows 128 G + 4 r .. + 3 (G = 0,
+// 1, ...) in increasing order whatever COLS and KSTEP are, so those
+// instances compute c32_k512's sums bit for bit; a band instance adds its
+// bands' sums instead, in another order, and K2 on the tensor cores sums
+// the same products in another order too.
 //
 // What bounds it on an H100, as K2: the codes and scales (1 + 4 / bs bytes
 // an element) over the 3.35 TB/s memory rate at M = 8, plus, with bands,

@@ -5,6 +5,7 @@ from .attention_decode import (
     packed_attention_decode_cuda,
 )
 from .dequant_matmul import (
+    actq_split_cuda,
     bfp_matmul,
     bfp_matmul_cuda,
     bfp_matmul_subbyte_cuda,
@@ -30,6 +31,7 @@ from .packing import (
 KERNEL_WRAPPERS = {
     "bfp_matmul_subbyte_t": bfp_matmul_subbyte_t_cuda,
     "bfp_matmul_int8": bfp_matmul_cuda,
+    "actq_split": actq_split_cuda,
     "bfp_matmul_subbyte": bfp_matmul_subbyte_cuda,
     "attn_decode_pos_major": packed_attention_decode_batch_cuda,
     "attn_decode_head_major": packed_attention_decode_cuda,

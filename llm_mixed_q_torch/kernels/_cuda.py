@@ -47,9 +47,11 @@ _SIGNATURES = {
         # aq_width, aq_emin, aq_emax, stream
         "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
         "lmq_bfp_matmul_subbyte": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-        # x, codes, scales, y, M, N, K, k_pad, bs, aq_on, aq_bs, aq_width,
-        # aq_emin, aq_emax, stream
-        "lmq_bfp_matmul_int8": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+        # x, codes, scales, y, ws (actq_split's workspace), M, N, K, k_pad,
+        # kw, bs, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
+        "lmq_bfp_matmul_int8": [_P] * 5 + [_I] * 11 + [_P],
+        # x, ws, M, K, kw, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
+        "lmq_actq_split": [_P, _P] + [_I] * 8 + [_P],
         # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
         "lmq_attn_decode_pos_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],

@@ -11,16 +11,24 @@ Three Hopper kernels (``csrc/dequant_matmul.cu``) replace the TPU kernels:
   weights (replaces ``bfp_matmul_subbyte_pallas`` / ``_subbyte_kernel``;
   its ``tps`` tiling knob has no counterpart).
 
-All fold the block_fp data_in quantizer (``actq``, blocks of at most 32
-along K; longer blocks are quantized before the call) into their prologue
-and accumulate in float32. K1 multiplies on the tensor cores, in bf16
-operands that are exact (codes times powers of two; x as a bf16 sum of two
-terms), so it differs from the plain version only in the order of its
-sums; K2 and K3 multiply in float32 on the CUDA cores. Each wrapper launches its kernel for a CUDA tensor
-(counting the launch in its ``launches`` attribute) and computes the plain
-version for a CPU tensor. ``bfp_matmul`` routes M <= 256 rows to the
-kernels and larger M to unpack + ``torch.matmul``, as the JAX package
-leaves large-M products to XLA.
+The block_fp data_in quantizer (``actq``, blocks of at most 32 along K;
+longer blocks are quantized before the call) is ``_qdq_lanes_signed`` on
+the TPU. K1 and K3 fold it into their prologue; K2 runs it once a call in
+a kernel of its own, ``actq_split`` (wrapper ``actq_split_cuda``, plain
+version ``actq_split_plain``), which writes x as two bf16 terms, hi =
+bf16(q) and lo = bf16(q - hi), into a workspace that K2's matmul then
+reads; one C call launches both. K1 and K2 multiply on the tensor cores,
+in bf16 operands that are exact (codes times powers of two; x as hi + lo,
+about 2^-17 of |x| left for raw float32 x, none for block_fp activations
+of width <= 9), so they differ from the plain version only in the order of
+their float32 sums; K3 multiplies in float32 on the CUDA cores. K2's bound
+on an H100 is its bytes at decode M (0.0765 ms for a Llama-2-7B layer's
+four projections at M = 8, PERF.md). Each wrapper launches its kernel for
+a CUDA tensor (counting the launch in its ``launches`` attribute; K2's
+also counts ``actq_split``) and computes the plain version for a CPU
+tensor. ``bfp_matmul`` routes M <= 256 rows to the kernels and larger M
+to unpack + ``torch.matmul``, as the JAX package leaves large-M products
+to XLA.
 """
 
 from __future__ import annotations
@@ -113,8 +121,7 @@ def _launch_subbyte(entry: str, name: str, x2, packed, actq) -> tuple[torch.Tens
     """Run a sub-byte kernel (K1 or K3) through C entry point ``entry`` ->
     (y, whether it launched: an empty product launches nothing)."""
     _check_operands(x2, packed, name)
-    if actq is not None and _KERNEL_ACTQ_BLOCK % actq[0]:
-        raise ValueError(f"{name}: actq block {actq[0]} does not divide {_KERNEL_ACTQ_BLOCK}")
+    _check_actq(actq, name)
     m = x2.shape[0]
     n = packed.out_features
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
@@ -151,8 +158,66 @@ def bfp_matmul_subbyte_cuda(x2: torch.Tensor, packed: PackedBFPSub,
     return y
 
 
+# K stride of K2's workspace: a multiple of this (csrc kK2WsK), so that
+# every ring stage of the matmul reads whole rows of it
+_WS_K = 512
+
+
+def _split_workspace(m: int, k_pad: int, device):
+    """(kw, workspace, hi, lo, lo_rows) of actq_split: hi and lo [m, kw]
+    bf16 and lo_rows [m] bool in one uint8 buffer, kw = k_pad rounded up to
+    a multiple of ``_WS_K``."""
+    kw = -(-k_pad // _WS_K) * _WS_K
+    ws = torch.empty(4 * m * kw + m, dtype=torch.uint8, device=device)
+    hi = ws[: 2 * m * kw].view(torch.bfloat16).view(m, kw)
+    lo = ws[2 * m * kw: 4 * m * kw].view(torch.bfloat16).view(m, kw)
+    return kw, ws, hi, lo, ws[4 * m * kw:].view(torch.bool)
+
+
+def actq_split_plain(x2: torch.Tensor, actq=None, k_pad: int | None = None):
+    """Plain version of actq_split: q = actq(x2) (x2 itself for None),
+    zero-padded to ``k_pad`` columns -> (hi = bf16(q), lo = bf16(q - hi),
+    lo_rows: whether a row has a nonzero lo)."""
+    q = x2 if actq is None else _actq_qdq(x2, actq)
+    if k_pad is not None and k_pad > q.shape[1]:
+        q = torch.nn.functional.pad(q, (0, k_pad - q.shape[1]))
+    hi = q.to(torch.bfloat16)
+    lo = (q - hi.float()).to(torch.bfloat16)
+    return hi, lo, (lo != 0).any(dim=1)
+
+
+def _check_actq(actq, name):
+    if actq is not None and _KERNEL_ACTQ_BLOCK % actq[0]:
+        raise ValueError(f"{name}: actq block {actq[0]} does not divide {_KERNEL_ACTQ_BLOCK}")
+
+
+def actq_split_cuda(x2: torch.Tensor, actq=None, k_pad: int | None = None):
+    """actq_split alone: -> (hi, lo [M, kw] bf16, lo_rows [M] bool), kw =
+    ``k_pad`` (default K) rounded up to a multiple of 512; the plain version
+    padded to kw for a CPU tensor."""
+    name = "actq_split_cuda"
+    k_pad = x2.shape[1] if k_pad is None else k_pad
+    if not x2.is_cuda:
+        return actq_split_plain(x2, actq, -(-k_pad // _WS_K) * _WS_K)
+    if x2.dtype != torch.float32 or x2.ndim != 2 or not x2.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous 2-D float32 tensor")
+    if k_pad < x2.shape[1]:
+        raise ValueError(f"{name}: k_pad {k_pad} < K {x2.shape[1]}")
+    _check_actq(actq, name)
+    m = x2.shape[0]
+    kw, ws, hi, lo, lo_rows = _split_workspace(m, k_pad, x2.device)
+    if m == 0:
+        return hi, lo, lo_rows
+    rc = _cuda.lib().lmq_actq_split(x2.data_ptr(), ws.data_ptr(), m, x2.shape[1], kw,
+                                    *_actq_args(actq), _cuda.stream_ptr(x2))
+    _cuda.check(rc, name)
+    actq_split_cuda.launches += 1
+    return hi, lo, lo_rows
+
+
 def bfp_matmul_cuda(x2: torch.Tensor, packed: PackedBFP, actq=None) -> torch.Tensor:
-    """K2: x [M, K] @ unpack(packed)^T -> [M, N] float32, int8 codes."""
+    """K2: x [M, K] @ unpack(packed)^T -> [M, N] float32, int8 codes:
+    actq_split into a workspace, then the matmul on the tensor cores."""
     if not x2.is_cuda:
         return bfp_matmul_plain(x2, packed, actq)
     name = "bfp_matmul_cuda"
@@ -160,27 +225,29 @@ def bfp_matmul_cuda(x2: torch.Tensor, packed: PackedBFP, actq=None) -> torch.Ten
     bs = packed.block_size
     if bs < 4 or 128 % bs:
         raise ValueError(f"{name}: block {bs} must divide 128 and be >= 4")
-    if actq is not None and _KERNEL_ACTQ_BLOCK % actq[0]:
-        raise ValueError(f"{name}: actq block {actq[0]} does not divide {_KERNEL_ACTQ_BLOCK}")
+    _check_actq(actq, name)
     m = x2.shape[0]
     n = packed.out_features
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
     if m == 0 or n == 0:
         return y
-    lib = _cuda.lib()
-    rc = lib.lmq_bfp_matmul_int8(
+    k_pad = packed.codes.shape[1]
+    kw, ws, *_ = _split_workspace(m, k_pad, x2.device)
+    rc = _cuda.lib().lmq_bfp_matmul_int8(
         x2.data_ptr(), packed.codes.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
-        m, n, packed.in_features, packed.codes.shape[1], bs, *_actq_args(actq),
+        ws.data_ptr(), m, n, packed.in_features, k_pad, kw, bs, *_actq_args(actq),
         _cuda.stream_ptr(x2),
     )
-    _cuda.check(rc, name)
+    _cuda.check(rc, name)  # after both launches
     bfp_matmul_cuda.launches += 1
+    actq_split_cuda.launches += 1
     return y
 
 
 bfp_matmul_subbyte_t_cuda.launches = 0
 bfp_matmul_subbyte_cuda.launches = 0
 bfp_matmul_cuda.launches = 0
+actq_split_cuda.launches = 0
 
 
 def bfp_matmul(x: torch.Tensor, packed, actq: tuple | None = None) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Column tile, K per step and K split of the int8 matmul, and tiles per
 step of the lane-major sub-byte matmul, on the card: probes P6
-(``int8_tile``: a copy of K2 with ``cols`` output columns a block and
+(``int8_tile``: a copy of K2's CUDA-core design, from before K2 moved to
+the tensor cores, with ``cols`` output columns a block and
 ``kstep`` of K staged a step), P5 (``int8_tile(..., band=)``: the same
 kernel summing bands of K in blocks of their own, then ``band_sum``) and
 P7 (``kprobe.subbyte_tile(..., tps=)``), the counterparts of the TPU probe
@@ -15,9 +16,9 @@ quantizer and the bf16 library yardstick beside them. Case names are the
 TPU tool's (``"int8 bn1024 bk1024"``: quote them, comma-separated); they
 map to instances relative to the TPU tool's shipped tiles (``CASES``):
 
-- int8: bn 1024 (K2's TPU tile) <-> 32 columns (K2's), bk 1024 <-> 512 of
-  K a step (K2's ``kChunk``), each halved or doubled with the other;
-  ``nocost`` and ``nodim`` are Mosaic lowering: K2's instance. ``j_inner``
+- int8: bn 1024 (K2's TPU tile) <-> 32 columns (the design's), bk 1024 <->
+  512 of K a step (the design's), each halved or doubled with the other;
+  ``nocost`` and ``nodim`` are Mosaic lowering: that instance. ``j_inner
   (the output tile resident across an outer K axis of bk bands) <-> bands
   of 1024 of K, each summed by blocks of its own into a workspace, then
   added in order (4 bands at K = 4096, 11 at K = 11008, the last short).
@@ -49,7 +50,7 @@ from . import ksub
 from .kprobe import BESIDE, SUB_INSTANCES, Row, occupancy, rows_for, run_rows, sub_row
 
 # the library's instances of int8_tile: name -> (cols, kstep, band); c32_k512
-# is K2 without its activation quantizer
+# is K2's CUDA-core design without its activation quantizer
 INT8_INSTANCES = {"c32_k512": (32, 512, None), "c16_k512": (16, 512, None),
                   "c32_k256": (32, 256, None), "c64_k256": (64, 256, None),
                   "c16_k1024": (16, 1024, None), "c16_k2048": (16, 2048, None),

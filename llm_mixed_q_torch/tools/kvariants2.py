@@ -1,8 +1,9 @@
 """Scale-storage variants of the fused dequant-matmuls on the card: probes
 P3 (``sub_variant``: the sub-byte matmul with FMA dequant and decoded
 float32 or bf16 scales, in K1's transposed layout and in K3's lane-major
-one) and P2 (``int8_variant``: K2's int8 matmul with bf16 scales, and the
-same copy with float32 scales as its control), the counterparts of the TPU
+one) and P2 (``int8_variant``: the int8 matmul of K2's CUDA-core design,
+from before K2 moved to the tensor cores, with bf16 scales, and the same
+copy with float32 scales as its control), the counterparts of the TPU
 probe ``tools/kvariants2.py``.
 
     python -m llm_mixed_q_torch.tools.kvariants2 [i|s|all] [--shape=qkv] [--reps=3] [--device=cpu]
@@ -17,8 +18,8 @@ streams, the share of the card's memory peak), all on the same bf16 x
 [8, K]:
 
 - int8: ``K2`` (float32 scales, no activation quantizer: the TPU tool's
-  ``i_base_*``), ``int8_f32s`` (K2's copy in P2, float32 scales: the
-  control, which differs from K2 in x's staging alone) and ``int8_bf16s``
+  ``i_base_*``), ``int8_f32s`` (the design's copy in P2, float32 scales:
+  the control, equal to ``ktune7b``'s c32_k512) and ``int8_bf16s``
   (the copy with s stored bf16: ``i_bf16s_*``), w = code * s;
 - sub-byte, each layout: ``production`` (K1 or K3 without activation
   quantizer: ``s_base_*``), ``v4_f32s`` and ``v4_bf16s`` (w = fma(c_b, s,

@@ -15,9 +15,13 @@ JAX, so it runs on a GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are the JAX package's own: 1e-4 of max|y| for the matmuls
-(float32 sums in another order: K1 sums bf16-exact products on the tensor
-cores), rtol 2e-4 / atol 2e-5 for decode attention; and a row's matmul
-result is bit-exact whatever M. The attention probe's matmul stage, a dense
+(float32 sums in another order: K1 and K2 sum bf16-exact products on the
+tensor cores, raw float32 x as bf16 hi + lo), rtol 2e-4 / atol 2e-5 for
+decode attention; a row's matmul result is bit-exact whatever M, and K2's
+prologue ``actq_split`` equals its plain version bit for bit. The probe
+copies of K2's former CUDA-core design (P2, ``int8_tile``) equal its
+c32_k512 instance bit for bit, and K2 is within 1e-5 of max|y| of it
+(the same exact products summed in another order). The attention probe's matmul stage, a dense
 sum over every lane of the cache, is held relative to max|ctx|: 1e-4 with
 float32 dots, 1e-3 with bf16 dots (a score whose float32 sum lands on the
 other side of a bf16 rounding point moves by one bf16 step). P10 equals
@@ -112,19 +116,120 @@ def test_subbyte_kernel_raises_on_bad_operands(dev):
             dm.bfp_matmul_subbyte_cuda(*args)
 
 
-@pytest.mark.parametrize("m,n,k,bs,k_stride", [(1, 1, 64, 4, None), (9, 100, 1100, 8, 1024),
-                                               (17, 33, 700, 16, None), (40, 300, 4096, 32, 1024),
-                                               (8, 64, 1500, 128, None)])
-@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (4, 8, 8, 127)])
+# N >= 8448 takes K2's 32-column blocks on 132 SMs, smaller N its 16-column
+# ones; k_pad 92 is off the 16-byte copies of the codes
+INT8_CASES = [  # m, n, k, bs, k_stride
+    (1, 1, 64, 4, None), (9, 100, 1100, 8, 1024), (17, 33, 700, 16, None),
+    (40, 300, 4096, 32, 1024), (8, 64, 1500, 128, None), (3, 5, 92, 4, None),
+    (256, 300, 4096, 16, 1024), (3, 8500, 700, 16, None), (20, 8448, 1024, 32, 1024),
+]
+
+
+@pytest.mark.parametrize("m,n,k,bs,k_stride", INT8_CASES)
+@pytest.mark.parametrize("actq", [None, "raw", (16, 6, 8, 127), (4, 8, 8, 127), (32, 4, 8, 127)])
 def test_int8_kernel_matches_plain(dev, m, n, k, bs, k_stride, actq):
+    """K2 (actq_split, then the tensor-core matmul) on quantized x, on raw
+    float32 x ("raw": no quantizer, hi and lo products) and with the
+    quantizer in the call, M from 1 to the 256 rows bfp_matmul sends."""
     packed = tp.pack_block_fp(_weight(n, k, bs).to(dev), 6, 8, None, [1, bs], k_stride=k_stride)
     x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
     if actq is None:
         x = _qdq(x)
-    before = dm.bfp_matmul_cuda.launches
+    elif actq == "raw":
+        actq = None
+    before = (dm.bfp_matmul_cuda.launches, dm.actq_split_cuda.launches)
     got = dm.bfp_matmul_cuda(x, packed, actq)
-    assert dm.bfp_matmul_cuda.launches == before + 1
+    assert (dm.bfp_matmul_cuda.launches, dm.actq_split_cuda.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
     _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
+
+
+@pytest.mark.parametrize("width", [2, 6, 8])
+@pytest.mark.parametrize("m,n,k,bs", [(8, 100, 1100, 16), (40, 300, 4096, 16),
+                                      (256, 64, 700, 32), (8, 8448, 1024, 16)])
+def test_int8_kernel_keeps_float32_x(dev, width, m, n, k, bs):
+    """Raw float32 x, no quantizer: K2's tensor cores take x as bf16 hi + lo
+    terms, and must keep float32 semantics (ROADMAP fault 3) to 1e-4 of
+    max|y|."""
+    packed = tp.pack_block_fp(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    _close_rel(dm.bfp_matmul_cuda(x, packed), dm.bfp_matmul_plain(x, packed))
+
+
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127)])
+def test_int8_kernel_keeps_subnormal_activations(dev, actq):
+    """Activations at the bottom of the exponent range (c * 2^-133, bf16
+    subnormals under the quantizer's 1e-8 passthrough), weights near 2^100:
+    only a tensor core that flushed subnormal inputs would lose them."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(-127, 128, (8, 1100), generator=g).float() * 2.0**-133
+    w = torch.randn((64, 1100), generator=g) * 2.0**100
+    packed = tp.pack_block_fp(w.to(dev), 6, 8, None, [1, 16])
+    x = x.to(dev)
+    want = dm.bfp_matmul_plain(x, packed, actq)
+    assert want.abs().max().item() > 2.0**-60
+    _close_rel(dm.bfp_matmul_cuda(x, packed, actq), want)
+
+
+def test_int8_kernel_applies_a_tiny_scale_in_float32(dev):
+    """A 2^-134 scale (below bf16's reach for odd codes; no packer pairs it
+    with a nonzero code, so it is built by hand) next to x near 2^100: the
+    kernel lifts it by 2^64 in the mma and drops 2^-64 in float32."""
+    g = torch.Generator().manual_seed(4)
+    codes = torch.randint(-127, 128, (300, 1024), generator=g, dtype=torch.int8)
+    scales = torch.full((300, 64), 2.0**-10)
+    scales[:, 1::7] = 2.0**-134
+    scales[5, :] = 2.0**-134
+    packed = tp.PackedBFP(codes.to(dev), scales.to(dev), 8, 16, 300, 1024)
+    big = torch.zeros(64, dtype=torch.bool)
+    big[1::7] = True
+    x = torch.randn((9, 64, 16), generator=g)
+    x[:, big] *= 2.0**100
+    x[:, ~big] *= 2.0**-60
+    x = x.reshape(9, 1024).to(dev)
+    _close_rel(dm.bfp_matmul_cuda(x, packed), dm.bfp_matmul_plain(x, packed))
+
+
+ACTQ_SPLIT_CASES = [  # m, k, misaligned
+    (1, 64, False), (8, 11008, False), (17, 1100, False), (256, 4096, False), (3, 701, False),
+    (5, 1000, True),
+]
+
+
+@pytest.mark.parametrize("m,k,misaligned", ACTQ_SPLIT_CASES)
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (32, 4, 8, 127), (4, 8, 8, 127),
+                                  (1, 6, 8, 127), (8, 6, 8, None)])
+def test_actq_split_matches_plain(dev, m, k, misaligned, actq):
+    """actq_split equals actq_split_plain bit for bit: hi, lo (0 past K)
+    and the rows that have a lo; K off the float4 loads (701) and x at an
+    address off 16 bytes take the scalar loads."""
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(k)) * 3
+    x = x.to(dev)
+    if misaligned:
+        x = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+    before = dm.actq_split_cuda.launches
+    got = dm.actq_split_cuda(x, actq)
+    assert dm.actq_split_cuda.launches == before + 1
+    want = dm.actq_split_plain(x, actq, got[0].shape[1])
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert torch.equal(g_.view(torch.int16), w_.view(torch.int16))
+    assert torch.equal(got[2], want[2])
+
+
+def test_int8_kernel_raises_on_bad_operands(dev):
+    x = torch.randn((3, 700), device=dev)
+    packed = tp.pack_block_fp(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 2])
+    with pytest.raises(ValueError, match="must divide 128"):
+        dm.bfp_matmul_cuda(x, packed)
+    packed = tp.pack_block_fp(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    for args, match in (((x, packed, (64, 6, 8, 127)), "does not divide"),
+                        ((x[:, :640].contiguous(), packed), "in_features"),
+                        ((x.double(), packed), "float32")):
+        with pytest.raises(ValueError, match=match):
+            dm.bfp_matmul_cuda(*args)
+    with pytest.raises(ValueError, match="k_pad"):
+        dm.actq_split_cuda(x, None, 512)
 
 
 @pytest.mark.parametrize("width", [2, 6, 8])
@@ -159,8 +264,9 @@ def test_subbyte_t_kernel_keeps_subnormal_activations(dev, actq):
 def test_matmul_rows_do_not_depend_on_the_batch(dev):
     """A row's result is the same bits whatever M and the other rows are
     (what lets the batcher reproduce generate), up to the 256 rows
-    bfp_matmul sends to the kernels (K1 takes 8 rows a block at M <= 8 and
-    32 above)."""
+    bfp_matmul sends to the kernels (K1 and K2 take 8 rows a block at
+    M <= 8 and 16 above; K2 is also held on a raw row, whose lo products
+    run in its row block and not in others)."""
     x = _qdq(torch.randn((256, 1100), generator=torch.Generator().manual_seed(0))).to(dev)
     w = _weight(200, 1100, 1).to(dev)
     for packed, fn in ((tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
@@ -173,6 +279,13 @@ def test_matmul_rows_do_not_depend_on_the_batch(dev):
         for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(9, 41), slice(100, 256)):
             part = fn(x[rows].contiguous(), packed, (16, 6, 8, 127))
             torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+    p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024)
+    xr = x.clone()
+    xr[4] = torch.randn(1100, generator=torch.Generator().manual_seed(1)).to(dev)
+    full = dm.bfp_matmul_cuda(xr, p8)
+    for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(100, 256)):
+        torch.testing.assert_close(dm.bfp_matmul_cuda(xr[rows].contiguous(), p8), full[rows],
+                                   rtol=0, atol=0)
 
 
 def test_long_actq_block_is_quantized_outside_the_kernels(dev):
@@ -246,8 +359,8 @@ def test_launch_counts_reset(dev):
     packed = tp.pack_block_fp(_weight(32, 64, 0).to(dev), 6, 8, None, [1, 16])
     dm.bfp_matmul(torch.zeros((3, 64), device=dev), packed)
     counts = tk.launch_counts()
-    assert counts["bfp_matmul_int8"] == 1
-    assert sum(counts.values()) == 1
+    assert counts["bfp_matmul_int8"] == 1 and counts["actq_split"] == 1
+    assert sum(counts.values()) == 2
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
 
@@ -366,8 +479,9 @@ def test_int8_variant_probe_matches_plain(dev, m, n, k, bs, k_stride, scale_dtyp
 def test_variant_probes_are_the_production_kernels(dev, layout):
     """On bf16 x with no activation quantizer, v2, v4_f32s and v4_bf16s
     compute exactly what K1 (K3) computes, in the same order; v3 differs by
-    its correction's rounding; P2 with either scale type computes what K2
-    computes."""
+    its correction's rounding. P2 with either scale type computes what
+    int8_tile's c32_k512 computes, K2's CUDA-core design that both copy;
+    K2 on the tensor cores sums the same products in another order."""
     w = _weight(100, 1100, 0).to(dev)
     packed = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16])
     prod = dm.bfp_matmul_subbyte_cuda
@@ -381,9 +495,10 @@ def test_variant_probes_are_the_production_kernels(dev, layout):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     _close_rel(tkv.matmul_variant(x, packed, "v3"), want, 1e-5)
     p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16])
+    anchor = tkt.int8_tile(x, p8, *tkt.INT8_INSTANCES["c32_k512"])
     for dt in (torch.bfloat16, torch.float32):
-        torch.testing.assert_close(tkv2.int8_variant(x, p8, dt), dm.bfp_matmul_cuda(x, p8, None),
-                                   rtol=0, atol=0)
+        torch.testing.assert_close(tkv2.int8_variant(x, p8, dt), anchor, rtol=0, atol=0)
+    _close_rel(dm.bfp_matmul_cuda(x, p8, None), anchor, 1e-5)
 
 
 def test_variant_probes_raise_on_bad_operands(dev):
@@ -455,8 +570,10 @@ def test_band_sum_adds_the_bands_in_order(dev, bands, m, n):
 
 def test_tile_probes_are_the_production_kernels(dev):
     """On bf16 x with no activation quantizer, every subbyte_tile instance
-    computes K3's sums and every int8_tile instance without bands K2's, in
-    the same order; the band instance adds its bands' sums instead."""
+    computes K3's sums and every int8_tile instance without bands
+    c32_k512's (K2's CUDA-core design), in the same order; the band instance
+    adds its bands' sums instead, and K2 on the tensor cores sums the same
+    products in another order."""
     w = _weight(300, 4096, 0).to(dev)
     x = torch.randn((8, 4096), generator=torch.Generator().manual_seed(0)).to(dev)
     x = x.to(torch.bfloat16).float()
@@ -465,7 +582,8 @@ def test_tile_probes_are_the_production_kernels(dev):
     for cols, tps in tkp.SUB_INSTANCES.values():
         torch.testing.assert_close(tkp.subbyte_tile(x, packed, cols, tps), want, rtol=0, atol=0)
     p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16])
-    want = dm.bfp_matmul_cuda(x, p8, None)
+    want = tkt.int8_tile(x, p8, *tkt.INT8_INSTANCES["c32_k512"])
+    _close_rel(dm.bfp_matmul_cuda(x, p8, None), want, 1e-5)
     for cols, kstep, band in tkt.INT8_INSTANCES.values():
         got = tkt.int8_tile(x, p8, cols, kstep, band)
         if band is None:
