@@ -3,21 +3,23 @@
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --k1-only       # build, then K1's checks and times only
     python3 chip_smoke.py --k2-only       # build, then K2's and actq_split's only
+    python3 chip_smoke.py --k3-only       # build, then K3's checks and times only
     python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
     python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
    nvcc started at once, sm_90a) and counts the HMMA (tensor-core)
-   instructions of K1's, K2's and P8's SASS (``cuobjdump -sass``; the whole
-   run fails if there are none);
+   instructions of K1's, K2's, K3's and P8's SASS (``cuobjdump -sass``; the
+   whole run fails if there are none);
 2. holds each kernel against its plain PyTorch version on the card at the
    Llama-2-7B decode shapes (batch 8; the matmuls also at the 256 rows of a
    prefill; the sub-byte matmuls K1 and K3 also at the OPT-6.7B fc1/fc2
    shapes) and times kernel, plain version, library yardstick and the
-   memory/compute bound (K1 and K2 also at 256 rows, ``prefill_*``; their
-   operations bound at the bf16 tensor-core peak, the others' at the
-   float32 one); K2's prologue ``actq_split`` alone, bit for bit;
+   memory/compute bound (the matmuls K1, K2 and K3 also at 256 rows,
+   ``prefill_*``; their operations bound at the bf16 tensor-core peak, the
+   others' at the float32 one); the prologue of K2 and K3, ``actq_split``,
+   alone, bit for bit;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
 4. runs ``generate`` on sub-byte weights (pos-major cache: K1 + K4) and
@@ -35,9 +37,9 @@
    (transposed sub-byte words: K1) and with ``pack_common._to_t`` patched
    to the identity here (lane-major ``PackedBFPSub`` words: K3); runs OPT
    ``generate`` on each tree with the launch counters reset and read around
-   it (K1 only, then K3 only; OPT decodes on a float32 cache, so no
-   attention kernel), and holds a decode step of each tree against the
-   plain path;
+   it (K1 only, then K3 with its ``actq_split`` only; OPT decodes on a
+   float32 cache, so no attention kernel), and holds a decode step of each
+   tree against the plain path;
 7. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
    (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
    P1 and P3, its dequant-arithmetic and scale-storage variants in both
@@ -53,7 +55,9 @@
    probe's copy of its production kernel
    against that kernel on bf16 x with no activation quantizer (transposed
    ship, v2 and v4 == K1; lane-major ship, v2, v4 and every
-   ``subbyte_tile`` instance == K3; P2 with either scale type and every
+   ``subbyte_tile`` instance == ``subbyte_tile``'s c32_t1, the copy of K3's
+   former CUDA-core design, and K3 on the tensor cores within 1e-5 of
+   max|y| of it; P2 with either scale type and every
    ``int8_tile`` instance without bands == ``int8_tile``'s c32_k512, the
    copy of K2's CUDA-core design, and K2 on the tensor cores within 1e-5
    of max|y| of it; v3 and the band instance within 1e-5 of max|y|; the
@@ -160,10 +164,9 @@ def bound(nbytes, flops, peaks, bf16=False):
 def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_cores=False):
     """Hold one kernel against its plain version at decode rows (batch 8)
     and at the PREFILL_M rows of a prefill, with ACTQ and on raw float32 x;
-    time it at batch 8, and a tensor-core kernel (K1, K2) also at PREFILL_M
-    rows (``prefill_*``). The operations bound is taken at the peak of the
-    units the kernel runs on: bf16 tensor cores for K1 and K2, float32 CUDA
-    cores for K3."""
+    time it at batch 8, and a tensor-core kernel (K1, K2, K3) also at
+    PREFILL_M rows (``prefill_*``). The operations bound is taken at the
+    peak of the units the kernel runs on: the bf16 tensor cores."""
     from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
     from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
     from llm_mixed_q_torch.tools.timing import cuda_ms
@@ -211,9 +214,9 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_core
 
 def check_matmul_kernels(peaks, flush, only=None):
     """Rows: sums over one Llama-2-7B layer's four projections at batch 8
-    (K1 and K2 also at PREFILL_M rows); K1 and K3 also report the OPT-6.7B MLP
-    shapes, on lines of their own (``opt_mlp_ms``, K1 also
-    ``opt_mlp_prefill_ms``). ``only``: the one kernel to measure."""
+    and at PREFILL_M rows; K1 and K3 also report the OPT-6.7B MLP shapes, on
+    lines of their own (``opt_mlp_ms``, ``opt_mlp_prefill_ms``). ``only``:
+    the one kernel to measure."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -231,7 +234,7 @@ def check_matmul_kernels(peaks, flush, only=None):
     for kname, (wrapper, packer) in kernels.items():
         if only is not None and kname != only:
             continue
-        tensor_cores = kname in ("bfp_matmul_subbyte_t", "bfp_matmul_int8")
+        tensor_cores = kname in ("bfp_matmul_subbyte_t", "bfp_matmul_int8", "bfp_matmul_subbyte")
         tot = {"max_abs_err": 0.0}
         shapes = dict(MATMUL_SHAPES)
         if kname != "bfp_matmul_int8":
@@ -266,8 +269,17 @@ def c32_k512(x, packed, actq=None):
     return ktune7b.int8_tile(x, packed, *ktune7b.INT8_INSTANCES["c32_k512"])
 
 
+def c32_t1(x, packed, actq=None):
+    """``subbyte_tile``'s c32_t1: the copy of K3's former CUDA-core design
+    (no activation quantizer), the anchor of the lane-major probes'
+    faithfulness and the former K3 of the M sweep."""
+    from llm_mixed_q_torch.tools import kprobe
+
+    return kprobe.subbyte_tile(x, packed, *kprobe.SUB_INSTANCES["c32_t1"])
+
+
 def check_actq_split(peaks, flush):
-    """K2's prologue alone at the K of each Llama-2-7B projection (its
+    """The prologue of K2 and K3 alone at the K of each Llama-2-7B projection (its
     workspace padded as K2 pads it): equal to actq_split_plain bit for bit
     (hi, lo and the rows with a lo) at batch 8 and PREFILL_M rows, with ACTQ
     and on raw x; timed at batch 8, summed over the four projections. Its
@@ -313,9 +325,10 @@ SWEEP_M = (8, 16, 32, 64, 128, 256)
 def m_sweep(flush):
     """K1, K2 and K3 with ACTQ at M in SWEEP_M, each beside unpack +
     torch.matmul of the same product (``bfp_matmul_plain``: the route
-    bfp_matmul takes above _FUSED_M_MAX), and int8_tile's c32_k512 (the
-    copy of K2's CUDA-core design, no activation quantizer) beside K2: ms
-    summed over one Llama-2-7B layer's four projections. -> {row: {M: ms}}."""
+    bfp_matmul takes above _FUSED_M_MAX), int8_tile's c32_k512 (the copy of
+    K2's CUDA-core design, no activation quantizer) beside K2 and
+    subbyte_tile's c32_t1 (the same for K3) beside K3: ms summed over one
+    Llama-2-7B layer's four projections. -> {row: {M: ms}}."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         bfp_matmul_cuda, bfp_matmul_plain, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -340,6 +353,8 @@ def m_sweep(flush):
                          f"{kname} unpack+matmul": lambda: bfp_matmul_plain(x, packed, ACTQ)}
                 if kname == "K2":
                     calls["c32_k512 (no actq)"] = lambda: c32_k512(x, packed)
+                if kname == "K3":
+                    calls["c32_t1 (no actq)"] = lambda: c32_t1(x, packed)
                 for label, call in calls.items():
                     out.setdefault(label, {}).setdefault(m, 0.0)
                     out[label][m] += cuda_ms(call, reps=10, flush=flush)
@@ -491,14 +506,15 @@ PATHS = {
     "generate": ("bfp_matmul_subbyte_t", "attn_decode_pos_major"),
     "ContinuousBatcher": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
-    "opt_generate_lane_major": ("bfp_matmul_subbyte",),
+    "opt_generate_lane_major": ("bfp_matmul_subbyte", "actq_split"),
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
 PROBE_PATHS = {
-    "ksub": ("probe_subbyte_t", "probe_subbyte", "bfp_matmul_subbyte_t", "bfp_matmul_subbyte"),
+    "ksub": ("probe_subbyte_t", "probe_subbyte", "bfp_matmul_subbyte_t", "bfp_matmul_subbyte",
+             "actq_split"),
     "kvariants": ("probe_matmul_variant_t", "probe_matmul_variant", "bfp_matmul_subbyte_t",
-                  "bfp_matmul_subbyte"),
+                  "bfp_matmul_subbyte", "actq_split"),
     "kvariants2": ("probe_sub_variant_t", "probe_sub_variant", "probe_int8_variant",
                    "bfp_matmul_subbyte_t", "bfp_matmul_subbyte", "bfp_matmul_int8", "actq_split"),
     "aprobe": ("probe_attention", "attn_decode_pos_major"),
@@ -776,9 +792,11 @@ def check_subbyte_probes(peaks, flush):
     at the peak of the units the copy runs on), one bf16 matmul on the
     pre-dequantized weight as ship's yardstick; then the copy's
     faithfulness: ship on bf16 x equals the production kernel with no
-    activation quantizer (its lo term is then 0: the same product), timed
-    beside it and beside the production kernel with ACTQ. -> {probe: row},
-    sums over the four shapes."""
+    activation quantizer (its lo term is then 0: the same product; in the
+    lane-major layout ship equals c32_t1, the copy of K3's former design
+    that it copies, bit for bit, and K3 is within 1e-5 of max|y| of it),
+    timed beside it and beside the production kernel with ACTQ. -> {probe:
+    row}, sums over the four shapes."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         _k_padded, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -821,14 +839,23 @@ def check_subbyte_probes(peaks, flush):
             rv["library_ms"] = (rv["library_ms"] or 0.0) + cuda_ms(
                 lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
             del w_bf16
-            err = _close_to_max(ksub.subbyte_probe(x_bf, packed, "ship"), prod(x_bf, packed, None),
-                                1e-4, f"{name} ship vs {pname} {sname}")
+            ship = ksub.subbyte_probe(x_bf, packed, "ship")
+            if pname == "K3":
+                anchor = c32_t1(x_bf, packed)
+                torch.cuda.synchronize()
+                check(torch.equal(ship, anchor), f"{name} ship vs c32_t1 {sname}: not bit for bit")
+                err = _close_to_max(prod(x_bf, packed, None), anchor, 1e-5,
+                                    f"K3 vs c32_t1 {sname}")
+                log(f"  {name} {sname}: ship == c32_t1 bit for bit, K3 within 1e-5 of it")
+            else:
+                err = _close_to_max(ship, prod(x_bf, packed, None), 1e-4,
+                                    f"{name} ship vs {pname} {sname}")
             times = {"ship": cuda_ms(lambda: ksub.subbyte_probe(x_bf, packed, "ship"), flush=flush),
                      pname: cuda_ms(lambda: prod(x_bf, packed, None), flush=flush),
                      f"{pname} actq": cuda_ms(lambda: prod(xk, packed, ACTQ), flush=flush)}
             for key, t in times.items():
                 _add(row["beside_ms"], key, t)
-            log(f"  {name} {sname} N={n} K={k}: ship == {pname} without actq on bf16 x "
+            log(f"  {name} {sname} N={n} K={k}: ship vs {pname} without actq on bf16 x "
                 f"(max abs err {err:.3e}); ms " + ", ".join(f"{key} {t:.4f}" for key, t in times.items()))
     return rows
 
@@ -1038,11 +1065,12 @@ def check_variant_probes(peaks, flush):
     size: 1, 2 or 4 bytes a block; operations at the peak of the units the
     copy runs on), one bf16 matmul on the pre-dequantized weight as every
     variant's yardstick (each computes x . W); then faithfulness on bf16 x
-    without activation quantizer: v2 and v4 equal K1/K3 and P2 equals
-    int8_tile's c32_k512 (K2's CUDA-core design, which P2 copies) to max abs
-    error 0, v3 and K2 on the tensor cores are within 1e-5 of max|y| of
-    theirs; the production kernels timed beside them. -> {probe: row}, sums
-    over the four shapes."""
+    without activation quantizer: v2 and v4 equal K1 (transposed) or
+    subbyte_tile's c32_t1 (K3's former CUDA-core design, which they copy)
+    and P2 equals int8_tile's c32_k512 (K2's, which P2 copies) to max abs
+    error 0, v3 and K3 and K2 on the tensor cores are within 1e-5 of max|y|
+    of theirs; the production kernels timed beside them. -> {probe: row},
+    sums over the four shapes."""
     from llm_mixed_q_torch.kernels.dequant_matmul import (
         _k_padded, bfp_matmul_cuda, bfp_matmul_subbyte_cuda, bfp_matmul_subbyte_t_cuda)
     from llm_mixed_q_torch.kernels.packing import (
@@ -1058,7 +1086,7 @@ def check_variant_probes(peaks, flush):
     probes = {}  # name: (format, production kernel, its name, op peak, {variant: (fn, plain, arg)})
     for suffix, fmt, prod, pname, op_peak in (
             ("_t", "transposed", bfp_matmul_subbyte_t_cuda, "K1", peaks[2]),
-            ("", "lane_major", bfp_matmul_subbyte_cuda, "K3", peaks[1])):
+            ("", "lane_major", c32_t1, "c32_t1", peaks[1])):
         probes["probe_matmul_variant" + suffix] = (fmt, prod, pname, op_peak, mm)
         probes["probe_sub_variant" + suffix] = (fmt, prod, pname, op_peak, sub)
     probes["probe_int8_variant"] = ("int8", c32_k512, "c32_k512", peaks[1], {
@@ -1082,10 +1110,12 @@ def check_variant_probes(peaks, flush):
             packed, row = packs[fmt], rows[name]
             k_pad = packed.codes.shape[1] if fmt == "int8" else _k_padded(packed)
             want = prod(x_bf, packed, None)
-            if fmt == "int8":
-                err = _close_to_max(bfp_matmul_cuda(x_bf, packed, None), want, 1e-5,
-                                    f"K2 vs c32_k512 {sname}")
-                log(f"  K2 {sname}: within 1e-5 of c32_k512 without actq on bf16 x "
+            if fmt in ("int8", "lane_major"):
+                tc, kern = (("K2", bfp_matmul_cuda) if fmt == "int8"
+                            else ("K3", bfp_matmul_subbyte_cuda))
+                err = _close_to_max(kern(x_bf, packed, None), want, 1e-5,
+                                    f"{tc} vs {pname} {sname}")
+                log(f"  {tc} {sname}: within 1e-5 of {pname} without actq on bf16 x "
                     f"(max abs err {err:.3e})")
             for v, (fn, plain, arg) in variants.items():
                 rv = row["variants"][v]
@@ -1111,9 +1141,10 @@ def check_variant_probes(peaks, flush):
                 log(f"  {name} {sname} N={n} K={k}: {v} vs {pname} without actq on bf16 x: "
                     f"max abs err {err:.3e}; plain version {rv['max_abs_err']:.3e} so far")
             if (fmt, sname) not in prod_ms:
-                kern = bfp_matmul_cuda if fmt == "int8" else prod
+                kern = {"int8": bfp_matmul_cuda, "lane_major": bfp_matmul_subbyte_cuda}.get(fmt, prod)
                 prod_ms[fmt, sname] = cuda_ms(lambda: kern(x_bf, packed, None), flush=flush)
-            _add(row["beside_ms"], "K2" if fmt == "int8" else pname, prod_ms[fmt, sname])
+            _add(row["beside_ms"], {"int8": "K2", "lane_major": "K3"}.get(fmt, pname),
+                 prod_ms[fmt, sname])
         del packs, lane_major
     return rows
 
@@ -1127,9 +1158,10 @@ def check_tile_probes(peaks, flush):
     x and y, and a band instance's workspace written and read; operations at
     the float32 peak), one bf16 matmul on the pre-dequantized weight as the
     yardstick; then faithfulness on bf16 x without activation quantizer:
-    every subbyte_tile instance equals K3 and every int8_tile instance
-    without bands c32_k512 (K2's CUDA-core design) to max abs error 0, the
-    band instance and K2 on the tensor cores within 1e-5 of max|y| of it.
+    every subbyte_tile instance equals c32_t1 (K3's former CUDA-core
+    design) and every int8_tile instance without bands c32_k512 (K2's) to
+    max abs error 0, the band instance within 1e-5 of max|y| of c32_k512,
+    and K3 and K2 on the tensor cores within 1e-5 of their anchors.
     band_sum, on a workspace of the band instance's shape: equal to
     its plain version, timed alone beside ``ws.sum(0)``. -> {probe: row},
     sums over the four shapes."""
@@ -1143,7 +1175,7 @@ def check_tile_probes(peaks, flush):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     probes = {  # name: (format, instances, kernel, plain version, production kernel, its name)
         "probe_subbyte_tile": ("sub", kprobe.SUB_INSTANCES, kprobe.subbyte_tile,
-                               kprobe.subbyte_tile_plain, bfp_matmul_subbyte_cuda, "K3"),
+                               kprobe.subbyte_tile_plain, c32_t1, "c32_t1"),
         "probe_int8_tile": ("int8", ktune7b.INT8_INSTANCES, ktune7b.int8_tile,
                             ktune7b.int8_tile_plain, c32_k512, "c32_k512"),
     }
@@ -1165,11 +1197,11 @@ def check_tile_probes(peaks, flush):
             library = cuda_ms(lambda: torch.matmul(x16, w_bf16.t()), flush=flush)
             del w_bf16
             want = prod(x_bf, packed, None)
-            if fmt == "int8":
-                err = _close_to_max(bfp_matmul_cuda(x_bf, packed, None), want, 1e-5,
-                                    f"K2 vs c32_k512 {sname}")
-                rows[name].setdefault("k2_vs_c32_k512_err", 0.0)
-                rows[name]["k2_vs_c32_k512_err"] = max(rows[name]["k2_vs_c32_k512_err"], err)
+            tc, kern = ("k2", bfp_matmul_cuda) if fmt == "int8" else ("k3", bfp_matmul_subbyte_cuda)
+            err = _close_to_max(kern(x_bf, packed, None), want, 1e-5,
+                                f"{tc.upper()} vs {pname} {sname}")
+            key = f"{tc}_vs_{pname}_err"
+            rows[name][key] = max(rows[name].get(key, 0.0), err)
             plain_ms = {}
             for v, args in instances.items():
                 rv = rows[name]["variants"][v]
@@ -1346,7 +1378,7 @@ def kernel_entries(rows, path_counts):
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
-            "k2_vs_c32_k512_err")
+            "k2_vs_c32_k512_err", "k3_vs_c32_t1_err")
             if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
@@ -1393,8 +1425,9 @@ def main(only=None):
     log(f"both libraries built and loaded in {time.perf_counter() - t0:.1f} s")
     hmma = {**count_sass(libs["kernels"], "subbyte_t_kernel", "HMMA"),
             **count_sass(libs["kernels"], "int8_kernel", "HMMA"),
+            **count_sass(libs["kernels"], "subbyte_kernel", "HMMA"),
             **count_sass(libs["probes"], "probe_t_kernel", "HMMA")}
-    log(f"HMMA instructions in K1's, K2's and P8's SASS: {hmma}")
+    log(f"HMMA instructions in K1's, K2's, K3's and P8's SASS: {hmma}")
 
     flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
@@ -1403,13 +1436,18 @@ def main(only=None):
         log(f"K1 vs its plain version at 7B decode shapes, batch {BATCH} and {PREFILL_M} rows:")
         log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte_t")))
         return
-    check(all(hmma.values()), f"K1, K2 or P8 does not run on the tensor cores: {hmma}")
+    check(all(hmma.values()), f"K1, K2, K3 or P8 does not run on the tensor cores: {hmma}")
     if only == "k2":
         log(f"K2 and actq_split vs their plain versions at 7B decode shapes, batch {BATCH} "
             f"and {PREFILL_M} rows:")
         log(json.dumps({"bfp_matmul_int8": check_matmul_kernels(peaks, flush,
                                                                 only="bfp_matmul_int8"),
                         "actq_split": check_actq_split(peaks, flush)}))
+        return
+    if only == "k3":
+        log(f"K3 (with actq_split) vs its plain version at 7B decode shapes and OPT fc1/fc2, "
+            f"batch {BATCH} and {PREFILL_M} rows:")
+        log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte")))
         return
     if only == "m_sweep":
         log(f"K1, K2, K3 over M (ms a 7B layer, {smi}):")
@@ -1419,7 +1457,7 @@ def main(only=None):
         rows, path_counts = run_probes(peaks, flush, libs["probes"])
         log(json.dumps({"kernels": kernel_entries(rows, path_counts)}))
         return
-    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (K1 and K2 also "
+    log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (the matmuls also "
         f"{PREFILL_M} rows):")
     rows = check_matmul_kernels(peaks, flush)
     rows["actq_split"] = check_actq_split(peaks, flush)
@@ -1440,7 +1478,7 @@ def main(only=None):
     path_counts.update(probe_counts)
 
     log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
-        "at batch 8, K2's including its actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
+        "at batch 8, K2's and K3's including their actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
         "batch 8; attention rows: one call "
         "at batch 8, 32 heads; probe rows: P8/P9/P1/P3/P2/P4-P7 sums over the four "
         "projections at M = 8, ms of ship (P8/P9), v2 (P1), v4_bf16s (P3), "
@@ -1456,6 +1494,6 @@ def main(only=None):
 
 
 if __name__ == "__main__":
-    flags = {"--k1-only": "k1", "--k2-only": "k2", "--m-sweep": "m_sweep",
+    flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--m-sweep": "m_sweep",
              "--probes-only": "probes"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

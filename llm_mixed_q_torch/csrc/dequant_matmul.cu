@@ -13,81 +13,89 @@
 //    [n_tiles, N, tile / bs]). The TPU kernel's `tps` (packing tiles a grid
 //    step) is a TPU tiling knob with no counterpart here, so its silent
 //    reset to 1 does not carry over.
-// K1 and K3 fold the block_fp activation quantizer (_qdq_lanes_signed on
-// the TPU) into their prologue: each block quantizes its K-step of x on the
-// way into shared memory, a quantizer block being a run of 1..32 lanes of a
-// warp. K2 runs it once a call, in a kernel of its own (actq_split), that
-// writes x as two bf16 terms into a workspace; the same C call then
-// launches K2's matmul on that workspace.
+// K1 folds the block_fp activation quantizer (_qdq_lanes_signed on the
+// TPU) into its prologue: each block quantizes its K-step of x on the way
+// into shared memory, a quantizer block being a run of 1..32 lanes of a
+// warp. K2 and K3 run it once a call, in a kernel of its own (actq_split),
+// that writes x as two bf16 terms into a workspace; the same C call then
+// launches the matmul on that workspace.
 //
 // What bounds them on an H100: at decode M (<= 16 rows) the product does
 // 2*M flops per weight element and reads the packed weight once, so its
 // bytes (the packed weight, plus 4*M*(K+N) for x and y) over the 3.35 TB/s
 // memory rate bound it (Llama-2-7B: ~6.9 bits per element sub-byte, 10 bits
-// int8; K1 and K3 read the same bytes, in two layouts; K2's bound is 0.0765
-// ms a layer at M = 8, and its operations at the bf16 tensor-core peak
-// pass its bytes only near M = 256). K1 and K3 give every block 32 output
-// columns, so a 4096-wide projection spreads over 128 blocks, and redo the
-// activation quantizer for them.
-// - K1 runs on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
-//   accumulators), with A and B swapped so that N fills the mma's 16-row
-//   side and the batch its 8-column side: at M = 8 no tensor-core work goes
-//   to padding rows. Its operands are exact in bf16: code - cmax has at
-//   most 8 bits and the scale is a power of two; x is carried as hi =
-//   bf16(x) plus lo = bf16(x - hi), and the lo product runs only for a tile
-//   where some row has a nonzero lo (block_fp activations of width <= 9 have
-//   none; raw float32 x does), leaving about 2^-17 of |x| (absolute 2^-134
-//   below 2^-117, where bf16 is subnormal). So K1 differs from the plain
-//   version only in the order of its float32 sums. The words and scale
-//   bytes of a packing tile go to a 3-tile ring in shared memory by cp.async
-//   (16 bytes a thread, coalesced along N); the next tile's x is loaded into
-//   registers (a float4 a lane) while the block computes this one, then
-//   quantized (a quantizer block is 1..8 lanes of 4 values) and stored as B
-//   fragments in one of two buffers, so one barrier a tile suffices. 16 word
-//   rows at one shift are one k16 step: a warp's 8 words of a 16 x 16 block
-//   feed per_word steps. Warp w takes the 16 columns (w % 2) and word-row
-//   groups w / 2 and w / 2 + 4 of every tile; the 4 warps of a column tile
-//   are summed in a fixed order at the end. At M = 8 it is not bound by
-//   the weight bytes (~9x its byte bound on an H100, see PERF.md): each
-//   32-column block still stages and quantizes all of x, and 2 blocks of
-//   128 registers a thread leave 4 warps a scheduler to hide the latency of
-//   a tile's barrier and dependent mma chain.
-// - K2 runs on the tensor cores as K1 does (N on the mma's 16 rows, the
-//   batch on its 8 columns, bf16 operands, float32 accumulators), from two
-//   kernels. actq_split quantizes x once a call (one block a row) and
-//   writes hi = bf16(q) and lo = bf16(q - hi) [M][kw] and a flag a row
-//   where lo is nonzero; with no quantizer it only splits, so raw float32 x
-//   keeps float32 semantics as in K1. int8_kernel then streams codes
-//   [N, K_pad] (A's natural row-major layout), float32 scales and x hi
-//   through a 4-stage cp.async ring (16 bytes a thread, coalesced along K);
-//   lo comes straight from the workspace, in L2, and its products run only
-//   when some row of the block has a lo. A code times its power-of-two
-//   scale is exact in bf16 down to scales of 2^-133; below that (no packer
-//   pairs such a scale with a nonzero code) the scale goes into the mma as
-//   s * 2^64 and 2^-64 is applied in float32. A block owns 32 columns
-//   where that leaves every SM 2 blocks, else 16 (N = 4096: 256 blocks),
-//   and 8 or 16 rows (3 blocks an SM at 32 columns and 8 rows, else 2:
-//   the ring's bytes in flight, not the arithmetic, bound it, see
-//   PERF.md); its 8 warps split the columns into 16-row tiles and
-//   K into 64-wide groups of every stage, summed in a fixed order at the
-//   end. Row blocks run next to each other, so at prefill M they share a
-//   column block's weights through L2.
-// - K3: lanes run along K (a column's words are contiguous: lane
-//   r holds word rows r, r+32, r+64, r+96 of a tile, 128 bytes a warp
-//   load); warp w takes 4 columns and keeps the next tile's 16 words in
-//   flight in registers. Slice j of a word is K row j*128 + 32g + lane of
-//   the tile, so x is staged [k][row] and one 16-byte shared load feeds four
-//   rows of all 4 columns. The tile's scales of the block's 32 columns are
-//   one contiguous run of bytes (scales[t, col0:col0+32, :]); the block
-//   decodes them into shared memory once a tile instead of every thread
-//   reading bytes.
-// K3's staging loads a K position of every row at once (ROWS loads in
-// flight a thread) and quantizes on the way: the quantizer's block max is a
-// shuffle reduction over a run of lanes, and divisions by powers of two are
-// exact multiplications. Each row is summed in a fixed order (per warp,
-// then the warps or lanes combined in a fixed order): a row's result does
-// not depend on M or on the other rows (no split across blocks, no
-// atomics). K3 accumulates in float32 on the CUDA cores.
+// int8; K1 and K3 read the same bytes, in two layouts, bound 0.0571 ms a
+// layer at M = 8; K2's bound is 0.0765 ms; the operations at the bf16
+// tensor-core peak pass the bytes only near M = 256). All three multiply on
+// the tensor cores (mma.sync m16n8k16, bf16 operands, float32
+// accumulators), with A and B swapped so that N fills the mma's 16-row side
+// and the batch its 8-column side: at M = 8 no tensor-core work goes to
+// padding rows. Their operands are exact in bf16: a code (minus cmax for
+// the sub-byte ones) has at most 8 significant bits and its scale is a
+// power of two; x is carried as hi = bf16(x) plus lo = bf16(x - hi), and
+// the lo products run only where some row has a nonzero lo (block_fp
+// activations of width <= 9 have none; raw float32 x does), leaving about
+// 2^-17 of |x| (absolute 2^-134 below 2^-117, where bf16 is subnormal). So
+// each differs from the plain version only in the order of its float32
+// sums. Each row is summed in a fixed order (per warp, then the warps
+// combined in a fixed order): a row's result does not depend on M or on the
+// other rows (no split across blocks, no atomics).
+// - K1: the words and scale bytes of a packing tile go to a 3-tile ring in
+//   shared memory by cp.async (16 bytes a thread, coalesced along N); the
+//   next tile's x is loaded into registers (a float4 a lane) while the
+//   block computes this one, then quantized (a quantizer block is 1..8
+//   lanes of 4 values) and stored as B fragments in one of two buffers, so
+//   one barrier a tile suffices. 16 word rows at one shift are one k16
+//   step: a warp's 8 words of a 16 x 16 block feed per_word steps. Warp w
+//   takes the 16 columns (w % 2) and word-row groups w / 2 and w / 2 + 4 of
+//   every tile; the 4 warps of a column tile are summed in a fixed order at
+//   the end. At M = 8 it is not bound by the weight bytes (~9x its byte
+//   bound on an H100, see PERF.md): each 32-column block still stages and
+//   quantizes all of x, and 2 blocks of 128 registers a thread leave 4
+//   warps a scheduler to hide the latency of a tile's barrier and dependent
+//   mma chain.
+// - K2: actq_split quantizes x once a call (one block a row) and writes hi =
+//   bf16(q) and lo = bf16(q - hi) [M][kw] and a flag a row where lo is
+//   nonzero; with no quantizer it only splits, so raw float32 x keeps
+//   float32 semantics as in K1. int8_kernel then streams codes [N, K_pad]
+//   (A's natural row-major layout), float32 scales and x hi through a
+//   4-stage cp.async ring (16 bytes a thread, coalesced along K); lo comes
+//   straight from the workspace, in L2, and its products run only when some
+//   row of the block has a lo. A code times its power-of-two scale is exact
+//   in bf16 down to scales of 2^-133; below that (no packer pairs such a
+//   scale with a nonzero code) the scale goes into the mma as s * 2^64 and
+//   2^-64 is applied in float32. A block owns 32 columns where that leaves
+//   every SM 2 blocks, else 16 (N = 4096: 256 blocks), and 8 or 16 rows (3
+//   blocks an SM at 32 columns and 8 rows, else 2: the ring's bytes in
+//   flight, not the arithmetic, bound it, see PERF.md); its 8 warps split
+//   the columns into 16-row tiles and K into 64-wide groups of every stage,
+//   summed in a fixed order at the end. Row blocks run next to each other,
+//   so at prefill M they share a column block's weights through L2.
+// - K3: the same C call runs actq_split, then subbyte_kernel on K2's design:
+//   a cp.async ring of up to 4 stages (as many as leave every SM 2 blocks;
+//   wide tiles of width 2 or 3 take fewer), a stage being one packing tile
+//   of the block's columns: its 128 word rows (a column's words contiguous,
+//   16 bytes a thread, coalesced along K), the column's scale bytes of the
+//   tile (one contiguous run of the block's columns) and x hi at the tile's
+//   K. Columns and rows a block as K2 (32 or 16 by N alone; 8 or 16). The K
+//   permutation: a lane (g, tig) loads 4 consecutive words of a column, word
+//   rows r0 + 4 tig .. + 3 of a 16-row group r0; slice j of them holds K
+//   rows j*128 + r0 + 4 tig .. + 3 of the tile, which go to the mma's k
+//   2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9. So a quad covers 16 consecutive
+//   K of slice j: a 16-row group gives per_word k16 steps from one 16-byte
+//   load a column, and B takes x hi (and lo) at the same 4 consecutive K of
+//   its row (8 bytes a lane, in K's own order). A code minus cmax times
+//   2^(byte - 128) is exact in bf16 for every byte (bf16 subnormals are
+//   multiples of 2^-133; a product of 2^128 or more, from bytes 254 and 255,
+//   is inf in both versions), so no scale needs K2's lift. bs >= 4 gives a lane's 4 K one
+//   scale a column; bs 1 and 2 take one a code. Warp w takes the column tile
+//   w % (COLS / 16) and word-row groups of every tile (2 at 32 columns, 1 at
+//   16), summed in a fixed order at the end; lo comes from the workspace, as
+//   in K2. On an H100 this is 3.3x faster than the former CUDA-core design
+//   at M = 8 and 8x at M = 256, ~4x its byte bound at M = 8; half-tile
+//   stages at 3 blocks an SM, and per_word as a template parameter (its
+//   loop unrolled, 128 registers with spills), were slower at M = 8
+//   (PERF.md).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -101,37 +109,10 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 32;                      // output columns per block
 constexpr int kSlice = 128;                    // K1, K3: word rows of a packing tile
-constexpr int kColsPerWarp = kCols / kWarps;   // K3: columns per warp
-constexpr int kLaneWords = kSlice / 32;        // K3: words per lane, column and tile
 constexpr int kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float scale_from_e8(uint8_t e8) {
   return lmq::exact_exp2i((int)e8 - 128);
-}
-
-// Stage x rows m0 .. m0 + ROWS - 1 at K positions k0 .. k0 + len - 1 into
-// xs [len][ROWS], zero past K and past the live rows, quantized on the way.
-// A thread loads one K position of every row at once; the lanes of a warp
-// hold consecutive K, so the activation quantizer's blocks are runs of
-// lanes. len % 32 == 0, so whole warps take part in the shuffles.
-template <int ROWS>
-__device__ __forceinline__ void stage_x_rows(float* xs, const float* __restrict__ x, int k0,
-                                             int len, int m0, int rows, int K,
-                                             const lmq::BfpSpec& aq) {
-  for (int kk = threadIdx.x; kk < len; kk += kThreads) {
-    const int k = k0 + kk;
-    float v[ROWS];
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m)
-      v[m] = (m < rows && k < K) ? __ldg(x + (size_t)(m0 + m) * K + k) : 0.f;
-    if (aq.on) {
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m) v[m] = lmq::bfp_qdq_lanes(v[m], aq);
-    }
-#pragma unroll
-    for (int m = 0; m < ROWS; m += 4)
-      *reinterpret_cast<float4*>(xs + kk * ROWS + m) = make_float4(v[m], v[m + 1], v[m + 2], v[m + 3]);
-  }
 }
 
 // ---------------------------------------------------------------- K1
@@ -471,132 +452,6 @@ subbyte_t_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words
   }
 }
 
-// ---------------------------------------------------------------- K3
-
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-subbyte_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words,
-               const uint8_t* __restrict__ scales, float* __restrict__ y,
-               int M, int N, int K, int k_pad, int width, int bs, lmq::BfpSpec aq) {
-  extern __shared__ __align__(16) float smem[];
-  const int per_word = 32 / width;
-  const int tile = per_word * kSlice;
-  const int nsb = tile / bs;                // scales per column and tile
-  const int n_words = k_pad / per_word;     // words per column
-  float* xs = smem;                         // [tile][ROWS]: x of the current tile
-  float* ss = xs + tile * ROWS;             // [kCols][nsb]: its decoded scales
-  const uint32_t mask = (1u << width) - 1u;
-  const int cmax = (1 << (width - 1)) - 1;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int col0 = blockIdx.x * kCols;
-  const int c0 = warp * kColsPerWarp;  // this warp's first column in the block
-  const int ncols = min(kCols, N - col0);
-  const int m0 = blockIdx.y * ROWS;
-  const int rows = min(ROWS, M - m0);
-  const int n_tiles = k_pad / tile;
-
-  float acc[kColsPerWarp][ROWS];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) acc[c][m] = 0.f;
-  // scale slot of K row j*128 + 32g + lane: j * slice_sb + lane_sb[g]
-  const int slice_sb = kSlice / bs;
-  int lane_sb[kLaneWords];
-#pragma unroll
-  for (int g = 0; g < kLaneWords; ++g) lane_sb[g] = (32 * g + lane) / bs;
-
-  // nxt[c][g]: word row 32g + lane of the next tile, column c0 + c
-  uint32_t nxt[kColsPerWarp][kLaneWords];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-    for (int g = 0; g < kLaneWords; ++g)
-      nxt[c][g] = c0 + c < ncols
-                      ? __ldg(words + (size_t)(col0 + c0 + c) * n_words + 32 * g + lane) : 0u;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    uint32_t cur[kColsPerWarp][kLaneWords];
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-      for (int g = 0; g < kLaneWords; ++g) cur[c][g] = nxt[c][g];
-    if (t + 1 < n_tiles) {
-#pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-        for (int g = 0; g < kLaneWords; ++g)
-          nxt[c][g] = c0 + c < ncols
-                          ? __ldg(words + (size_t)(col0 + c0 + c) * n_words +
-                                  (t + 1) * kSlice + 32 * g + lane) : 0u;
-    }
-    __syncthreads();  // the previous tile's xs / ss are no longer read
-    // scales: the block's columns of tile t are ncols * nsb consecutive
-    // bytes; up to 8 loads in flight per thread
-    const uint8_t* st = scales + ((size_t)t * N + col0) * nsb;
-    for (int i0 = threadIdx.x; i0 < ncols * nsb; i0 += 8 * kThreads) {
-      uint8_t e8[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads;
-        e8[u] = i < ncols * nsb ? __ldg(st + i) : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < ncols * nsb) ss[i] = scale_from_e8(e8[u]);
-      }
-    }
-    stage_x_rows<ROWS>(xs, x, t * tile, tile, m0, rows, K, aq);
-    __syncthreads();
-    if (c0 >= ncols) continue;  // a warp past N still joins the barriers
-    for (int j = 0; j < per_word; ++j) {
-      const int sh = width * j;
-#pragma unroll
-      for (int g = 0; g < kLaneWords; ++g) {
-        const int kk = j * kSlice + 32 * g + lane;  // K row in the tile
-        const int sb = j * slice_sb + lane_sb[g];
-        float wv[kColsPerWarp];  // dequantized weights, each used for every row
-#pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-          const int code = (int)((cur[c][g] >> sh) & mask) - cmax;
-          // columns past N read a scale slot no one wrote; their sums are
-          // never stored
-          wv[c] = (float)code * ss[(c0 + c) * nsb + sb];
-        }
-#pragma unroll
-        for (int m = 0; m < ROWS; m += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(xs + kk * ROWS + m);
-#pragma unroll
-          for (int c = 0; c < kColsPerWarp; ++c) {
-            acc[c][m] = fmaf(xv.x, wv[c], acc[c][m]);
-            acc[c][m + 1] = fmaf(xv.y, wv[c], acc[c][m + 1]);
-            acc[c][m + 2] = fmaf(xv.z, wv[c], acc[c][m + 2]);
-            acc[c][m + 3] = fmaf(xv.w, wv[c], acc[c][m + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  // sum each (column, row) over the warp's lanes; lane 0 holds the result
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[c][m] += __shfl_down_sync(0xffffffffu, acc[c][m], o);
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-        if (m < rows && c0 + c < ncols) y[(size_t)(m0 + m) * N + col0 + c0 + c] = acc[c][m];
-  }
-}
-
 // ---------------------------------------------------------------- K2
 
 // actq_split: x [M, K] float32 -> the workspace of K2: hi [M][kw] and lo
@@ -890,6 +745,233 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
   }
 }
 
+// ---------------------------------------------------------------- K3
+
+// subbyte_kernel: y [M, N] = (hi + lo) . deq(W)^T on the tensor cores, W
+// lane-major sub-byte words. COLS output columns a block (16 or 32: one or
+// two 16-row mma tiles), R rows a block (8 or 16: one or two n8 tiles).
+// Warp w takes the column tile w % NCT and the 16-row word groups
+// (w / NCT) * GPW .. + GPW - 1 of every packing tile.
+constexpr int kK3Stages = 4;  // ring stages in flight, at most
+// shared memory of an SM, and the bytes the runtime keeps of it a block
+constexpr int kSmemSm = 228 * 1024, kSmemBlockReserve = 1024;
+
+template <int COLS>
+struct K3Tile {
+  static constexpr int NCT = COLS / 16;          // 16-column mma tiles
+  static constexpr int KG = kWarps / NCT;        // word-row groups of warps: 4 or 8
+  static constexpr int GPW = kSlice / 16 / KG;   // 16-row groups of a warp a tile: 2 or 1
+};
+
+// bf16 of an x row in a slot: rows 32 bytes apart mod 128, so the 8-byte B
+// loads of a half-warp (4 rows, 32 bytes each) take every bank once
+__host__ __device__ __forceinline__ int k3_xstr(int tile) { return tile + 16; }
+
+// A ring slot: words [COLS][kSlice], x hi [R][xstr] bf16, scale bytes
+// [COLS][nsb] rounded up to 16.
+__host__ __device__ __forceinline__ int k3_slot_bytes(int cols, int rows, int tile, int nsb) {
+  return cols * kSlice * 4 + rows * k3_xstr(tile) * 2 + (cols * nsb + 15) / 16 * 16;
+}
+
+// Word (row, col) of a slot: a column's words in order, the 16-word halves
+// of each 32 swapped on odd columns, so that the 16-byte A loads of a
+// quarter-warp (two columns, 64 bytes each) take every bank once.
+__device__ __forceinline__ int k3_word_slot(int row, int col) {
+  return col * kSlice + (row ^ ((col & 1) << 4));
+}
+
+// Queue packing tile t of the block's words, scale bytes and x hi into
+// `slot`, zero past N and past the live rows. Words: 16-byte copies where
+// the buffer is 16-byte aligned, else 4-byte ones. Scales: the block's
+// columns of tile t are one run of COLS * nsb bytes, copied in pieces of
+// smode bytes (16 or 4 where every run is so aligned, else plain loads).
+template <int COLS, int R>
+__device__ __forceinline__ void k3_load_stage(uint8_t* slot, const uint32_t* __restrict__ words,
+                                              const uint8_t* __restrict__ scales,
+                                              const __nv_bfloat16* __restrict__ xhi, int t,
+                                              int col0, int m0, int M, int N, int n_words,
+                                              int tile, int nsb, int kw, bool words16,
+                                              int smode) {
+  uint32_t* dw = reinterpret_cast<uint32_t*>(slot);
+  const uint32_t* src = words + (size_t)col0 * n_words + (size_t)t * kSlice;
+  if (words16) {
+    for (int i = threadIdx.x; i < COLS * kSlice / 4; i += kThreads) {
+      const int c = i / (kSlice / 4), row = 4 * (i % (kSlice / 4));
+      const bool in = col0 + c < N;
+      cp_async16(dw + k3_word_slot(row, c), in ? src + (size_t)c * n_words + row : words,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < COLS * kSlice; i += kThreads) {
+      const int c = i / kSlice, row = i % kSlice;
+      const bool in = col0 + c < N;
+      cp_async4(dw + k3_word_slot(row, c), in ? src + (size_t)c * n_words + row : words,
+                in ? 4 : 0);
+    }
+  }
+  const int xstr = k3_xstr(tile);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * kSlice * 4);
+  for (int i = threadIdx.x; i < R * tile / 8; i += kThreads) {
+    const int r = i / (tile / 8), c = 8 * (i % (tile / 8));
+    const bool in = m0 + r < M;
+    cp_async16(xs + r * xstr + c, in ? xhi + (size_t)(m0 + r) * kw + (size_t)t * tile + c : xhi,
+               in ? 16 : 0);
+  }
+  uint8_t* ss = slot + COLS * kSlice * 4 + R * xstr * 2;
+  const uint8_t* ssrc = scales + ((size_t)t * N + col0) * nsb;
+  const int total = COLS * nsb, valid = min(COLS, N - col0) * nsb;
+  if (smode == 16) {
+    for (int o = 16 * threadIdx.x; o < total; o += 16 * kThreads) {
+      const int v = max(0, min(16, valid - o));
+      cp_async16(ss + o, v ? ssrc + o : scales, v);
+    }
+  } else if (smode == 4) {
+    for (int o = 4 * threadIdx.x; o < total; o += 4 * kThreads) {
+      const int v = max(0, min(4, valid - o));
+      cp_async4(ss + o, v ? ssrc + o : scales, v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < total; i += kThreads) ss[i] = i < valid ? __ldg(ssrc + i) : 0;
+  }
+}
+
+// wait until at most stages - 2 groups of this thread's copies are pending
+__device__ __forceinline__ void k3_wait_ring(int stages) {
+  if (stages >= 4) cp_async_wait<2>();
+  else if (stages == 3) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// code at bit `sh` of a word, minus cmax, times a power-of-two scale:
+// float(0x4B000000 | code) = 2^23 + code, minus magic = 2^23 + cmax, exactly
+__device__ __forceinline__ float k3_deq(uint32_t word, int sh, uint32_t mask, float magic,
+                                        float s) {
+  return (__uint_as_float(((word >> sh) & mask) | 0x4B000000u) - magic) * s;
+}
+
+template <int COLS, int R>
+__global__ void __launch_bounds__(kThreads, 2)
+subbyte_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restrict__ xlo,
+               const uint8_t* __restrict__ lo_rows, const uint32_t* __restrict__ words,
+               const uint8_t* __restrict__ scales, float* __restrict__ y, int M, int N,
+               int k_pad, int kw, int width, int lbs, int stages, bool words16, int smode) {
+  using T = K3Tile<COLS>;
+  constexpr int NT = R / 8;
+  extern __shared__ __align__(16) uint8_t smem_k3[];
+  const int per_word = 32 / width;
+  const int tile = per_word * kSlice;
+  const int nsb = tile >> lbs;  // scale bytes of a column and tile
+  const int n_tiles = k_pad / tile;
+  const int n_words = n_tiles * kSlice;
+  const int xstr = k3_xstr(tile);
+  const int slot_bytes = k3_slot_bytes(COLS, R, tile, nsb);
+  const uint32_t mask = (1u << width) - 1u;
+  const float magic = 8388608.f + (float)((1 << (width - 1)) - 1);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ct = warp % T::NCT, q = warp / T::NCT;
+  const int n_lo = ct * 16 + g;  // this lane's columns n_lo and n_lo + 8
+  const int m0 = blockIdx.x * R, col0 = blockIdx.y * COLS;
+  const int rows = min(R, M - m0);
+  const int live_nt = (rows + 7) / 8;
+  // the lo products run only where some row of the block has a lo term (a
+  // zero lo adds exactly 0 to the others)
+  const bool any_lo = __syncthreads_or(threadIdx.x < rows && lo_rows[m0 + threadIdx.x] != 0);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < n_tiles)
+      k3_load_stage<COLS, R>(smem_k3 + s * slot_bytes, words, scales, xhi, s, col0, m0, M, N,
+                             n_words, tile, nsb, kw, words16, smode);
+    cp_async_commit();
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    k3_wait_ring(stages);  // this thread's copies of tile t have landed
+    __syncthreads();       // everyone's have, and everyone is done with t - 1
+    if (t + stages - 1 < n_tiles)
+      k3_load_stage<COLS, R>(smem_k3 + ((t + stages - 1) % stages) * slot_bytes, words, scales,
+                             xhi, t + stages - 1, col0, m0, M, N, n_words, tile, nsb, kw,
+                             words16, smode);
+    cp_async_commit();
+
+    const uint8_t* slot = smem_k3 + (t % stages) * slot_bytes;
+    const uint32_t* wt = reinterpret_cast<const uint32_t*>(slot);
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(slot + COLS * kSlice * 4);
+    const uint8_t* e0 = slot + COLS * kSlice * 4 + R * xstr * 2 + n_lo * nsb;  // column n_lo
+    const uint8_t* e1 = e0 + 8 * nsb;                                          // and n_lo + 8
+#pragma unroll
+    for (int gi = 0; gi < T::GPW; ++gi) {
+      const int r0 = (q * T::GPW + gi) * 16 + 4 * tig;  // this lane's word rows r0 .. r0 + 3
+      const uint4 w0 = *reinterpret_cast<const uint4*>(wt + k3_word_slot(r0, n_lo));
+      const uint4 w1 = *reinterpret_cast<const uint4*>(wt + k3_word_slot(r0, n_lo + 8));
+      for (int j = 0; j < per_word; ++j) {
+        const int sh = width * j;
+        const int kk = j * kSlice + r0;  // K row in the tile of word row r0, slice j
+        float s0[4], s1[4];  // scales of K rows kk .. kk + 3 of the two columns
+        if (lbs >= 2) {
+          const float a0 = scale_from_e8(e0[kk >> lbs]), a1 = scale_from_e8(e1[kk >> lbs]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s0[u] = a0, s1[u] = a1;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            s0[u] = scale_from_e8(e0[(kk + u) >> lbs]);
+            s1[u] = scale_from_e8(e1[(kk + u) >> lbs]);
+          }
+        }
+        // A: rows n_lo / n_lo + 8; K rows kk, kk + 1 at k 2 tig (+1), kk + 2,
+        // kk + 3 at k 2 tig + 8 (+9)
+        const uint32_t a[4] = {
+            pack_bf16x2(k3_deq(w0.x, sh, mask, magic, s0[0]), k3_deq(w0.y, sh, mask, magic, s0[1])),
+            pack_bf16x2(k3_deq(w1.x, sh, mask, magic, s1[0]), k3_deq(w1.y, sh, mask, magic, s1[1])),
+            pack_bf16x2(k3_deq(w0.z, sh, mask, magic, s0[2]), k3_deq(w0.w, sh, mask, magic, s0[3])),
+            pack_bf16x2(k3_deq(w1.z, sh, mask, magic, s1[2]), k3_deq(w1.w, sh, mask, magic, s1[3]))};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= live_nt) break;
+          // B: x row nt * 8 + g at K rows kk .. kk + 3, in the same order
+          mma_bf16(acc[nt], a, *reinterpret_cast<const uint2*>(xs + (nt * 8 + g) * xstr + kk));
+          if (any_lo) {  // straight from the workspace (in L2 after actq_split)
+            const int m = m0 + nt * 8 + g;
+            const uint2 bl = m < M ? __ldg(reinterpret_cast<const uint2*>(
+                                         xlo + (size_t)m * kw + (size_t)t * tile + kk))
+                                   : make_uint2(0u, 0u);
+            mma_bf16(acc[nt], a, bl);
+          }
+        }
+      }
+    }
+  }
+
+  // combine the word-row groups of each column tile, q = 0 first
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_k3);  // [KG][NCT][NT][32 lanes][4]; fits in 2 slots
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(((q * T::NCT + ct) * NT + nt) * 32 + lane) * 4 + i] = acc[nt][i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < R * COLS; o += kThreads) {
+    const int m = o / COLS, n = o % COLS;
+    if (m >= rows || col0 + n >= N) continue;
+    // accumulator element of (n, m): as in K1
+    const int c = n >> 4, src_lane = (n & 7) * 4 + ((m & 7) >> 1);
+    const int reg = (m & 1) + 2 * ((n & 15) >> 3);
+    float sum = 0.f;
+    for (int w = 0; w < T::KG; ++w)
+      sum += red[(((w * T::NCT + c) * NT + (m >> 3)) * 32 + src_lane) * 4 + reg];
+    y[(size_t)(m0 + m) * N + col0 + n] = sum;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -935,20 +1017,41 @@ int launch_subbyte_t_p(const void* x, const void* words, const void* scales, voi
   return (int)cudaErrorInvalidValue;
 }
 
-template <int ROWS>
-int launch_subbyte(const void* x, const void* words, const void* scales, void* y,
-                   int M, int N, int K, int k_pad, int width, int bs, lmq::BfpSpec aq,
-                   cudaStream_t stream) {
+template <int COLS, int R>
+int launch_subbyte(const void* ws, const void* words, const void* scales, void* y, int M, int N,
+                   int k_pad, int kw, int width, int lbs, int stages, cudaStream_t stream) {
   const int tile = (32 / width) * kSlice;
-  const int smem = 4 * (tile * ROWS + (tile / bs) * kCols);
-  if (smem > kSmemMax || k_pad % tile) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(subbyte_kernel<ROWS>, smem);
+  const int smem = stages * k3_slot_bytes(COLS, R, tile, tile >> lbs);
+  if (stages < 2 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(subbyte_kernel<COLS, R>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kCols - 1) / kCols, (M + ROWS - 1) / ROWS);
-  subbyte_kernel<ROWS><<<grid, kThreads, smem, stream>>>(
-      (const float*)x, (const uint32_t*)words, (const uint8_t*)scales, (float*)y,
-      M, N, K, k_pad, width, bs, aq);
+  const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(ws);
+  const __nv_bfloat16* lo = hi + (size_t)M * kw;
+  const uint8_t* lo_rows = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
+  // a column's words start 512-byte aligned within the buffer (k_pad /
+  // per_word is a multiple of 128); the scale runs at t * N * nsb bytes
+  // (col0 * nsb is a multiple of 16)
+  const bool words16 = reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  const long long run = (long long)N * (tile >> lbs);
+  const uintptr_t sp = reinterpret_cast<uintptr_t>(scales);
+  const int smode = run % 16 == 0 && sp % 16 == 0 ? 16 : run % 4 == 0 && sp % 4 == 0 ? 4 : 1;
+  // rows fastest: the row blocks of a column block run together and share
+  // its weights through L2
+  const dim3 grid((M + R - 1) / R, (N + COLS - 1) / COLS);
+  subbyte_kernel<COLS, R><<<grid, kThreads, smem, stream>>>(
+      hi, lo, lo_rows, (const uint32_t*)words, (const uint8_t*)scales, (float*)y, M, N, k_pad,
+      kw, width, lbs, stages, words16, smode);
   return (int)cudaGetLastError();
+}
+
+// Ring stages of K3 for cols columns and rows rows a block: as many as 4
+// that leave every SM 2 blocks, else as many as fit one block (the caller
+// takes 8 rows where 16 leave under 2).
+int k3_stages(int cols, int rows, int tile, int nsb) {
+  const int slot = k3_slot_bytes(cols, rows, tile, nsb);
+  const int two = (kSmemSm / 2 - kSmemBlockReserve) / slot, one = kSmemMax / slot;
+  const int n = two >= 2 ? two : one;
+  return n < kK3Stages ? n : kK3Stages;
 }
 
 template <int COLS, int R>
@@ -1009,16 +1112,37 @@ int lmq_bfp_matmul_subbyte_t(const void* x, const void* words, const void* scale
   return launch_subbyte_t_p<8>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
 }
 
-int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales,
-                           void* y, int M, int N, int K, int k_pad, int width,
-                           int bs, int aq_on, int aq_bs, int aq_width,
-                           int aq_emin, int aq_emax, void* stream) {
+// K3: actq_split into the workspace ws (as K2's), then subbyte_kernel from
+// it, on one stream.
+int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales, void* y,
+                           void* ws, int M, int N, int K, int k_pad, int kw, int width, int bs,
+                           int aq_on, int aq_bs, int aq_width, int aq_emin, int aq_emax,
+                           void* stream) {
   const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
-  if (width < 2 || width > 8 || bs < 1 || kSlice % bs || (aq_on && 32 % aq_bs))
+  int lbs = 0;
+  while ((1 << lbs) < bs) ++lbs;
+  if (width < 2 || width > 8) return (int)cudaErrorInvalidValue;
+  const int tile = (32 / width) * kSlice;
+  if (bs < 1 || kSlice % bs || k_pad % tile || K > k_pad || k_pad > kw || kw % kK2WsK || M < 1 ||
+      N < 1 || !actq_ok(aq))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch_subbyte<8>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
-  return launch_subbyte<16>(x, words, scales, y, M, N, K, k_pad, width, bs, aq, s);
+  int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
+  if (rc) return rc;
+  // columns a block by N alone, as K2; rows a block by M (a row's sums do
+  // not depend on it), 8 where 16 would leave under 2 stages
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool wide = (N + 31) / 32 >= 2 * sms;
+  const int cols = wide ? 32 : 16, nsb = tile >> lbs;
+  const bool rows16 = M > 8 && k3_stages(cols, 16, tile, nsb) >= 2;
+  const int stages = k3_stages(cols, rows16 ? 16 : 8, tile, nsb);
+  if (rows16)
+    return wide ? launch_subbyte<32, 16>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s)
+                : launch_subbyte<16, 16>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s);
+  return wide ? launch_subbyte<32, 8>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s)
+              : launch_subbyte<16, 8>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s);
 }
 
 int lmq_actq_split(const void* x, void* ws, int M, int K, int kw, int aq_on, int aq_bs,

@@ -1,6 +1,7 @@
 // The sub-byte probe kernels' shared body: copies of K1 (the transposed
-// layout, mma.sync on the tensor cores) and of K3 (the lane-major layout,
-// float32 FMAs on the CUDA cores), templated on a variant V that picks what
+// layout, mma.sync on the tensor cores) and of K3's former design (the
+// lane-major layout, float32 FMAs on the CUDA cores; subbyte_tile's c32_t1
+// is the same design), templated on a variant V that picks what
 // happens between a stored word and the product, and the type of the stored
 // block scale. subbyte_probe.cu instantiates the stage knock-outs (P8, P9),
 // variant_probe.cu the dequant-arithmetic and scale-storage variants (P1,
@@ -463,7 +464,7 @@ probe_t_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words,
   }
 }
 
-// ------------------------------------------------- lane-major (K3's design)
+// ------------------------------------------ lane-major (K3's former design)
 
 // v3's x sums on the lane-major layout: the lanes of a warp hold 32
 // consecutive K rows, each v[0..8) of the 8 rows of x; writes the sums over

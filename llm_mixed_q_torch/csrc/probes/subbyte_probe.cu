@@ -8,7 +8,8 @@
 //    (PackedBFPSub: words [N, K_pad / per_word], scale exponents
 //    [n_tiles, N, tile / bs]), read by K3 (subbyte_kernel).
 // Each layout's kernel is a copy of its production kernel with stages
-// knocked out; the production kernels are untouched. Variants, with the
+// knocked out (the lane-major one of K3's former CUDA-core design, which
+// subbyte_tile's c32_t1 keeps); the production kernels are untouched. Variants, with the
 // semantics of ksub.kernel (y[M, N] = x . w over K, float32 sums):
 //   ship     w = (code - cmax) * 2^clip(e8 - 128, -126, 127)
 //   stream   w = bf16(float(int32(word))) against x at the K rows of shift
@@ -31,8 +32,9 @@
 // the 3.35 TB/s memory rate at M = 8. The transposed copy runs K1's design
 // (mma.sync m16n8k16 on bf16 operands with N on the mma's 16 rows, a 3-tile
 // cp.async ring for words and scale bytes, the next tile's x in registers,
-// 256 threads, 2 blocks an SM); the lane-major copy runs K3's (lanes along
-// K, 4 columns a warp, the next tile's words in registers, float32 FMAs).
+// 256 threads, 2 blocks an SM); the lane-major copy runs K3's former design
+// (lanes along K, 4 columns a warp, the next tile's words in registers,
+// float32 FMAs).
 // Both take 8 rows of x a block (ksub's M). The copies differ from their
 // production kernels in x alone: no quantizer, x rounded to bf16 (and K1's
 // lo term of raw float32 x dropped). Their body, shared with P1 and P3, is

@@ -12,20 +12,23 @@
 // 2^clip(e8 - 128, -126, 127), x rounded to bf16 as the TPU probes do and
 // never quantized, float32 sums.
 //
-// The kernel is K3 (csrc/dequant_matmul.cu, subbyte_kernel at 8 rows a
-// block) without its activation quantizer, templated on the two Hopper
-// knobs the TPU tile sizes map to:
+// The kernel is K3's former CUDA-core design (csrc/dequant_matmul.cu's
+// subbyte_kernel at 8 rows a block, before it moved to the tensor cores)
+// without its activation quantizer, templated on the two Hopper knobs the
+// TPU tile sizes map to:
 //   COLS  output columns a block (COLS / 8 a warp): 8, 16, 32 or 64; a
 //         TPU bn maps relative to K3's shipped 2048 <-> 32
 //   TPS   packing tiles whose x and decoded scales are staged between two
 //         barriers: 1, 2 or 4 (the TPU's ks)
-// COLS = 32, TPS = 1 is K3 without its quantizer. The words stay K3's: a
-// warp keeps the next tile's words in registers, one tile ahead, whatever
-// TPS is. Where TPS does not divide the tile count the last step is short
-// (the TPU's sub_call shrinks ks until it divides instead, which at width 6
-// and K = 4096, 7 tiles, runs every ks as 1). Each lane sums its K rows in
-// K3's order and the warps' lanes are combined as K3 combines them, so
-// every instance computes K3's sums bit for bit.
+// COLS = 32, TPS = 1 (c32_t1) is that design without its quantizer, the
+// anchor the lane-major probe copies are held to. The words stay that
+// design's: a warp keeps the next tile's words in registers, one tile
+// ahead, whatever TPS is. Where TPS does not divide the tile count the last
+// step is short (the TPU's sub_call shrinks ks until it divides instead,
+// which at width 6 and K = 4096, 7 tiles, runs every ks as 1). Each lane
+// sums its K rows in c32_t1's order and the warps' lanes are combined as
+// c32_t1 combines them, so every instance computes c32_t1's sums bit for
+// bit.
 //
 // What bounds it on an H100, as K3: the packed weight bytes (~6.9 bits an
 // element at width 6, block 16) over the 3.35 TB/s memory rate at M = 8.

@@ -27,7 +27,7 @@
 // memory rate at M = 8, the scales at 1 (v2, v3), 4 (v4_f32s) or 2
 // (v4_bf16s) bytes a block. The bodies are the copies of K1 (transposed:
 // mma.sync on bf16 operands; v2/v3 form the A fragment's pairs with bf16x2
-// multiplies) and of K3 (lane-major: float32 FMAs; v2 multiplies the
+// multiplies) and of K3's former design (lane-major: float32 FMAs; v2 multiplies the
 // weights of two columns in one bf16x2 multiply) in probe_matmul.cuh. v3
 // keeps x's block sums beside the bf16 x of a tile: on the transposed layout
 // summed as x is staged (a butterfly over the lanes of a run of rows) and

@@ -46,10 +46,12 @@ _SIGNATURES = {
         # x, words, scales, y, M, N, K, k_pad, width, bs, aq_on, aq_bs,
         # aq_width, aq_emin, aq_emax, stream
         "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-        "lmq_bfp_matmul_subbyte": [_P, _P, _P, _P] + [_I] * 11 + [_P],
         # x, codes, scales, y, ws (actq_split's workspace), M, N, K, k_pad,
         # kw, bs, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
         "lmq_bfp_matmul_int8": [_P] * 5 + [_I] * 11 + [_P],
+        # x, words, scales, y, ws, M, N, K, k_pad, kw, width, bs, aq_on,
+        # aq_bs, aq_width, aq_emin, aq_emax, stream
+        "lmq_bfp_matmul_subbyte": [_P] * 5 + [_I] * 12 + [_P],
         # x, ws, M, K, kw, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
         "lmq_actq_split": [_P, _P] + [_I] * 8 + [_P],
         # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,

@@ -13,19 +13,19 @@ Three Hopper kernels (``csrc/dequant_matmul.cu``) replace the TPU kernels:
 
 The block_fp data_in quantizer (``actq``, blocks of at most 32 along K;
 longer blocks are quantized before the call) is ``_qdq_lanes_signed`` on
-the TPU. K1 and K3 fold it into their prologue; K2 runs it once a call in
-a kernel of its own, ``actq_split`` (wrapper ``actq_split_cuda``, plain
+the TPU. K1 folds it into its prologue; K2 and K3 run it once a call in a
+kernel of their own, ``actq_split`` (wrapper ``actq_split_cuda``, plain
 version ``actq_split_plain``), which writes x as two bf16 terms, hi =
-bf16(q) and lo = bf16(q - hi), into a workspace that K2's matmul then
-reads; one C call launches both. K1 and K2 multiply on the tensor cores,
+bf16(q) and lo = bf16(q - hi), into a workspace that the matmul then
+reads; one C call launches both. All three multiply on the tensor cores,
 in bf16 operands that are exact (codes times powers of two; x as hi + lo,
 about 2^-17 of |x| left for raw float32 x, none for block_fp activations
 of width <= 9), so they differ from the plain version only in the order of
-their float32 sums; K3 multiplies in float32 on the CUDA cores. K2's bound
-on an H100 is its bytes at decode M (0.0765 ms for a Llama-2-7B layer's
-four projections at M = 8, PERF.md). Each wrapper launches its kernel for
-a CUDA tensor (counting the launch in its ``launches`` attribute; K2's
-also counts ``actq_split``) and computes the plain version for a CPU
+their float32 sums. Their bound on an H100 is their bytes at decode M (a
+Llama-2-7B layer's four projections at M = 8: 0.0571 ms for K1 and K3,
+0.0765 ms for K2, PERF.md). Each wrapper launches its kernel for a CUDA
+tensor (counting the launch in its ``launches`` attribute; K2's and K3's
+also count ``actq_split``) and computes the plain version for a CPU
 tensor. ``bfp_matmul`` routes M <= 256 rows to the kernels and larger M
 to unpack + ``torch.matmul``, as the JAX package leaves large-M products
 to XLA.
@@ -117,49 +117,30 @@ def _check_operands(x2, packed, name):
         raise ValueError(f"{name}: packed codes must be 4-byte aligned")
 
 
-def _launch_subbyte(entry: str, name: str, x2, packed, actq) -> tuple[torch.Tensor, bool]:
-    """Run a sub-byte kernel (K1 or K3) through C entry point ``entry`` ->
-    (y, whether it launched: an empty product launches nothing)."""
-    _check_operands(x2, packed, name)
-    _check_actq(actq, name)
-    m = x2.shape[0]
-    n = packed.out_features
-    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    if m == 0 or n == 0:
-        return y, False
-    rc = getattr(_cuda.lib(), entry)(
-        x2.data_ptr(), packed.words.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
-        m, n, packed.in_features, _k_padded(packed), packed.width,
-        packed.block_size, *_actq_args(actq), _cuda.stream_ptr(x2),
-    )
-    _cuda.check(rc, name)
-    return y, True
-
-
 def bfp_matmul_subbyte_t_cuda(x2: torch.Tensor, packed: PackedBFPSubT,
                               actq=None) -> torch.Tensor:
     """K1: x [M, K] @ unpack(packed)^T -> [M, N] float32."""
     if not x2.is_cuda:
         return bfp_matmul_plain(x2, packed, actq)
-    y, launched = _launch_subbyte("lmq_bfp_matmul_subbyte_t", "bfp_matmul_subbyte_t_cuda",
-                                  x2, packed, actq)
-    bfp_matmul_subbyte_t_cuda.launches += launched
+    name = "bfp_matmul_subbyte_t_cuda"
+    _check_operands(x2, packed, name)
+    _check_actq(actq, name)
+    m, n = x2.shape[0], packed.out_features
+    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    if m == 0 or n == 0:
+        return y
+    rc = _cuda.lib().lmq_bfp_matmul_subbyte_t(
+        x2.data_ptr(), packed.words.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
+        m, n, packed.in_features, _k_padded(packed), packed.width,
+        packed.block_size, *_actq_args(actq), _cuda.stream_ptr(x2),
+    )
+    _cuda.check(rc, name)
+    bfp_matmul_subbyte_t_cuda.launches += 1
     return y
 
 
-def bfp_matmul_subbyte_cuda(x2: torch.Tensor, packed: PackedBFPSub,
-                            actq=None) -> torch.Tensor:
-    """K3: x [M, K] @ unpack(packed)^T -> [M, N] float32, lane-major words."""
-    if not x2.is_cuda:
-        return bfp_matmul_plain(x2, packed, actq)
-    y, launched = _launch_subbyte("lmq_bfp_matmul_subbyte", "bfp_matmul_subbyte_cuda",
-                                  x2, packed, actq)
-    bfp_matmul_subbyte_cuda.launches += launched
-    return y
-
-
-# K stride of K2's workspace: a multiple of this (csrc kK2WsK), so that
-# every ring stage of the matmul reads whole rows of it
+# K stride of the workspace of K2 and K3: a multiple of this (csrc kK2WsK),
+# so that every ring stage of K2's matmul reads whole rows of it
 _WS_K = 512
 
 
@@ -215,32 +196,55 @@ def actq_split_cuda(x2: torch.Tensor, actq=None, k_pad: int | None = None):
     return hi, lo, lo_rows
 
 
+def _launch_after_split(entry: str, name: str, x2, packed, actq, k_pad: int,
+                        *format_args) -> tuple[torch.Tensor, bool]:
+    """K2 or K3: actq_split into a workspace, then the matmul reading it,
+    through C entry point ``entry`` (one call launches both; their return
+    code is checked after both) -> (y, whether it launched: an empty
+    product launches nothing)."""
+    _check_operands(x2, packed, name)
+    bs = packed.block_size
+    if bs < 1 or 128 % bs:
+        raise ValueError(f"{name}: block {bs} must divide 128")
+    _check_actq(actq, name)
+    m, n = x2.shape[0], packed.out_features
+    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    if m == 0 or n == 0:
+        return y, False
+    kw, ws, *_ = _split_workspace(m, k_pad, x2.device)
+    rc = getattr(_cuda.lib(), entry)(
+        x2.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(), y.data_ptr(),
+        ws.data_ptr(), m, n, packed.in_features, k_pad, kw, *format_args, bs,
+        *_actq_args(actq), _cuda.stream_ptr(x2),
+    )
+    _cuda.check(rc, name)
+    actq_split_cuda.launches += 1
+    return y, True
+
+
 def bfp_matmul_cuda(x2: torch.Tensor, packed: PackedBFP, actq=None) -> torch.Tensor:
     """K2: x [M, K] @ unpack(packed)^T -> [M, N] float32, int8 codes:
     actq_split into a workspace, then the matmul on the tensor cores."""
     if not x2.is_cuda:
         return bfp_matmul_plain(x2, packed, actq)
-    name = "bfp_matmul_cuda"
-    _check_operands(x2, packed, name)
-    bs = packed.block_size
-    if bs < 4 or 128 % bs:
-        raise ValueError(f"{name}: block {bs} must divide 128 and be >= 4")
-    _check_actq(actq, name)
-    m = x2.shape[0]
-    n = packed.out_features
-    y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    if m == 0 or n == 0:
-        return y
-    k_pad = packed.codes.shape[1]
-    kw, ws, *_ = _split_workspace(m, k_pad, x2.device)
-    rc = _cuda.lib().lmq_bfp_matmul_int8(
-        x2.data_ptr(), packed.codes.data_ptr(), packed.scales.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), m, n, packed.in_features, k_pad, kw, bs, *_actq_args(actq),
-        _cuda.stream_ptr(x2),
-    )
-    _cuda.check(rc, name)  # after both launches
-    bfp_matmul_cuda.launches += 1
-    actq_split_cuda.launches += 1
+    if packed.block_size < 4:
+        raise ValueError(f"bfp_matmul_cuda: block {packed.block_size} must divide 128 and be >= 4")
+    y, launched = _launch_after_split("lmq_bfp_matmul_int8", "bfp_matmul_cuda", x2, packed,
+                                      actq, packed.codes.shape[1])
+    bfp_matmul_cuda.launches += launched
+    return y
+
+
+def bfp_matmul_subbyte_cuda(x2: torch.Tensor, packed: PackedBFPSub,
+                            actq=None) -> torch.Tensor:
+    """K3: x [M, K] @ unpack(packed)^T -> [M, N] float32, lane-major
+    sub-byte words: actq_split into a workspace, then the matmul on the
+    tensor cores."""
+    if not x2.is_cuda:
+        return bfp_matmul_plain(x2, packed, actq)
+    y, launched = _launch_after_split("lmq_bfp_matmul_subbyte", "bfp_matmul_subbyte_cuda", x2,
+                                      packed, actq, _k_padded(packed), packed.width)
+    bfp_matmul_subbyte_cuda.launches += launched
     return y
 
 

@@ -1,6 +1,6 @@
 """Column tile of the lane-major sub-byte matmul on the card: probe P4
-(``subbyte_tile``: a copy of K3 with ``cols`` output columns a block and
-``tps`` packing tiles staged a step), the counterpart of the TPU probe
+(``subbyte_tile``: a copy of K3's former CUDA-core design with ``cols``
+output columns a block and ``tps`` packing tiles staged a step), the counterpart of the TPU probe
 ``tools/kprobe.py`` (``subbyte_call``). ``ktune7b`` runs the same kernel
 for P7 (tiles per step).
 
@@ -61,8 +61,9 @@ from ..kernels.packing import (
 from . import ksub
 from .timing import card_peaks, chain_ms, copies_for
 
-# the library's instances of subbyte_tile: name -> (cols, tps); c32_t1 is K3
-# without its activation quantizer
+# the library's instances of subbyte_tile: name -> (cols, tps); c32_t1 is
+# K3's former CUDA-core design without its activation quantizer (K3 now runs
+# on the tensor cores), the anchor the lane-major probe copies are held to
 SUB_INSTANCES = {"c32_t1": (32, 1), "c16_t1": (16, 1), "c8_t1": (8, 1), "c64_t1": (64, 1),
                  "c32_t2": (32, 2), "c16_t2": (16, 2), "c16_t4": (16, 4), "c64_t2": (64, 2)}
 # each case of the TPU tool -> the row that runs it

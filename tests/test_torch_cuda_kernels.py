@@ -15,13 +15,16 @@ JAX, so it runs on a GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are the JAX package's own: 1e-4 of max|y| for the matmuls
-(float32 sums in another order: K1 and K2 sum bf16-exact products on the
-tensor cores, raw float32 x as bf16 hi + lo), rtol 2e-4 / atol 2e-5 for
-decode attention; a row's matmul result is bit-exact whatever M, and K2's
-prologue ``actq_split`` equals its plain version bit for bit. The probe
-copies of K2's former CUDA-core design (P2, ``int8_tile``) equal its
-c32_k512 instance bit for bit, and K2 is within 1e-5 of max|y| of it
-(the same exact products summed in another order). The attention probe's matmul stage, a dense
+(float32 sums in another order: K1, K2 and K3 sum bf16-exact products on
+the tensor cores, raw float32 x as bf16 hi + lo), rtol 2e-4 / atol 2e-5
+for decode attention; a row's matmul result is bit-exact whatever M, and
+the prologue of K2 and K3, ``actq_split``, equals its plain version bit
+for bit. The probe copies of K2's former CUDA-core design (P2,
+``int8_tile``) equal its c32_k512 instance bit for bit, and K2 is within
+1e-5 of max|y| of it (the same exact products summed in another order);
+the lane-major probe copies of K3's former CUDA-core design (P9's ship,
+P1's v2, P3's v4, every ``subbyte_tile`` instance) equal its c32_t1
+instance bit for bit, and K3 is within 1e-5 of max|y| of it. The attention probe's matmul stage, a dense
 sum over every lane of the cache, is held relative to max|ctx|: 1e-4 with
 float32 dots, 1e-3 with bf16 dots (a score whose float32 sum lands on the
 other side of a bf16 rounding point moves by one bf16 step). P10 equals
@@ -87,21 +90,49 @@ def test_subbyte_t_kernel_matches_plain(dev, width, m, n, k, bs, actq):
     _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
 
 
+# N >= 8448 takes K3's 32-column blocks on 132 SMs, smaller N its 16-column
+# ones; block sizes 1 to 128 (at 128 and width 6, N = 301 leaves the scale
+# runs off 4-byte copies, N = 8500 off 16-byte ones)
+SUBBYTE_CASES = [  # m, n, k, bs
+    (1, 48, 700, 16), (9, 100, 1100, 32), (17, 33, 640, 8), (256, 300, 4096, 16),
+    (8, 40, 1300, 1), (256, 64, 2000, 4), (8, 301, 1300, 128), (3, 8500, 700, 128),
+    (20, 8448, 1024, 4), (5, 20, 900, 2),
+]
+
+
 @pytest.mark.parametrize("width", [2, 3, 4, 5, 6, 7, 8])
-@pytest.mark.parametrize("m,n,k,bs", [(1, 48, 700, 16), (9, 100, 1100, 32),
-                                      (17, 33, 640, 8), (256, 300, 4096, 16)])
-@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127), (32, 4, 8, 127), (4, 8, 8, 127)])
+@pytest.mark.parametrize("m,n,k,bs", SUBBYTE_CASES)
+@pytest.mark.parametrize("actq", [None, "raw", (16, 6, 8, 127), (32, 4, 8, 127), (4, 8, 8, 127)])
 def test_subbyte_kernel_matches_plain(dev, width, m, n, k, bs, actq):
-    """K3, lane-major words: K short of a whole tile, N not a multiple of
-    the 32-column block, M from 1 to the 256 rows bfp_matmul sends."""
+    """K3 (actq_split, then the tensor-core matmul), lane-major words: K
+    short of a whole tile, N not a multiple of the column block, M from 1 to
+    the 256 rows bfp_matmul sends, on quantized x, on raw float32 x ("raw":
+    no quantizer, hi and lo products) and with the quantizer in the call."""
     packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
     x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
     if actq is None:
         x = _qdq(x)
-    before = dm.bfp_matmul_subbyte_cuda.launches
+    elif actq == "raw":
+        actq = None
+    before = (dm.bfp_matmul_subbyte_cuda.launches, dm.actq_split_cuda.launches)
     got = dm.bfp_matmul_subbyte_cuda(x, packed, actq)
-    assert dm.bfp_matmul_subbyte_cuda.launches == before + 1
+    assert (dm.bfp_matmul_subbyte_cuda.launches, dm.actq_split_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
     _close_rel(got, dm.bfp_matmul_plain(x, packed, actq))
+
+
+def test_subbyte_kernel_takes_misaligned_buffers(dev):
+    """Words 4 bytes off 16 (4-byte copies) and scale bytes at an odd
+    address (plain loads)."""
+    packed = tp.pack_block_fp_subbyte(_weight(100, 1100, 3).to(dev), 6, 8, None, [1, 16])
+    words = torch.empty(packed.words.numel() + 1, dtype=torch.int32, device=dev)[1:]
+    words = words.view(packed.words.shape).copy_(packed.words.view(torch.int32))
+    scales = torch.empty(packed.scales.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    scales = scales.view(packed.scales.shape).copy_(packed.scales)
+    odd = packed._replace(words=words.view(torch.uint32), scales=scales)
+    x = torch.randn((9, 1100), generator=torch.Generator().manual_seed(9)).to(dev)
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, odd, (16, 6, 8, 127)),
+               dm.bfp_matmul_plain(x, packed, (16, 6, 8, 127)))
 
 
 def test_subbyte_kernel_raises_on_bad_operands(dev):
@@ -261,12 +292,54 @@ def test_subbyte_t_kernel_keeps_subnormal_activations(dev, actq):
     _close_rel(dm.bfp_matmul_subbyte_t_cuda(x, packed, actq), want)
 
 
+@pytest.mark.parametrize("width", [2, 6, 8])
+@pytest.mark.parametrize("m,n,k,bs", [(8, 100, 1100, 16), (40, 300, 4096, 16),
+                                      (256, 64, 700, 32), (8, 8448, 1024, 1)])
+def test_subbyte_kernel_keeps_float32_x(dev, width, m, n, k, bs):
+    """Raw float32 x, no quantizer: K3's tensor cores take x as bf16 hi + lo
+    terms from actq_split, and must keep float32 semantics (ROADMAP fault 3)
+    to 1e-4 of max|y|."""
+    packed = tp.pack_block_fp_subbyte(_weight(n, k, width).to(dev), width, 8, None, [1, bs])
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dev)
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed), dm.bfp_matmul_plain(x, packed))
+
+
+@pytest.mark.parametrize("actq", [None, (16, 6, 8, 127)])
+def test_subbyte_kernel_keeps_subnormal_activations(dev, actq):
+    """Activations at the bottom of the exponent range (c * 2^-133, bf16
+    subnormals under the quantizer's 1e-8 passthrough), weights near 2^100:
+    only a tensor core that flushed subnormal inputs would lose them."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(-127, 128, (8, 1100), generator=g).float() * 2.0**-133
+    w = torch.randn((64, 1100), generator=g) * 2.0**100
+    packed = tp.pack_block_fp_subbyte(w.to(dev), 6, 8, None, [1, 16])
+    x = x.to(dev)
+    want = dm.bfp_matmul_plain(x, packed, actq)
+    assert want.abs().max().item() > 2.0**-60
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed, actq), want)
+
+
+@pytest.mark.parametrize("bs", [1, 16, 128])
+def test_subbyte_kernel_takes_the_smallest_scale_bytes(dev, bs):
+    """Scale bytes 0, 1 and 2 (2^-128 .. 2^-126: the small codes land on
+    bf16 subnormals; built by hand, no packer makes them) next to x near
+    2^100: the kernel keeps every product that the plain version keeps."""
+    g = torch.Generator().manual_seed(6)
+    packed = tp.pack_block_fp_subbyte(_weight(300, 1100, 6).to(dev), 6, 8, None, [1, bs])
+    e8 = torch.randint(0, 3, packed.scales.shape, generator=g, dtype=torch.uint8)
+    packed = packed._replace(scales=e8.to(dev))
+    x = (torch.randn((9, 1100), generator=g) * 2.0**100).to(dev)
+    want = dm.bfp_matmul_plain(x, packed)
+    assert want.abs().max().item() > 2.0**-40
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed), want)
+
+
 def test_matmul_rows_do_not_depend_on_the_batch(dev):
     """A row's result is the same bits whatever M and the other rows are
     (what lets the batcher reproduce generate), up to the 256 rows
-    bfp_matmul sends to the kernels (K1 and K2 take 8 rows a block at
-    M <= 8 and 16 above; K2 is also held on a raw row, whose lo products
-    run in its row block and not in others)."""
+    bfp_matmul sends to the kernels (K1, K2 and K3 take 8 rows a block at
+    M <= 8 and 16 above; K2 and K3 are also held on a raw row, whose lo
+    products run in its row block and not in others)."""
     x = _qdq(torch.randn((256, 1100), generator=torch.Generator().manual_seed(0))).to(dev)
     w = _weight(200, 1100, 1).to(dev)
     for packed, fn in ((tp.pack_block_fp_subbyte_t(w, 6, 8, None, [1, 16]),
@@ -279,13 +352,16 @@ def test_matmul_rows_do_not_depend_on_the_batch(dev):
         for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(9, 41), slice(100, 256)):
             part = fn(x[rows].contiguous(), packed, (16, 6, 8, 127))
             torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
-    p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024)
     xr = x.clone()
     xr[4] = torch.randn(1100, generator=torch.Generator().manual_seed(1)).to(dev)
-    full = dm.bfp_matmul_cuda(xr, p8)
-    for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(100, 256)):
-        torch.testing.assert_close(dm.bfp_matmul_cuda(xr[rows].contiguous(), p8), full[rows],
-                                   rtol=0, atol=0)
+    for packed, fn in ((tp.pack_block_fp(w, 6, 8, None, [1, 16], k_stride=1024),
+                        dm.bfp_matmul_cuda),
+                       (tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16]),
+                        dm.bfp_matmul_subbyte_cuda)):
+        full = fn(xr, packed)
+        for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(100, 256)):
+            torch.testing.assert_close(fn(xr[rows].contiguous(), packed), full[rows],
+                                       rtol=0, atol=0)
 
 
 def test_long_actq_block_is_quantized_outside_the_kernels(dev):
@@ -308,7 +384,7 @@ def test_lane_major_subbyte_takes_k3_on_the_card(dev):
         x = _qdq(torch.randn((m, 640), generator=torch.Generator().manual_seed(m))).to(dev)
         _close_rel(dm.bfp_matmul(x, packed), dm.bfp_matmul_plain(x, packed))
     assert tk.launch_counts() == {**dict.fromkeys(tk.KERNEL_WRAPPERS, 0),
-                                  "bfp_matmul_subbyte": 2}
+                                  "bfp_matmul_subbyte": 2, "actq_split": 2}
 
 
 def _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed):
@@ -390,17 +466,29 @@ def test_subbyte_probe_matches_plain(dev, layout, variant, m, n, k, width, bs):
         _close_rel(got, tks.subbyte_probe_plain(xs, packed, variant))
 
 
+def _c32_t1(x, packed):
+    """subbyte_tile's c32_t1: the copy of K3's former CUDA-core design (no
+    activation quantizer), the anchor of the lane-major probes."""
+    return tkp.subbyte_tile(x, packed, *tkp.SUB_INSTANCES["c32_t1"])
+
+
 @pytest.mark.parametrize("layout", ["transposed", "lane_major"])
 def test_subbyte_probe_ship_is_the_production_kernel(dev, layout):
-    """On bf16 x with no activation quantizer, ship computes what K1 (K3)
-    computes."""
+    """On bf16 x with no activation quantizer, ship computes what K1
+    computes (transposed), and what c32_t1, K3's former design that it
+    copies, computes, bit for bit (lane-major); K3 on the tensor cores sums
+    the same products in another order."""
     packed = tp.pack_block_fp_subbyte(_weight(100, 1100, 0).to(dev), 6, 8, None, [1, 16])
-    prod = dm.bfp_matmul_subbyte_cuda
-    if layout == "transposed":
-        packed, prod = tp.transpose_subbyte(packed), dm.bfp_matmul_subbyte_t_cuda
     x = torch.randn((8, 1100), generator=torch.Generator().manual_seed(0)).to(dev)
     x = x.to(torch.bfloat16).float()
-    _close_rel(tks.subbyte_probe(x, packed, "ship"), prod(x, packed, None))
+    if layout == "transposed":
+        packed = tp.transpose_subbyte(packed)
+        _close_rel(tks.subbyte_probe(x, packed, "ship"),
+                   dm.bfp_matmul_subbyte_t_cuda(x, packed, None))
+        return
+    anchor = _c32_t1(x, packed)
+    torch.testing.assert_close(tks.subbyte_probe(x, packed, "ship"), anchor, rtol=0, atol=0)
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed, None), anchor, 1e-5)
 
 
 PROBE_ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs, positions
@@ -478,18 +566,23 @@ def test_int8_variant_probe_matches_plain(dev, m, n, k, bs, k_stride, scale_dtyp
 @pytest.mark.parametrize("layout", ["transposed", "lane_major"])
 def test_variant_probes_are_the_production_kernels(dev, layout):
     """On bf16 x with no activation quantizer, v2, v4_f32s and v4_bf16s
-    compute exactly what K1 (K3) computes, in the same order; v3 differs by
-    its correction's rounding. P2 with either scale type computes what
-    int8_tile's c32_k512 computes, K2's CUDA-core design that both copy;
-    K2 on the tensor cores sums the same products in another order."""
+    compute exactly what K1 computes (transposed) and what subbyte_tile's
+    c32_t1, K3's former CUDA-core design that they copy, computes
+    (lane-major), in the same order; v3 differs by its correction's
+    rounding; K3 on the tensor cores sums the same products as c32_t1 in
+    another order. P2 with either scale type computes what int8_tile's
+    c32_k512 computes, K2's CUDA-core design that both copy; K2 on the
+    tensor cores sums the same products in another order."""
     w = _weight(100, 1100, 0).to(dev)
     packed = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16])
-    prod = dm.bfp_matmul_subbyte_cuda
-    if layout == "transposed":
-        packed, prod = tp.transpose_subbyte(packed), dm.bfp_matmul_subbyte_t_cuda
     x = torch.randn((8, 1100), generator=torch.Generator().manual_seed(0)).to(dev)
     x = x.to(torch.bfloat16).float()
-    want = prod(x, packed, None)
+    if layout == "transposed":
+        packed = tp.transpose_subbyte(packed)
+        want = dm.bfp_matmul_subbyte_t_cuda(x, packed, None)
+    else:
+        want = _c32_t1(x, packed)
+        _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed, None), want, 1e-5)
     for got in (tkv.matmul_variant(x, packed, "v2"), tkv2.sub_variant(x, packed, torch.float32),
                 tkv2.sub_variant(x, packed, torch.bfloat16)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -570,15 +663,16 @@ def test_band_sum_adds_the_bands_in_order(dev, bands, m, n):
 
 def test_tile_probes_are_the_production_kernels(dev):
     """On bf16 x with no activation quantizer, every subbyte_tile instance
-    computes K3's sums and every int8_tile instance without bands
-    c32_k512's (K2's CUDA-core design), in the same order; the band instance
-    adds its bands' sums instead, and K2 on the tensor cores sums the same
-    products in another order."""
+    computes c32_t1's sums (K3's former CUDA-core design) and every int8_tile
+    instance without bands c32_k512's (K2's), in the same order; the band
+    instance adds its bands' sums instead, and K3 and K2 on the tensor cores
+    sum the same products in another order."""
     w = _weight(300, 4096, 0).to(dev)
     x = torch.randn((8, 4096), generator=torch.Generator().manual_seed(0)).to(dev)
     x = x.to(torch.bfloat16).float()
     packed = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16])
-    want = dm.bfp_matmul_subbyte_cuda(x, packed, None)
+    want = _c32_t1(x, packed)
+    _close_rel(dm.bfp_matmul_subbyte_cuda(x, packed, None), want, 1e-5)
     for cols, tps in tkp.SUB_INSTANCES.values():
         torch.testing.assert_close(tkp.subbyte_tile(x, packed, cols, tps), want, rtol=0, atol=0)
     p8 = tp.pack_block_fp(w, 6, 8, None, [1, 16])
