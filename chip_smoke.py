@@ -4,6 +4,7 @@
     python3 chip_smoke.py --k1-only       # build, then K1's checks and times only
     python3 chip_smoke.py --k2-only       # build, then K2's and actq_split's only
     python3 chip_smoke.py --k3-only       # build, then K3's checks and times only
+    python3 chip_smoke.py --k4-only       # build, then K4's checks and times only
     python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
     python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
 
@@ -18,8 +19,10 @@
    shapes) and times kernel, plain version, library yardstick and the
    memory/compute bound (the matmuls K1, K2 and K3 also at 256 rows,
    ``prefill_*``; their operations bound at the bf16 tensor-core peak, the
-   others' at the float32 one); the prologue of K2 and K3, ``actq_split``,
-   alone, bit for bit;
+   others' at the float32 one); K4 at three shapes (``K4_SHAPES``: the
+   cache nearly full, every position at 31 as in ``generate``, and GQA at
+   8192 lanes); the prologue of K2 and K3, ``actq_split``, alone, bit for
+   bit;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
 4. runs ``generate`` on sub-byte weights (pos-major cache: K1 + K4) and
@@ -60,10 +63,11 @@
    max|y| of it; P2 with either scale type and every
    ``int8_tile`` instance without bands == ``int8_tile``'s c32_k512, the
    copy of K2's CUDA-core design, and K2 on the tensor cores within 1e-5
-   of max|y| of it; v3 and the band instance within 1e-5 of max|y|; the
-   quant stage with float32 dots == K4; P12's
-   full and P13 == K4 on quantized q, P13 == P12's full bit for bit on raw
-   q), then drives the eight probe entry points (``ksub.run``,
+   of max|y| of it; v3 and the band instance within 1e-5 of max|y|; P11's
+   quant stage with float32 dots, the copy of K4's former design, is the
+   anchor of the attention probes: P12's full, P13 and K4 are each within
+   rtol 2e-4 / atol 2e-5 of it on quantized q; P13 == P12's full bit for
+   bit on raw q), then drives the eight probe entry points (``ksub.run``,
    ``kvariants.run``, ``kvariants2.run``, ``aprobe.run``, ``kprobe.run``,
    ``ktune7b.run``, ``k3.run``, ``kexp.run``)
    with the launch counters set to 0 before each and read after it. The
@@ -380,61 +384,119 @@ def _cache_inputs(gen, s_len, nkv, hd, pos_major):
             vc.contiguous(), vs.contiguous())
 
 
-def check_attention_kernels(peaks, flush):
+# K4's shapes: name -> (nkv, rep, max_len, positions of the batch). "full":
+# Llama-2-7B, the cache nearly full (the kernel table's shape); "generate":
+# the same at position 31, where chip_smoke's generate runs; "gqa": GQA at
+# the pos-major layout's 8192-lane cap (8 kv heads, rep 4, 1024 positions)
+K4_SHAPES = {
+    "full": (HEADS, 1, 256, [255 - 9 * i for i in range(BATCH)]),
+    "generate": (HEADS, 1, 256, [31] * BATCH),
+    "gqa": (8, 4, 1024, [1023 - 9 * i for i in range(BATCH)]),
+}
+
+
+def _attention_row(kname, run, plain, sdpa, positions, nkv, rep, hd, peaks, flush):
+    """Hold ``run`` against ``plain`` (rtol 2e-4 / atol 2e-5, the JAX
+    package's kernel test) and time it, the plain version and ``sdpa``;
+    bound: the filled positions' cache bytes (codes and scales of K and V,
+    blocks of 16), q and ctx, and 4 * hd flops a position and query row at
+    the float32 peak."""
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(torch.isfinite(out).all().item(), f"{kname}: non-finite ctx")
+    check(torch.allclose(out, ref, rtol=2e-4, atol=2e-5), f"{kname}: max err {err}")
+    filled = int((positions.long() + 1).sum().item())  # positions read
+    per_pos = nkv * (2 * hd + 2 * (hd // 16) * 4)  # K+V codes and scales
+    nbytes = filled * per_pos + 4 * out.numel() * 2 + 4 * positions.numel()
+    b_ms, b_by = bound(nbytes, filled * nkv * rep * 4 * hd, peaks)
+    return dict(ms=cuda_ms(run, flush=flush), plain_ms=cuda_ms(plain, reps=5, flush=flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(sdpa, flush=flush),
+                max_abs_err=err)
+
+
+def kernel_times(fn, calls=20):
+    """Card time of ``fn`` by kernel name (torch.profiler), ms a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    name = lambda key: key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+    return {name(e.key): e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def check_attention_kernels(peaks, flush, only_k4=False):
+    """K4 at the three K4_SHAPES (the row's numbers: "full"; the others
+    under "shapes") and K5 at the batcher's 512 positions, batch 8, q
+    quantized as serving quantizes it, prob quantizer [1, 16] W6: each
+    against its plain version, timed beside its plain version, its bound
+    and SDPA on a dequantized float32 cache masked to the filled positions
+    (no prob quantization; GQA through ``enable_gqa``). -> rows."""
     from llm_mixed_q_torch.kernels.attention_decode import (
         packed_attention_decode_batch_cuda, packed_attention_decode_batch_plain,
         packed_attention_decode_cuda, packed_attention_decode_plain)
     from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
-    from llm_mixed_q_torch.tools.timing import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    nkv, hd = HEADS, HIDDEN // HEADS
-    rows = {}
-    for kname, s_len, pos_major in (("attn_decode_pos_major", 256, True),
-                                    ("attn_decode_head_major", 512, False)):
-        positions = torch.tensor([s_len - 1 - 9 * i for i in range(BATCH)],
-                                 dtype=torch.int32, device="cuda")
+    hd = HIDDEN // HEADS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def inputs(nkv, rep, s_len, positions, pos_major):
+        positions = torch.tensor(positions, dtype=torch.int32, device="cuda")
         cache = _cache_inputs(gen, s_len, nkv, hd, pos_major)
-        q = _block_fp_qdq(torch.randn((BATCH * nkv, hd), generator=gen, device="cuda"),
+        q = _block_fp_qdq(torch.randn((BATCH * nkv * rep, hd), generator=gen, device="cuda"),
                           6, 8, 127, [1, 16], True)
-        if pos_major:
-            q = q.reshape(BATCH, nkv, hd)
-            run = lambda: packed_attention_decode_batch_cuda(
-                q, *cache, positions, 16, 16, nkv=nkv, rep=1, prob_q=PROB_Q)
-            plain = lambda: packed_attention_decode_batch_plain(
-                q, *cache, positions, 16, 16, nkv=nkv, rep=1, prob_q=PROB_Q)
-        else:
-            q = q.reshape(BATCH, nkv, 1, hd)
-            run = lambda: packed_attention_decode_cuda(
-                q, *cache, positions, 16, 16, prob_q=PROB_Q)
-            plain = lambda: packed_attention_decode_plain(
-                q, *cache, positions, 16, 16, prob_q=PROB_Q)
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        # tolerance of the JAX package's kernel test (rtol 2e-4 / atol 2e-5)
-        check(torch.allclose(out, ref, rtol=2e-4, atol=2e-5), f"{kname}: max err {err}")
-        ms = cuda_ms(run, flush=flush)
-        plain_ms = cuda_ms(plain, reps=5, flush=flush)
-        # yardstick: SDPA on the dequantized float32 cache, masked to the
-        # filled positions (no prob quantization)
-        kd = (torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda"))
+        kd = torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda")
         vd = torch.randn_like(kd)
         mask = (torch.arange(s_len, device="cuda")[None, None, None, :]
                 <= positions.long()[:, None, None, None])
-        qd = q.reshape(BATCH, nkv, 1, hd)
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask), flush=flush)
-        filled = int((positions.long() + 1).sum().item())  # positions read
-        per_pos = nkv * (2 * hd + 2 * (hd // 16) * 4)  # K+V codes and scales
-        nbytes = filled * per_pos + 4 * q.numel() * 2 + 4 * BATCH
-        flops = filled * nkv * 4 * hd
-        b_ms, b_by = bound(nbytes, flops, peaks)
-        log(f"  {kname} max_len={s_len}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"library_ms(SDPA on a dequantized f32 cache)={library_ms:.4f}")
-        rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=library_ms, max_abs_err=err)
+        library = lambda: sdpa(q.reshape(BATCH, nkv * rep, 1, hd), kd, vd, attn_mask=mask,
+                               enable_gqa=rep > 1)
+        return positions, cache, q, library
+
+    rows = {}
+    k4 = "attn_decode_pos_major"
+    for name, (nkv, rep, s_len, pos_list) in K4_SHAPES.items():
+        positions, cache, q, library = inputs(nkv, rep, s_len, pos_list, True)
+        q = q.reshape(BATCH, nkv * rep, hd)
+        args = (q, *cache, positions, 16, 16, nkv, rep, PROB_Q)
+        r = _attention_row(f"{k4} {name}", lambda: packed_attention_decode_batch_cuda(*args),
+                           lambda: packed_attention_decode_batch_plain(*args), library,
+                           positions, nkv, rep, hd, peaks, flush)
+        log(f"  {k4} {name} (nkv {nkv}, rep {rep}, max_len {s_len}, positions "
+            f"{pos_list[0]}..{pos_list[-1]}): max_abs_err={r['max_abs_err']:.3e} "
+            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms(SDPA on a dequantized f32 cache)={r['library_ms']:.4f}")
+        # where K4's time goes: its four kernels, back to back
+        r["kernels_ms"] = kernel_times(lambda: packed_attention_decode_batch_cuda(*args))
+        log(f"    by kernel (torch.profiler, no flush): {r['kernels_ms']}")
+        if name == "full":
+            rows[k4] = dict(r, shapes={})
+        else:
+            rows[k4]["shapes"][name] = r
+            rows[k4]["max_abs_err"] = max(rows[k4]["max_abs_err"], r["max_abs_err"])
+    if only_k4:
+        return rows
+    s_len = 512
+    positions, cache, q, library = inputs(HEADS, 1, s_len,
+                                          [s_len - 1 - 9 * i for i in range(BATCH)], False)
+    args = (q.reshape(BATCH, HEADS, 1, hd), *cache, positions, 16, 16, PROB_Q)
+    k5 = "attn_decode_head_major"
+    rows[k5] = r = _attention_row(k5, lambda: packed_attention_decode_cuda(*args),
+                                  lambda: packed_attention_decode_plain(*args), library,
+                                  positions, HEADS, 1, hd, peaks, flush)
+    log(f"  {k5} max_len={s_len}: max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+        f"library_ms(SDPA on a dequantized f32 cache)={r['library_ms']:.4f}")
     return rows
 
 
@@ -484,6 +546,13 @@ def profile_decode(label, step, steps=4):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms a step, "
             f"{e.count / steps:6.1f} launches: {e.key[:90]}")
+    # kernels in a top-level anonymous namespace: every csrc/ kernel (and a
+    # few of PyTorch's, such as its arange)
+    ours = [e for e in kernels if e.key.replace("void ", "").startswith("(anonymous namespace)::")]
+    log("  kernels in an anonymous namespace (the port's, a few of PyTorch's): " + "; ".join(
+        f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
+        f"{e.self_device_time_total / steps / 1e3:.3f} ms ({e.count / steps:.0f})"
+        for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
 
 
 def ragged_prompts(rng, n, vocab):
@@ -869,8 +938,9 @@ def check_attention_probe(peaks, flush):
     float32 dots, 1e-3 with bf16 dots; softmax, quant: rtol 2e-4 / atol
     2e-5), its plain time and bound (bf16 dots at the bf16 tensor-core
     peak); SDPA on a dequantized float32 cache as the yardstick of the
-    softmax and quant stages (as K4's); then the quant stage with float32
-    dots against K4, timed beside it. -> row."""
+    softmax and quant stages (as K4's); then K4 against the quant stage with
+    float32 dots, the anchor of the attention probes (a copy of K4's former
+    design, one block a (batch element, kv head)), timed beside it. -> row."""
     from llm_mixed_q_torch.kernels.attention_decode import packed_attention_decode_batch_cuda
     from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
     from llm_mixed_q_torch.tools import aprobe
@@ -916,12 +986,13 @@ def check_attention_probe(peaks, flush):
     k4 = lambda: packed_attention_decode_batch_cuda(
         q, kc, ks, vc, vs, pos, aprobe.BSK, aprobe.BSV, nkv=nkv, rep=aprobe.REP,
         prob_q=aprobe.PROB_Q)
-    got, want = aprobe.attention_probe(*inputs, "quant"), k4()
-    err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, rtol=2e-4, atol=2e-5), f"quant/f32 vs K4: max err {err}")
+    got, anchor = k4(), aprobe.attention_probe(*inputs, "quant")
+    err = (got - anchor).abs().max().item()
+    check(torch.allclose(got, anchor, rtol=2e-4, atol=2e-5), f"K4 vs quant/f32: max err {err}")
+    row["k4_vs_anchor_err"] = err
     row["beside_ms"] = {"quant/f32": cuda_ms(lambda: aprobe.attention_probe(*inputs, "quant"),
                                              flush=flush), "K4": cuda_ms(k4, flush=flush)}
-    log(f"  probe_attention quant/f32 == K4 (max abs err {err:.3e}); ms "
+    log(f"  K4 within rtol 2e-4 / atol 2e-5 of the anchor quant/f32 (max abs err {err:.3e}); ms "
         + ", ".join(f"{key} {t:.4f}" for key, t in row["beside_ms"].items()))
     return row
 
@@ -935,15 +1006,21 @@ def check_k3_probes(peaks, flush):
     against its plain version (dots: 1e-3 of max|ctx|; the others rtol
     2e-4 / atol 2e-5), its plain time and bound at pos = 255; SDPA on a
     dequantized float32 cache as the yardstick of softmax, full and masks (as
-    K4's); then faithfulness: full and masks each equal K4 (rtol 2e-4 /
-    atol 2e-5), and on the tool's raw q masks equals full to max abs error
-    0. -> (P12 row, P13 row)."""
+    K4's); then faithfulness, on quantized q: full, masks and K4 are each
+    within rtol 2e-4 / atol 2e-5 of P11's quant/f32 (the anchor of the
+    attention probes, a copy of K4's former design; full's bf16 dots sum
+    in another order, ~1e-6 from it); on the tool's raw q masks equals full
+    to max abs error 0.
+    -> (P12 row, P13 row)."""
     from llm_mixed_q_torch.kernels.attention_decode import packed_attention_decode_batch_cuda
     from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
-    from llm_mixed_q_torch.tools import k3
+    from llm_mixed_q_torch.tools import aprobe, k3
     from llm_mixed_q_torch.tools.timing import cuda_ms
 
     b, s_len, hd, nh, nkv = 32, k3.S, k3.HD, k3.NH, k3.NKV
+    check((k3.HD, k3.NKV, k3.REP, k3.BSK, k3.BSV, k3.PROB_Q) ==
+          (aprobe.HD, aprobe.NKV, aprobe.REP, aprobe.BSK, aprobe.BSV, aprobe.PROB_Q),
+          "P12/P13 and P11 differ in shape or quantizers")
     raw = k3.make_inputs(b, device="cuda")
     qq = _block_fp_qdq(raw[0].reshape(-1, hd), *ACTQ[1:], [1, ACTQ[0]], True).reshape(raw[0].shape)
     masks = k3.resident_masks(device="cuda")
@@ -982,13 +1059,18 @@ def check_k3_probes(peaks, flush):
             rv.update(plain_ms=cuda_ms(lambda: plain(inputs), reps=3, flush=flush),
                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
             log(f"  {label}: bound_ms={b_ms:.4f} ({b_by}) plain_ms={rv['plain_ms']:.4f}")
-        want = k4(inputs)
-        for label in ("v2_full", "v3_masks"):
-            got = calls[label][0](inputs)
-            err = (got - want).abs().max().item()
-            check(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
-                  f"{label} vs K4 pos {pos_at}: max err {err}")
-            log(f"  {label} == K4 on quantized q, pos {pos_at} (max abs err {err:.3e})")
+        anchor = aprobe.attention_probe(*inputs, "quant")
+        for label, fn in (("v2_full", calls["v2_full"][0]), ("v3_masks", calls["v3_masks"][0]),
+                          ("K4", k4)):
+            got = fn(inputs)
+            err = (got - anchor).abs().max().item()
+            check(torch.allclose(got, anchor, rtol=2e-4, atol=2e-5),
+                  f"{label} vs quant/f32 pos {pos_at}: max err {err}")
+            key = "k4_vs_anchor_err" if label == "K4" else f"{label}_vs_anchor_err"
+            row = v3 if label == "v3_masks" else v2
+            row[key] = max(row.get(key, 0.0), err)
+            log(f"  {label} within rtol 2e-4 / atol 2e-5 of P11's quant/f32 on quantized q, "
+                f"pos {pos_at} (max abs err {err:.3e})")
         raw_in = (*raw[:5], pos)
         got, want = calls["v3_masks"][0](raw_in), calls["v2_full"][0](raw_in)
         torch.cuda.synchronize()
@@ -1362,9 +1444,9 @@ def kernel_entries(rows, path_counts):
                "actq_split": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:63"),
                "bfp_matmul_subbyte": (matmul_cu, "llm_mixed_q_tpu/kernels/dequant_matmul.py:221"),
                "attn_decode_pos_major": (attention_cu,
-                                         "llm_mixed_q_tpu/kernels/attention_decode.py:190"),
+                                         "llm_mixed_q_tpu/kernels/attention_decode.py:326"),
                "attn_decode_head_major": (attention_cu,
-                                          "llm_mixed_q_tpu/kernels/attention_decode.py:352"),
+                                          "llm_mixed_q_tpu/kernels/attention_decode.py:430"),
                **PROBE_SOURCES}
     kernels = []
     for kname, r in rows.items():
@@ -1378,7 +1460,8 @@ def kernel_entries(rows, path_counts):
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
-            "k2_vs_c32_k512_err", "k3_vs_c32_t1_err")
+            "k2_vs_c32_k512_err", "k3_vs_c32_t1_err", "k4_vs_anchor_err", "v2_full_vs_anchor_err",
+            "v3_masks_vs_anchor_err", "kernels_ms", "shapes")
             if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
@@ -1449,6 +1532,10 @@ def main(only=None):
             f"batch {BATCH} and {PREFILL_M} rows:")
         log(json.dumps(check_matmul_kernels(peaks, flush, only="bfp_matmul_subbyte")))
         return
+    if only == "k4":
+        log(f"K4 vs its plain version at {', '.join(K4_SHAPES)}, batch {BATCH} ({smi}):")
+        log(json.dumps(check_attention_kernels(peaks, flush, only_k4=True)))
+        return
     if only == "m_sweep":
         log(f"K1, K2, K3 over M (ms a 7B layer, {smi}):")
         log(json.dumps(m_sweep(flush)))
@@ -1494,6 +1581,6 @@ def main(only=None):
 
 
 if __name__ == "__main__":
-    flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--m-sweep": "m_sweep",
-             "--probes-only": "probes"}
+    flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
+             "--m-sweep": "m_sweep", "--probes-only": "probes"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

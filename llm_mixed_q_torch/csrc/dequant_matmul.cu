@@ -64,7 +64,11 @@
 //   row of the block has a lo. A code times its power-of-two scale is exact
 //   in bf16 down to scales of 2^-133; below that (no packer pairs such a
 //   scale with a nonzero code) the scale goes into the mma as s * 2^64 and
-//   2^-64 is applied in float32. A block owns 32 columns where that leaves
+//   2^-64 is applied in float32. Weight blocks of 1 and 2 (one scale a code
+//   or a pair) take a path of their own (a template parameter, so the bs >=
+//   4 instructions are those of the shipped path): no scales in the ring,
+//   each lane reads its codes' scales from L2 (__ldg) and applies them, and
+//   the lift, a code at a time. A block owns 32 columns where that leaves
 //   every SM 2 blocks, else 16 (N = 4096: 256 blocks), and 8 or 16 rows (3
 //   blocks an SM at 32 columns and 8 rows, else 2: the ring's bytes in
 //   flight, not the arithmetic, bound it, see PERF.md); its 8 warps split
@@ -510,12 +514,14 @@ actq_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
 
 // int8_kernel: y [M, N] = (hi + lo) . (codes * scales)^T on the tensor
 // cores. COLS output columns a block (16 or 32: one or two 16-row mma
-// tiles), R rows a block (8 or 16: one or two n8 tiles). Warp w takes the
-// column tile w % NCT and the K group w / NCT: 64 K of every ring stage,
-// four k16 steps. Within a group a thread's 16 consecutive K of a row
-// (one 16-byte load of codes, two of x) feed the four steps: step s uses K
-// 4s .. 4s + 3 of them as the mma's k 2 tig, +1, 2 tig + 8, +9, the same
-// permutation of K for A and B, so the products are the same.
+// tiles), R rows a block (8 or 16: one or two n8 tiles). PC (bs 1 and 2):
+// a scale a code, read from L2 where it is applied; the ring holds no
+// scales. Warp w takes the column tile w % NCT and the K group w / NCT:
+// 64 K of every ring stage, four k16 steps. Within a group a thread's 16
+// consecutive K of a row (one 16-byte load of codes, two of x) feed the
+// four steps: step s uses K 4s .. 4s + 3 of them as the mma's k 2 tig, +1,
+// 2 tig + 8, +9, the same permutation of K for A and B, so the products are
+// the same.
 constexpr int kK2Stages = 4;     // ring stages in flight
 constexpr int kK2WarpK = 64;     // K of a warp's share of a stage
 constexpr int kK2WsK = 512;      // the workspace's K stride is a multiple of this
@@ -534,21 +540,25 @@ struct K2Tile {
   static constexpr int XSTR = KT + 8;            // bf16 of an x row in a slot
 };
 
-__host__ __device__ __forceinline__ int k2_sstr(int kt, int lbs) { return (kt >> lbs) + 4; }
+template <bool PC>
+__host__ __device__ __forceinline__ int k2_sstr(int kt, int lbs) {
+  return PC ? 0 : (kt >> lbs) + 4;
+}
 
 // A ring slot: codes [COLS][CSTR] bytes, x hi [R][XSTR] bf16, scales
-// [COLS][sstr] float32. The row strides spread a warp's 16-byte loads
-// over all banks (codes: rows 64 bytes apart mod 128; x: 16).
-template <int COLS, int R>
+// [COLS][sstr] float32 (none for PC). The row strides spread a warp's
+// 16-byte loads over all banks (codes: rows 64 bytes apart mod 128; x: 16).
+template <int COLS, int R, bool PC>
 __host__ __device__ __forceinline__ int k2_slot_bytes(int lbs) {
   using T = K2Tile<COLS>;
-  return COLS * T::CSTR + 2 * R * T::XSTR + 4 * COLS * k2_sstr(T::KT, lbs);
+  return COLS * T::CSTR + 2 * R * T::XSTR + 4 * COLS * k2_sstr<PC>(T::KT, lbs);
 }
 
 // Queue stage t (K t*KT ..) of the block's codes, scales and x hi into
 // `slot`, zero past N, past k_pad and past the live rows: 16-byte copies
-// where the rows allow them, else 4-byte ones.
-template <int COLS, int R>
+// where the rows allow them, else 4-byte ones (codes at bs 1 and 2 with k_pad
+// off 4 bytes: a byte at a time).
+template <int COLS, int R, bool PC>
 __device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __restrict__ codes,
                                               const float* __restrict__ scales,
                                               const __nv_bfloat16* __restrict__ xhi, int t,
@@ -562,6 +572,12 @@ __device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __res
       const bool in = col0 + r < N && k0 + c < k_pad;
       cp_async16(slot + r * T::CSTR + c, in ? codes + (size_t)(col0 + r) * k_pad + k0 + c : codes,
                  in ? 16 : 0);
+    }
+  } else if (PC && k_pad % 4) {  // rows off 4 bytes (bs 1 and 2 only): a byte at a time
+    for (int i = threadIdx.x; i < COLS * T::KT; i += kThreads) {
+      const int r = i / T::KT, c = i % T::KT;
+      const bool in = col0 + r < N && k0 + c < k_pad;
+      slot[r * T::CSTR + c] = in ? (uint8_t)codes[(size_t)(col0 + r) * k_pad + k0 + c] : 0;
     }
   } else {
     for (int i = threadIdx.x; i < COLS * T::KT / 4; i += kThreads) {
@@ -577,6 +593,7 @@ __device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __res
     const bool in = m0 + r < M;
     cp_async16(xs + r * T::XSTR + c, in ? xhi + (size_t)(m0 + r) * kw + k0 + c : xhi, in ? 16 : 0);
   }
+  if (PC) return;  // the scales come from L2 where they are applied
   float* ss = reinterpret_cast<float*>(slot + COLS * T::CSTR + 2 * R * T::XSTR);
   const int spr = T::KT >> lbs, sstr = spr + 4, nb = k_pad >> lbs, s0 = k0 >> lbs;
   if (scales16) {
@@ -612,9 +629,19 @@ __device__ __forceinline__ void k2_a_frag(uint32_t (&a)[4], uint32_t wd0, uint32
   a[3] = pack_bf16x2(k2_code(wd1, 2) * s1, k2_code(wd1, 3) * s1);
 }
 
+// The A fragment of step s with a scale a code: rows n_lo (c0, scales
+// s0[0..3]) and n_lo + 8 (c1, s1[0..3]).
+__device__ __forceinline__ void k2_a_frag_pc(uint32_t (&a)[4], uint32_t wd0, uint32_t wd1,
+                                             const float (&s0)[4], const float (&s1)[4]) {
+  a[0] = pack_bf16x2(k2_code(wd0, 0) * s0[0], k2_code(wd0, 1) * s0[1]);
+  a[1] = pack_bf16x2(k2_code(wd1, 0) * s1[0], k2_code(wd1, 1) * s1[1]);
+  a[2] = pack_bf16x2(k2_code(wd0, 2) * s0[2], k2_code(wd0, 3) * s0[3]);
+  a[3] = pack_bf16x2(k2_code(wd1, 2) * s1[2], k2_code(wd1, 3) * s1[3]);
+}
+
 // 3 blocks an SM where 3 rings fit (32 columns, 8 rows: 66 KB a block at
 // blocks of 16; ptxas then holds it to 80 registers), else 2
-template <int COLS, int R>
+template <int COLS, int R, bool PC>
 __global__ void __launch_bounds__(kThreads, COLS == 32 && R == 8 ? 3 : 2)
 int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restrict__ xlo,
             const uint8_t* __restrict__ lo_rows, const int8_t* __restrict__ codes,
@@ -623,8 +650,8 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
   using T = K2Tile<COLS>;
   constexpr int NT = R / 8;
   extern __shared__ __align__(16) uint8_t smem_k2[];
-  const int slot_bytes = k2_slot_bytes<COLS, R>(lbs);
-  const int sstr = k2_sstr(T::KT, lbs);
+  const int slot_bytes = k2_slot_bytes<COLS, R, PC>(lbs);
+  const int sstr = k2_sstr<PC>(T::KT, lbs);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane >> 2, tig = lane & 3;
@@ -649,8 +676,8 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
 #pragma unroll
   for (int s = 0; s < kK2Stages - 1; ++s) {
     if (s < n_tiles)
-      k2_load_stage<COLS, R>(smem_k2 + s * slot_bytes, codes, scales, xhi, s, col0, m0, M, N,
-                             k_pad, kw, lbs, codes16, scales16);
+      k2_load_stage<COLS, R, PC>(smem_k2 + s * slot_bytes, codes, scales, xhi, s, col0, m0, M,
+                                 N, k_pad, kw, lbs, codes16, scales16);
     cp_async_commit();
   }
 
@@ -658,9 +685,9 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
     cp_async_wait<kK2Stages - 2>();  // this thread's copies of stage t have landed
     __syncthreads();                 // everyone's have, and everyone is done with t - 1
     if (t + kK2Stages - 1 < n_tiles)
-      k2_load_stage<COLS, R>(smem_k2 + ((t + kK2Stages - 1) % kK2Stages) * slot_bytes, codes,
-                             scales, xhi, t + kK2Stages - 1, col0, m0, M, N, k_pad, kw, lbs,
-                             codes16, scales16);
+      k2_load_stage<COLS, R, PC>(smem_k2 + ((t + kK2Stages - 1) % kK2Stages) * slot_bytes,
+                                 codes, scales, xhi, t + kK2Stages - 1, col0, m0, M, N, k_pad,
+                                 kw, lbs, codes16, scales16);
     cp_async_commit();
 
     const uint8_t* slot = smem_k2 + (t % kK2Stages) * slot_bytes;
@@ -697,6 +724,45 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
     }
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
+      if constexpr (PC) {
+        // a scale a code (bs 1 or 2), from L2; 0 past N and past k_pad,
+        // where the codes are 0 too
+        const int nb = k_pad >> lbs, k = t * T::KT + kb + 4 * s;
+        float s0[4], s1[4], a0[4], a1[4], f0[4], f1[4];
+        bool tiny = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int si = (k + j) >> lbs;
+          const bool in = si < nb;
+          s0[j] = in && col0 + n_lo < N ? __ldg(scales + (size_t)(col0 + n_lo) * nb + si) : 0.f;
+          s1[j] = in && col0 + n_lo + 8 < N ? __ldg(scales + (size_t)(col0 + n_lo + 8) * nb + si)
+                                            : 0.f;
+          const bool t0 = s0[j] > 0.f && s0[j] < kK2Bf16Scale;
+          const bool t1 = s1[j] > 0.f && s1[j] < kK2Bf16Scale;
+          a0[j] = t0 ? 0.f : s0[j], a1[j] = t1 ? 0.f : s1[j];
+          f0[j] = t0 ? s0[j] * kK2Lift : 0.f, f1[j] = t1 ? s1[j] * kK2Lift : 0.f;
+          tiny |= t0 || t1;
+        }
+        uint32_t a[4];
+        k2_a_frag_pc(a, w0[s], w1[s], a0, a1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= live_nt) break;
+          mma_bf16(acc[nt], a, make_uint2(bh[nt][2 * s], bh[nt][2 * s + 1]));
+          if (any_lo) mma_bf16(acc[nt], a, make_uint2(bl[nt][2 * s], bl[nt][2 * s + 1]));
+        }
+        if (__any_sync(0xffffffffu, tiny)) {
+          fixed = true;
+          k2_a_frag_pc(a, w0[s], w1[s], f0, f1);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (nt >= live_nt) break;
+            mma_bf16(fix[nt], a, make_uint2(bh[nt][2 * s], bh[nt][2 * s + 1]));
+            if (any_lo) mma_bf16(fix[nt], a, make_uint2(bl[nt][2 * s], bl[nt][2 * s + 1]));
+          }
+        }
+        continue;
+      }
       const int si = (kb + 4 * s) >> lbs;  // 4 | bs: one scale a row and step
       float s0 = ss[n_lo * sstr + si], s1 = ss[(n_lo + 8) * sstr + si];
       const bool t0 = s0 > 0.f && s0 < kK2Bf16Scale, t1 = s1 > 0.f && s1 < kK2Bf16Scale;
@@ -1054,13 +1120,13 @@ int k3_stages(int cols, int rows, int tile, int nsb) {
   return n < kK3Stages ? n : kK3Stages;
 }
 
-template <int COLS, int R>
+template <int COLS, int R, bool PC>
 int launch_int8(const void* ws, const void* codes, const void* scales, void* y, int M, int N,
                 int k_pad, int kw, int lbs, cudaStream_t stream) {
   using T = K2Tile<COLS>;
-  const int smem = kK2Stages * k2_slot_bytes<COLS, R>(lbs);
+  const int smem = kK2Stages * k2_slot_bytes<COLS, R, PC>(lbs);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(int8_kernel<COLS, R>, smem);
+  cudaError_t err = allow_dynamic_smem(int8_kernel<COLS, R, PC>, smem);
   if (err != cudaSuccess) return (int)err;
   const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(ws);
   const __nv_bfloat16* lo = hi + (size_t)M * kw;
@@ -1071,7 +1137,7 @@ int launch_int8(const void* ws, const void* codes, const void* scales, void* y, 
   // rows fastest: the row blocks of a column block run together and share
   // its weights through L2
   const dim3 grid((M + R - 1) / R, (N + COLS - 1) / COLS);
-  int8_kernel<COLS, R><<<grid, kThreads, smem, stream>>>(
+  int8_kernel<COLS, R, PC><<<grid, kThreads, smem, stream>>>(
       hi, lo, lo_rows, (const int8_t*)codes, (const float*)scales, (float*)y, M, N, k_pad, kw,
       lbs, codes16, scales16);
   return (int)cudaGetLastError();
@@ -1161,7 +1227,7 @@ int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, vo
   const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
   int lbs = 0;
   while ((1 << lbs) < bs) ++lbs;
-  if (bs < 4 || kSlice % bs || k_pad % bs || K > k_pad || k_pad > kw || kw % kK2WsK || M < 1 ||
+  if (bs < 1 || kSlice % bs || k_pad % bs || K > k_pad || k_pad > kw || kw % kK2WsK || M < 1 ||
       N < 1 || !actq_ok(aq))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1174,11 +1240,18 @@ int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, vo
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const bool wide = (N + 31) / 32 >= 2 * sms;
+  if (bs < 4) {  // a scale a code or a pair
+    if (M <= 8)
+      return wide ? launch_int8<32, 8, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+                  : launch_int8<16, 8, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+    return wide ? launch_int8<32, 16, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+                : launch_int8<16, 16, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+  }
   if (M <= 8)
-    return wide ? launch_int8<32, 8>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-                : launch_int8<16, 8>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
-  return wide ? launch_int8<32, 16>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-              : launch_int8<16, 16>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+    return wide ? launch_int8<32, 8, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+                : launch_int8<16, 8, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+  return wide ? launch_int8<32, 16, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
+              : launch_int8<16, 16, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
 }
 
 }  // extern "C"

@@ -3,15 +3,18 @@
 //
 // P11 replaces tools/aprobe.py run_variant / variant_kernel, the stage
 //    knock-outs of llm_mixed_q_tpu/kernels/attention_decode.py
-//    _attn_kernel_batch. It is a copy of K4 (csrc/attention_decode.cu,
-//    attn_decode_kernel read with the pos-major strides) with stages
-//    knocked out; K4 itself is untouched. Cache arrays are
+//    _attn_kernel_batch. It is a copy of K4's former design
+//    (attn_decode_kernel of csrc/attention_decode.cu, which K5 keeps, read
+//    with pos-major strides) with stages knocked out; its quant stage with
+//    float32 dots is the anchor the other copies and the redesigned K4 are
+//    held to. Cache arrays are
 //    [b, rows, S*nkv] with lane = pos*nkv + head, K and V both [hd, lanes].
 //
-// One block per (kv head, batch element), as K4, for its rep query rows.
+// One block per (kv head, batch element), as K4's former design, for its rep
+// query rows.
 // Each stage computes what aprobe.variant_kernel computes:
 //   dma      reads the K and V codes and scales of the head's filled
-//            positions with K4's loads and returns q;
+//            positions with that design's loads and returns q;
 //   dequant  also dequantizes them; returns q;
 //   matmul   scores = q . deq(K) / sqrt(hd) over EVERY lane of the cache
 //            (all heads, all S positions: the TPU kernel's dense product,
@@ -19,9 +22,9 @@
 //            lane: nkv times the dot work of K4, on K and V the block reads
 //            whole;
 //   softmax  scores over the head's filled positions, float32 softmax (the
-//            denominator summed in float64, as K4), ctx = P . deq(V);
+//            denominator summed in float64, as K4 and K5), ctx = P . deq(V);
 //   quant    also block_fp-quantizes P over [1, bs] runs of the head's
-//            positions: K4's arithmetic.
+//            positions: the arithmetic of K4's former design.
 // Dots in float32, or on bf16 operands (q and the scores or probabilities
 // rounded to bf16; deq(K) and deq(V) are exact in bf16), summed in float32
 // on the CUDA cores as K4 sums: the bf16 rows measure the rounding, not a
@@ -86,8 +89,8 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // Every stage is held to 4 blocks an SM (64 registers), the occupancy of
-// K4, whose time is the blocks that wait on their reads at once: P11's
-// stages sit at 64 registers without the minimum (a minimum of 1 block an
+// K4's former design, whose time was the blocks that wait on their reads at
+// once: P11's stages sit at 64 registers without the minimum (a minimum of 1 block an
 // SM took them to 96, 2 blocks an SM, and 45% more time); qmax's longer V
 // loop took 79 registers and 3 blocks an SM without it.
 template <int ST, bool BF16>

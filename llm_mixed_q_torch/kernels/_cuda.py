@@ -54,9 +54,12 @@ _SIGNATURES = {
         "lmq_bfp_matmul_subbyte": [_P] * 5 + [_I] * 12 + [_P],
         # x, ws, M, K, kw, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
         "lmq_actq_split": [_P, _P] + [_I] * 8 + [_P],
+        # q, kc, ks, vc, vs, positions, out, ws (scores and partials), b, nkv,
+        # rep, hd, S, bs_k, bs_v, G, P (a block's heads and positions),
+        # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
+        "lmq_attn_decode_pos_major": [_P] * 8 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
         # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
-        "lmq_attn_decode_pos_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
         "lmq_attn_decode_head_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     },
     "probes": {

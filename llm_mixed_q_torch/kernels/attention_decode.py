@@ -7,16 +7,19 @@ Per decode step and kv head:
     probs_q = block_fp qdq of probs over [1, bs] runs of positions
     ctx     = probs_q @ dequant(V)
 
-Two Hopper kernels (``csrc/attention_decode.cu``, one device function read
-with two sets of strides) replace the TPU kernels:
+Two Hopper kernels (``csrc/attention_decode.cu``) replace the TPU kernels:
 
 - K4 ``packed_attention_decode_batch_cuda``: the pos-major cache, flat
   [b, rows, S*nkv] arrays with lane = pos*nkv + head, K and V both stored
   [hd, lanes] (replaces ``packed_attention_decode_batch`` /
-  ``_attn_kernel_batch``);
+  ``_attn_kernel_batch``). A block covers all kv heads of a chunk of
+  positions (``k4_geometry``), so it reads each cache sector once; its
+  phases (scores; each row's max and denominator; the prob quantizer and
+  P . V a chunk; the chunks' sum) are four launches of one C call, on a
+  workspace from PyTorch's allocator (``k4_workspace_floats``);
 - K5 ``packed_attention_decode_cuda``: the head-major cache, K [b, nkv, hd,
-  S], V [b, nkv, S, hd] (replaces ``packed_attention_decode`` /
-  ``_attn_kernel``).
+  S], V [b, nkv, S, hd], one block a (batch element, kv head) (replaces
+  ``packed_attention_decode`` / ``_attn_kernel``).
 
 Each wrapper launches its kernel for CUDA tensors (counting launches) and
 computes the plain version, the dense dequantize + einsum path of
@@ -55,6 +58,34 @@ _SMEM_MAX = 227 * 1024
 # package's batch-folded kernel budget; the layout choice is kept so a
 # cache has the same shapes in both packages)
 BATCH_KERNEL_MAX_LANES = 8192
+# K4's blocks: at most this many lanes (positions x kv heads) and query
+# rows (kv heads x rep) a block (csrc kK4Lanes, kK4Rows)
+_K4_LANES = 512
+_K4_ROWS = 256
+
+
+def k4_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
+    """(G, P): the kv heads and the positions (a power of two, at most
+    ``s_len``) a K4 block covers. G is every head unless G * rep would pass
+    ``_K4_ROWS``; P is the most positions that keep P * G <= ``_K4_LANES``
+    (16 at 32 heads, 64 at 8)."""
+    g = min(nkv, _K4_ROWS // rep)
+    p = 1
+    while 2 * p * g <= _K4_LANES and 2 * p <= s_len:
+        p *= 2
+    return g, p
+
+
+def k4_workspace_floats(b: int, nkv: int, rep: int, hd: int, s_len: int,
+                        prob_block: int | None = None) -> int:
+    """float32 elements of K4's workspace: the scores [b, nh, S], the
+    chunks' P . V partials [b, ceil(S / P), hd, nh], then each row's max and
+    denominator [b, nh] and, for a prob block longer than min(P, 32), each
+    block's max of exp [b, nh, ceil(S / block)]."""
+    _, p = k4_geometry(nkv, rep, s_len)
+    nh = nkv * rep
+    long_blocks = -(-s_len // prob_block) if prob_block and prob_block > min(p, 32) else 0
+    return b * nh * (s_len + (-(-s_len // p)) * hd + 2 + long_blocks)
 
 
 def softmax_lastdim(s: torch.Tensor) -> torch.Tensor:
@@ -148,9 +179,10 @@ def _prob_q_args(prob_q):
 def kernel_shape_error(rep: int, hd: int, s_len: int) -> str | None:
     """Why the decode-attention kernels cannot take ``rep`` query rows per
     kv head, head_dim ``hd`` and a cache of ``s_len`` positions, or None.
-    These are the limits of ``csrc/attention_decode.cu``: one block of
+    These are the limits of K5 (``csrc/attention_decode.cu``): one block of
     256 threads per (batch element, kv head) holding q, the scores of
-    every position and the P.V partials in shared memory."""
+    every position and the P.V partials in shared memory. K4's kernel has no
+    limit on the cache length; its wrapper and serving keep these for both."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
     if hd > _THREADS or _THREADS % hd or hd % 16:
@@ -162,8 +194,7 @@ def kernel_shape_error(rep: int, hd: int, s_len: int) -> str | None:
     return None
 
 
-def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
-                      s_len, bs_k, bs_v, prob_q):
+def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, prob_q):
     tensors = (q, kc, ks, vc, vs)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn_name}: q and the cache must be contiguous on one device")
@@ -176,8 +207,18 @@ def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
     error = kernel_shape_error(rep, hd, s_len)
     if error:
         raise ValueError(f"{fn_name}: {error}")
+
+
+def _positions(positions, q):
+    return positions.to(device=q.device, dtype=torch.int32).reshape(q.shape[0]).contiguous()
+
+
+def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
+                      s_len, bs_k, bs_v, prob_q):
+    """K5's C entry ``fn_name`` on checked operands -> ctx [b, nkv * rep, hd]."""
+    _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, prob_q)
     b = q.shape[0]
-    pos = positions.to(device=q.device, dtype=torch.int32).reshape(b).contiguous()
+    pos = _positions(positions, q)
     out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
     lib = _cuda.lib()
     rc = getattr(lib, fn_name)(
@@ -194,17 +235,31 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
                                        prob_q=None):
     """K4: decode attention over the pos-major packed cache.
     q [b, nh, hd] f32 (rows grouped by kv head); codes int8 [b, hd, S*nkv];
-    scales f32 [b, hd/bs, S*nkv]; positions [b]. -> ctx [b, nh, hd] f32."""
+    scales f32 [b, hd/bs, S*nkv]; positions [b]; ``prob_q``'s block a power
+    of two (``prob_q_spec``). -> ctx [b, nh, hd] f32."""
     if not q.is_cuda:
         return packed_attention_decode_batch_plain(
             q, k_codes, k_scales, v_codes, v_scales, positions, bs_k, bs_v,
             nkv, rep, prob_q)
+    name = "packed_attention_decode_batch_cuda"
     b, nh, hd = q.shape
     if nh != nkv * rep:
         raise ValueError(f"{nh} query heads != nkv {nkv} * rep {rep}")
-    out = _launch_attention(
-        "lmq_attn_decode_pos_major", q, k_codes, k_scales, v_codes, v_scales,
-        positions, nkv, rep, hd, k_codes.shape[2] // nkv, bs_k, bs_v, prob_q)
+    s_len = k_codes.shape[2] // nkv
+    _check_attention(name, q, k_codes, k_scales, v_codes, v_scales, rep, hd, s_len, bs_k,
+                     bs_v, prob_q)
+    if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
+        raise ValueError(f"{name}: prob block {prob_q[0]} is not a power of two")
+    g, p = k4_geometry(nkv, rep, s_len)
+    ws = torch.empty(k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0]),
+                     dtype=torch.float32, device=q.device)
+    pos = _positions(positions, q)
+    out = torch.empty((b, nh, hd), dtype=torch.float32, device=q.device)
+    rc = _cuda.lib().lmq_attn_decode_pos_major(
+        q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(), v_codes.data_ptr(),
+        v_scales.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, nkv, rep, hd,
+        s_len, bs_k, bs_v, g, p, math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q))
+    _cuda.check(rc, name)
     packed_attention_decode_batch_cuda.launches += 1
     return out
 

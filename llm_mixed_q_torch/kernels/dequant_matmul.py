@@ -227,8 +227,6 @@ def bfp_matmul_cuda(x2: torch.Tensor, packed: PackedBFP, actq=None) -> torch.Ten
     actq_split into a workspace, then the matmul on the tensor cores."""
     if not x2.is_cuda:
         return bfp_matmul_plain(x2, packed, actq)
-    if packed.block_size < 4:
-        raise ValueError(f"bfp_matmul_cuda: block {packed.block_size} must divide 128 and be >= 4")
     y, launched = _launch_after_split("lmq_bfp_matmul_int8", "bfp_matmul_cuda", x2, packed,
                                       actq, packed.codes.shape[1])
     bfp_matmul_cuda.launches += launched

@@ -12,10 +12,15 @@ line per stage and dot type (µs a call, µs per batch element):
 
 ``dma`` reads the cache and returns q; ``dequant`` also dequantizes it;
 ``matmul`` is the TPU kernel's dense q.K and scores.V over every lane of the
-cache (all heads), before its mask; ``softmax`` and ``quant`` are K4 without
-and with its prob quantizer (``csrc/probes/attention_probe.cu`` spells them
-out). Dots in float32, and on bf16 operands for matmul, softmax and quant.
-K4 itself dots in float32; the TPU probe's shipping line used bf16 dots.
+cache (all heads), before its mask; ``softmax`` and ``quant`` are K4's
+former design (one block a (batch element, kv head), the design K5 keeps)
+without and with its prob quantizer (``csrc/probes/attention_probe.cu``
+spells them out). Dots in float32, and on bf16 operands for matmul, softmax
+and quant. ``quant`` with float32 dots is the anchor of the attention
+probes: the other copies equal it, and K4, which reads each cache sector
+once for all heads of a chunk of positions, is held to it at the kernels'
+tolerance. K4 dots in float32; the TPU probe's shipping line used bf16
+dots.
 ``attention_probe_plain`` computes each stage in plain PyTorch. With
 ``--device=cpu`` each stage's plain version runs once and its max|ctx| is
 printed: the CPU gives no card times.

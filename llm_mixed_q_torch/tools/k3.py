@@ -13,8 +13,9 @@ element):
     v2_dots, v2_softmax, v2_qmax, v2_qmath, v2_full, v3_masks
 
 ``dots`` is the TPU kernel's dense q.K and scores.V over every lane of the
-cache (all heads), before its mask; ``softmax`` and ``full`` are K4 without
-and with its prob quantizer; ``qmax`` replaces each probability by the max
+cache (all heads), before its mask; ``softmax`` and ``full`` are K4's former
+design (one block a (batch element, kv head), P11's template) without and
+with its prob quantizer; ``qmax`` replaces each probability by the max
 of its aligned run of 16 positions (the quantizer's block max alone, which
 on the TPU also reaches the positions after pos up to the end of pos's
 run); ``qmath`` runs the quantizer's exponent/mantissa chain with each
@@ -22,9 +23,12 @@ probability as its own block max; ``v3_masks`` is ``full`` with the
 own-head bias and the causal index read from two resident arrays
 (``resident_masks``). All dot on bf16 operands, as the TPU probe does
 (``csrc/probes/attention_probe.cu`` spells them out; dots, softmax and
-full are P11's matmul, softmax and quant instances with bf16 dots). K4
-dots in float32 on float32 q, so on the tool's raw q it is not the same
-function as the TPU's ship line, whose dots were bf16.
+full are P11's matmul, softmax and quant instances with bf16 dots; on
+quantized q, whose dots are exact in bf16, full and v3_masks are held to
+P11's quant with float32 dots, the anchor of the attention probes, at the
+kernels' tolerance: their float32 sums run in another order). K4 dots in
+float32 on float32 q, so on the tool's raw q it is not the same function
+as the TPU's ship line, whose dots were bf16.
 
 ``attention_v2_plain`` and ``attention_v3_plain`` compute each in plain
 PyTorch. With ``--device=cpu`` each plain version runs once and its

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 at edge shapes the serving path does not reach: ragged M, N and K, every
 sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
-of the cache. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
+of the cache; K4 at the Llama-2-7B shape and at GQA's 8192 lanes, positions
+at its chunk edges, prob blocks from 1 to S, a batch element's ctx the same
+bits alone and in a batch of 8; K2 at weight blocks 1 and 2. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
 too: N not a multiple of 32, K not a multiple of the tile, a cache of one
 position; the tiling probes (P4-P7): N off every column tile, a short
 last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}; P12 and
@@ -148,11 +150,13 @@ def test_subbyte_kernel_raises_on_bad_operands(dev):
 
 
 # N >= 8448 takes K2's 32-column blocks on 132 SMs, smaller N its 16-column
-# ones; k_pad 92 is off the 16-byte copies of the codes
+# ones; k_pad 92 is off the 16-byte copies of the codes; blocks 1 and 2 take
+# the per-code scale path
 INT8_CASES = [  # m, n, k, bs, k_stride
     (1, 1, 64, 4, None), (9, 100, 1100, 8, 1024), (17, 33, 700, 16, None),
     (40, 300, 4096, 32, 1024), (8, 64, 1500, 128, None), (3, 5, 92, 4, None),
     (256, 300, 4096, 16, 1024), (3, 8500, 700, 16, None), (20, 8448, 1024, 32, 1024),
+    (9, 100, 1100, 1, 1024), (17, 8500, 700, 2, None), (3, 5, 91, 1, None),
 ]
 
 
@@ -202,16 +206,19 @@ def test_int8_kernel_keeps_subnormal_activations(dev, actq):
     _close_rel(dm.bfp_matmul_cuda(x, packed, actq), want)
 
 
-def test_int8_kernel_applies_a_tiny_scale_in_float32(dev):
+@pytest.mark.parametrize("bs", [16, 1])
+def test_int8_kernel_applies_a_tiny_scale_in_float32(dev, bs):
     """A 2^-134 scale (below bf16's reach for odd codes; no packer pairs it
     with a nonzero code, so it is built by hand) next to x near 2^100: the
-    kernel lifts it by 2^64 in the mma and drops 2^-64 in float32."""
+    kernel lifts it by 2^64 in the mma and drops 2^-64 in float32 (at block
+    1, a code at a time)."""
     g = torch.Generator().manual_seed(4)
     codes = torch.randint(-127, 128, (300, 1024), generator=g, dtype=torch.int8)
     scales = torch.full((300, 64), 2.0**-10)
     scales[:, 1::7] = 2.0**-134
     scales[5, :] = 2.0**-134
-    packed = tp.PackedBFP(codes.to(dev), scales.to(dev), 8, 16, 300, 1024)
+    scales = scales.repeat_interleave(16 // bs, dim=1)
+    packed = tp.PackedBFP(codes.to(dev), scales.to(dev), 8, bs, 300, 1024)
     big = torch.zeros(64, dtype=torch.bool)
     big[1::7] = True
     x = torch.randn((9, 64, 16), generator=g)
@@ -250,10 +257,9 @@ def test_actq_split_matches_plain(dev, m, k, misaligned, actq):
 
 def test_int8_kernel_raises_on_bad_operands(dev):
     x = torch.randn((3, 700), device=dev)
-    packed = tp.pack_block_fp(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 2])
-    with pytest.raises(ValueError, match="must divide 128"):
-        dm.bfp_matmul_cuda(x, packed)
     packed = tp.pack_block_fp(_weight(40, 700, 0).to(dev), 6, 8, None, [1, 16])
+    with pytest.raises(ValueError, match="must divide 128"):
+        dm.bfp_matmul_cuda(x, packed._replace(block_size=3))
     for args, match in (((x, packed, (64, 6, 8, 127)), "does not divide"),
                         ((x[:, :640].contiguous(), packed), "in_features"),
                         ((x.double(), packed), "float32")):
@@ -261,6 +267,23 @@ def test_int8_kernel_raises_on_bad_operands(dev):
             dm.bfp_matmul_cuda(*args)
     with pytest.raises(ValueError, match="k_pad"):
         dm.actq_split_cuda(x, None, 512)
+
+
+@pytest.mark.parametrize("bs", [1, 2])
+def test_int8_kernel_takes_blocks_1_and_2(dev, bs):
+    """Weight blocks [1, 1] and [1, 2], which the JAX package's
+    bfp_matmul_pallas takes (K2 raised on them before its per-code scale
+    path): K2 within 1e-4 of max|y| of bfp_matmul_plain, with the quantizer
+    in the call and on raw x, and a row's bits the same whatever M."""
+    w = _weight(200, 1100, bs).to(dev)
+    packed = tp.pack_block_fp(w, 6, 8, None, [1, bs], k_stride=1024)
+    x = torch.randn((256, 1100), generator=torch.Generator().manual_seed(bs)).to(dev)
+    for actq in ((16, 6, 8, 127), None):
+        full = dm.bfp_matmul_cuda(x, packed, actq)
+        _close_rel(full, dm.bfp_matmul_plain(x, packed, actq))
+        for rows in (slice(0, 1), slice(3, 8), slice(5, 22), slice(100, 256)):
+            part = dm.bfp_matmul_cuda(x[rows].contiguous(), packed, actq)
+            torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("width", [2, 6, 8])
@@ -400,22 +423,33 @@ def _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed):
             vc.contiguous(), vs.contiguous())
 
 
-ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q
-    (2, 2, 1, 128, 64, 16, 16, (16, 6, 8, None)),
-    (3, 1, 8, 128, 96, 32, 16, (32, 6, 8, None)),
-    (2, 4, 2, 64, 256, 16, 64, None),
-    (1, 2, 4, 128, 512, 16, 16, (16, 4, 8, None)),
+# positions: the first only, the last, and ones in between; K4's chunk of
+# 16 positions at 32 heads ends at 15 and 31 (64 at 8 heads); prob blocks
+# from 1 to S; K4's run-time rep (3) with 5 heads, and 64 heads at rep 8
+# (a block takes 32 of them)
+ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
+    (2, 2, 1, 128, 64, 16, 16, (16, 6, 8, None), [0, 63]),
+    (3, 1, 8, 128, 96, 32, 16, (32, 6, 8, None), [0, 95, 32]),
+    (2, 4, 2, 64, 256, 16, 64, None, [0, 255]),
+    (1, 2, 4, 128, 512, 16, 16, (16, 4, 8, None), [0]),
+    (3, 32, 1, 128, 256, 16, 16, (16, 6, 8, None), [0, 15, 255]),  # Llama-2-7B
+    (3, 32, 1, 128, 256, 16, 16, (256, 6, 8, None), [16, 100, 31]),
+    (1, 32, 1, 128, 256, 16, 16, (1, 6, 8, None), [100]),
+    (3, 8, 4, 128, 1024, 16, 16, (16, 6, 8, None), [16, 1023, 100]),  # GQA, 8192 lanes
+    (1, 8, 4, 128, 1024, 16, 16, (1024, 6, 8, None), [1023]),
+    (3, 8, 4, 128, 1024, 16, 16, (1, 6, 8, None), [63, 64, 0]),
+    (2, 5, 3, 64, 128, 16, 32, (16, 6, 8, None), [127, 64]),  # rep 3, heads off 4
+    (1, 64, 8, 64, 64, 16, 16, (32, 6, 8, None), [63]),  # K4: two groups of 32 heads
 ]
 
 
 @pytest.mark.parametrize("pos_major", [True, False])
-@pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs_k,bs_v,prob_q", ATTN_CASES)
+@pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs_k,bs_v,prob_q,positions", ATTN_CASES)
 def test_attention_kernels_match_plain(dev, pos_major, b, nkv, rep, hd, s_len, bs_k, bs_v,
-                                       prob_q):
+                                       prob_q, positions):
     cache = _cache(b, nkv, s_len, hd, bs_k, bs_v, pos_major, dev, seed=s_len)
     q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(1)))
-    # first position only, last position, and one in between
-    positions = torch.tensor([0, s_len - 1, s_len // 3][:b], dtype=torch.int32).to(dev)
+    positions = torch.tensor(positions, dtype=torch.int32).to(dev)
     if pos_major:
         q = q.reshape(b, nkv * rep, hd).to(dev)
         fn, plain = ad.packed_attention_decode_batch_cuda, ad.packed_attention_decode_batch_plain
@@ -428,6 +462,23 @@ def test_attention_kernels_match_plain(dev, pos_major, b, nkv, rep, hd, s_len, b
     got = fn(*args)
     assert fn.launches == before + 1
     torch.testing.assert_close(got, plain(*args), rtol=2e-4, atol=2e-5)
+
+
+def test_k4_batch_element_does_not_depend_on_the_batch(dev):
+    """K4 at the Llama-2-7B shape: a batch element's ctx is the same bits
+    alone and in a batch of 8 (no sums across batch elements, no atomics)."""
+    b, nkv, hd, s_len = 8, 32, 128, 256
+    cache = _cache(b, nkv, s_len, hd, 16, 16, True, dev, seed=7)
+    q = _qdq(torch.randn((b * nkv, hd), generator=torch.Generator().manual_seed(7)))
+    q = q.reshape(b, nkv, hd).to(dev)
+    positions = torch.tensor([255, 0, 15, 16, 100, 31, 200, 64], dtype=torch.int32).to(dev)
+    full = ad.packed_attention_decode_batch_cuda(q, *cache, positions, 16, 16, nkv, 1,
+                                                 (16, 6, 8, None))
+    for i in range(b):
+        one = ad.packed_attention_decode_batch_cuda(
+            q[i:i + 1].contiguous(), *(t[i:i + 1].contiguous() for t in cache),
+            positions[i:i + 1], 16, 16, nkv, 1, (16, 6, 8, None))
+        torch.testing.assert_close(one[0], full[i], rtol=0, atol=0)
 
 
 def test_launch_counts_reset(dev):

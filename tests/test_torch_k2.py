@@ -161,8 +161,10 @@ def test_the_kernel_constants_are_these():
 
 def _route_emulated(x2, packed, actq):
     """K2's arithmetic in plain torch: actq_split's hi and lo, the weight as
-    bf16 (code times scale, or times scale * 2^64 for a scale under 2^-133),
-    products summed in float32, the lifted part times 2^-64 in float32."""
+    bf16 (code times scale, or times scale * 2^64 for a scale under 2^-133;
+    at blocks of 1 and 2 each code with its own scale, as the kernel's
+    per-code path reads them), products summed in float32, the lifted part
+    times 2^-64 in float32."""
     hi, lo, lo_rows = dm.actq_split_plain(x2, actq, packed.codes.shape[1])
     codes = packed.codes.float()
     s = packed.scales.repeat_interleave(packed.block_size, dim=1)
@@ -185,8 +187,9 @@ def _route_emulated(x2, packed, actq):
     return y
 
 
-ROUTE_CASES = [  # m, n, k, bs, k_stride
+ROUTE_CASES = [  # m, n, k, bs, k_stride; bs 1 and 2: a scale a code or a pair
     (5, 32, 704, 16, None), (17, 48, 1100, 8, 1024), (8, 40, 4096, 32, None),
+    (5, 32, 704, 1, None), (9, 40, 1100, 2, 1024),
 ]
 
 
