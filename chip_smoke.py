@@ -5,6 +5,8 @@
     python3 chip_smoke.py --k2-only       # build, then K2's and actq_split's only
     python3 chip_smoke.py --k3-only       # build, then K3's checks and times only
     python3 chip_smoke.py --k4-only       # build, then K4's checks and times only
+    python3 chip_smoke.py --k5-only       # build, then K5's checks and times only,
+                                          # and its times at other chunk and tile lengths
     python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
     python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
 
@@ -21,7 +23,10 @@
    ``prefill_*``; their operations bound at the bf16 tensor-core peak, the
    others' at the float32 one); K4 at three shapes (``K4_SHAPES``: the
    cache nearly full, every position at 31 as in ``generate``, and GQA at
-   8192 lanes); the prologue of K2 and K3, ``actq_split``, alone, bit for
+   8192 lanes) and K5 at four (``K5_SHAPES``: the batcher's 512 positions
+   nearly full and where the batcher decodes, and 4096 positions at 32 kv
+   heads and at GQA's 8), each attention kernel with the card time of its
+   four kernels; the prologue of K2 and K3, ``actq_split``, alone, bit for
    bit;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
@@ -394,6 +399,20 @@ K4_SHAPES = {
     "gqa": (8, 4, 1024, [1023 - 9 * i for i in range(BATCH)]),
 }
 
+# K5's shapes: name -> (nkv, rep, max_len, positions of the batch). "full":
+# Llama-2-7B at the batcher's max_len 512, the cache nearly full (the
+# kernel table's shape); "batcher": the same where chip_smoke's batcher
+# decodes (prompts of 5-32 tokens and 32 new ones); "long": Llama-2-7B at
+# the JAX package's head-major cap (4096 positions of head_dim 128); "gqa":
+# Llama-3-8B / Mistral-7B attention widths (8 kv heads, rep 4) at 4096
+# positions, past the pos-major layout's 1024
+K5_SHAPES = {
+    "full": (HEADS, 1, 512, [511 - 9 * i for i in range(BATCH)]),
+    "batcher": (HEADS, 1, 512, [63 - 8 * i for i in range(BATCH)]),
+    "long": (HEADS, 1, 4096, [4095 - 9 * i for i in range(BATCH)]),
+    "gqa": (8, 4, 4096, [4095 - 9 * i for i in range(BATCH)]),
+}
+
 
 def _attention_row(kname, run, plain, sdpa, positions, nkv, rep, hd, peaks, flush):
     """Hold ``run`` against ``plain`` (rtol 2e-4 / atol 2e-5, the JAX
@@ -433,13 +452,33 @@ def kernel_times(fn, calls=20):
             if e.device_type == DeviceType.CUDA}
 
 
-def check_attention_kernels(peaks, flush, only_k4=False):
-    """K4 at the three K4_SHAPES (the row's numbers: "full"; the others
-    under "shapes") and K5 at the batcher's 512 positions, batch 8, q
-    quantized as serving quantizes it, prob quantizer [1, 16] W6: each
-    against its plain version, timed beside its plain version, its bound
-    and SDPA on a dequantized float32 cache masked to the filled positions
-    (no prob quantization; GQA through ``enable_gqa``). -> rows."""
+def _k5_geometry_sweep(call, nkv, rep, s_len, flush):
+    """K5's time at other geometries, (P, T) -> ms: chunks of 64 to 1024
+    positions a block, tiles of 64 or 128 positions a ring stage, with the
+    wrapper's ``k5_geometry`` patched (the kernel takes any powers of two
+    T <= P), and ``k5_geometry``'s own choice."""
+    from llm_mixed_q_torch.kernels import attention_decode as ad
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    out = {}
+    for p in (64, 128, 256, 512, 1024):
+        for t in (64, 128):
+            if t <= p <= s_len:
+                with mock.patch.object(ad, "k5_geometry", lambda *_, g=(p, t): g):
+                    out[f"{p}x{t}"] = cuda_ms(call, flush=flush)
+    out["chosen"] = "x".join(map(str, ad.k5_geometry(nkv, rep, s_len)))
+    return out
+
+
+def check_attention_kernels(peaks, flush, only=None, sweep=False):
+    """K4 at the three K4_SHAPES and K5 at the four K5_SHAPES (each row's
+    numbers: "full"; the others under "shapes"), batch 8, q quantized as
+    serving quantizes it, prob quantizer [1, 16] W6: each against its plain
+    version, timed beside its plain version, its bound and SDPA on a
+    dequantized float32 cache masked to the filled positions (no prob
+    quantization; GQA through ``enable_gqa``), with the card time of each
+    of its kernels. ``only``: the one wrapper name to run; ``sweep``: K5
+    also at other chunk and tile lengths. -> rows."""
     from llm_mixed_q_torch.kernels.attention_decode import (
         packed_attention_decode_batch_cuda, packed_attention_decode_batch_plain,
         packed_attention_decode_cuda, packed_attention_decode_plain)
@@ -462,41 +501,44 @@ def check_attention_kernels(peaks, flush, only_k4=False):
                                enable_gqa=rep > 1)
         return positions, cache, q, library
 
+    kernels = {  # wrapper name: shapes, pos-major cache, kernel, plain version
+        "attn_decode_pos_major": (K4_SHAPES, True, packed_attention_decode_batch_cuda,
+                                  packed_attention_decode_batch_plain),
+        "attn_decode_head_major": (K5_SHAPES, False, packed_attention_decode_cuda,
+                                   packed_attention_decode_plain),
+    }
     rows = {}
-    k4 = "attn_decode_pos_major"
-    for name, (nkv, rep, s_len, pos_list) in K4_SHAPES.items():
-        positions, cache, q, library = inputs(nkv, rep, s_len, pos_list, True)
-        q = q.reshape(BATCH, nkv * rep, hd)
-        args = (q, *cache, positions, 16, 16, nkv, rep, PROB_Q)
-        r = _attention_row(f"{k4} {name}", lambda: packed_attention_decode_batch_cuda(*args),
-                           lambda: packed_attention_decode_batch_plain(*args), library,
-                           positions, nkv, rep, hd, peaks, flush)
-        log(f"  {k4} {name} (nkv {nkv}, rep {rep}, max_len {s_len}, positions "
-            f"{pos_list[0]}..{pos_list[-1]}): max_abs_err={r['max_abs_err']:.3e} "
-            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"library_ms(SDPA on a dequantized f32 cache)={r['library_ms']:.4f}")
-        # where K4's time goes: its four kernels, back to back
-        r["kernels_ms"] = kernel_times(lambda: packed_attention_decode_batch_cuda(*args))
-        log(f"    by kernel (torch.profiler, no flush): {r['kernels_ms']}")
-        if name == "full":
-            rows[k4] = dict(r, shapes={})
-        else:
-            rows[k4]["shapes"][name] = r
-            rows[k4]["max_abs_err"] = max(rows[k4]["max_abs_err"], r["max_abs_err"])
-    if only_k4:
-        return rows
-    s_len = 512
-    positions, cache, q, library = inputs(HEADS, 1, s_len,
-                                          [s_len - 1 - 9 * i for i in range(BATCH)], False)
-    args = (q.reshape(BATCH, HEADS, 1, hd), *cache, positions, 16, 16, PROB_Q)
-    k5 = "attn_decode_head_major"
-    rows[k5] = r = _attention_row(k5, lambda: packed_attention_decode_cuda(*args),
-                                  lambda: packed_attention_decode_plain(*args), library,
-                                  positions, HEADS, 1, hd, peaks, flush)
-    log(f"  {k5} max_len={s_len}: max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
-        f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-        f"library_ms(SDPA on a dequantized f32 cache)={r['library_ms']:.4f}")
+    for kname, (shapes, pos_major, fn, plain) in kernels.items():
+        if only not in (None, kname):
+            continue
+        for name, (nkv, rep, s_len, pos_list) in shapes.items():
+            positions, cache, q, library = inputs(nkv, rep, s_len, pos_list, pos_major)
+            if pos_major:
+                args = (q.reshape(BATCH, nkv * rep, hd), *cache, positions, 16, 16, nkv, rep,
+                        PROB_Q)
+            else:
+                args = (q.reshape(BATCH, nkv, rep, hd), *cache, positions, 16, 16, PROB_Q)
+            r = _attention_row(f"{kname} {name}", lambda: fn(*args), lambda: plain(*args),
+                               library, positions, nkv, rep, hd, peaks, flush)
+            log(f"  {kname} {name} (nkv {nkv}, rep {rep}, max_len {s_len}, positions "
+                f"{pos_list[0]}..{pos_list[-1]}): max_abs_err={r['max_abs_err']:.3e} "
+                f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms(SDPA on a dequantized f32 cache)={r['library_ms']:.4f}")
+            # where the time goes: the call's kernels, back to back
+            r["kernels_ms"] = kernel_times(lambda: fn(*args))
+            log(f"    by kernel (torch.profiler, no flush): {r['kernels_ms']}")
+            if sweep and not pos_major:
+                r["geometries_ms"] = _k5_geometry_sweep(lambda: fn(*args), nkv, rep, s_len,
+                                                        flush)
+                log(f"    by (P, T) (ms, L2 flushed): {r['geometries_ms']}")
+            if name == "full":
+                rows[kname] = dict(r, shapes={})
+            else:
+                rows[kname]["shapes"][name] = r
+                rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], r["max_abs_err"])
+            del positions, cache, q, library, args
+            torch.cuda.empty_cache()  # the 4096-position caches take ~2 GB with their yardstick
     return rows
 
 
@@ -1534,7 +1576,12 @@ def main(only=None):
         return
     if only == "k4":
         log(f"K4 vs its plain version at {', '.join(K4_SHAPES)}, batch {BATCH} ({smi}):")
-        log(json.dumps(check_attention_kernels(peaks, flush, only_k4=True)))
+        log(json.dumps(check_attention_kernels(peaks, flush, only="attn_decode_pos_major")))
+        return
+    if only == "k5":
+        log(f"K5 vs its plain version at {', '.join(K5_SHAPES)}, batch {BATCH} ({smi}):")
+        log(json.dumps(check_attention_kernels(peaks, flush, only="attn_decode_head_major",
+                                               sweep=True)))
         return
     if only == "m_sweep":
         log(f"K1, K2, K3 over M (ms a 7B layer, {smi}):")
@@ -1582,5 +1629,5 @@ def main(only=None):
 
 if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
-             "--m-sweep": "m_sweep", "--probes-only": "probes"}
+             "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

@@ -26,7 +26,7 @@
 // K4. In the pos-major layout the heads of a position are neighbours, so a
 // block that owned one (batch element, head) pair read one byte of every
 // 32-byte sector and left the rest to the other heads' blocks (the former
-// design, which K5 keeps). K4 instead gives a block all kv heads (G of
+// design, which K5 also had until it took K4's phases). K4 instead gives a block all kv heads (G of
 // them; G < nkv only past 256 query rows) of a chunk of P positions of one
 // batch element (P * G <= 512 lanes; 16 positions at 32 heads): each hd-row
 // of its K and V tile is one contiguous run of P * G bytes, and its scale
@@ -65,10 +65,33 @@
 // No atomics: a batch element's ctx does not depend on the others or on b.
 // The workspace comes from the caller.
 //
-// K5: one block per (batch element, kv head), for its rep query rows; the
-// scores of all rep rows sit in shared memory (<= 8 x 4096 floats). A
-// thread keeps 16 K loads (scores) or 8 V loads (P . V) in flight; the
-// loads of neighbouring positions (K) and dims (V) are coalesced.
+// K5. In the head-major layout one (batch element, kv head)'s positions
+// are contiguous already: a tile of T positions is hd runs of T code bytes
+// and hd / bs runs of T scale floats of K, and one run of T * hd bytes and
+// one of T * hd / bs floats of V. The former design gave a block a whole
+// (batch element, kv head) pair (256 blocks at batch 8, 32 heads: under 2
+// an SM), loaded K and V a byte at a time with 8-16 loads in flight a
+// thread, ran the softmax on rep warps and the prob quantizer on one thread
+// a block while the other threads waited, and held every score of its rows
+// in shared memory (4 * rep * (hd + S + 256) bytes); its P . V alone was
+// ~78% of its time (PERF.md). K5 now runs K4's four phases with one head a
+// block: a block takes a chunk of P positions of one (batch element, kv
+// head) and its rep query rows, walked in tiles of T through a 2-stage
+// cp.async ring of 16-byte copies (element copies where a run or a base
+// pointer is off 16 bytes), so its shared memory does not grow with S and
+// a tile's loads are in flight while the one before it is computed
+// (kernels/attention_decode.py: k5_geometry). Every thread works in every
+// phase: a thread takes 4 neighbouring positions (scores: one 4-byte code
+// load a dim and one q load a row serve the four, the scales multiply the
+// sum over a scale block's dims) or 4 neighbouring dims (P . V: one 4-byte
+// code load a position, the scale folded into the probability). One C call
+// launches:
+//   k5_scores_kernel  scores of the chunk into the workspace [b, nh, S]
+//                     (K4's layout);
+//   k4_stats_kernel   K4's, as it is (it reads only the workspace);
+//   k5_pv_kernel      the chunk's probabilities, quantized, and P . deq(V)
+//                     into a partial [b, chunk, hd, nh] (K4's layout);
+//   k4_sum_kernel     K4's, as it is.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,17 +100,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kRepMax = 8;
-constexpr int kDimBatch = 16;  // K dims a thread loads at once (hd % 16 == 0)
-constexpr int kPosBatch = 8;   // V positions a thread loads at once
 constexpr int kSmemMax = 227 * 1024;
-
-// element strides of a cache array over (batch, kv head, inner, position);
-// inner is the head dim (codes) or the scale block (scales)
-struct Strides {
-  long long b, h, i, p;
-};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -97,148 +111,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
-                   const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                   const float* __restrict__ vs, const int* __restrict__ positions,
-                   float* __restrict__ out, int nkv, int rep, int hd, int S,
-                   int bs_k, int bs_v, Strides kcs, Strides kss, Strides vcs,
-                   Strides vss, float sqrt_hd, lmq::BfpSpec pq) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  float* qs = smem;              // [rep][hd]
-  float* sc = qs + rep * hd;     // [rep][S]: scores, then probabilities
-  float* part = sc + rep * S;    // [rep][parts][hd], parts * hd == kThreads
-  const int npos = min(positions[b], S - 1) + 1;
-
-  const size_t row0 = ((size_t)b * nkv + h) * rep;  // first query row
-  for (int i = tid; i < rep * hd; i += kThreads) qs[i] = q[row0 * hd + i];
-  __syncthreads();
-
-  // scores: one thread per position, 16 dims of K loaded at once
-  const int8_t* kcb = kc + b * kcs.b + h * kcs.h;
-  const float* ksb = ks + b * kss.b + h * kss.h;
-  for (int p = tid; p < npos; p += kThreads) {
-    float acc[kRepMax];
-#pragma unroll
-    for (int r = 0; r < kRepMax; ++r) acc[r] = 0.f;
-    for (int d0 = 0; d0 < hd; d0 += kDimBatch) {
-      float kv[kDimBatch];
-      if (bs_k % kDimBatch == 0) {  // one scale for the 16 dims
-        const float s = ksb[(d0 / bs_k) * kss.i + p * kss.p];
-#pragma unroll
-        for (int dd = 0; dd < kDimBatch; ++dd)
-          kv[dd] = (float)kcb[(d0 + dd) * kcs.i + p * kcs.p] * s;
-      } else {
-#pragma unroll
-        for (int dd = 0; dd < kDimBatch; ++dd) {
-          const int d = d0 + dd;
-          kv[dd] = (float)kcb[d * kcs.i + p * kcs.p] * ksb[(d / bs_k) * kss.i + p * kss.p];
-        }
-      }
-#pragma unroll
-      for (int dd = 0; dd < kDimBatch; ++dd) {
-#pragma unroll
-        for (int r = 0; r < kRepMax; ++r)
-          if (r < rep) acc[r] = fmaf(qs[r * hd + d0 + dd], kv[dd], acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRepMax; ++r)
-      if (r < rep) sc[r * S + p] = __fdiv_rn(acc[r], sqrt_hd);
-  }
-  __syncthreads();
-
-  // softmax: one warp per query row
-  const int warp = tid / 32, lane = tid % 32;
-  if (warp < rep) {
-    float* row = sc + warp * S;
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int p = lane; p < npos; p += 32) m = fmaxf(m, row[p]);
-    m = warp_max(m);
-    double sum = 0.0;
-    for (int p = lane; p < npos; p += 32) {
-      const float e = expf(__fsub_rn(row[p], m));
-      row[p] = e;
-      sum += (double)e;
-    }
-    const float denom = (float)warp_sum(sum);
-    for (int p = lane; p < npos; p += 32) row[p] = __fdiv_rn(row[p], denom);
-  }
-  __syncthreads();
-
-  // block_fp quantization of the probabilities: one thread per block
-  if (pq.on) {
-    const int nblk = (npos + pq.bs - 1) / pq.bs;
-    for (int task = tid; task < rep * nblk; task += kThreads) {
-      float* blk = sc + (task / nblk) * S + (task % nblk) * pq.bs;
-      const int len = min(pq.bs, npos - (task % nblk) * pq.bs);
-      float mx = 0.f;
-      for (int i = 0; i < len; ++i) mx = fmaxf(mx, blk[i]);
-      for (int i = 0; i < len; ++i) blk[i] = lmq::bfp_qdq(blk[i], mx, pq);
-    }
-    __syncthreads();
-  }
-
-  // ctx = P . deq(V): thread (part, d) sums positions part, part + parts, ...
-  const int parts = kThreads / hd;
-  const int d = tid % hd, pt = tid / hd;
-  const int8_t* vcb = vc + b * vcs.b + h * vcs.h + d * vcs.i;
-  const float* vsb = vs + b * vss.b + h * vss.h + (d / bs_v) * vss.i;
-  float acc[kRepMax];
-#pragma unroll
-  for (int r = 0; r < kRepMax; ++r) acc[r] = 0.f;
-  for (int p0 = pt; p0 < npos; p0 += kPosBatch * parts) {  // kPosBatch loads at once
-    float v[kPosBatch];
-#pragma unroll
-    for (int u = 0; u < kPosBatch; ++u) {
-      const int p = p0 + u * parts;
-      v[u] = p < npos ? (float)vcb[p * vcs.p] * vsb[p * vss.p] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kPosBatch; ++u) {
-      const int p = p0 + u * parts;
-      if (p >= npos) break;
-#pragma unroll
-      for (int r = 0; r < kRepMax; ++r)
-        if (r < rep) acc[r] = fmaf(sc[r * S + p], v[u], acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRepMax; ++r)
-    if (r < rep) part[(r * parts + pt) * hd + d] = acc[r];
-  __syncthreads();
-  if (pt == 0) {
-    for (int r = 0; r < rep; ++r) {
-      float s = 0.f;
-      for (int k = 0; k < parts; ++k) s += part[(r * parts + k) * hd + d];
-      out[(row0 + r) * hd + d] = s;
-    }
-  }
-}
-
-int launch(const void* q, const void* kc, const void* ks, const void* vc,
-           const void* vs, const void* positions, void* out, int b, int nkv,
-           int rep, int hd, int S, int bs_k, int bs_v, Strides kcs, Strides kss,
-           Strides vcs, Strides vss, float sqrt_hd, lmq::BfpSpec pq,
-           void* stream) {
-  if (rep < 1 || rep > kRepMax || hd > kThreads || kThreads % hd || hd % kDimBatch ||
-      hd % bs_k || hd % bs_v || (pq.on && pq.bs < 1))
-    return (int)cudaErrorInvalidValue;
-  const int smem = 4 * (rep * hd + rep * S + rep * kThreads);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  attn_decode_kernel<<<dim3(nkv, b), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      (const float*)q, (const int8_t*)kc, (const float*)ks, (const int8_t*)vc,
-      (const float*)vs, (const int*)positions, (float*)out, nkv, rep, hd, S, bs_k,
-      bs_v, kcs, kss, vcs, vss, sqrt_hd, pq);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K4
@@ -798,6 +670,420 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
   return q4 ? launch_k4_rep<true>(s, a) : launch_k4_rep<false>(s, a);
 }
 
+// ---------------------------------------------------------------- K5
+
+constexpr int kK5Threads = 256;
+
+// The shape of a K5 call and its block geometry (set by the host).
+struct K5Shape {
+  int b, nkv, rep, hd, S;
+  int P, nch;              // positions a block (a power of two); chunks of S
+  int T, lT;               // positions a ring stage (2^lT): a block's tiles
+  int lbs_k, lbs_v;        // log2 of the K and V scale blocks
+  int ksr, vsc;            // K scale rows (hd / bs_k); V scales a position (hd / bs_v)
+  int cstr, sstr, pstr;    // K tile: a code row (bytes), a scale row (floats); a score row
+  int dgs, pgs;            // scores: dim groups; P . V: position groups
+  int stage1, stage2;      // bytes of a ring stage: K tile, V tile
+  int red1;                // floats of the scores kernel's dim-group sums
+  int kc16, ks16, vc16, vs16, q16;  // 16-byte copies (else an element at a time)
+};
+
+// The block's chunk of (batch element b, kv head h): positions p0 .. p0 +
+// np - 1 (np >= 1) of the npos filled ones, in nt tiles of T; bh indexes
+// (b, h) in the cache arrays, row0 its first query row of [b * nh]. False
+// for a chunk past positions[b].
+struct K5Block {
+  int b, h, c, p0, np, nt;
+  size_t bh, row0;
+};
+
+__device__ __forceinline__ bool k5_block(const K5Shape& s, const int* positions, K5Block& k) {
+  k.c = blockIdx.x;
+  k.h = blockIdx.y;
+  k.b = blockIdx.z;
+  const int npos = min(positions[k.b], s.S - 1) + 1;
+  k.p0 = k.c * s.P;
+  if (k.p0 >= npos) return false;
+  k.np = min(s.P, npos - k.p0);
+  k.nt = (k.np + s.T - 1) >> s.lT;
+  k.bh = (size_t)k.b * s.nkv + k.h;
+  k.row0 = k.bh * s.rep;
+  return true;
+}
+
+// Queue `rows` runs of n elements (run r at src + r * S) into dst (run r at
+// dst + r * dstr elements): 16-byte copies with `vec` (each run rounded up
+// to 16 bytes, which stays inside its row of the cache), else an element
+// at a time.
+template <typename T>
+__device__ __forceinline__ void k5_queue_rows(T* dst, int dstr, const T* src, int rows, int n,
+                                              int S, bool vec) {
+  constexpr int U = 16 / sizeof(T);
+  if (vec) {
+    const int per_row = (n + U - 1) / U;
+    for (int i = threadIdx.x; i < rows * per_row; i += kK5Threads) {
+      const int r = i / per_row, j = (i % per_row) * U;
+      cp_async16(dst + r * dstr + j, src + (size_t)r * S + j);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n; i += kK5Threads) {
+      const int r = i / n, j = i % n;
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + r * dstr + j, src + (size_t)r * S + j);
+      else
+        dst[r * dstr + j] = src[(size_t)r * S + j];
+    }
+  }
+}
+
+// Phase 1: scores of the block's rep query rows over its chunk, a tile of
+// T positions at a time through a 2-stage cp.async ring: a stage holds hd
+// runs of the tile's code bytes ([hd][cstr]) and hd / bs_k runs of its
+// scale floats ([ksr][sstr]); q's rep rows ([rep][hd]) come first, once.
+// Thread (quad lq, dim group dg) takes positions 4 lq .. 4 lq + 3 of the
+// tile and dims dg * hd / dgs .. of REP rows (0: s.rep at run time): one
+// 4-byte code load a dim and one q load a row serve the four positions,
+// and q . codes over the dims of one scale row is multiplied by that row's
+// four scales (one 16-byte load); the dim groups are summed in order.
+// -> scores [b, nh, S].
+template <int REP>
+__global__ void __launch_bounds__(kK5Threads)
+k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
+                 const float* __restrict__ ks, const int* __restrict__ positions,
+                 float* __restrict__ scores, K5Shape s, float sqrt_hd) {
+  constexpr int RM = REP ? REP : kRepMax;
+  extern __shared__ __align__(16) uint8_t smem_k5[];
+  K5Block k;
+  if (!k5_block(s, positions, k)) return;
+  const int rep = REP ? REP : s.rep;
+  float* qs = reinterpret_cast<float*>(smem_k5);  // [rep][hd]
+  float* red = qs + rep * s.hd;                   // [dgs][rep][pstr]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(red + s.red1);
+
+  const int8_t* kcb = kc + k.bh * s.hd * s.S + k.p0;
+  const float* ksb = ks + k.bh * s.ksr * s.S + k.p0;
+  auto load = [&](int t) {
+    uint8_t* kt = ring + (t & 1) * s.stage1;
+    const int t0 = t << s.lT, n = min(s.T, k.np - t0);
+    k5_queue_rows(kt, s.cstr, reinterpret_cast<const uint8_t*>(kcb) + t0, s.hd, n, s.S, s.kc16);
+    k5_queue_rows(reinterpret_cast<float*>(kt + s.hd * s.cstr), s.sstr, ksb + t0, s.ksr, n, s.S,
+                  s.ks16);
+  };
+  k5_queue_rows(qs, 0, q + k.row0 * s.hd, 1, rep * s.hd, 0, s.q16);
+  load(0);
+  cp_async_commit();
+
+  const int nq = (s.T + 3) >> 2, lq = threadIdx.x % nq, dg = threadIdx.x / nq;
+  const int dpg = s.hd / s.dgs, l0 = 4 * lq;
+  const int run = min(dpg, 1 << s.lbs_k);  // a thread's dims under one scale row
+  float* out = scores + k.row0 * s.S + k.p0;
+  for (int t = 0; t < k.nt; ++t) {
+    if (t + 1 < k.nt) load(t + 1);
+    cp_async_commit();
+    cp_async_wait(1);  // this thread's copies of tile t have landed
+    __syncthreads();   // everyone's have
+    const uint8_t* kt = ring + (t & 1) * s.stage1;
+    const float* kst = reinterpret_cast<const float*>(kt + s.hd * s.cstr);
+    const int t0 = t << s.lT, n = min(s.T, k.np - t0);
+    const bool active = dg < s.dgs && l0 < n;
+    float acc[4][RM];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+    if (active) {
+      // q . codes over the dims of one scale row, then times the scales
+      for (int i0 = 0; i0 < dpg; i0 += run) {
+        float part[4][RM];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < RM; ++r) part[j][r] = 0.f;
+#pragma unroll 4
+        for (int i = i0; i < i0 + run; ++i) {
+          const int d = dg * dpg + i;
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(kt + d * s.cstr + l0) ^ 0x80808080u;
+          const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            if (!REP && r >= rep) break;
+            const float qv = qs[r * s.hd + d];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[j][r] = fmaf(qv, c[j], part[j][r]);
+          }
+        }
+        const float4 sc4 = *reinterpret_cast<const float4*>(
+            kst + ((dg * dpg + i0) >> s.lbs_k) * s.sstr + l0);
+        const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            if (!REP && r >= rep) break;
+            acc[j][r] = fmaf(part[j][r], sc[j], acc[j][r]);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (l0 + j >= n) break;
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (!REP && r >= rep) break;
+          red[(dg * rep + r) * s.pstr + l0 + j] = acc[j][r];
+        }
+      }
+    }
+    __syncthreads();  // the sums are in; tile t's stage is free for tile t + 2
+    for (int i = threadIdx.x; i < rep * n; i += kK5Threads) {
+      const int r = i / n, pp = i % n;
+      float a = red[r * s.pstr + pp];
+      for (int g = 1; g < s.dgs; ++g) a += red[(g * rep + r) * s.pstr + pp];
+      out[(size_t)r * s.S + t0 + pp] = __fdiv_rn(a, sqrt_hd);
+    }
+  }
+}
+
+// Phase 3 (phase 2 is k4_stats_kernel): the block's V tiles, each one run
+// of T * hd code bytes and one of T * hd / bs_v scale floats, through a
+// 2-stage cp.async ring, the next tile queued before this one's
+// probabilities are built: from phase 2's statistics, quantized (a block
+// of <= min(T, 32) positions by a shuffle of its lanes, a longer one by its
+// max of exp over the denominator), into prT [T][rep]; then P . deq(V) of
+// the tile: thread (dim quad dq, position group pg) takes dims 4 dq .. 4 dq
+// + 3 (one 4-byte code load a position; a scale block of 4 dims or more
+// folds its scale, a power of two, into the probability) and positions pg,
+// pg + pgs, ... of every tile, the groups summed in order at the end.
+// -> partial [b, nch, hd, nh].
+template <int REP>
+__global__ void __launch_bounds__(kK5Threads)
+k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
+             const int8_t* __restrict__ vc, const float* __restrict__ vs,
+             const int* __restrict__ positions, float* __restrict__ partial, K5Shape s,
+             lmq::BfpSpec pq, int nlb) {
+  constexpr int RM = REP ? REP : kRepMax;
+  extern __shared__ __align__(16) uint8_t smem_k5[];
+  K5Block k;
+  if (!k5_block(s, positions, k)) return;
+  const int rep = REP ? REP : s.rep, nh = s.nkv * rep;
+  float* prT = reinterpret_cast<float*>(smem_k5);  // [T][rep]
+  float* mrow = prT + s.T * rep;
+  float* drow = mrow + rep;
+  // the ring after them (16-byte aligned); at the end, the position
+  // groups' sums [pgs][rep][hd] in its place
+  uint8_t* ring = smem_k5 + ((4 * (s.T * rep + 2 * rep) + 15) & ~15);
+
+  const size_t pos0 = k.bh * s.S + k.p0;  // the chunk's first position in the cache
+  auto load = [&](int t) {
+    uint8_t* vt = ring + (t & 1) * s.stage2;
+    const int t0 = t << s.lT, n = min(s.T, k.np - t0);
+    k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
+                  s.vc16);
+    k5_queue_rows(reinterpret_cast<float*>(vt + s.T * s.hd), 0, vs + (pos0 + t0) * s.vsc, 1,
+                  n * s.vsc, 0, s.vs16);
+  };
+  load(0);
+  cp_async_commit();
+
+  const bool shuffle = pq.on && pq.bs <= 32 && pq.bs <= s.T;
+  int lpb = 0;
+  while ((1 << lpb) < pq.bs) ++lpb;
+  const float* srows = scores + k.row0 * s.S + k.p0;
+  for (int r = threadIdx.x; r < rep; r += kK5Threads) {
+    mrow[r] = stats[k.row0 + r];
+    drow[r] = stats[(size_t)s.b * nh + k.row0 + r];
+  }
+  const float* emax = stats + 2 * (size_t)s.b * nh + k.row0 * nlb;  // [rep][nlb]
+  __syncthreads();
+
+  const int nd4 = s.hd >> 2, dq = threadIdx.x % nd4, pg = threadIdx.x / nd4, d0 = 4 * dq;
+  const int nel = rep << s.lT, nel32 = (nel + 31) & ~31;
+  float acc[4][RM];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+  for (int t = 0; t < k.nt; ++t) {
+    if (t + 1 < k.nt) load(t + 1);
+    cp_async_commit();
+    const int t0 = t << s.lT, n = min(s.T, k.np - t0);
+    // the tile's probabilities, element (r, pp) at r * T + pp: a warp holds
+    // 32 consecutive ones, so an aligned block of <= min(T, 32) is a run of
+    // its lanes
+    for (int e = threadIdx.x; e < nel32; e += kK5Threads) {
+      const int r = e >> s.lT, pp = e & (s.T - 1);
+      const bool live = e < nel && pp < n;
+      float p = 0.f;
+      if (live)
+        p = __fdiv_rn(expf(__fsub_rn(srows[(size_t)r * s.S + t0 + pp], mrow[r])), drow[r]);
+      if (pq.on) {
+        float mx = p;
+        if (shuffle) {
+          for (int o = 1; o < pq.bs; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        } else if (live) {
+          mx = __fdiv_rn(emax[(size_t)r * nlb + ((k.p0 + t0 + pp) >> lpb)], drow[r]);
+        }
+        p = lmq::bfp_qdq(p, mx, pq);
+      }
+      if (e < nel) prT[pp * rep + r] = p;
+    }
+    cp_async_wait(1);  // this thread's copies of tile t have landed
+    __syncthreads();   // everyone's have, and the probabilities are in
+    const uint8_t* vt = ring + (t & 1) * s.stage2;
+    const float* vst = reinterpret_cast<const float*>(vt + s.T * s.hd);
+    for (int pp = pg; pp < n; pp += s.pgs) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hd + d0) ^ 0x80808080u;
+      const float* srow = vst + pp * s.vsc;
+      const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
+      if (s.lbs_v >= 2) {  // one scale for the four dims: folded into the probability
+        const float sc = srow[d0 >> s.lbs_v];
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (!REP && r >= rep) break;
+          const float ps = prT[pp * rep + r] * sc;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j][r] = fmaf(ps, c[j], acc[j][r]);
+        }
+      } else {
+        float v[4];
+        if (s.lbs_v == 1) {
+          v[0] = c[0] * srow[d0 >> 1], v[1] = c[1] * srow[d0 >> 1];
+          v[2] = c[2] * srow[(d0 >> 1) + 1], v[3] = c[3] * srow[(d0 >> 1) + 1];
+        } else {
+          const float4 v4 = *reinterpret_cast<const float4*>(srow + d0);
+          v[0] = c[0] * v4.x, v[1] = c[1] * v4.y, v[2] = c[2] * v4.z, v[3] = c[3] * v4.w;
+        }
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (!REP && r >= rep) break;
+          const float pr = prT[pp * rep + r];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j][r] = fmaf(pr, v[j], acc[j][r]);
+        }
+      }
+    }
+    __syncthreads();  // tile t's stage and the probabilities are free
+  }
+  float* red = reinterpret_cast<float*>(ring);  // [pgs][rep][hd]
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if (!REP && r >= rep) break;
+    *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hd + d0) =
+        make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+  }
+  __syncthreads();
+  float* pout = partial + ((size_t)k.b * s.nch + k.c) * s.hd * nh + (size_t)k.h * rep;
+  for (int o = threadIdx.x; o < rep * s.hd; o += kK5Threads) {
+    const int d = o / rep, r = o % rep;
+    float a = red[r * s.hd + d];
+    for (int g = 1; g < s.pgs; ++g) a += red[(g * rep + r) * s.hd + d];
+    pout[(size_t)d * nh + r] = a;
+  }
+}
+
+// The operands of a K5 call, for its launches.
+struct K5Args {
+  const float *q, *ks, *vs;
+  const int8_t *kc, *vc;
+  const int* positions;
+  float *scores, *stats, *partial, *out;
+  int smem1, smem2, lpb;
+  float sqrt_hd;
+  lmq::BfpSpec pq;
+  cudaStream_t stream;
+};
+
+template <int REP>
+int launch_k5_phases(const K5Shape& s, const K4Shape& s4, const K5Args& a) {
+  cudaError_t err = allow_dynamic_smem((const void*)k5_scores_kernel<REP>, a.smem1);
+  if (err == cudaSuccess) err = allow_dynamic_smem((const void*)k5_pv_kernel<REP>, a.smem2);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(s.nch, s.nkv, s.b);
+  k5_scores_kernel<REP><<<grid, kK5Threads, a.smem1, a.stream>>>(
+      a.q, a.kc, a.ks, a.positions, a.scores, s, a.sqrt_hd);
+  k4_stats_kernel<<<dim3(s.nkv * s.rep, s.b), kK4Threads, 0, a.stream>>>(
+      a.scores, a.positions, a.stats, s4, a.lpb);
+  k5_pv_kernel<REP><<<grid, kK5Threads, a.smem2, a.stream>>>(
+      a.scores, a.stats, a.vc, a.vs, a.positions, a.partial, s, a.pq, s4.nlb);
+  const dim3 grid4((s.hd * s.nkv * s.rep + kK4Threads - 1) / kK4Threads, s.b);
+  k4_sum_kernel<<<grid4, kK4Threads, 0, a.stream>>>(a.partial, a.positions, a.out, s4);
+  return (int)cudaGetLastError();
+}
+
+int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, const void* vs,
+              const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
+              int S, int bs_k, int bs_v, int P, int T, float sqrt_hd, lmq::BfpSpec pq,
+              cudaStream_t stream) {
+  const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P), lhd = ilog2(hd);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || lhd < 4 || hd > kK5Threads ||
+      lbs_k < 0 || lbs_v < 0 || bs_k > hd || bs_v > hd || lP < 0 ||
+      ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
+    return (int)cudaErrorInvalidValue;
+  K5Shape s{};
+  s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S;
+  s.P = P, s.nch = (S + P - 1) / P;
+  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.ksr = hd >> lbs_k, s.vsc = hd >> lbs_v;
+  s.pgs = kK5Threads / (hd / 4);
+  // the longest tile, at most T, with which two ring stages fit in each
+  // kernel (head_dim 256 with a scale a code takes 64 positions)
+  int smem1 = 0, smem2 = 0;
+  for (s.T = T; s.T >= 1; s.T /= 2) {
+    s.lT = ilog2(s.T);
+    s.cstr = (s.T + 15) & ~15;
+    s.sstr = (s.T + 3) & ~3;
+    s.pstr = s.T + 1;
+    const int nq = (s.T + 3) / 4;
+    s.dgs = 1;
+    while (2 * s.dgs * nq <= kK5Threads && 2 * s.dgs <= hd) s.dgs *= 2;
+    s.red1 = (s.dgs * rep * s.pstr + 3) & ~3;
+    s.stage1 = hd * s.cstr + 4 * s.ksr * s.sstr;
+    s.stage2 = s.T * hd + 4 * ((s.T * s.vsc + 3) & ~3);
+    smem1 = 4 * (rep * hd + s.red1) + 2 * s.stage1;
+    const int ring2 = 2 * s.stage2, red2 = 4 * s.pgs * rep * hd;
+    smem2 = ((4 * (s.T * rep + 2 * rep) + 15) & ~15) + (ring2 > red2 ? ring2 : red2);
+    if (smem1 <= kSmemMax && smem2 <= kSmemMax) break;
+  }
+  if (s.T < 1) return (int)cudaErrorInvalidValue;
+  // 16-byte copies where every run starts on 16 bytes and ends inside its
+  // row when rounded up to 16 bytes: codes by the position (K) or by hd % 16
+  // == 0 (V); scales by 4 floats; q by hd % 4 == 0
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  s.kc16 = al(kc) && S % 16 == 0 && s.T % 16 == 0;
+  s.ks16 = al(ks) && S % 4 == 0 && s.T % 4 == 0;
+  s.vc16 = al(vc);
+  s.vs16 = al(vs) && s.vsc % 4 == 0;
+  s.q16 = al(q);
+
+  // K4's stats and sum kernels read only the workspace: K4's shape with
+  // one head a block, chunks of P, and a max of exp for each prob block
+  // longer than min(T, 32) (T >= 32 where P >= 32, so min(P, 32) too)
+  K4Shape s4{};
+  s4.b = b, s4.nkv = nkv, s4.rep = rep, s4.hd = hd, s4.S = S, s4.L = S * nkv;
+  s4.G = 1, s4.P = P, s4.lP = lP, s4.nch = s.nch;
+  const int lpb = ilog2(pq.bs);
+  const int shuffle_max = s.T < 32 ? s.T : 32;
+  s4.nlb = pq.on && pq.bs > shuffle_max ? (S + pq.bs - 1) >> lpb : 0;
+  if ((s.T < 32) != (P < 32)) return (int)cudaErrorInvalidValue;
+
+  // ws: scores [b, nh, S], partials [b, nch, hd, nh], stats (2 + nlb) [b, nh]
+  K5Args a{};
+  a.q = (const float*)q, a.ks = (const float*)ks, a.vs = (const float*)vs;
+  a.kc = (const int8_t*)kc, a.vc = (const int8_t*)vc;
+  a.positions = (const int*)positions;
+  a.scores = static_cast<float*>(ws);
+  a.partial = a.scores + (size_t)b * nkv * rep * S;
+  a.stats = a.partial + (size_t)b * s.nch * hd * nkv * rep;
+  a.out = (float*)out;
+  a.smem1 = smem1, a.smem2 = smem2, a.lpb = lpb, a.sqrt_hd = sqrt_hd, a.pq = pq;
+  a.stream = stream;
+  switch (rep) {
+    case 1: return launch_k5_phases<1>(s, s4, a);
+    case 2: return launch_k5_phases<2>(s, s4, a);
+    case 4: return launch_k5_phases<4>(s, s4, a);
+    case 8: return launch_k5_phases<8>(s, s4, a);
+    default: return launch_k5_phases<0>(s, s4, a);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -818,21 +1104,18 @@ int lmq_attn_decode_pos_major(const void* q, const void* kc, const void* ks,
 }
 
 // K5: head-major cache, K [b, nkv, hd, S] / [b, nkv, hd/bs, S],
-// V [b, nkv, S, hd] / [b, nkv, S, hd/bs]
+// V [b, nkv, S, hd] / [b, nkv, S, hd/bs]; ws: float32 scores [b, nh, S],
+// partials [b, ceil(S / P), hd, nh] and stats; a block covers P positions
+// of one kv head (kernels/attention_decode.py: k5_geometry)
 int lmq_attn_decode_head_major(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* positions,
-                               void* out, int b, int nkv, int rep, int hd, int S,
-                               int bs_k, int bs_v, float sqrt_hd, int pq_on,
+                               void* out, void* ws, int b, int nkv, int rep, int hd, int S,
+                               int bs_k, int bs_v, int P, int T, float sqrt_hd, int pq_on,
                                int pq_bs, int pq_width, int pq_emin, int pq_emax,
                                void* stream) {
-  const long long s = S;
-  const Strides kcs{nkv * hd * s, hd * s, s, 1};
-  const Strides kss{nkv * (hd / bs_k) * s, (hd / bs_k) * s, s, 1};
-  const Strides vcs{nkv * s * hd, s * hd, 1, hd};
-  const Strides vss{nkv * s * (hd / bs_v), s * (hd / bs_v), 1, hd / bs_v};
-  return launch(q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
-                kcs, kss, vcs, vss, sqrt_hd,
-                lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax}, stream);
+  return launch_k5(q, kc, ks, vc, vs, positions, out, ws, b, nkv, rep, hd, S, bs_k, bs_v, P, T,
+                   sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

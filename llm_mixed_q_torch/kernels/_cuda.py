@@ -58,9 +58,10 @@ _SIGNATURES = {
         # rep, hd, S, bs_k, bs_v, G, P (a block's heads and positions),
         # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
         "lmq_attn_decode_pos_major": [_P] * 8 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
-        # q, kc, ks, vc, vs, positions, out, b, nkv, rep, hd, S, bs_k, bs_v,
-        # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
-        "lmq_attn_decode_head_major": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+        # q, kc, ks, vc, vs, positions, out, ws (scores, partials, stats), b,
+        # nkv, rep, hd, S, bs_k, bs_v, P, T (a block's positions, a ring
+        # stage's), sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
+        "lmq_attn_decode_head_major": [_P] * 8 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
     },
     "probes": {
         # x, words, scales, y, M, N, Kx, k_pad, width, bs, layout, variant,

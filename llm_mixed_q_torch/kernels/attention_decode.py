@@ -18,8 +18,12 @@ Two Hopper kernels (``csrc/attention_decode.cu``) replace the TPU kernels:
   P . V a chunk; the chunks' sum) are four launches of one C call, on a
   workspace from PyTorch's allocator (``k4_workspace_floats``);
 - K5 ``packed_attention_decode_cuda``: the head-major cache, K [b, nkv, hd,
-  S], V [b, nkv, S, hd], one block a (batch element, kv head) (replaces
-  ``packed_attention_decode`` / ``_attn_kernel``).
+  S], V [b, nkv, S, hd] (replaces ``packed_attention_decode`` /
+  ``_attn_kernel``). K4's phases with one kv head a block: a block covers a
+  chunk of positions of one (batch element, kv head) and its query rows
+  (``k5_geometry``), whose K and V tiles are contiguous runs of the cache;
+  K4's stats and sum kernels run as they are, on a workspace of the same
+  layout.
 
 Each wrapper launches its kernel for CUDA tensors (counting launches) and
 computes the plain version, the dense dequantize + einsum path of
@@ -62,6 +66,13 @@ BATCH_KERNEL_MAX_LANES = 8192
 # rows (kv heads x rep) a block (csrc kK4Lanes, kK4Rows)
 _K4_LANES = 512
 _K4_ROWS = 256
+# K5's blocks: a chunk of at most _K5_CHUNK positions of one kv head, at
+# least _K5_BLOCKS chunks a batch element where the cache allows, staged
+# _K5_TILE positions at a time (the best of P 64-1024 and T 64-128 at the
+# four shapes of chip_smoke.py's K5_SHAPES on an H100: PERF.md)
+_K5_CHUNK = 512
+_K5_BLOCKS = 32
+_K5_TILE = 128
 
 
 def k4_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
@@ -76,13 +87,33 @@ def k4_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
     return g, p
 
 
+def k5_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
+    """(P, T): the positions a K5 block covers, for one kv head and its
+    ``rep`` query rows, and the positions a stage of its ring holds, both
+    powers of two, T <= P <= ``s_len``. T is ``_K5_TILE`` (the kernel takes
+    fewer where two stages would not fit in shared memory: head_dim 256
+    with a scale a code); P is the longest chunk up to ``_K5_CHUNK`` that
+    leaves a batch element ``_K5_BLOCKS`` blocks (nkv * S / P) or more."""
+    cap = 1
+    while 2 * cap <= s_len:
+        cap *= 2
+    t = min(_K5_TILE, cap)
+    p = t
+    while 2 * p <= min(cap, _K5_CHUNK) and nkv * s_len // (2 * p) >= _K5_BLOCKS:
+        p *= 2
+    return p, t
+
+
 def k4_workspace_floats(b: int, nkv: int, rep: int, hd: int, s_len: int,
-                        prob_block: int | None = None) -> int:
-    """float32 elements of K4's workspace: the scores [b, nh, S], the
-    chunks' P . V partials [b, ceil(S / P), hd, nh], then each row's max and
-    denominator [b, nh] and, for a prob block longer than min(P, 32), each
-    block's max of exp [b, nh, ceil(S / block)]."""
-    _, p = k4_geometry(nkv, rep, s_len)
+                        prob_block: int | None = None, p: int | None = None) -> int:
+    """float32 elements of the workspace of K4 (and of K5, given its P):
+    the scores [b, nh, S], the chunks' P . V partials [b, ceil(S / P), hd,
+    nh], then each row's max and denominator [b, nh] and, for a prob block
+    longer than min(P, 32), each block's max of exp [b, nh, ceil(S /
+    block)]. ``p``: the positions a block; K4's (``k4_geometry``) when
+    None."""
+    if p is None:
+        _, p = k4_geometry(nkv, rep, s_len)
     nh = nkv * rep
     long_blocks = -(-s_len // prob_block) if prob_block and prob_block > min(p, 32) else 0
     return b * nh * (s_len + (-(-s_len // p)) * hd + 2 + long_blocks)
@@ -177,20 +208,23 @@ def _prob_q_args(prob_q):
 
 
 def kernel_shape_error(rep: int, hd: int, s_len: int) -> str | None:
-    """Why the decode-attention kernels cannot take ``rep`` query rows per
+    """Why the decode-attention kernels are not given ``rep`` query rows per
     kv head, head_dim ``hd`` and a cache of ``s_len`` positions, or None.
-    These are the limits of K5 (``csrc/attention_decode.cu``): one block of
-    256 threads per (batch element, kv head) holding q, the scores of
-    every position and the P.V partials in shared memory. K4's kernel has no
-    limit on the cache length; its wrapper and serving keep these for both."""
+    The kernels themselves take rep 1..8 and head_dim 16..256, a power of
+    two, at any cache length: K4 and K5 walk the cache in chunks, and
+    neither keeps anything in shared memory that grows with it. The cache
+    length limit, 4 * rep * (hd + S + 256) bytes within 227 KB, is that of
+    K5's former design, which held every score of a row in shared memory;
+    it stands so that serving keeps routing the same caches to the kernels
+    (and the JAX package caps the head-major cache at 4096 x 128 anyway)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
     if hd > _THREADS or _THREADS % hd or hd % 16:
         return f"head_dim {hd} does not divide {_THREADS} or is not a multiple of 16"
     smem = 4 * rep * (hd + s_len + _THREADS)
     if smem > _SMEM_MAX:
-        return (f"a cache of {s_len} positions needs {smem} bytes of shared "
-                f"memory at rep {rep} (at most {_SMEM_MAX})")
+        return (f"a cache of {s_len} positions passes serving's limit at rep {rep}: "
+                f"{smem} bytes of the former K5's shared memory (at most {_SMEM_MAX})")
     return None
 
 
@@ -215,17 +249,32 @@ def _positions(positions, q):
 
 def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
                       s_len, bs_k, bs_v, prob_q):
-    """K5's C entry ``fn_name`` on checked operands -> ctx [b, nkv * rep, hd]."""
+    """K5's C call on checked operands (q [b, nkv, rep, hd]; the head-major
+    cache) -> ctx [b, nkv * rep, hd]; ``fn_name`` names the caller in
+    errors."""
     _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, prob_q)
     b = q.shape[0]
+    shapes = {"q": (q.shape, (b, nkv, rep, hd)),
+              "K codes": (kc.shape, (b, nkv, hd, s_len)),
+              "K scales": (ks.shape, (b, nkv, hd // bs_k, s_len)),
+              "V codes": (vc.shape, (b, nkv, s_len, hd)),
+              "V scales": (vs.shape, (b, nkv, s_len, hd // bs_v))}
+    for what, (got, want) in shapes.items():
+        if tuple(got) != want:
+            raise ValueError(f"{fn_name}: {what} {tuple(got)}, expected {want}")
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise ValueError(f"{fn_name}: float32 scales expected")
+    if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
+        raise ValueError(f"{fn_name}: prob block {prob_q[0]} is not a power of two")
+    p, t = k5_geometry(nkv, rep, s_len)
+    ws = torch.empty(k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0], p),
+                     dtype=torch.float32, device=q.device)
     pos = _positions(positions, q)
     out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
-    lib = _cuda.lib()
-    rc = getattr(lib, fn_name)(
+    rc = _cuda.lib().lmq_attn_decode_head_major(
         q.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(), vs.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, nkv, rep, hd, s_len, bs_k, bs_v,
-        math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q),
-    )
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, nkv, rep, hd, s_len, bs_k, bs_v, p, t,
+        math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q))
     _cuda.check(rc, fn_name)
     return out
 
@@ -268,7 +317,8 @@ def packed_attention_decode_cuda(q, k_codes_t, k_scales_t, v_codes, v_scales,
                                  positions, bs_k, bs_v, prob_q=None):
     """K5: decode attention over the head-major packed cache.
     q [b, nkv, rep, hd] f32; K codes [b, nkv, hd, S], K scales
-    [b, nkv, hd/bs, S]; V codes [b, nkv, S, hd], V scales [b, nkv, S, hd/bs].
+    [b, nkv, hd/bs, S]; V codes [b, nkv, S, hd], V scales [b, nkv, S, hd/bs];
+    ``prob_q``'s block a power of two (``prob_q_spec``).
     -> ctx [b, nkv, rep, hd] f32."""
     if not q.is_cuda:
         return packed_attention_decode_plain(
@@ -276,7 +326,7 @@ def packed_attention_decode_cuda(q, k_codes_t, k_scales_t, v_codes, v_scales,
             prob_q)
     b, nkv, rep, hd = q.shape
     out = _launch_attention(
-        "lmq_attn_decode_head_major", q, k_codes_t, k_scales_t, v_codes,
+        "packed_attention_decode_cuda", q, k_codes_t, k_scales_t, v_codes,
         v_scales, positions, nkv, rep, hd, v_codes.shape[2], bs_k, bs_v, prob_q)
     packed_attention_decode_cuda.launches += 1
     return out.reshape(b, nkv, rep, hd)

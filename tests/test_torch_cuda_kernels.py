@@ -3,7 +3,9 @@ at edge shapes the serving path does not reach: ragged M, N and K, every
 sub-byte width in both sub-byte layouts (K1 and K3), other block sizes, GQA up to rep 8, positions at both ends
 of the cache; K4 at the Llama-2-7B shape and at GQA's 8192 lanes, positions
 at its chunk edges, prob blocks from 1 to S, a batch element's ctx the same
-bits alone and in a batch of 8; K2 at weight blocks 1 and 2. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
+bits alone and in a batch of 8; K5 the same, and at 4096 positions (rep 1
+and GQA rep 4), a scale a K code, runs off 16 bytes and operands off 16
+bytes (element copies), and its refusals of bad operands; K2 at weight blocks 1 and 2. The probe kernels (P8, P9, P11 of ``llm_mixed_q_torch.tools``)
 too: N not a multiple of 32, K not a multiple of the tile, a cache of one
 position; the tiling probes (P4-P7): N off every column tile, a short
 last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}; P12 and
@@ -440,6 +442,16 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     (3, 8, 4, 128, 1024, 16, 16, (1, 6, 8, None), [63, 64, 0]),
     (2, 5, 3, 64, 128, 16, 32, (16, 6, 8, None), [127, 64]),  # rep 3, heads off 4
     (1, 64, 8, 64, 64, 16, 16, (32, 6, 8, None), [63]),  # K4: two groups of 32 heads
+    # K5 at 4096 positions takes chunks of 512 in tiles of 128: a tile's
+    # last and first, a chunk's last, mid positions at Llama-2-7B and GQA
+    # widths
+    (2, 32, 1, 128, 4096, 16, 16, (16, 6, 8, None), [4095, 127]),
+    (3, 8, 4, 128, 4096, 16, 16, (16, 6, 8, None), [128, 2047, 4000]),
+    # K5's chunks of 128 at 4 heads: a scale a K code, prob blocks longer
+    # than 32, a chunk's last and first
+    (3, 4, 2, 128, 512, 1, 16, (64, 6, 8, None), [127, 128, 511]),
+    # 100 positions: K's runs off 16 bytes (element copies); V blocks of 2
+    (2, 2, 1, 64, 100, 16, 2, (4, 6, 8, None), [99, 37]),
 ]
 
 
@@ -479,6 +491,84 @@ def test_k4_batch_element_does_not_depend_on_the_batch(dev):
             q[i:i + 1].contiguous(), *(t[i:i + 1].contiguous() for t in cache),
             positions[i:i + 1], 16, 16, nkv, 1, (16, 6, 8, None))
         torch.testing.assert_close(one[0], full[i], rtol=0, atol=0)
+
+
+def test_k5_batch_element_does_not_depend_on_the_batch(dev):
+    """K5 at the Llama-2-7B batcher shape (512 positions): a batch
+    element's ctx is the same bits alone and in a batch of 8."""
+    b, nkv, hd, s_len = 8, 32, 128, 512
+    cache = _cache(b, nkv, s_len, hd, 16, 16, False, dev, seed=8)
+    q = _qdq(torch.randn((b * nkv, hd), generator=torch.Generator().manual_seed(8)))
+    q = q.reshape(b, nkv, 1, hd).to(dev)
+    positions = torch.tensor([511, 0, 63, 64, 100, 31, 200, 450], dtype=torch.int32).to(dev)
+    full = ad.packed_attention_decode_cuda(q, *cache, positions, 16, 16, (16, 6, 8, None))
+    for i in range(b):
+        one = ad.packed_attention_decode_cuda(
+            q[i:i + 1].contiguous(), *(t[i:i + 1].contiguous() for t in cache),
+            positions[i:i + 1], 16, 16, (16, 6, 8, None))
+        torch.testing.assert_close(one[0], full[i], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rep", [1, 8])
+def test_k5_head_dim_256_with_a_scale_a_code(dev, rep):
+    """head_dim 256 with a scale a K and a V code: two ring stages of 128
+    positions do not fit in shared memory, so K5 takes tiles of 64."""
+    b, nkv, hd, s_len = 2, 2, 256, 512
+    cache = _cache(b, nkv, s_len, hd, 1, 1, False, dev, seed=11)
+    q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(11)))
+    q = q.reshape(b, nkv, rep, hd).to(dev)
+    positions = torch.tensor([511, 200], dtype=torch.int32).to(dev)
+    args = (q, *cache, positions, 1, 1, (16, 6, 8, None))
+    torch.testing.assert_close(ad.packed_attention_decode_cuda(*args),
+                               ad.packed_attention_decode_plain(*args), rtol=2e-4, atol=2e-5)
+
+
+def _off_by_one_element(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_k5_takes_unaligned_operands(dev):
+    """Every operand one element off 16 bytes: K5 stages them by element
+    copies and agrees with its plain version."""
+    b, nkv, rep, hd, s_len = 2, 4, 2, 128, 256
+    cache = _cache(b, nkv, s_len, hd, 16, 16, False, dev, seed=9)
+    q = _qdq(torch.randn((b * nkv * rep, hd), generator=torch.Generator().manual_seed(9)))
+    q = q.reshape(b, nkv, rep, hd).to(dev)
+    positions = torch.tensor([255, 70], dtype=torch.int32).to(dev)
+    args = (q, *cache, positions, 16, 16, (16, 6, 8, None))
+    moved = [_off_by_one_element(t) for t in (q, *cache)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    got = ad.packed_attention_decode_cuda(*moved, positions, 16, 16, (16, 6, 8, None))
+    torch.testing.assert_close(got, ad.packed_attention_decode_plain(*args), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_k5_refuses_bad_operands(dev):
+    """The K5 wrapper raises on operands it does not take, launching
+    nothing and computing no plain version in its place."""
+    b, nkv, rep, hd, s_len = 1, 2, 1, 64, 64
+    kc, ks, vc, vs = _cache(b, nkv, s_len, hd, 16, 16, False, dev, seed=10)
+    q = torch.zeros((b, nkv, rep, hd), device=dev)
+    pos = torch.tensor([10], dtype=torch.int32, device=dev)
+    fn = ad.packed_attention_decode_cuda
+    bad = {
+        "power of two": ((q, kc, ks, vc, vs, pos, 16, 16, (24, 6, 8, None)), {}),
+        "K scales": ((q, kc, ks[:, :, :2].contiguous(), vc, vs, pos, 16, 16, None), {}),
+        "q float32": ((q.to(torch.bfloat16), kc, ks, vc, vs, pos, 16, 16, None), {}),
+        "contiguous": ((q, kc.transpose(2, 3), ks, vc, vs, pos, 16, 16, None), {}),
+        "query rows": ((torch.zeros((b, 1, 9, hd), device=dev), kc[:, :1], ks[:, :1],
+                        vc[:, :1], vs[:, :1], pos, 16, 16, None), {}),
+    }
+    before = fn.launches
+    for reason, (args, kwargs) in bad.items():
+        with pytest.raises(ValueError, match=reason):
+            fn(*args, **kwargs)
+    assert fn.launches == before
 
 
 def test_launch_counts_reset(dev):
