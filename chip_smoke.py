@@ -8,7 +8,8 @@
     python3 chip_smoke.py --k5-only       # build, then K5's checks and times only,
                                           # and its times at other chunk and tile lengths
     python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
-    python3 chip_smoke.py --probes-only   # build, then the probe phase (7) only
+    python3 chip_smoke.py --probes-only   # build, then the probe phase (8) only
+    python3 chip_smoke.py --ppl-only      # the perplexity phase (7) only (no build)
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -48,7 +49,33 @@
    it (K1 only, then K3 with its ``actq_split`` only; OPT decodes on a
    float32 cache, so no attention kernel), and holds a decode step of each
    tree against the plain path;
-7. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
+7. the perplexity path (``make_forward`` + ``eval_lm_wikitext2``, the
+   paper's Wikitext2 protocol on the synthetic stream, random weights from
+   seed 0) under nine arms, the perplexity sweep's seven and the two TOMLs
+   it leaves out (``PPL_ARMS``): (1) each of the seven quantizers with its
+   TOML's data_in and weight keys on the card and on the CPU, on a [2048,
+   4096] activation with outlier channels, an [11008, 4096] weight and
+   crafted blocks (zeros, +-5e-9, subnormals, every power of two and
+   sqrt(2)*2^k and their neighbours, as block maxima and as elements):
+   no bit may differ (NaN counts equal to NaN); (2) Llama-2-7B and
+   OPT-6.7B widths at 2 layers, seq 512: each arm's PTQ-prepared tree,
+   prepared on the card, runs the forward on the card and on the CPU,
+   with every quantizer, matmul, softmax, rsqrt and silu of the card's run
+   shadowed on the CPU on the same inputs (``shadow_on_cpu``): no
+   quantizer bit may differ, a float32 op within 1e-4 of its max; end to
+   end |dloss| <= 1e-3 * loss and logits within 5e-2 of max|logit| for
+   fp32, the quantized arms' gaps logged (a flipped rounding moves them by
+   more); (3) Llama-2-7B
+   widths, 32 layers, seq 2048, batch 1, one sequence, weights quantized
+   every call (the sweep's one-shot mode): loss, perplexity, seconds,
+   tokens/s and peak memory of each arm, every loss finite, and the
+   block_minifloat arm's PTQ flow (the CLI's) bit-equal to its one-shot
+   loss; (4) the block_minifloat arm at seq 4096 with ``attention_chunk =
+   512`` and without: losses within 1e-3 * loss, the chunked peak memory
+   lower. The launch counters are set to 0 before the phase and must all
+   read 0 after it: the path runs no Hopper kernel. Its results are the
+   ``{"ppl": ...}`` line;
+8. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
    (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
    P1 and P3, its dequant-arithmetic and scale-storage variants in both
    layouts, P2, bf16 and float32 scales for the int8 matmul, and the
@@ -81,13 +108,15 @@
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line. Imports nothing of JAX.
+line, and the perplexity phase's the one before it. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -564,9 +593,10 @@ def count_sass(lib_path, function, opcode):
 
 
 def profile_decode(label, step, steps=4):
-    """Wall time of a decode step (host clock, no profiler) and the card's
-    busy time in it by kernel (torch.profiler, a second window of steps);
-    ``step(i)`` runs the i-th step."""
+    """Wall time of a decode step, or of any call (host clock, no
+    profiler), and the card's busy time in it by kernel (torch.profiler, a
+    second window of steps); ``step(i)`` runs the i-th step.
+    -> {"wall_ms", "busy_ms", "idle_share"}"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,7 +612,7 @@ def profile_decode(label, step, steps=4):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-    log(f"decode step profile ({label}, {steps} steps): "
+    log(f"profile ({label}, {steps} steps): "
         f"wall {wall_ms:.2f} ms a step, card busy {busy_ms:.2f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}); {len(kernels)} kernel names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -595,6 +625,7 @@ def profile_decode(label, step, steps=4):
         f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
         f"{e.self_device_time_total / steps / 1e3:.3f} ms ({e.count / steps:.0f})"
         for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def ragged_prompts(rng, n, vocab):
@@ -618,6 +649,7 @@ PATHS = {
     "ContinuousBatcher": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
     "opt_generate_lane_major": ("bfp_matmul_subbyte", "actq_split"),
+    "ppl": (),  # the perplexity phase: fake quantization, no Hopper kernel
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
@@ -882,6 +914,329 @@ def run_opt():
         profile_decode(f"OPT {path}, batch {BATCH}, max_len {max_len}",
                        lambda i: decode_step(params, tok, cache, lengths + 1 + i, config))
     return path_counts
+
+
+# the perplexity phase (7): the arms of experiments/emnlp/section_4_2_perplexity.py
+# and the two TOMLs it leaves out; block_fp.toml's 8-bit arm is covered by
+# the two bfp ones. arm -> TOML stem (bypass: no quant config, as the
+# sweep's fp32 arm)
+PPL_ARMS = {"fp32": "bypass", "w8a8_int": "integer", "w6a6_bfp": "bfp_6bit",
+            "w4a4_bfp": "bfp_4bit", "block_minifloat": "block_minifloat",
+            "block_log": "block_log", "minifloat_ieee": "minifloat_ieee",
+            "minifloat_denorm": "minifloat_denorm", "log": "log"}
+# each arithmetic with the TOML whose data_in and weight keys it runs
+PPL_QUANTIZERS = {"integer": "integer", "block_fp": "bfp_6bit",
+                  "minifloat_denorm": "minifloat_denorm", "minifloat_ieee": "minifloat_ieee",
+                  "log": "log", "block_minifloat": "block_minifloat", "block_log": "block_log"}
+# the paper's protocol: seq_len 2048, batch 1; one sequence an arm keeps the
+# whole run near its former length (part 2's CPU forwards take most of it)
+PPL_SEQ, PPL_SEQS = 2048, 1
+PPL_LONG, PPL_CHUNK = 4096, 512  # Llama-2's context, chunked attention
+
+
+def _toml(stem):
+    return str(ROOT / f"configs/quantization/{stem}.toml")
+
+
+def _ppl_config(family, layers, stem, **kw):
+    from llm_mixed_q_torch.models import get_config_cls
+
+    quant = None if stem == "bypass" else _toml(stem)
+    if family == "llama":
+        return get_config_cls("llama")(
+            vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
+            num_hidden_layers=layers, num_attention_heads=HEADS,
+            max_position_embeddings=PPL_LONG, quant_config=quant, **kw)
+    return get_config_cls("opt")(
+        vocab_size=OPT_VOCAB, hidden_size=OPT_HIDDEN, ffn_dim=OPT_FFN, num_hidden_layers=layers,
+        num_attention_heads=OPT_HEADS, max_position_embeddings=2048,
+        word_embed_proj_dim=OPT_HIDDEN, do_layer_norm_before=True, activation_function="relu",
+        enable_bias=True, quant_config=quant)
+
+
+def _crafted_blocks(rng):
+    """[N, 16] float32: every power of two and sqrt(2)*2^k, and their 3
+    nearest float32 on each side, as the maximum of a block whose other
+    elements are random fractions of it; the same points as elements;
+    zeros, +-5e-9 and subnormals; random signs."""
+    f32 = np.float32
+    p = np.ldexp(f32(1), np.arange(-149, 128)).astype(f32)
+    s = (np.sqrt(2.0) * np.ldexp(1.0, np.arange(-149, 127))).astype(f32)
+    pts = [p, s]
+    for a in (p, s):
+        lo, hi = a, a
+        for _ in range(3):
+            lo, hi = np.nextafter(lo, f32(0)), np.nextafter(hi, f32(np.inf))
+            pts += [lo, hi]
+    pts = np.concatenate(pts)
+    pts = pts[(pts > 0) & np.isfinite(pts)]
+    fractions = np.concatenate([np.ones((len(pts), 1)), rng.uniform(0, 1, (len(pts), 15))], 1)
+    special = np.array([0.0, 5e-9, -5e-9, 1e-40, -3e-39, 2.0 ** -149, 2.0 ** -127, 1e-45], f32)
+    elems = np.concatenate([pts, special])
+    elems = np.concatenate([elems, np.zeros((-len(elems)) % 16, f32)]).reshape(-1, 16)
+    rows = np.concatenate([(pts[:, None] * fractions).astype(f32), elems])
+    return torch.from_numpy((rows * rng.choice([-1, 1], rows.shape)).astype(f32))
+
+
+def _differing_bits(a, b):
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return int((~same).sum())
+
+
+def ppl_arithmetic():
+    """Part 1: each quantizer on the card and on the CPU, bit for bit; its
+    card time on the weight. -> {arith: {entry:tensor: differing, ...}}"""
+    from llm_mixed_q_torch.ops.functions import make_entry_quantizer
+    from llm_mixed_q_torch.utils import load_config
+
+    gen = torch.Generator().manual_seed(SEED)
+    act = torch.randn(2048, HIDDEN, generator=gen) * 0.3
+    act[:, torch.randperm(HIDDEN, generator=gen)[:8]] *= 30  # outlier channels
+    weight = torch.randn(INTER, HIDDEN, generator=gen) * 0.02
+    crafted = _crafted_blocks(np.random.default_rng(SEED))
+    rows = {}
+    for arith, stem in PPL_QUANTIZERS.items():
+        cfg = load_config(_toml(stem))["default"]
+        row = {}
+        for entry, skip, tensors in (("data_in", True, {"act": act, "crafted": crafted}),
+                                     ("weight", False, {"weight": weight, "crafted": crafted})):
+            q = make_entry_quantizer(cfg, entry, skip_first_dim=skip)
+            for name, t in tensors.items():
+                row[f"{entry}:{name}"] = _differing_bits(q(t.cuda()).cpu(), q(t))
+        w = weight.cuda()
+        q = make_entry_quantizer(cfg, "weight", skip_first_dim=False)
+        q(w)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            q(w)
+        end.record()
+        torch.cuda.synchronize()
+        row["weight_ms"] = start.elapsed_time(end) / 5
+        log(f"  {arith} ({stem}.toml): differing bits card vs CPU "
+            f"{ {k: v for k, v in row.items() if k != 'weight_ms'} }; "
+            f"[{INTER}, {HIDDEN}] weight quantized in {row['weight_ms']:.3f} ms on the card")
+        check(not any(v for k, v in row.items() if k != "weight_ms"),
+              f"{arith}: card and CPU differ: {row}")
+        rows[arith] = row
+    return rows
+
+
+def _eval(fwd, params, ds):
+    """eval_lm_wikitext2 on the stream; -> (results, logits of the first
+    batch on the CPU, wall seconds, peak device GB)."""
+    from llm_mixed_q_torch.datasets import numpy_dataloader
+    from llm_mixed_q_torch.eval import eval_lm_wikitext2
+
+    kept = []
+
+    def keep(*a):
+        out = fwd(*a)
+        if not kept:
+            kept.append(out["logits"].cpu())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eval_lm_wikitext2(keep, params, numpy_dataloader(ds, batch_size=1))
+    torch.cuda.synchronize()
+    return res, kept[0], time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def shadow_on_cpu(report):
+    """Run every quantizer, matmul, softmax, rsqrt and silu that is called
+    on card tensors once more on the CPU, on copies of the same inputs, and
+    keep in ``report[name]`` [calls, calls that differ, worst]: the most
+    differing bits of a quantizer call, max|card - cpu| / max|cpu| of a
+    float32 op's."""
+    from llm_mixed_q_torch.ops import functions, linear
+
+    def cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if isinstance(a, (list, tuple)):
+            return type(a)(cpu(x) for x in a)
+        return a
+
+    def shadow(name, f, exact=False):
+        def run(*a, **k):
+            out = f(*a, **k)
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                want = f(*cpu(a), **k)
+                got = out.cpu()
+                if exact:
+                    err = _differing_bits(got, want)
+                else:
+                    err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+                r = report.setdefault(name, [0, 0, 0.0])
+                r[0], r[1], r[2] = r[0] + 1, r[1] + (err > 0), max(r[2], err)
+            return out
+        return run
+
+    make_q = functions.make_entry_quantizer
+
+    def entry_quantizer(config, entry, skip_first_dim=False):
+        return shadow(f"{config['name']} {entry}", make_q(config, entry, skip_first_dim),
+                      exact=True)
+
+    with mock.patch.object(functions, "make_entry_quantizer", entry_quantizer), \
+            mock.patch.object(linear, "make_entry_quantizer", entry_quantizer), \
+            mock.patch.object(torch, "matmul", shadow("matmul", torch.matmul)), \
+            mock.patch.object(torch, "softmax", shadow("softmax", torch.softmax)), \
+            mock.patch.object(torch, "rsqrt", shadow("rsqrt", torch.rsqrt)), \
+            mock.patch.object(torch.nn.functional, "silu", shadow("silu", torch.nn.functional.silu)):
+        yield
+
+
+def ppl_card_vs_cpu():
+    """Part 2: 2 layers of Llama-2-7B and OPT-6.7B widths, seq 512: each
+    arm's tree PTQ-prepared on the card, its bits copied to the CPU, the
+    PTQ forward on both. On the card every quantizer and float32 op is
+    shadowed on the CPU (``shadow_on_cpu``): on the same inputs no
+    quantizer bit may differ, and a float32 op's output is within 1e-4 of
+    its max (sums in another order). The forward amplifies those float32
+    differences once a rounding flips (a 3-bit mantissa moves by 1/8 of
+    its block), so end to end the gates |dloss| <= 1e-3 * loss
+    and logits within 5e-2 of max|logit| hold the fp32 arm, and the
+    quantized arms' gaps are logged. -> {family: {arm: gaps}}"""
+    from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset
+    from llm_mixed_q_torch.models import get_ptq_preparer
+    from llm_mixed_q_torch.models.api import make_forward
+    from llm_mixed_q_torch.models.hf_loader import (init_llama_params, init_opt_params,
+                                                    tree_map_tensors)
+
+    out = {}
+    for family, init in (("llama", init_llama_params), ("opt", init_opt_params)):
+        base = _ppl_config(family, 2, "bypass")
+        card_params = init(base, seed=SEED)
+        ds = make_synthetic_lm_dataset(base.vocab_size, 512, 1, seed=SEED)
+        rows = {}
+        for arm, stem in PPL_ARMS.items():
+            config = _ppl_config(family, 2, stem)
+            card_tree = get_ptq_preparer(family)(card_params, config)
+            cpu_tree = tree_map_tensors(lambda t: t.cpu(), card_tree)
+            fwd = make_forward(family, "lm", config, quantize_weights=False, with_labels=True)
+            ops = {}
+            with shadow_on_cpu(ops):
+                res, logits, _, _ = _eval(fwd, card_tree, ds)
+            want, want_logits, _, _ = _eval(fwd, cpu_tree, ds)
+            row = {"loss_card": res["loss"], "loss_cpu": want["loss"],
+                   "loss_gap_rel": abs(res["loss"] - want["loss"]) / want["loss"],
+                   "logits_err_of_max": ((logits - want_logits).abs().max()
+                                         / want_logits.abs().max()).item(),
+                   "ops": ops}
+            rows[arm] = row
+            log(f"  {family} 2 layers, {arm}: loss card {res['loss']:.6f} cpu {want['loss']:.6f} "
+                f"(gap {row['loss_gap_rel']:.3e} of loss), logits gap "
+                f"{row['logits_err_of_max']:.3e} of max|logit|; ops on the card's inputs, "
+                f"[calls, differing, worst]: {ops}")
+            for name, (_, _, worst) in ops.items():
+                if name in ("matmul", "softmax", "rsqrt", "silu"):
+                    check(worst <= 1e-4, f"{family} {arm}: {name} on the card is {worst:.3e} "
+                                         f"of its max from the CPU's")
+                else:
+                    check(worst == 0, f"{family} {arm}: quantizer {name} differs on the card "
+                                      f"in {worst} elements")
+            if stem == "bypass":
+                check(row["loss_gap_rel"] <= 1e-3,
+                      f"{family} {arm}: card and CPU losses differ by {row['loss_gap_rel']:.3e}")
+                check(row["logits_err_of_max"] <= 5e-2,
+                      f"{family} {arm}: card and CPU logits differ by {row['logits_err_of_max']:.3e}")
+            del card_tree, cpu_tree
+        out[family] = rows
+        del card_params
+        torch.cuda.empty_cache()
+    return out
+
+
+def ppl_sweep():
+    """Parts 3 and 4: the sweep at full depth, then the chunked pair.
+    -> ({arm: row}, {"unchunked": row, "chunked": row})"""
+    from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset
+    from llm_mixed_q_torch.models import get_ptq_preparer
+    from llm_mixed_q_torch.models.api import make_forward
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+
+    t0 = time.perf_counter()
+    params = init_llama_params(_ppl_config("llama", LAYERS, "bypass"), seed=SEED)
+    torch.cuda.synchronize()
+    log(f"  Llama-2-7B widths, {LAYERS} layers, float32 weights (seed {SEED}): "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s")
+    ds = make_synthetic_lm_dataset(VOCAB, PPL_SEQ, PPL_SEQS, seed=SEED)
+    sweep = {}
+    for arm, stem in PPL_ARMS.items():
+        config = _ppl_config("llama", LAYERS, stem)
+        fwd = make_forward("llama", "lm", config, quantize_weights=True, with_labels=True)
+        res, _, secs, peak = _eval(fwd, params, ds)
+        row = {"loss": res["loss"], "perplexity": res["perplexity"], "seconds": secs,
+               "tokens_per_s": PPL_SEQ * PPL_SEQS / secs, "peak_gb": peak}
+        check(math.isfinite(res["loss"]), f"{arm}: loss {res['loss']}")
+        if arm == "block_minifloat":
+            # the CLI's flow: weights quantized once, then quantize_weights=False
+            prepared = get_ptq_preparer("llama")(params, config)
+            ptq, _, ptq_secs, ptq_peak = _eval(
+                make_forward("llama", "lm", config, quantize_weights=False, with_labels=True),
+                prepared, ds)
+            del prepared
+            torch.cuda.empty_cache()
+            row.update(ptq_loss=ptq["loss"], ptq_seconds=ptq_secs, ptq_peak_gb=ptq_peak)
+            check(ptq["loss"] == res["loss"],
+                  f"PTQ loss {ptq['loss']!r} != one-shot loss {res['loss']!r}")
+            # where a one-shot forward's card time goes, and how long the card waits
+            batch = [torch.as_tensor(ds[k][:1]).cuda()
+                     for k in ("input_ids", "attention_mask", "labels")]
+            with torch.inference_mode():
+                row["profile"] = profile_decode(
+                    f"a one-shot perplexity forward, {arm}, seq {PPL_SEQ}",
+                    lambda i: fwd(params, *batch), steps=1)
+        log(f"  {arm}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                                     for k, v in row.items()))
+        sweep[arm] = row
+
+    long_ds = make_synthetic_lm_dataset(VOCAB, PPL_LONG, 1, seed=SEED)
+    chunked = {}
+    for name, chunk in (("unchunked", None), ("chunked", PPL_CHUNK)):
+        config = _ppl_config("llama", LAYERS, "block_minifloat", attention_chunk=chunk)
+        res, _, secs, peak = _eval(make_forward("llama", "lm", config, with_labels=True),
+                                   params, long_ds)
+        chunked[name] = {"loss": res["loss"], "seconds": secs, "peak_gb": peak,
+                         "tokens_per_s": PPL_LONG / secs}
+        log(f"  block_minifloat at seq {PPL_LONG}, {name}: loss {res['loss']:.6f}, "
+            f"{secs:.2f} s, peak {peak:.2f} GB")
+    gap = abs(chunked["chunked"]["loss"] - chunked["unchunked"]["loss"]) / chunked["unchunked"]["loss"]
+    chunked["loss_gap_rel"] = gap
+    check(gap <= 1e-3, f"chunked and unchunked losses differ by {gap:.3e}")
+    check(chunked["chunked"]["peak_gb"] < chunked["unchunked"]["peak_gb"],
+          "chunked attention did not lower the peak memory")
+    del params
+    torch.cuda.empty_cache()
+    return sweep, chunked
+
+
+def run_ppl():
+    """Phase 7, the perplexity path, with every launch counter set to 0
+    before it and read after it. -> ({"ppl": results}, launch counts)"""
+    t0 = time.perf_counter()
+    reset_all_launch_counts()
+    log("phase 7, part 1: quantizers card vs CPU (differing bits; must be 0):")
+    arith = ppl_arithmetic()
+    t1 = time.perf_counter()
+    log(f"part 1 took {t1 - t0:.1f} s; phase 7, part 2: 2-layer forwards card vs CPU "
+        f"(PTQ trees prepared on the card):")
+    gaps = ppl_card_vs_cpu()
+    t2 = time.perf_counter()
+    log(f"part 2 took {t2 - t1:.1f} s; phase 7, parts 3 and 4: the sweep at {LAYERS} layers, "
+        f"seq {PPL_SEQ} x {PPL_SEQS}, then seq {PPL_LONG} with and without chunked attention:")
+    sweep, chunked = ppl_sweep()
+    log(f"parts 3 and 4 took {time.perf_counter() - t2:.1f} s")
+    counts = all_launch_counts()
+    check_path_counts({"ppl": counts})
+    secs = time.perf_counter() - t0
+    log(f"phase 7 (perplexity path) took {secs:.1f} s")
+    return {"ppl": {"seconds": secs, "arithmetic": arith, "card_vs_cpu": gaps,
+                    "sweep": sweep, "chunked": chunked}}, counts
 
 def _close_to_max(got, want, tol, what):
     """Fail unless max|got - want| <= tol * max|want|; -> max abs error."""
@@ -1379,7 +1734,7 @@ def _bound_of(r):
 
 
 def run_probes(peaks, flush, probes_lib):
-    """Phase 7: the probe kernels against their plain versions and their
+    """Phase 8: the probe kernels against their plain versions and their
     production kernels, then the eight probe entry points, each with the
     launch counters set to 0 before it and read after it. -> (probe rows,
     launch counts by probe path)."""
@@ -1470,7 +1825,7 @@ def run_probes(peaks, flush, probes_lib):
         row.update({key: head.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms")})
         row["max_abs_err"] = max(rv["max_abs_err"] for rv in row["variants"].values())
-    log(f"phase 7 (probes) took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 (probes) took {time.perf_counter() - t0:.1f} s")
     return rows, counts
 
 
@@ -1535,6 +1890,10 @@ def main(only=None):
         f"peaks used for bounds: {peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} "
         f"TFLOP/s float32, {peaks[2] / 1e12} TFLOP/s bf16 tensor cores")
     log(f"nvidia-smi name, power limit: {smi}")
+    if only == "ppl":
+        ppl, _ = run_ppl()
+        print(json.dumps(ppl), flush=True)
+        return
 
     t0 = time.perf_counter()
     libs = dict(zip(("kernels", "probes"), _cuda.build_all(("kernels", "probes"))))
@@ -1607,6 +1966,8 @@ def main(only=None):
     torch.cuda.empty_cache()
     path_counts.update(run_opt())
     torch.cuda.empty_cache()
+    ppl, path_counts["ppl"] = run_ppl()
+    torch.cuda.empty_cache()
     probe_rows, probe_counts = run_probes(peaks, flush, libs["probes"])
     rows.update(probe_rows)
     path_counts.update(probe_counts)
@@ -1620,6 +1981,7 @@ def main(only=None):
         "shape, P11 one call at b = 32, S = 256, ms of quant/f32, P12/P13 the same, ms of "
         "full / v3_masks, P10 one call at L = 8192, b = 32, ms of index; every variant "
         "under variants)")
+    print(json.dumps(ppl), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1629,5 +1991,6 @@ def main(only=None):
 
 if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
-             "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes"}
+             "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
+             "--ppl-only": "ppl"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

@@ -1,0 +1,56 @@
+"""Model registry (counterpart of the JAX package's ``models/__init__.py``):
+model functions, config classes, parameter loaders, PTQ preparers and
+packers by arch. Ported: Llama and OPT, the causal-LM task ``lm``; any
+other arch or task raises ``NotImplementedError`` naming it."""
+
+from __future__ import annotations
+
+from .hf_loader import llama_params_from_flat, opt_params_from_flat
+from .llama import (
+    LlamaQuantizedConfig,
+    llama_for_causal_lm,
+    pack_llama_params,
+    quantize_llama_params_ptq,
+)
+from .opt import OPTQuantizedConfig, opt_for_causal_lm, quantize_opt_params_ptq
+from .opt.pack import pack_opt_params
+
+MODEL_FN_MAP = {"llama": {"lm": llama_for_causal_lm}, "opt": {"lm": opt_for_causal_lm}}
+CONFIG_MAP = {"llama": LlamaQuantizedConfig, "opt": OPTQuantizedConfig}
+PARAMS_LOADER_MAP = {"llama": llama_params_from_flat, "opt": opt_params_from_flat}
+PTQ_PREPARE_MAP = {"llama": quantize_llama_params_ptq, "opt": quantize_opt_params_ptq}
+PARAMS_PACKER_MAP = {"llama": pack_llama_params, "opt": pack_opt_params}
+
+
+def _get(map_, arch, task=None):
+    if arch not in map_:
+        raise NotImplementedError(f"model arch {arch!r} is not ported (ported: {list(map_)})")
+    entry = map_[arch]
+    if task is None:
+        return entry
+    if task not in entry:
+        raise NotImplementedError(
+            f"task {task!r} of {arch} is not ported (ported: {list(entry)})")
+    return entry[task]
+
+
+def get_model_fn(arch: str, task: str):
+    return _get(MODEL_FN_MAP, arch, task)
+
+
+def get_config_cls(arch: str):
+    return _get(CONFIG_MAP, arch)
+
+
+def get_params_loader(arch: str):
+    return _get(PARAMS_LOADER_MAP, arch)
+
+
+def get_ptq_preparer(arch: str):
+    return _get(PTQ_PREPARE_MAP, arch)
+
+
+def get_params_packer(arch: str):
+    """Packed-storage converter: BFP weights as int8 codes (``PackedBFP``,
+    the default) or sub-byte words, served through ``bfp_matmul``."""
+    return _get(PARAMS_PACKER_MAP, arch)

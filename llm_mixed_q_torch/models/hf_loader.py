@@ -5,8 +5,10 @@ parts of the JAX package's ``models/hf_loader.py``).
   ``torch.Generator``, made on the target device one layer at a time; with
   ``pack=`` each layer is packed as soon as it exists, so a 7B model never
   holds all its float32 weights at once.
-- ``opt_params_from_flat``: a flat ``{hf_name: array}`` dict (numpy or
-  torch, e.g. read from a local checkpoint) as the port's OPT tree.
+- ``load_flat_state_dict``: the ``{hf_name: tensor}`` dict of a local
+  checkpoint directory (safetensors or ``pytorch_model*.bin``).
+- ``llama_params_from_flat`` / ``opt_params_from_flat``: such a flat dict
+  (numpy or torch values) as the port's Llama / OPT tree.
 - ``params_from_jax``: the JAX package's parameter tree, given as numpy
   arrays (``jax.tree.map(np.asarray, params)``), as the port's tree. Packed
   nodes (``PackedBFP``, ``PackedBFPSub``, ``PackedBFPSubT``) keep their
@@ -15,6 +17,8 @@ parts of the JAX package's ``models/hf_loader.py``).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,54 +152,114 @@ def init_opt_params(config, task: str = "lm", seed: int = 0, device=None,
     return params
 
 
+def load_flat_state_dict(model_dir) -> dict[str, torch.Tensor]:
+    """``{hf_name: tensor}`` (CPU, the checkpoint's dtype) from the local
+    files of a model directory: ``*.safetensors``, else
+    ``pytorch_model*.bin``."""
+    model_dir = Path(model_dir)
+    st_files = sorted(model_dir.glob("*.safetensors"))
+    bin_files = sorted(model_dir.glob("pytorch_model*.bin"))
+    flat: dict[str, torch.Tensor] = {}
+    if st_files:
+        from safetensors.torch import load_file
+
+        for f in st_files:
+            flat.update(load_file(str(f)))
+    elif bin_files:
+        for f in bin_files:
+            flat.update(torch.load(f, map_location="cpu", weights_only=True))
+    else:
+        raise FileNotFoundError(f"No safetensors/bin weights in {model_dir}")
+    return flat
+
+
+class _Flat:
+    """A flat ``{hf_name: array}`` dict (numpy or torch) read as float32
+    tensors on ``device``, one leaf at a time."""
+
+    def __init__(self, flat: dict, device):
+        self.flat, self.device = flat, resolve_device(device)
+
+    def __contains__(self, name):
+        return name in self.flat
+
+    def prefixed(self, prefix: str) -> bool:
+        return any(k.startswith(prefix) for k in self.flat)
+
+    def leaf(self, name: str) -> torch.Tensor:
+        if name not in self.flat:
+            raise KeyError(f"Missing weight: {name}")
+        v = self.flat[name]
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        return v.to(device=self.device, dtype=torch.float32)
+
+    def linear(self, prefix: str) -> dict:
+        node = {"weight": self.leaf(f"{prefix}.weight")}
+        if f"{prefix}.bias" in self.flat:
+            node["bias"] = self.leaf(f"{prefix}.bias")
+        return node
+
+
+def llama_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> dict:
+    """HF Llama names (with or without the ``model.`` prefix) -> the port's
+    tree, float32 on ``device``. Without ``lm_head.weight`` an untied
+    config takes the embedding table as its lm_head."""
+    if task != "lm":
+        raise NotImplementedError("only the causal-LM head is ported")
+    f = _Flat(flat, device)
+    pre = "model." if f.prefixed("model.") else ""
+    layers = []
+    for i in range(config.num_hidden_layers):
+        lp = f"{pre}layers.{i}."
+        layers.append({
+            "input_layernorm": {"weight": f.leaf(lp + "input_layernorm.weight")},
+            "post_attention_layernorm": {"weight": f.leaf(lp + "post_attention_layernorm.weight")},
+            "self_attn": {n: f.linear(lp + f"self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {n: f.linear(lp + f"mlp.{n}") for n in ("gate_proj", "up_proj", "down_proj")},
+        })
+    params = {
+        "embed_tokens": {"weight": f.leaf(pre + "embed_tokens.weight")},
+        "layers": layers,
+        "norm": {"weight": f.leaf(pre + "norm.weight")},
+    }
+    if "lm_head.weight" in f:
+        params["lm_head"] = {"weight": f.leaf("lm_head.weight")}
+    elif not config.tie_word_embeddings:
+        params["lm_head"] = {"weight": f.leaf(pre + "embed_tokens.weight")}
+    return params
+
+
 def opt_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> dict:
     """HF OPT names (with or without the ``model.decoder.`` / ``decoder.``
     prefix) -> the port's tree, float32 on ``device``."""
     if task != "lm":
         raise NotImplementedError("only the causal-LM head is ported")
-    device = resolve_device(device)
-    flat = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
-            .to(device=device, dtype=torch.float32) for k, v in flat.items()}
-    pre = ""
-    for cand in ("model.decoder.", "decoder.", ""):
-        if any(k.startswith(cand + "embed_tokens.") for k in flat):
-            pre = cand
-            break
-
-    def leaf(name):
-        if name not in flat:
-            raise KeyError(f"Missing weight: {name}")
-        return flat[name]
-
-    def linear(prefix):
-        node = {"weight": leaf(f"{prefix}.weight")}
-        if f"{prefix}.bias" in flat:
-            node["bias"] = flat[f"{prefix}.bias"]
-        return node
-
+    f = _Flat(flat, device)
+    pre = next((c for c in ("model.decoder.", "decoder.") if f.prefixed(c + "embed_tokens.")), "")
     layers = []
     for i in range(config.num_hidden_layers):
         lp = f"{pre}layers.{i}."
         layers.append({
-            "self_attn": {n: linear(lp + f"self_attn.{n}")
+            "self_attn": {n: f.linear(lp + f"self_attn.{n}")
                           for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
-            "self_attn_layer_norm": linear(lp + "self_attn_layer_norm"),
-            "fc1": linear(lp + "fc1"),
-            "fc2": linear(lp + "fc2"),
-            "final_layer_norm": linear(lp + "final_layer_norm"),
+            "self_attn_layer_norm": f.linear(lp + "self_attn_layer_norm"),
+            "fc1": f.linear(lp + "fc1"),
+            "fc2": f.linear(lp + "fc2"),
+            "final_layer_norm": f.linear(lp + "final_layer_norm"),
         })
     params = {
-        "embed_tokens": {"weight": leaf(pre + "embed_tokens.weight")},
-        "embed_positions": {"weight": leaf(pre + "embed_positions.weight")},
+        "embed_tokens": {"weight": f.leaf(pre + "embed_tokens.weight")},
+        "embed_positions": {"weight": f.leaf(pre + "embed_positions.weight")},
         "layers": layers,
     }
-    if pre + "final_layer_norm.weight" in flat:
-        params["final_layer_norm"] = linear(pre + "final_layer_norm")
+    if pre + "final_layer_norm.weight" in f:
+        params["final_layer_norm"] = f.linear(pre + "final_layer_norm")
     for proj in ("project_in", "project_out"):
-        if f"{pre}{proj}.weight" in flat:
-            params[proj] = {"weight": flat[f"{pre}{proj}.weight"]}
-    if "lm_head.weight" in flat and not config.tie_word_embeddings:
-        params["lm_head"] = {"weight": flat["lm_head.weight"]}
+        if f"{pre}{proj}.weight" in f:
+            params[proj] = {"weight": f.leaf(f"{pre}{proj}.weight")}
+    if "lm_head.weight" in f and not config.tie_word_embeddings:
+        params["lm_head"] = {"weight": f.leaf("lm_head.weight")}
     return params
 
 

@@ -38,8 +38,8 @@ class LlamaQuantizedConfig:
     model_type: str = "llama"
     problem_type: str | None = None
     dtype: str = "float32"
-    # kv-chunked two-pass attention of the JAX package; not ported yet, so
-    # anything but None raises in the forward
+    # kv-chunked two-pass attention (ops/attention.py); None holds the full
+    # score matrix, as the reference does
     attention_chunk: int | None = None
 
     def __post_init__(self):

@@ -6,10 +6,11 @@ Numerics follow the reference: RMSNorm variance in float32; RoPE cos/sin
 tables quantized per the rope node, rotation in full precision; quantized
 matmul_0 = q @ k^T, then / sqrt(head_dim); additive causal + padding mask
 clamped at finfo.min; float32 softmax; quantized matmul_1 = probs @ v.
-GQA repeats the kv heads.
+GQA repeats the kv heads. With ``config.attention_chunk`` set, attention
+takes the kv-chunked two-pass path (``ops/attention.py``): the same
+quantized attention in O(S * chunk) memory, for long contexts.
 
-Not ported yet: the chunked attention path (``attention_chunk``) and the
-sequence-classification head.
+Not ported yet: the sequence-classification head.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.attention import chunked_quantized_attention
 from ...ops.functions import quantized_apply_rotary_pos_emb, quantized_matmul
 from ...ops.linear import quantized_linear
 from .configuration import LlamaQuantizedConfig
@@ -104,8 +106,6 @@ def project_qkv(params, hidden, config, layer_idx, quantize_weights):
 def attention(params, hidden, mask, position_ids, cos, sin,
               config: LlamaQuantizedConfig, layer_idx: int,
               quantize_weights: bool):
-    if getattr(config, "attention_chunk", None):
-        raise NotImplementedError("chunked attention is not ported yet")
     b, q_len, _ = hidden.shape
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
@@ -117,11 +117,15 @@ def attention(params, hidden, mask, position_ids, cos, sin,
 
     k = _repeat_kv(k, nh // nkv)
     v = _repeat_kv(v, nh // nkv)
-    attn = quantized_matmul(q, k.transpose(2, 3), qc("matmul_0")) / math.sqrt(hd)
-    if mask is not None:
-        attn = torch.clamp_min(attn + mask, NEG_INF)
-    attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
-    out = quantized_matmul(attn, v, qc("matmul_1"))
+    if config.attention_chunk:
+        out = chunked_quantized_attention(q, k, v, mask, qc("matmul_0"), qc("matmul_1"),
+                                          sqrt_hd=math.sqrt(hd), chunk=config.attention_chunk)
+    else:
+        attn = quantized_matmul(q, k.transpose(2, 3), qc("matmul_0")) / math.sqrt(hd)
+        if mask is not None:
+            attn = torch.clamp_min(attn + mask, NEG_INF)
+        attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
+        out = quantized_matmul(attn, v, qc("matmul_1"))
     out = out.transpose(1, 2).reshape(b, q_len, nh * hd)
     out = quantized_linear(out, params["o_proj"]["weight"],
                            params["o_proj"].get("bias"), qc("o_proj"),

@@ -1,8 +1,10 @@
 """Quantized op functions: entry-quantizer factory, matmul/bmm, RoPE
 (counterpart of the JAX package's ``ops/functions.py``).
 
-As in the JAX package, a block_log matmul quantizes only x (the reference
-builds its y quantizer and never applies it)."""
+As in the JAX package, a "log" matmul is a plain log matmul (the
+reference maps it onto the block_log one), and a block_log matmul
+quantizes only x (the reference builds its y quantizer and never applies
+it)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,23 @@ def make_entry_quantizer(config: dict, entry: str, skip_first_dim: bool = False)
     g = lambda k: config[f"{entry}_{k}"]
     if name == "integer":
         return partial(quantizer, width=g("width"), frac_width=g("frac_width"))
+    if name in ("minifloat_denorm", "minifloat_ieee"):
+        return partial(quantizer, width=g("width"), exponent_width=g("exponent_width"),
+                       exponent_bias=g("exponent_bias"))
+    if name == "log":
+        return partial(quantizer, width=g("width"), exponent_bias=g("exponent_bias"))
     if name == "block_fp":
-        return partial(
-            quantizer,
-            width=g("width"),
-            exponent_width=g("exponent_width"),
-            exponent_bias=g("exponent_bias"),
-            block_size=g("block_size"),
-            skip_first_dim=skip_first_dim,
-        )
+        return partial(quantizer, width=g("width"), exponent_width=g("exponent_width"),
+                       exponent_bias=g("exponent_bias"), block_size=g("block_size"),
+                       skip_first_dim=skip_first_dim)
+    if name == "block_minifloat":
+        return partial(quantizer, width=g("width"), exponent_width=g("exponent_width"),
+                       exponent_bias_width=g("exponent_bias_width"),
+                       block_size=g("block_size"), skip_first_dim=skip_first_dim)
+    if name == "block_log":
+        return partial(quantizer, width=g("width"),
+                       exponent_bias_width=g("exponent_bias_width"),
+                       block_size=g("block_size"), skip_first_dim=skip_first_dim)
     raise ValueError(f"Unknown quant arith: {name}")
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
-import, it imports (chip_smoke.py and the probes of
-``llm_mixed_q_torch.tools`` included) and runs Llama and OPT generation and
-the eight probe entry points on the CPU."""
+import, it imports (chip_smoke.py, the probes of ``llm_mixed_q_torch.tools``
+and the ``cli``, ``datasets`` and ``eval`` subpackages included) and runs
+Llama and OPT generation, the perplexity path under the new arithmetics
+with chunked attention, and the eight probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -30,6 +31,23 @@ import llm_mixed_q_torch
 import chip_smoke  # noqa: F401  (imports only; main() needs a card)
 for info in pkgutil.walk_packages(llm_mixed_q_torch.__path__, "llm_mixed_q_torch."):
     __import__(info.name)
+assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
+        "llm_mixed_q_torch.eval.eval_lm", "llm_mixed_q_torch.ops.attention"} <= set(sys.modules)
+
+from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset, numpy_dataloader
+from llm_mixed_q_torch.eval import eval_lm_wikitext2
+from llm_mixed_q_torch.models import get_config_cls, get_ptq_preparer
+from llm_mixed_q_torch.models.api import make_forward
+
+for toml in ("block_minifloat", "log", "minifloat_denorm"):
+    cfg = get_config_cls("llama")(vocab_size=64, hidden_size=64, intermediate_size=128,
+                                  num_hidden_layers=1, num_attention_heads=2, attention_chunk=16,
+                                  quant_config=f"configs/quantization/{toml}.toml")
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    p = get_ptq_preparer("llama")(init_llama_params(cfg, seed=0, device="cpu"), cfg)
+    res = eval_lm_wikitext2(make_forward("llama", "lm", cfg, quantize_weights=False, with_labels=True),
+                            p, numpy_dataloader(make_synthetic_lm_dataset(64, 40, 2), 1))
+    assert np.isfinite(res["loss"]) and res["num_sequences"] == 2
 
 from llm_mixed_q_torch.models.hf_loader import init_llama_params
 from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
