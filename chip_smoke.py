@@ -8,8 +8,9 @@
     python3 chip_smoke.py --k5-only       # build, then K5's checks and times only,
                                           # and its times at other chunk and tile lengths
     python3 chip_smoke.py --m-sweep       # build, then K1, K2 and K3 over M only
-    python3 chip_smoke.py --probes-only   # build, then the probe phase (8) only
+    python3 chip_smoke.py --probes-only   # build, then the probe phase (9) only
     python3 chip_smoke.py --ppl-only      # the perplexity phase (7) only (no build)
+    python3 chip_smoke.py --qat-only      # the QAT phase (8) only (no build)
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -75,7 +76,28 @@
    lower. The launch counters are set to 0 before the phase and must all
    read 0 after it: the path runs no Hopper kernel. Its results are the
    ``{"ppl": ...}`` line;
-8. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
+8. the QAT path (``train_qat``, ``eval_cls_glue``; the paper's Section 4.3
+   protocol: W4A4 block_fp, batch 16, seq 128, lr 2e-5, cosine,
+   grad-accum 4, random weights from seed 0, the synthetic classification
+   stream): (1) one QAT step (forward with weights fake-quantized, STE
+   backward) of OPT-350M and Llama-2-7B widths cut to 2 layers, batch 2 x
+   64, on the card and on the CPU on the same weights: bypass's loss
+   within 1e-5 relative and each leaf's gradient within 1e-4 of its
+   max|grad|, bfp_4bit's loss within 2e-3 relative; (2) OPT-350M as
+   published (24 layers, hidden 1024, word_embed_proj_dim 512, post-LN)
+   with a 2-label head: 32 micro-steps (8 updates) uninterrupted, timed
+   (micro-step ms, samples/s, tokens/s, peak GB); the same run cut at
+   micro-step 16 by a checkpoint and resumed, equal to it within rtol
+   1e-6 with the factory asked to seek to 16 once; 2 micro-steps timed,
+   then 2 profiled, the second of them an update (card idle share,
+   kernels by card time, GEMMs' share); a fixed batch's
+   loss after 8 updates (its own lr 1e-6) below its first; eval_cls_glue
+   on 256 samples (samples/s); (3) Llama-2-7B widths cut to 4 layers, a
+   cls head, batch 16 x 128: a QAT step with ``remat`` and without, the
+   same loss and gradients, the remat peak lower. The launch counters are
+   set to 0 before the phase and must all read 0 after it. Its results are
+   the ``{"qat": ...}`` line;
+9. the probes (``llm_mixed_q_torch.tools``): holds every probe kernel
    (P8 and P9, the sub-byte matmul's knock-outs in K1's and K3's layouts,
    P1 and P3, its dequant-arithmetic and scale-storage variants in both
    layouts, P2, bf16 and float32 scales for the int8 matmul, and the
@@ -108,13 +130,14 @@
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line, and the perplexity phase's the one before it. Imports nothing of
-JAX.
+line, the QAT phase's the one before it and the perplexity phase's the
+one before that. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -596,7 +619,7 @@ def profile_decode(label, step, steps=4):
     """Wall time of a decode step, or of any call (host clock, no
     profiler), and the card's busy time in it by kernel (torch.profiler, a
     second window of steps); ``step(i)`` runs the i-th step.
-    -> {"wall_ms", "busy_ms", "idle_share"}"""
+    -> {"wall_ms", "busy_ms", "idle_share", "gemm_ms"}"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -610,11 +633,17 @@ def profile_decode(label, step, steps=4):
         for i in range(steps):
             step(steps + i)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # (a user annotation, such as the optimizer's step, also has a device
+    # range, over kernels that are counted on their own)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if "gemm" in e.key.lower()) / steps / 1e3
     log(f"profile ({label}, {steps} steps): "
         f"wall {wall_ms:.2f} ms a step, card busy {busy_ms:.2f} ms "
-        f"(idle share {1 - busy_ms / wall_ms:.3f}); {len(kernels)} kernel names")
+        f"(idle share {1 - busy_ms / wall_ms:.3f}), GEMMs {gemm_ms:.2f} ms; "
+        f"{len(kernels)} kernel names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms a step, "
             f"{e.count / steps:6.1f} launches: {e.key[:90]}")
@@ -625,7 +654,8 @@ def profile_decode(label, step, steps=4):
         f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
         f"{e.self_device_time_total / steps / 1e3:.3f} ms ({e.count / steps:.0f})"
         for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "gemm_ms": gemm_ms}
 
 
 def ragged_prompts(rng, n, vocab):
@@ -650,6 +680,7 @@ PATHS = {
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
     "opt_generate_lane_major": ("bfp_matmul_subbyte", "actq_split"),
     "ppl": (),  # the perplexity phase: fake quantization, no Hopper kernel
+    "qat": (),  # the QAT phase: fake quantization and its backward, no Hopper kernel
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
@@ -1238,6 +1269,317 @@ def run_ppl():
     return {"ppl": {"seconds": secs, "arithmetic": arith, "card_vs_cpu": gaps,
                     "sweep": sweep, "chunked": chunked}}, counts
 
+# the QAT phase (8): the paper's Section 4.3 protocol
+# (experiments/emnlp/section_4_3_qat.py): W4A4 block_fp, batch 16, seq 128,
+# lr 2e-5, cosine, grad-accum 4, on OPT-350M as published in
+# facebook/opt-350m's config.json (post-LN, word_embed_proj_dim 512 != hidden)
+OPT350 = dict(vocab_size=50272, hidden_size=1024, ffn_dim=4096, num_hidden_layers=24,
+              num_attention_heads=16, max_position_embeddings=2048, word_embed_proj_dim=512,
+              do_layer_norm_before=False, activation_function="relu", pad_token_id=1,
+              num_labels=2)
+QAT_BATCH, QAT_SEQ, QAT_LR, QAT_ACCUM = 16, 128, 2e-5, 4
+QAT_MICRO, QAT_SAVE_AT, QAT_EVAL = 32, 16, 256  # micro-steps (8 updates), checkpoint, eval samples
+# the fixed-batch check's own lr: on random weights Adam's first steps at 2e-5
+# (every parameter moved by ~lr) overshoot, the loss rising to 2-3 nats
+QAT_FALL_LR = 1e-6
+QAT_CHECK_BATCH, QAT_CHECK_SEQ = 2, 64  # part 1: the CPU side takes seconds
+QAT_LLAMA_LAYERS = 4  # part 3
+
+
+def _qat_config(family, layers, stem):
+    from llm_mixed_q_torch.models import get_config_cls
+
+    quant = None if stem == "bypass" else _toml(stem)
+    if family == "opt":
+        return get_config_cls("opt")(**{**OPT350, "num_hidden_layers": layers},
+                                     quant_config=quant)
+    return get_config_cls("llama")(
+        vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER, num_hidden_layers=layers,
+        num_attention_heads=HEADS, max_position_embeddings=PPL_LONG, num_labels=2,
+        quant_config=quant)
+
+
+def _qat_grads(family, config, params, batch, remat=None):
+    """One QAT forward (weights fake-quantized) and backward on a trainable
+    copy of ``params``, on their device; ``remat`` (Llama) runs the
+    backbone with and without recomputation. -> (loss, {path: grad} of
+    the leaves the step reaches)"""
+    from llm_mixed_q_torch.models import get_model_fn
+    from llm_mixed_q_torch.models.llama.modeling import llama_model, sequence_classification_head
+    from llm_mixed_q_torch.train.qat import _trainable, named_leaves
+
+    device = next(t for _, t in named_leaves(params)).device
+    tp = _trainable(params)
+    ids, mask, labels = (torch.as_tensor(batch[k], device=device)
+                         for k in ("input_ids", "attention_mask", "labels"))
+    if remat is None:
+        loss = get_model_fn(family, "cls")(tp, ids, mask, labels=labels, config=config,
+                                           quantize_weights=True)["loss"]
+    else:
+        hidden, _ = llama_model(tp, ids, mask, config, quantize_weights=True, remat=remat)
+        loss = sequence_classification_head(tp, hidden, ids, labels, config)["loss"]
+    loss.backward()
+    # (a post-LN OPT's top-level final_layer_norm is unused: no gradient)
+    return loss.item(), {"/".join(map(str, p)): t.grad for p, t in named_leaves(tp)
+                         if t.grad is not None}
+
+
+def _grad_gaps(got, want):
+    """Each leaf's max|got - want| over its max|want|. An attention key's
+    bias has a gradient of 0 in exact arithmetic (the softmax ignores a
+    shift shared by every key), so each side holds only its own rounding
+    noise there: those leaves are held below 1e-5 of the largest leaf's
+    max on both sides instead. -> (worst gap, its leaf, {key-bias leaf:
+    (card, CPU) max|grad| over the largest leaf's})"""
+    top = max(g.abs().max().item() for g in want.values())
+    worst, at, noise = 0.0, None, {}
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k.endswith("k_proj/bias"):
+            noise[k] = (g.abs().max().item() / top, w.abs().max().item() / top)
+            check(max(noise[k]) < 1e-5, f"gradient of {k} is not rounding noise: {noise[k]}")
+            continue
+        gap = (g - w).abs().max().item() / w.abs().max().item()
+        if gap > worst:
+            worst, at = gap, k
+    return worst, at, noise
+
+
+def qat_card_vs_cpu():
+    """Part 1: one QAT step's loss and gradients, card against CPU, on the
+    same weights and batch, at OPT-350M and Llama-2-7B widths cut to 2
+    layers. bypass: loss within 1e-5 relative, each leaf's gradient within
+    1e-4 of its max|grad|; bfp_4bit: loss within 2e-3 relative (a float32
+    sum in another order flips a 3-bit rounding now and then; the
+    quantizers themselves are bit-equal, part 1 of phase 7), its gradient
+    gaps logged. -> {family: {arm: gaps}}"""
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset
+    from llm_mixed_q_torch.models.hf_loader import (init_llama_params, init_opt_params,
+                                                    tree_map_tensors)
+
+    out = {}
+    for family, init in (("opt", init_opt_params), ("llama", init_llama_params)):
+        base = _qat_config(family, 2, "bypass")
+        card_params = init(base, task="cls", seed=SEED)
+        cpu_params = tree_map_tensors(lambda t: t.cpu(), card_params)
+        batch = make_synthetic_cls_dataset(base.vocab_size, QAT_CHECK_SEQ, QAT_CHECK_BATCH,
+                                           seed=SEED)
+        rows = {}
+        for stem, loss_tol in (("bypass", 1e-5), ("bfp_4bit", 2e-3)):
+            config = _qat_config(family, 2, stem)
+            t0 = time.perf_counter()
+            loss, grads = _qat_grads(family, config, card_params, batch)
+            t1 = time.perf_counter()
+            want_loss, want = _qat_grads(family, config, cpu_params, batch)
+            gap = abs(loss - want_loss) / want_loss
+            worst, at, noise = _grad_gaps(grads, want)
+            rows[stem] = {"loss_card": loss, "loss_cpu": want_loss, "loss_gap_rel": gap,
+                          "grad_gap_of_leaf_max": worst, "worst_leaf": at,
+                          "key_bias_noise": noise, "card_s": t1 - t0,
+                          "cpu_s": time.perf_counter() - t1}
+            log(f"  {family} 2 layers, {stem}: loss card {loss:.7f} cpu {want_loss:.7f} "
+                f"(gap {gap:.3e} of loss), worst gradient gap {worst:.3e} of its leaf's max "
+                f"({at}); key biases (noise, of the largest leaf's max) {noise}; card {t1 - t0:.2f} s, "
+                f"CPU {rows[stem]['cpu_s']:.2f} s")
+            check(gap <= loss_tol, f"{family} {stem}: card and CPU losses differ by {gap:.3e}")
+            if stem == "bypass":
+                check(worst <= 1e-4, f"{family} bypass: gradient {at} differs by {worst:.3e}")
+            del grads, want
+        out[family] = rows
+        del card_params, cpu_params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_gap(a, b):
+    """The largest elementwise |a - b| / |b| over the leaves of two trees
+    (the rtol that would hold them)."""
+    from llm_mixed_q_torch.train.qat import named_leaves
+
+    ref = dict(named_leaves(b))
+    return max(((t - ref[p]).abs() / ref[p].abs().clamp_min(1e-30)).max().item()
+               for p, t in named_leaves(a))
+
+
+def qat_protocol():
+    """Part 2: the Section 4.3 protocol at OPT-350M's full widths and depth
+    through ``train_qat``: 32 micro-steps uninterrupted; the same run cut at
+    micro-step 16 (a checkpoint) and resumed, which must equal it (rtol
+    1e-6); a profiled window of micro-steps; a fixed batch's loss over 8
+    updates, which must fall; ``eval_cls_glue`` on 256 samples."""
+    import tempfile
+
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
+    from llm_mixed_q_torch.eval import eval_cls_glue
+    from llm_mixed_q_torch.models.api import make_forward
+    from llm_mixed_q_torch.models.hf_loader import init_opt_params
+    from llm_mixed_q_torch.train import train_qat
+    from llm_mixed_q_torch.train.qat import (MultiSteps, _trainable, make_adamw,
+                                             make_qat_train_step, named_leaves)
+
+    config = _qat_config("opt", OPT350["num_hidden_layers"], "bfp_4bit")
+    t0 = time.perf_counter()
+    params = init_opt_params(config, task="cls", seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    log(f"  OPT-350M, {n_params / 1e6:.1f} M parameters (seed {SEED}), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds = make_synthetic_cls_dataset(OPT350["vocab_size"], QAT_SEQ, QAT_BATCH * QAT_MICRO,
+                                    seed=SEED)
+    batches = list(numpy_dataloader(ds, QAT_BATCH))
+    calls = []
+
+    def factory(start=0):
+        calls.append(start)
+        yield from batches[start:]
+
+    common = dict(num_epochs=1, learning_rate=QAT_LR, grad_accum_steps=QAT_ACCUM,
+                  schedule="cosine", steps_per_epoch=QAT_MICRO, log_every=QAT_MICRO)
+    res = {"parameters": n_params}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full, hist = train_qat("opt", "cls", config, params, factory,
+                               metrics_path=f"{tmp}/full.jsonl", **common)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        losses = [json.loads(l)["loss"] for l in open(f"{tmp}/full.jsonl") if '"step"' in l]
+        res.update(seconds=secs, micro_step_ms=secs / QAT_MICRO * 1e3,
+                   samples_per_s=QAT_BATCH * QAT_MICRO / secs,
+                   tokens_per_s=QAT_BATCH * QAT_SEQ * QAT_MICRO / secs,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+                   epoch_loss=hist[0]["loss"])
+        log(f"  {QAT_MICRO} micro-steps ({QAT_MICRO // QAT_ACCUM} updates): {secs:.2f} s, "
+            f"{res['micro_step_ms']:.1f} ms a micro-step, {res['samples_per_s']:.1f} samples/s, "
+            f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gb']:.2f} GB; losses "
+            f"{[round(l, 4) for l in losses]}")
+        check(len(losses) == QAT_MICRO and all(math.isfinite(l) for l in losses),
+              f"QAT losses: {losses}")
+
+        t0 = time.perf_counter()
+        train_qat("opt", "cls", config, params, lambda start=0: itertools.islice(
+            factory(start), QAT_SAVE_AT - start), checkpoint_dir=f"{tmp}/ckpt",
+                  save_every_steps=QAT_SAVE_AT, **common)
+        t1 = time.perf_counter()
+        calls.clear()
+        resumed, _ = train_qat("opt", "cls", config, params, factory,
+                               checkpoint_dir=f"{tmp}/ckpt", resume=True, **common)
+        torch.cuda.synchronize()
+        gap = _leaf_gap(resumed, full)
+        res.update(resume_gap_rtol=gap, resume_calls=list(calls),
+                   cut_run_s=t1 - t0, resumed_run_s=time.perf_counter() - t1)
+        log(f"  cut at {QAT_SAVE_AT} and resumed (factory asked for {calls}): largest "
+            f"elementwise relative gap to the uninterrupted run {gap:.3e}; cut run "
+            f"{t1 - t0:.1f} s with its checkpoint, resumed run {res['resumed_run_s']:.1f} s")
+        check(calls == [QAT_SAVE_AT], f"resume asked the factory for {calls}")
+        check(gap <= 1e-6, f"the resumed run differs from the uninterrupted one by {gap:.3e}")
+        del resumed
+
+    # micro-steps 1-2 timed, then 3-4 profiled (the 4th updates)
+    tp = _trainable(params)
+    opt = MultiSteps(*make_adamw(tp, QAT_LR, 0.0, QAT_MICRO, 0, "cosine"), every_k=QAT_ACCUM)
+    step = make_qat_train_step("opt", "cls", config, opt)
+    dev = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()} for b in batches[:4]]
+    res["profile"] = profile_decode(
+        f"QAT micro-steps, OPT-350M, batch {QAT_BATCH} x {QAT_SEQ}, W4A4 block_fp",
+        lambda i: step(tp, dev[i]), steps=2)
+    del tp, opt, step
+
+    # a fixed batch's loss falls over 8 updates: the 9th micro-step's loss
+    # is read after the 8th update
+    with tempfile.TemporaryDirectory() as tmp:
+        train_qat("opt", "cls", config, params, lambda: iter([batches[0]] * 9),
+                  learning_rate=QAT_FALL_LR, metrics_path=f"{tmp}/fixed.jsonl", log_every=100)
+        fixed = [json.loads(l)["loss"] for l in open(f"{tmp}/fixed.jsonl") if '"step"' in l]
+    res["fixed_batch_losses"] = fixed
+    log(f"  a fixed batch, 8 updates at lr {QAT_FALL_LR}: losses {[round(l, 4) for l in fixed]}")
+    check(len(fixed) == 9 and fixed[-1] < fixed[0],
+          f"the fixed batch's loss did not fall: {fixed}")
+
+    eval_ds = make_synthetic_cls_dataset(OPT350["vocab_size"], QAT_SEQ, QAT_EVAL, seed=SEED + 1)
+    fwd = make_forward("opt", "cls", config, quantize_weights=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = eval_cls_glue(fwd, full, "sst2", numpy_dataloader(eval_ds, QAT_BATCH),
+                            num_samples=QAT_EVAL)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res["eval"] = {**metrics, "seconds": secs, "samples_per_s": QAT_EVAL / secs}
+    log(f"  eval_cls_glue (sst2 metrics) on {QAT_EVAL} samples: {metrics}, {secs:.2f} s, "
+        f"{QAT_EVAL / secs:.1f} samples/s")
+    check(0.0 <= metrics["accuracy"] <= 1.0, f"eval metrics {metrics}")
+    del full, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def qat_remat():
+    """Part 3: Llama-2-7B widths cut to 4 layers, a cls head, W4A4 block_fp,
+    batch 16 x 128: one QAT step with ``remat`` and one without. The same
+    loss and gradients (within 1e-6 relative and 1e-5 of each leaf's max;
+    the same kernels on the same inputs, expected equal), and the remat
+    peak lower. -> {"plain": row, "remat": row, gaps}"""
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+
+    config = _qat_config("llama", QAT_LLAMA_LAYERS, "bfp_4bit")
+    params = init_llama_params(config, task="cls", seed=SEED)
+    batch = make_synthetic_cls_dataset(VOCAB, QAT_SEQ, QAT_BATCH, seed=SEED)
+    rows, grads = {}, {}
+    for name, remat in (("plain", False), ("remat", True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads[name] = _qat_grads("llama", config, params, batch, remat=remat)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rows[name] = {"loss": loss, "seconds": time.perf_counter() - t0, "peak_gb": peak / 1e9,
+                      "peak_over_weights_gb": (peak - base) / 1e9}
+        log(f"  Llama-2-7B widths, {QAT_LLAMA_LAYERS} layers, {name}: loss {loss:.7f}, "
+            f"{rows[name]['seconds']:.2f} s, peak {peak / 1e9:.2f} GB "
+            f"({(peak - base) / 1e9:.2f} GB over the {base / 1e9:.2f} GB resident)")
+        if name == "plain":
+            grads[name] = {k: g.cpu() for k, g in grads[name].items()}
+    loss_gap = abs(rows["remat"]["loss"] - rows["plain"]["loss"]) / rows["plain"]["loss"]
+    grad_gap = max(((grads["remat"][k].cpu() - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                   for k, g in grads["plain"].items())
+    rows.update(loss_gap_rel=loss_gap, grad_gap_of_leaf_max=grad_gap)
+    log(f"  remat against plain: loss gap {loss_gap:.3e}, largest gradient gap {grad_gap:.3e} "
+        f"of its leaf's max")
+    check(loss_gap <= 1e-6 and grad_gap <= 1e-5,
+          f"remat changes the step: loss {loss_gap:.3e}, gradients {grad_gap:.3e}")
+    check(rows["remat"]["peak_gb"] < rows["plain"]["peak_gb"], "remat did not lower the peak")
+    del params, grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_qat():
+    """Phase 8, the QAT path, with every launch counter set to 0 before it
+    and read after it. -> ({"qat": results}, launch counts)"""
+    t0 = time.perf_counter()
+    reset_all_launch_counts()
+    log("phase 8, part 1: a QAT step card vs CPU at 2 layers (batch "
+        f"{QAT_CHECK_BATCH} x {QAT_CHECK_SEQ}):")
+    gaps = qat_card_vs_cpu()
+    t1 = time.perf_counter()
+    log(f"part 1 took {t1 - t0:.1f} s; phase 8, part 2: the Section 4.3 protocol on OPT-350M "
+        f"(batch {QAT_BATCH} x {QAT_SEQ}, lr {QAT_LR}, cosine, grad-accum {QAT_ACCUM}):")
+    protocol = qat_protocol()
+    t2 = time.perf_counter()
+    log(f"part 2 took {t2 - t1:.1f} s; phase 8, part 3: remat at Llama-2-7B widths:")
+    remat = qat_remat()
+    log(f"part 3 took {time.perf_counter() - t2:.1f} s")
+    counts = all_launch_counts()
+    check_path_counts({"qat": counts})
+    secs = time.perf_counter() - t0
+    log(f"phase 8 (QAT path) took {secs:.1f} s")
+    return {"qat": {"seconds": secs, "card_vs_cpu": gaps, "protocol": protocol,
+                    "remat": remat}}, counts
+
+
 def _close_to_max(got, want, tol, what):
     """Fail unless max|got - want| <= tol * max|want|; -> max abs error."""
     torch.cuda.synchronize()
@@ -1825,7 +2167,7 @@ def run_probes(peaks, flush, probes_lib):
         row.update({key: head.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms")})
         row["max_abs_err"] = max(rv["max_abs_err"] for rv in row["variants"].values())
-    log(f"phase 8 (probes) took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 (probes) took {time.perf_counter() - t0:.1f} s")
     return rows, counts
 
 
@@ -1893,6 +2235,10 @@ def main(only=None):
     if only == "ppl":
         ppl, _ = run_ppl()
         print(json.dumps(ppl), flush=True)
+        return
+    if only == "qat":
+        qat, _ = run_qat()
+        print(json.dumps(qat), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -1968,6 +2314,8 @@ def main(only=None):
     torch.cuda.empty_cache()
     ppl, path_counts["ppl"] = run_ppl()
     torch.cuda.empty_cache()
+    qat, path_counts["qat"] = run_qat()
+    torch.cuda.empty_cache()
     probe_rows, probe_counts = run_probes(peaks, flush, libs["probes"])
     rows.update(probe_rows)
     path_counts.update(probe_counts)
@@ -1982,6 +2330,7 @@ def main(only=None):
         "full / v3_masks, P10 one call at L = 8192, b = 32, ms of index; every variant "
         "under variants)")
     print(json.dumps(ppl), flush=True)
+    print(json.dumps(qat), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1992,5 +2341,5 @@ def main(only=None):
 if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
              "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
-             "--ppl-only": "ppl"}
+             "--ppl-only": "ppl", "--qat-only": "qat"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

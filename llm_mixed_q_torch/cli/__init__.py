@@ -1,9 +1,11 @@
-"""CLI entry points (counterpart of the JAX package's ``cli/``). This
-slice ports the perplexity evals; the classification, prompting, search,
-statistics and training entry points wait for their slices."""
+"""CLI entry points (counterpart of the JAX package's ``cli/``): the GLUE
+classification and perplexity evals and the QAT fine-tune runners. The
+prompting, search and statistics entry points wait for their slices."""
 
 from .evals import (
+    cli_eval_cls_glue,
     cli_eval_lm_wikitext2,
     cli_eval_lm_wikitext2_int8_baseline,
     cli_eval_lm_wikitext2_with_config,
 )
+from .train_cli import ddp_train_runner, dp_train_runner, fsdp_train_runner

@@ -22,6 +22,7 @@ def add_common_model_args(parser: argparse.ArgumentParser):
                         help="local HF checkpoint dir (config.json + safetensors/bin)")
     parser.add_argument("--quant_config", default=None, help="quant config TOML")
     parser.add_argument("--save_dir", default=None)
+    parser.add_argument("--num_labels", type=int, default=2)
     parser.add_argument("--seq_len", "--max_length", type=int, default=128, dest="max_length")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--num_samples", type=int, default=None)
@@ -35,10 +36,11 @@ def add_common_model_args(parser: argparse.ArgumentParser):
 def build_model(args, task: str):
     """(config, params, forward_fn) from CLI args: weights PTQ-prepared
     once, or packed with ``--packed``; the forward runs with
-    ``quantize_weights=False``."""
+    ``quantize_weights=False``. The ``cls`` task takes ``--num_labels``."""
     set_logging_verbosity("info")
     config = get_config_cls(args.model_arch).from_pretrained(
-        args.model_name, quant_config=args.quant_config)
+        args.model_name, quant_config=args.quant_config,
+        **({"num_labels": args.num_labels} if task == "cls" else {}))
     flat = load_flat_state_dict(args.model_name)
     params = get_params_loader(args.model_arch)(flat, config, task=task, device=args.device)
     if config.quant_config is not None:

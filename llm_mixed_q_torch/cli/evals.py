@@ -1,5 +1,8 @@
-"""Perplexity eval CLIs (counterpart of the LM part of the JAX package's
-``cli/evals.py``):
+"""Eval CLIs (counterpart of the JAX package's ``cli/evals.py`` but its
+prompting eval):
+- ``cli_eval_cls_glue``: a GLUE task's validation metrics of a local
+  checkpoint with a classification head under a quant config (mnli also
+  on its mismatched split);
 - ``cli_eval_lm_wikitext2``: Wikitext2 perplexity of a local checkpoint
   under a quant config;
 - ``cli_eval_lm_wikitext2_int8_baseline``: the same under W8A8 integer
@@ -11,7 +14,8 @@ from __future__ import annotations
 import argparse
 
 from ..datasets import get_raw_dataset_dict, numpy_dataloader, preprocess_dataset_dict
-from ..eval import eval_lm_wikitext2
+from ..datasets.glue import is_regression_task
+from ..eval import eval_cls_glue, eval_lm_wikitext2
 from .common import add_common_model_args, build_model, get_tokenizer, save_results
 
 INT8_BASELINE = {
@@ -27,6 +31,32 @@ INT8_BASELINE = {
         "bias_frac_width": 7,
     }
 }
+
+
+def _glue_loader(args, tokenizer, split="validation"):
+    raw = get_raw_dataset_dict(args.task)
+    ds = preprocess_dataset_dict(raw, args.task, tokenizer, "max_length", args.max_length)
+    return numpy_dataloader(ds[split], batch_size=args.batch_size)
+
+
+def cli_eval_cls_glue(argv=None):
+    parser = argparse.ArgumentParser("eval_cls_glue")
+    add_common_model_args(parser)
+    parser.add_argument("--task", required=True)
+    args = parser.parse_args(argv)
+    _, params, fwd = build_model(args, "cls")
+    tokenizer = get_tokenizer(args)
+    results = eval_cls_glue(fwd, params, args.task, _glue_loader(args, tokenizer),
+                            is_regression=is_regression_task(args.task),
+                            num_samples=args.num_samples)
+    if args.task == "mnli":
+        # matched and mismatched, as the reference's final mnli-mm pass
+        mm = eval_cls_glue(fwd, params, args.task,
+                           _glue_loader(args, tokenizer, split="validation_mismatched"),
+                           is_regression=False, num_samples=args.num_samples)
+        results.update({f"{k}_mm": v for k, v in mm.items()})
+    save_results(args, results, "eval_cls")
+    return results
 
 
 def _eval_lm(args, name: str) -> dict:

@@ -1,38 +1,35 @@
 """Dataset pipelines and numpy batch loaders (counterpart of the JAX
-package's ``datasets/``). This slice ports the language-modelling path:
-Wikitext2 and its synthetic stand-in. HF ``datasets`` is imported only to
-load the raw corpus (from its cache or the network); the GLUE tasks wait
-for the classification slice."""
+package's ``datasets/``): the GLUE tasks and Wikitext2, and their synthetic
+stand-ins. HF ``datasets`` is imported only to load a raw corpus (from its
+cache or the network)."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from .glue import TASK_TO_KEYS, get_num_labels, is_regression_task, preprocess_glue
 from .wikitext2 import preprocess_wikitext2
-
-GLUE_TASKS = ("cola", "mnli", "mrpc", "qnli", "qqp", "rte", "sst2", "stsb", "wnli")
-
-
-def _check_name(name: str):
-    if name in GLUE_TASKS:
-        raise NotImplementedError(f"the GLUE dataset {name!r} is not ported yet")
-    if name != "wikitext2":
-        raise ValueError(f"Unknown dataset: {name}")
 
 
 def get_raw_dataset_dict(name: str):
     """Load the raw HF dataset dict (needs the HF cache or the network)."""
-    _check_name(name)
     from datasets import load_dataset
 
-    return load_dataset("wikitext", "wikitext-2-raw-v1")
+    if name in TASK_TO_KEYS:
+        return load_dataset("glue", name)
+    if name == "wikitext2":
+        return load_dataset("wikitext", "wikitext-2-raw-v1")
+    raise ValueError(f"Unknown dataset: {name}")
 
 
 def preprocess_dataset_dict(raw_dataset_dict, name: str, tokenizer, padding, max_length):
-    """Tokenize and cut into ``max_length`` chunks (``padding`` is the GLUE
-    tasks' and unused here)."""
-    _check_name(name)
-    return preprocess_wikitext2(raw_dataset_dict, tokenizer, max_length)
+    """A GLUE task tokenized (padded per ``padding``), or Wikitext2 cut into
+    ``max_length`` chunks (``padding`` unused)."""
+    if name in TASK_TO_KEYS:
+        return preprocess_glue(raw_dataset_dict, name, tokenizer, padding, max_length)
+    if name == "wikitext2":
+        return preprocess_wikitext2(raw_dataset_dict, tokenizer, max_length)
+    raise ValueError(f"Unknown dataset: {name}")
 
 
 def numpy_dataloader(dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
@@ -59,3 +56,22 @@ def make_synthetic_lm_dataset(vocab_size: int, seq_len: int, num_sequences: int,
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, vocab_size, size=(num_sequences, seq_len), dtype=np.int64)
     return {"input_ids": ids, "attention_mask": np.ones_like(ids), "labels": ids.copy()}
+
+
+def make_synthetic_cls_dataset(vocab_size: int, seq_len: int, num_samples: int,
+                               num_labels: int = 2, seed=0):
+    """Offline stand-in for a GLUE split: token ids in [1, vocab), each row
+    right-padded with 0 from a length in [seq_len // 2, seq_len], uniform
+    labels (the JAX package's stream for a seed)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab_size, size=(num_samples, seq_len), dtype=np.int64)
+    mask = np.ones_like(ids)
+    lengths = rng.integers(seq_len // 2, seq_len + 1, size=num_samples)
+    for i, l in enumerate(lengths):
+        mask[i, l:] = 0
+        ids[i, l:] = 0
+    return {
+        "input_ids": ids,
+        "attention_mask": mask,
+        "labels": rng.integers(0, num_labels, size=num_samples, dtype=np.int64),
+    }

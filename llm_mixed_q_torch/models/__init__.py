@@ -1,7 +1,9 @@
 """Model registry (counterpart of the JAX package's ``models/__init__.py``):
 model functions, config classes, parameter loaders, PTQ preparers and
-packers by arch. Ported: Llama and OPT, the causal-LM task ``lm``; any
-other arch or task raises ``NotImplementedError`` naming it."""
+packers by arch. Ported: Llama and OPT, with the causal-LM task ``lm``
+and the sequence-classification task ``cls``, and OPT's span
+question-answering task ``qa``; any other arch or task raises
+``NotImplementedError`` naming it."""
 
 from __future__ import annotations
 
@@ -9,13 +11,24 @@ from .hf_loader import llama_params_from_flat, opt_params_from_flat
 from .llama import (
     LlamaQuantizedConfig,
     llama_for_causal_lm,
+    llama_for_sequence_classification,
     pack_llama_params,
     quantize_llama_params_ptq,
 )
-from .opt import OPTQuantizedConfig, opt_for_causal_lm, quantize_opt_params_ptq
+from .opt import (
+    OPTQuantizedConfig,
+    opt_for_causal_lm,
+    opt_for_question_answering,
+    opt_for_sequence_classification,
+    quantize_opt_params_ptq,
+)
 from .opt.pack import pack_opt_params
 
-MODEL_FN_MAP = {"llama": {"lm": llama_for_causal_lm}, "opt": {"lm": opt_for_causal_lm}}
+MODEL_FN_MAP = {
+    "llama": {"cls": llama_for_sequence_classification, "lm": llama_for_causal_lm},
+    "opt": {"cls": opt_for_sequence_classification, "lm": opt_for_causal_lm,
+            "qa": opt_for_question_answering},
+}
 CONFIG_MAP = {"llama": LlamaQuantizedConfig, "opt": OPTQuantizedConfig}
 PARAMS_LOADER_MAP = {"llama": llama_params_from_flat, "opt": opt_params_from_flat}
 PTQ_PREPARE_MAP = {"llama": quantize_llama_params_ptq, "opt": quantize_opt_params_ptq}

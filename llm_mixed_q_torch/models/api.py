@@ -14,14 +14,14 @@ def make_forward(arch: str, task: str, config, quantize_weights: bool = True,
 
     model_fn = get_model_fn(arch, task)
 
-    def run(params, input_ids, attention_mask, labels=None):
-        out = model_fn(params, input_ids, attention_mask, labels=labels, config=config,
-                       quantize_weights=quantize_weights)
+    def run(params, input_ids, attention_mask, **labels):
+        out = model_fn(params, input_ids, attention_mask, config=config,
+                       quantize_weights=quantize_weights, **labels)
         return {k: v for k, v in out.items() if k != "past_kvs"}
 
     if with_labels:
         def fwd(params, input_ids, attention_mask, labels):
-            return run(params, input_ids, attention_mask, labels)
+            return run(params, input_ids, attention_mask, labels=labels)
     else:
         def fwd(params, input_ids, attention_mask=None):
             return run(params, input_ids, attention_mask)

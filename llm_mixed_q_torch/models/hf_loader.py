@@ -4,11 +4,15 @@ parts of the JAX package's ``models/hf_loader.py``).
 - ``init_llama_params`` / ``init_opt_params``: random weights from a
   ``torch.Generator``, made on the target device one layer at a time; with
   ``pack=`` each layer is packed as soon as it exists, so a 7B model never
-  holds all its float32 weights at once.
+  holds all its float32 weights at once. The task head (``lm_head``, the
+  ``cls`` task's ``score`` or OPT's ``qa`` task's ``qa_outputs``) is drawn
+  last, so one seed gives every task the same backbone.
 - ``load_flat_state_dict``: the ``{hf_name: tensor}`` dict of a local
   checkpoint directory (safetensors or ``pytorch_model*.bin``).
 - ``llama_params_from_flat`` / ``opt_params_from_flat``: such a flat dict
-  (numpy or torch values) as the port's Llama / OPT tree.
+  (numpy or torch values) as the port's Llama / OPT tree, for the tasks
+  ``lm`` and ``cls`` (and OPT's ``qa``); a checkpoint without
+  ``score.weight`` gets a zero ``score``, as in the JAX package.
 - ``params_from_jax``: the JAX package's parameter tree, given as numpy
   arrays (``jax.tree.map(np.asarray, params)``), as the port's tree. Packed
   nodes (``PackedBFP``, ``PackedBFPSub``, ``PackedBFPSubT``) keep their
@@ -27,6 +31,13 @@ from .. import resolve_device
 from ..kernels.packing import PACKED_TYPES
 
 _PACKED_BY_NAME = {cls.__name__: cls for cls in PACKED_TYPES}
+TASKS = {"llama": ("lm", "cls"), "opt": ("lm", "cls", "qa")}
+
+
+def _check_task(arch: str, task: str):
+    if task not in TASKS[arch]:
+        raise NotImplementedError(f"task {task!r} of {arch} is not ported "
+                                  f"(ported: {list(TASKS[arch])})")
 
 
 def tree_map_tensors(fn, tree):
@@ -45,14 +56,14 @@ def tree_map_tensors(fn, tree):
 @torch.no_grad()
 def init_llama_params(config, task: str = "lm", seed: int = 0, device=None,
                       pack: dict | None = None) -> dict:
-    """Random-init parameter dict: N(0, 0.02) linear and embedding weights,
-    unit norms. ``pack``: keyword arguments of ``pack_llama_params``
+    """Random-init parameter dict: N(0, 0.02) linear and embedding weights
+    (``lm_head``, or ``score`` [num_labels, hidden] for ``cls``), unit
+    norms. ``pack``: keyword arguments of ``pack_llama_params``
     (``subbyte``, ``fuse``, ``bf16_embed``) to pack each layer as it is
     made."""
     from .llama.pack import pack_llama_layer, pack_llama_params
 
-    if task != "lm":
-        raise NotImplementedError("only the causal-LM head is ported")
+    _check_task("llama", task)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -92,8 +103,11 @@ def init_llama_params(config, task: str = "lm", seed: int = 0, device=None,
         "embed_tokens": {"weight": w(v, h)},
         "layers": layers,
         "norm": {"weight": ones(h)},
-        "lm_head": {"weight": w(v, h)},
     }
+    if task == "lm":
+        params["lm_head"] = {"weight": w(v, h)}
+    else:
+        params["score"] = {"weight": w(config.num_labels, h)}
     if bf16_embed:
         params = pack_llama_params(params, config, bf16_embed=True,
                                    device=device, **pack)
@@ -105,13 +119,14 @@ def init_opt_params(config, task: str = "lm", seed: int = 0, device=None,
                     pack: dict | None = None) -> dict:
     """Random-init OPT parameter dict, the tree of ``opt_params_from_flat``:
     N(0, 0.02) weights and embeddings, zero biases, unit layer norms; with a
-    ``word_embed_proj_dim`` other than ``hidden_size`` also project_in/out.
+    ``word_embed_proj_dim`` other than ``hidden_size`` also project_in/out;
+    the ``cls`` task's ``score`` [num_labels, word_embed_proj_dim], the
+    ``qa`` task's ``qa_outputs`` [2, word_embed_proj_dim] with a zero bias.
     ``pack``: keyword arguments of ``pack_opt_params`` (``subbyte``) to pack
     each layer as it is made."""
     from .opt.pack import pack_opt_layer
 
-    if task != "lm":
-        raise NotImplementedError("only the causal-LM head is ported")
+    _check_task("opt", task)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -149,6 +164,10 @@ def init_opt_params(config, task: str = "lm", seed: int = 0, device=None,
     if d != h:
         params["project_in"] = {"weight": w(h, d)}
         params["project_out"] = {"weight": w(d, h)}
+    if task == "cls":
+        params["score"] = {"weight": w(config.num_labels, d)}
+    elif task == "qa":
+        params["qa_outputs"] = lin(2, d)
     return params
 
 
@@ -193,6 +212,11 @@ class _Flat:
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
         return v.to(device=self.device, dtype=torch.float32)
 
+    def leaf_or_zeros(self, name: str, *shape) -> torch.Tensor:
+        if name in self.flat:
+            return self.leaf(name)
+        return torch.zeros(shape, device=self.device)
+
     def linear(self, prefix: str) -> dict:
         node = {"weight": self.leaf(f"{prefix}.weight")}
         if f"{prefix}.bias" in self.flat:
@@ -204,8 +228,7 @@ def llama_params_from_flat(flat: dict, config, task: str = "lm", device=None) ->
     """HF Llama names (with or without the ``model.`` prefix) -> the port's
     tree, float32 on ``device``. Without ``lm_head.weight`` an untied
     config takes the embedding table as its lm_head."""
-    if task != "lm":
-        raise NotImplementedError("only the causal-LM head is ported")
+    _check_task("llama", task)
     f = _Flat(flat, device)
     pre = "model." if f.prefixed("model.") else ""
     layers = []
@@ -223,7 +246,10 @@ def llama_params_from_flat(flat: dict, config, task: str = "lm", device=None) ->
         "layers": layers,
         "norm": {"weight": f.leaf(pre + "norm.weight")},
     }
-    if "lm_head.weight" in f:
+    if task == "cls":
+        params["score"] = {"weight": f.leaf_or_zeros("score.weight", config.num_labels,
+                                                     config.hidden_size)}
+    elif "lm_head.weight" in f:
         params["lm_head"] = {"weight": f.leaf("lm_head.weight")}
     elif not config.tie_word_embeddings:
         params["lm_head"] = {"weight": f.leaf(pre + "embed_tokens.weight")}
@@ -233,8 +259,7 @@ def llama_params_from_flat(flat: dict, config, task: str = "lm", device=None) ->
 def opt_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> dict:
     """HF OPT names (with or without the ``model.decoder.`` / ``decoder.``
     prefix) -> the port's tree, float32 on ``device``."""
-    if task != "lm":
-        raise NotImplementedError("only the causal-LM head is ported")
+    _check_task("opt", task)
     f = _Flat(flat, device)
     pre = next((c for c in ("model.decoder.", "decoder.") if f.prefixed(c + "embed_tokens.")), "")
     layers = []
@@ -258,8 +283,13 @@ def opt_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> d
     for proj in ("project_in", "project_out"):
         if f"{pre}{proj}.weight" in f:
             params[proj] = {"weight": f.leaf(f"{pre}{proj}.weight")}
-    if "lm_head.weight" in f and not config.tie_word_embeddings:
+    if task == "lm" and "lm_head.weight" in f and not config.tie_word_embeddings:
         params["lm_head"] = {"weight": f.leaf("lm_head.weight")}
+    elif task == "cls":
+        params["score"] = {"weight": f.leaf_or_zeros("score.weight", config.num_labels,
+                                                     config.word_embed_proj_dim)}
+    elif task == "qa":
+        params["qa_outputs"] = f.linear("qa_outputs")
     return params
 
 

@@ -1,5 +1,5 @@
 from .configuration import LlamaQuantizedConfig
-from .modeling import llama_for_causal_lm, llama_model
+from .modeling import llama_for_causal_lm, llama_for_sequence_classification, llama_model
 from .pack import pack_llama_params
 from .prepare import quantize_llama_params_ptq
 from .quant_config import parse_llama_quantized_config

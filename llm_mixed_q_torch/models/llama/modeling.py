@@ -10,7 +10,9 @@ GQA repeats the kv heads. With ``config.attention_chunk`` set, attention
 takes the kv-chunked two-pass path (``ops/attention.py``): the same
 quantized attention in O(S * chunk) memory, for long contexts.
 
-Not ported yet: the sequence-classification head.
+Heads: causal LM and sequence classification. ``remat=True`` recomputes
+each decoder layer in the backward pass (``torch.utils.checkpoint``)
+instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import chunked_quantized_attention
 from ...ops.functions import quantized_apply_rotary_pos_emb, quantized_matmul
@@ -180,7 +183,7 @@ def lm_logits(params, hidden, config):
 
 
 def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
-                quantize_weights: bool = True, position_ids=None):
+                quantize_weights: bool = True, position_ids=None, remat: bool = False):
     """Backbone forward -> (final hidden [b, s, h], per-layer (k, v))."""
     b, q_len = input_ids.shape
     device = input_ids.device
@@ -191,10 +194,11 @@ def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
     if attention_mask is None:
         attention_mask = torch.ones((b, q_len), dtype=torch.int32, device=device)
     mask = make_causal_mask(attention_mask, q_len, q_len, device=device)
+    layer_fn = partial(checkpoint, decoder_layer, use_reentrant=False) if remat else decoder_layer
     new_kvs = []
     for i, layer_params in enumerate(params["layers"]):
-        hidden, new_kv = decoder_layer(layer_params, hidden, mask, position_ids,
-                                       cos, sin, config, i, quantize_weights)
+        hidden, new_kv = layer_fn(layer_params, hidden, mask, position_ids,
+                                  cos, sin, config, i, quantize_weights)
         new_kvs.append(new_kv)
     hidden = rms_norm(hidden, params["norm"]["weight"], config.rms_norm_eps)
     return hidden, new_kvs
@@ -202,10 +206,11 @@ def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
 
 def llama_for_causal_lm(params, input_ids, attention_mask=None, labels=None,
                         config: LlamaQuantizedConfig = None,
-                        quantize_weights: bool = True, position_ids=None):
+                        quantize_weights: bool = True, position_ids=None,
+                        remat: bool = False):
     """-> dict(logits=[b, s, vocab] float32, past_kvs=[(k, v)], loss=...)."""
     hidden, new_kvs = llama_model(params, input_ids, attention_mask, config,
-                                  quantize_weights, position_ids)
+                                  quantize_weights, position_ids, remat)
     out = {"logits": lm_logits(params, hidden, config), "past_kvs": new_kvs}
     if labels is not None:
         out["loss"] = causal_lm_loss(out["logits"], labels)
@@ -217,3 +222,37 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     return F.cross_entropy(
         logits[:, :-1].reshape(-1, logits.shape[-1]).to(torch.float32),
         labels[:, 1:].reshape(-1).long(), ignore_index=ignore_index)
+
+
+def pooled_index(input_ids, pad_token_id):
+    """The row each sequence is pooled at: the count of its non-pad ids
+    less one, clamped at 0 (a count, not the last non-pad position: a pad
+    id inside a sequence moves it), or the last position when the model
+    has no pad id."""
+    b, s = input_ids.shape
+    if pad_token_id is None:
+        return torch.full((b,), s - 1, dtype=torch.int64, device=input_ids.device)
+    return ((input_ids != pad_token_id).sum(-1) - 1).clamp_min(0)
+
+
+def sequence_classification_head(params, hidden, input_ids, labels, config):
+    """``score`` on every position, pooled at ``pooled_index``; the loss is
+    the MSE for one label (regression), else the float32 cross-entropy."""
+    logits = torch.matmul(hidden, params["score"]["weight"].t())
+    rows = torch.arange(input_ids.shape[0], device=input_ids.device)
+    pooled = logits[rows, pooled_index(input_ids, config.pad_token_id)]
+    out = {"logits": pooled}
+    if labels is not None:
+        if config.num_labels == 1:
+            out["loss"] = (pooled.squeeze(-1) - labels).square().mean()
+        else:
+            out["loss"] = F.cross_entropy(pooled.to(torch.float32), labels.long())
+    return out
+
+
+def llama_for_sequence_classification(params, input_ids, attention_mask=None, labels=None,
+                                      config: LlamaQuantizedConfig = None,
+                                      quantize_weights: bool = True):
+    """-> dict(logits=[b, num_labels] float32, loss=...)."""
+    hidden, _ = llama_model(params, input_ids, attention_mask, config, quantize_weights)
+    return sequence_classification_head(params, hidden, input_ids, labels, config)

@@ -1,5 +1,10 @@
 from .configuration import OPTQuantizedConfig
-from .modeling import opt_for_causal_lm, opt_model
+from .modeling import (
+    opt_for_causal_lm,
+    opt_for_question_answering,
+    opt_for_sequence_classification,
+    opt_model,
+)
 from .prepare import quantize_opt_params_ptq
 from .quant_config import parse_opt_quantized_config
 from .serving import generate as opt_generate

@@ -13,7 +13,9 @@ pre- or post-LN per ``do_layer_norm_before``; optional project_in/out.
 ``jax.nn.gelu`` default has it (the reference's transformers mapping uses
 the exact erf GELU there; the port follows the JAX package).
 
-Not ported yet: the sequence-classification and question-answering heads.
+Heads: causal LM, sequence classification (``score`` on the
+``word_embed_proj_dim``-wide output, pooled at ``pooled_index``) and span
+question answering (``qa_outputs``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from ...ops.functions import quantized_matmul
 from ...ops.linear import quantized_linear
-from ..llama.modeling import causal_lm_loss, make_causal_mask
+from ..llama.modeling import causal_lm_loss, make_causal_mask, sequence_classification_head
 from .configuration import OPTQuantizedConfig
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -196,4 +198,32 @@ def opt_for_causal_lm(params, input_ids, attention_mask=None, labels=None,
     out = {"logits": lm_logits(params, hidden), "past_kvs": new_kvs}
     if labels is not None:
         out["loss"] = causal_lm_loss(out["logits"], labels)
+    return out
+
+
+def opt_for_sequence_classification(params, input_ids, attention_mask=None, labels=None,
+                                    config: OPTQuantizedConfig = None,
+                                    quantize_weights: bool = True):
+    """-> dict(logits=[b, num_labels] float32, loss=...)."""
+    hidden, _ = opt_model(params, input_ids, attention_mask, config, quantize_weights)
+    return sequence_classification_head(params, hidden, input_ids, labels, config)
+
+
+def _span_ce(logits, positions):
+    return F.cross_entropy(logits.to(torch.float32), positions.long())
+
+
+def opt_for_question_answering(params, input_ids, attention_mask=None, start_positions=None,
+                               end_positions=None, config: OPTQuantizedConfig = None,
+                               quantize_weights: bool = True):
+    """Span QA head -> dict(start_logits, end_logits [b, t], loss=the mean
+    of the two positions' cross-entropies)."""
+    hidden, _ = opt_model(params, input_ids, attention_mask, config, quantize_weights)
+    node = params["qa_outputs"]
+    logits = torch.matmul(hidden, node["weight"].t()) + node["bias"]
+    start_logits, end_logits = logits[..., 0], logits[..., 1]
+    out = {"start_logits": start_logits, "end_logits": end_logits}
+    if start_positions is not None and end_positions is not None:
+        out["loss"] = (_span_ce(start_logits, start_positions)
+                       + _span_ce(end_logits, end_positions)) / 2
     return out

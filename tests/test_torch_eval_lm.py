@@ -163,8 +163,8 @@ def test_registry():
         assert jax_model_fn(arch, "lm").__name__ == fn
     with pytest.raises(NotImplementedError, match="bert"):
         port_models.get_model_fn("bert", "cls")
-    with pytest.raises(NotImplementedError, match="'cls' of llama"):
-        port_models.get_model_fn("llama", "cls")
+    with pytest.raises(NotImplementedError, match="'qa' of llama"):
+        port_models.get_model_fn("llama", "qa")
     with pytest.raises(NotImplementedError, match="bert"):
         port_models.get_params_loader("bert")
 
@@ -180,11 +180,11 @@ def test_make_forward_drops_the_kv_caches():
 
 
 def test_dataset_names():
-    """GLUE waits for the classification slice; other names are unknown."""
-    with pytest.raises(NotImplementedError, match="sst2"):
-        port_datasets.get_raw_dataset_dict("sst2")
-    with pytest.raises(NotImplementedError, match="mnli"):
-        port_datasets.preprocess_dataset_dict({}, "mnli", None, "max_length", 8)
+    """The GLUE tasks and wikitext2 are known (GLUE's pipeline is held in
+    tests/test_torch_cls.py); other names are unknown."""
+    assert set(port_datasets.TASK_TO_KEYS) == set(jax_datasets.TASK_TO_KEYS)
+    with pytest.raises(ValueError, match="Unknown"):
+        port_datasets.preprocess_dataset_dict({}, "c4", None, "max_length", 8)
     with pytest.raises(ValueError, match="Unknown"):
         port_datasets.get_raw_dataset_dict("c4")
 
@@ -248,7 +248,7 @@ def test_load_checkpoint_matches_jax(checkpoint, tmp_path):
     np.testing.assert_array_equal(bare["layers"][1]["mlp"]["down_proj"]["weight"],
                                   jp["layers"][1]["mlp"]["down_proj"]["weight"])
     with pytest.raises(NotImplementedError):
-        llama_params_from_flat(flat, tc, task="cls", device="cpu")
+        llama_params_from_flat(flat, tc, task="qa", device="cpu")
     with pytest.raises(FileNotFoundError):
         load_flat_state_dict(tmp_path / "none")
 

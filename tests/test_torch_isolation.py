@@ -1,8 +1,9 @@
 """The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
 import, it imports (chip_smoke.py, the probes of ``llm_mixed_q_torch.tools``
-and the ``cli``, ``datasets`` and ``eval`` subpackages included) and runs
-Llama and OPT generation, the perplexity path under the new arithmetics
-with chunked attention, and the eight probe entry points on the CPU."""
+and the ``cli``, ``datasets``, ``eval`` and ``train`` subpackages included)
+and runs Llama and OPT generation, the perplexity path under the new
+arithmetics with chunked attention, a QAT step of an OPT classifier, and
+the eight probe entry points on the CPU."""
 
 import subprocess
 import sys
@@ -32,7 +33,24 @@ import chip_smoke  # noqa: F401  (imports only; main() needs a card)
 for info in pkgutil.walk_packages(llm_mixed_q_torch.__path__, "llm_mixed_q_torch."):
     __import__(info.name)
 assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
-        "llm_mixed_q_torch.eval.eval_lm", "llm_mixed_q_torch.ops.attention"} <= set(sys.modules)
+        "llm_mixed_q_torch.eval.eval_lm", "llm_mixed_q_torch.ops.attention",
+        "llm_mixed_q_torch.train.qat", "llm_mixed_q_torch.cli.train_cli",
+        "llm_mixed_q_torch.eval.eval_cls", "llm_mixed_q_torch.eval.metrics",
+        "llm_mixed_q_torch.datasets.glue"} <= set(sys.modules)
+
+from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
+from llm_mixed_q_torch.models.hf_loader import init_opt_params as init_opt
+from llm_mixed_q_torch.models.opt import OPTQuantizedConfig as OptConfig
+from llm_mixed_q_torch.train import train_qat
+
+cfg = OptConfig(vocab_size=64, hidden_size=64, ffn_dim=128, num_hidden_layers=1,
+                num_attention_heads=4, word_embed_proj_dim=32, do_layer_norm_before=False,
+                quant_config="configs/quantization/bfp_4bit.toml")
+p0 = init_opt(cfg, task="cls", seed=0, device="cpu")
+p1, hist = train_qat("opt", "cls", cfg, p0,
+                     lambda: numpy_dataloader(make_synthetic_cls_dataset(64, 16, 2), 2),
+                     learning_rate=1e-3, steps_per_epoch=1)
+assert np.isfinite(hist[0]["loss"]) and not torch.equal(p1["score"]["weight"], p0["score"]["weight"])
 
 from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset, numpy_dataloader
 from llm_mixed_q_torch.eval import eval_lm_wikitext2
