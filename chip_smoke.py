@@ -11,6 +11,7 @@
     python3 chip_smoke.py --probes-only   # build, then the probe phase (9) only
     python3 chip_smoke.py --ppl-only      # the perplexity phase (7) only (no build)
     python3 chip_smoke.py --qat-only      # the QAT phase (8) only (no build)
+    python3 chip_smoke.py --tail-only     # build, then the serving-tail and BERT phase (10) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -126,12 +127,45 @@
    ``ktune7b.run``, ``k3.run``, ``kexp.run``)
    with the launch counters set to 0 before each and read after it. The
    probe rows' ``ms`` come from those runs (``band_sum``'s from a call of
-   its own); every serving path above launches no probe.
+   its own); every serving path above launches no probe;
+10. the serving tail and BERT (``--tail-only``): (1) at Llama-2-7B widths
+   cut to 4 layers, ``make_prefill_and_decode`` (batch 8, prefill 32, 16
+   decode steps on float k/v caches): float32 stitched logits against the
+   full forward (rtol/atol 2e-4); W6A6 on sub-byte packed weights (K1, the
+   launch counters around the run), against the plain path (within
+   5e-2 of max|logit|: a float32 sum in another order flips a 6-bit
+   rounding now and then) and the full forward (the gap logged: matmul_0
+   quantizes k^T in blocks of positions that the full forward fills with
+   later tokens), its ms a decode step; ``generate_greedy`` equal to
+   ``generate`` at temperature 0; ``ContinuousBatcher.warmup`` on the
+   batcher of run_llama's shape (int8 weights, head-major cache: K2 +
+   ``actq_split`` + K5), its seconds and launches, the admissions' ms
+   after it, every output equal to a batcher's without it;
+   ``pack_llama_params_host`` against ``pack_llama_params`` on the card
+   (2 layers, both formats): every packed leaf bit-equal, seconds a layer,
+   the native engine's calls, the bytes moved; the incremental path card
+   against CPU at 2 layers of Llama-2-7B and OPT-6.7B widths (float32
+   within 1e-4 of max|logit|, W6A6 packed within 5e-2); (2) BERT-base as
+   ``bert-base-uncased``'s config.json has it, random weights (seed 0), a
+   2-label head, W4A4 ``bfp_4bit.toml``, batch 2 x 128: the PTQ
+   forward card against CPU (bypass within 1e-4 of max|logit|, bfp_4bit
+   within 0.66, the perplexity phase's largest quantized-arm gap); packed
+   at 256 rows, sub-byte (K1) and int8 (K2 + ``actq_split``), each with the launch
+   counters around it, against the plain path (5e-2) and the plain path
+   against the fake-quant forward (rtol/atol 5e-4, the CPU test's), forward
+   ms of each, a profiled K1 forward; K1 and K2 at BERT's three shapes and
+   256 rows against their plain versions (1e-4 of max|y|) with their ms and
+   bounds; ``eval_cls_glue`` (sst2) through ``cli_eval_cls_glue``'s
+   ``build_model`` on the synthetic stream, 256 samples at batch 8, PTQ and
+   packed (1024 rows a batch: the unpack + matmul route, no kernel); each
+   of the eight heads once, finite. Its results are the ``{"tail": ...}``
+   line.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line, the QAT phase's the one before it and the perplexity phase's the
-one before that. Imports nothing of JAX.
+line, the serving-tail phase's the one before it, the QAT phase's the one
+before that and the perplexity phase's the one before that. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -681,6 +715,15 @@ PATHS = {
     "opt_generate_lane_major": ("bfp_matmul_subbyte", "actq_split"),
     "ppl": (),  # the perplexity phase: fake quantization, no Hopper kernel
     "qat": (),  # the QAT phase: fake quantization and its backward, no Hopper kernel
+    # phase 10: make_prefill_and_decode on sub-byte weights (float k/v caches:
+    # no attention kernel), the batcher's warmup (int8 weights, head-major
+    # cache), BERT-base packed at 256 rows both ways, and its GLUE eval at
+    # 1024 rows a batch (the unpack + matmul route)
+    "prefill_and_decode": ("bfp_matmul_subbyte_t",),
+    "warmup": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
+    "bert_packed_t": ("bfp_matmul_subbyte_t",),
+    "bert_packed_int8": ("bfp_matmul_int8", "actq_split"),
+    "bert_eval": (),
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
@@ -2171,6 +2214,527 @@ def run_probes(peaks, flush, probes_lib):
     return rows, counts
 
 
+# the serving-tail and BERT phase (10); its device is a name of its own so
+# that the phase can be rehearsed on the CPU with the plain versions
+TAIL_DEVICE = "cuda"
+TAIL_LAYERS, TAIL_CPU_LAYERS = 4, 2  # depth cut: 4 layers on the card, 2 against the CPU
+TAIL_PREFILL, TAIL_STEPS, TAIL_CPU_STEPS = 32, 16, 2
+# BERT-base as published in bert-base-uncased's config.json, with a 2-label head
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12, hidden_act="gelu", num_labels=2)
+BERT_BATCH, BERT_SEQ = 2, 128  # 256 rows: the most rows bfp_matmul sends to the kernels
+BERT_SHAPES = {"attention": (768, 768), "intermediate": (3072, 768), "output": (768, 3072)}
+BERT_ACTQ = (16, 4, 8, 127)  # data_in block_fp of bfp_4bit.toml
+BERT_EVAL_SAMPLES, BERT_EVAL_BATCH = 256, 8
+BERT_TASKS = ("cls", "mlm", "clm", "nsp", "pretrain", "mc", "token", "qa")
+# quantized logits of two float32 orders: a sum in another order flips a
+# rounding of a re-quantized activation now and then (run_llama's decode gate)
+QUANT_GATE = 5e-2
+# the largest quantized-arm logit gap, card against CPU, that the perplexity
+# phase's 2-layer forwards have shown (PERF.md §6)
+PPL_QUANT_GAP = 0.66
+
+
+def _rel(got, want):
+    """max|got - want| / max|want|, both on one device."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _stitch(prefill, decode, params, ids, mask, steps):
+    """Prefill TAIL_PREFILL tokens, then decode ``steps`` one at a time.
+    -> (stitched logits [b, TAIL_PREFILL + steps, vocab], ms a decode step)"""
+    logits, kvs = prefill(params, ids[:, :TAIL_PREFILL], mask[:, :TAIL_PREFILL])
+    outs = [logits]
+    _sync()
+    t0 = time.perf_counter()
+    for t in range(TAIL_PREFILL, TAIL_PREFILL + steps):
+        logits, kvs = decode(params, ids[:, t:t + 1], mask[:, :t + 1], kvs)
+        outs.append(logits)
+    _sync()
+    return torch.cat(outs, 1), (time.perf_counter() - t0) / steps * 1e3
+
+
+def _sync():
+    if TAIL_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _on(tree, device):
+    from llm_mixed_q_torch.models.hf_loader import tree_map_tensors
+
+    return tree_map_tensors(lambda t: t.to(device), tree)
+
+
+def _tail_inputs(n_steps, vocab):
+    """Ids [8, TAIL_PREFILL + n_steps]; row 1 right-padded in the prefill."""
+    rng = np.random.default_rng(SEED + 10)
+    ids = torch.as_tensor(rng.integers(2, vocab, (BATCH, TAIL_PREFILL + n_steps)),
+                          device=TAIL_DEVICE)
+    mask = torch.ones_like(ids)
+    mask[1, 20:TAIL_PREFILL] = 0
+    return ids, mask
+
+
+def tail_incremental():
+    """Part 1a: ``make_prefill_and_decode`` at Llama-2-7B widths, 4 layers:
+    float32 stitched against the full forward (rtol/atol 2e-4); W6A6 on
+    sub-byte packed weights (K1) with the launch counters around it,
+    against the plain path and the full forward (gaps), ms a decode step;
+    ``generate_greedy`` against ``generate``. -> (results, launch counts)"""
+    from llm_mixed_q_torch.models.api import make_forward, make_prefill_and_decode
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import generate, generate_greedy
+
+    out = {}
+    ids, mask = _tail_inputs(TAIL_STEPS, VOCAB)
+    rows = mask.bool()
+    cfg32 = _qat_config("llama", TAIL_LAYERS, "bypass")
+    p32 = init_llama_params(cfg32, seed=SEED, device=TAIL_DEVICE)
+    prefill, decode = make_prefill_and_decode("llama", "lm", cfg32)
+    stitched, out["fp32_decode_step_ms"] = _stitch(prefill, decode, p32, ids, mask, TAIL_STEPS)
+    full = make_forward("llama", "lm", cfg32)(p32, ids, mask)["logits"]
+    check(torch.allclose(stitched[rows], full[rows], rtol=2e-4, atol=2e-4),
+          f"fp32 stitched logits differ from the full forward: {_rel(stitched[rows], full[rows])}")
+    out["fp32_stitched_vs_full"] = _rel(stitched[rows], full[rows])
+    del p32, full, stitched
+    torch.cuda.empty_cache()
+
+    cfg = _qat_config("llama", TAIL_LAYERS, "bfp_6bit")
+    sub = init_llama_params(cfg, seed=SEED, device=TAIL_DEVICE,
+                            pack=dict(subbyte=True, bf16_embed=True))
+    prefill, decode = make_prefill_and_decode("llama", "lm", cfg)
+    _stitch(prefill, decode, sub, ids, mask, 2)  # first use of each shape
+    reset_all_launch_counts()
+    stitched, out["decode_step_ms"] = _stitch(prefill, decode, sub, ids, mask, TAIL_STEPS)
+    counts = {"prefill_and_decode": all_launch_counts()}
+    with plain_path():
+        plain, out["plain_decode_step_ms"] = _stitch(prefill, decode, sub, ids, mask, TAIL_STEPS)
+    out["kernel_vs_plain"] = _rel(stitched[rows], plain[rows])
+    check(out["kernel_vs_plain"] <= QUANT_GATE,
+          f"W6A6 stitched logits, kernels against plain: {out['kernel_vs_plain']}")
+    full = make_forward("llama", "lm", cfg)(sub, ids, mask)["logits"]
+    out["w6a6_stitched_vs_full"] = _rel(stitched[rows], full[rows])
+    out["argmax_agreement_vs_full"] = (stitched[rows].argmax(-1) == full[rows].argmax(-1)
+                                       ).float().mean().item()
+    log(f"  make_prefill_and_decode, Llama-2-7B widths, {TAIL_LAYERS} layers, batch {BATCH}, "
+        f"prefill {TAIL_PREFILL} + {TAIL_STEPS} steps: fp32 stitched vs full forward "
+        f"{out['fp32_stitched_vs_full']:.3e} of max|logit| (fp32 step "
+        f"{out['fp32_decode_step_ms']:.2f} ms); W6A6 sub-byte decode step "
+        f"{out['decode_step_ms']:.2f} ms (plain path {out['plain_decode_step_ms']:.2f}), "
+        f"kernels vs plain {out['kernel_vs_plain']:.3e}, stitched vs full forward "
+        f"{out['w6a6_stitched_vs_full']:.3e} (argmax agreement "
+        f"{out['argmax_agreement_vs_full']:.3f}; matmul_0 quantizes k^T in blocks of positions)")
+    del full, plain, stitched
+    prompts, pmask = ids[:, :TAIL_PREFILL].cpu().numpy(), mask[:, :TAIL_PREFILL].cpu().numpy()
+    greedy = generate_greedy(sub, cfg, prompts, pmask, 8, 64, device=TAIL_DEVICE)
+    check(np.array_equal(greedy, generate(sub, cfg, prompts, pmask, max_new_tokens=8, max_len=64,
+                                          temperature=0.0, device=TAIL_DEVICE)),
+          "generate_greedy differs from generate at temperature 0")
+    del sub
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def tail_warmup():
+    """Part 1b: ``ContinuousBatcher.warmup`` on the 7B batcher of run_llama's
+    shape (8 slots, max_len 512, head-major cache, int8 weights: K2 +
+    actq_split + K5), 4 layers: its seconds and launches; the admissions'
+    ms after it; every output equal to a batcher's without it.
+    -> (results, launch counts)"""
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import ContinuousBatcher
+
+    cfg = _qat_config("llama", TAIL_LAYERS, "bfp_6bit")
+    int8 = init_llama_params(cfg, seed=SEED, device=TAIL_DEVICE,
+                             pack=dict(subbyte=False, bf16_embed=True))
+    prompts, _, _ = ragged_prompts(np.random.default_rng(SEED + 11), 16, VOCAB)
+    out, counts = {}, {}
+
+    def serve(warm):
+        srv = ContinuousBatcher(int8, cfg, num_slots=8, max_len=512, max_new_tokens=32,
+                                prompt_bucket=32, device=TAIL_DEVICE)
+        check(not srv.cache.pos_major, "the 7B batcher's cache is not head-major")
+        admits, admit = [], srv._admit
+
+        def timed_admit():
+            queued = len(srv._queue)
+            _sync()
+            t0 = time.perf_counter()
+            admit()
+            _sync()
+            if len(srv._queue) < queued:
+                admits.append((time.perf_counter() - t0) * 1e3)
+
+        srv._admit = timed_admit
+        if warm:
+            reset_all_launch_counts()
+            _sync()
+            t0 = time.perf_counter()
+            srv.warmup()
+            _sync()
+            out["warmup_s"] = time.perf_counter() - t0
+            counts["warmup"] = all_launch_counts()
+            live = [t for f in srv.cache[:4] for t in f] + [srv._positions, srv._last_tok]
+            check(all(int(t.count_nonzero()) == 0 for t in live),
+                  "warmup wrote into the live state")
+        for p in prompts:
+            srv.submit(p)
+        return srv.run(), admits
+
+    warm_out, out["admission_ms"] = serve(True)
+    cold_out, out["admission_ms_without_warmup"] = serve(False)
+    check(warm_out == cold_out, "an output with warmup differs from the output without it")
+    log(f"  ContinuousBatcher.warmup (7B widths, {TAIL_LAYERS} layers, 8 slots, max_len 512, "
+        f"head-major, int8): {out['warmup_s']:.2f} s for 16 buckets and a decode chunk; "
+        f"admissions after it {[round(a, 2) for a in out['admission_ms']]} ms, without it "
+        f"{[round(a, 2) for a in out['admission_ms_without_warmup']]} ms; outputs equal")
+    del int8
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _tree_nbytes(tree):
+    from llm_mixed_q_torch.models.hf_loader import tree_map_tensors
+
+    sizes = []
+    tree_map_tensors(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
+
+
+def _trees_equal(a, b):
+    from llm_mixed_q_torch.models.hf_loader import tree_map_tensors
+
+    la, lb = [], []
+    tree_map_tensors(la.append, a)
+    tree_map_tensors(lb.append, b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def tail_host_and_cpu():
+    """Part 1c: ``pack_llama_params_host`` against ``pack_llama_params`` on
+    the card, from one float tree on the host (Llama-2-7B widths, 2
+    layers): every packed leaf bit-equal, seconds a layer, the native
+    engine's calls, the bytes moved. Part 1d: the incremental path card
+    against CPU at 2 layers, Llama and OPT-6.7B widths: float32 within 1e-4
+    of max|logit|, W6A6 packed within QUANT_GATE. -> results"""
+    from llm_mixed_q_torch.models.api import make_prefill_and_decode
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params, init_opt_params
+    from llm_mixed_q_torch.models.llama import pack_llama_params, pack_llama_params_host
+    from llm_mixed_q_torch.models.opt.pack import pack_opt_params
+    from llm_mixed_q_torch.native import native_calls, reset_native_calls
+
+    out = {"host_pack": {}, "card_vs_cpu": {}}
+    cfg = _qat_config("llama", TAIL_CPU_LAYERS, "bfp_6bit")
+    host_tree = init_llama_params(cfg, seed=SEED, device="cpu")
+    float_bytes = _tree_nbytes(host_tree)
+    packed = {}
+    for subbyte in (True, False):
+        kw = dict(subbyte=subbyte, bf16_embed=True, device=TAIL_DEVICE)
+        reset_native_calls()
+        t0 = time.perf_counter()
+        host = pack_llama_params_host(host_tree, cfg, **kw)
+        _sync()
+        t_host = time.perf_counter() - t0
+        calls = native_calls()
+        t0 = time.perf_counter()
+        dev = pack_llama_params(host_tree, cfg, **kw)
+        _sync()
+        t_dev = time.perf_counter() - t0
+        check(calls > 0, "the native pack engine was not used")
+        check(_trees_equal(host, dev), f"host-packed leaves differ from device-packed (subbyte "
+                                       f"{subbyte})")
+        name = "subbyte" if subbyte else "int8"
+        out["host_pack"][name] = {
+            "host_s_a_layer": t_host / TAIL_CPU_LAYERS, "device_s_a_layer": t_dev / TAIL_CPU_LAYERS,
+            "native_calls": calls, "bytes_moved": _tree_nbytes(host), "float_bytes": float_bytes}
+        log(f"  pack_llama_params_host ({name}, 7B widths, {TAIL_CPU_LAYERS} layers, embeddings "
+            f"included): {t_host / TAIL_CPU_LAYERS:.2f} s a layer, {calls} native calls, "
+            f"{_tree_nbytes(host) / 1e9:.3f} GB moved (float32 tree {float_bytes / 1e9:.3f} GB); "
+            f"pack_llama_params on the card {t_dev / TAIL_CPU_LAYERS:.2f} s a layer; every "
+            f"leaf bit-equal")
+        packed[name] = host
+        del dev
+    packed = packed["subbyte"]
+    torch.cuda.empty_cache()
+
+    def card_vs_cpu(arch, label, cfg, card_tree, gate):
+        prefill, decode = make_prefill_and_decode(arch, "lm", cfg)
+        vocab = cfg.vocab_size
+        ids, mask = _tail_inputs(TAIL_CPU_STEPS, vocab)
+        got, _ = _stitch(prefill, decode, card_tree, ids, mask, TAIL_CPU_STEPS)
+        want, _ = _stitch(prefill, decode, _on(card_tree, "cpu"), ids.cpu(), mask.cpu(),
+                          TAIL_CPU_STEPS)
+        rows = mask.cpu().bool()
+        gap = _rel(got.cpu()[rows], want[rows])
+        out["card_vs_cpu"][label] = gap
+        log(f"  incremental {label}, {TAIL_CPU_LAYERS} layers, card vs CPU: {gap:.3e} of "
+            f"max|logit| (gate {gate})")
+        check(gap <= gate, f"{label}: card and CPU differ by {gap}")
+
+    card_vs_cpu("llama", "llama_w6a6_subbyte", cfg, packed, QUANT_GATE)
+    del packed
+    card_vs_cpu("llama", "llama_fp32", _qat_config("llama", TAIL_CPU_LAYERS, "bypass"),
+                _on(host_tree, TAIL_DEVICE), 1e-4)
+    del host_tree
+    torch.cuda.empty_cache()
+    opt_cfg = _ppl_config("opt", TAIL_CPU_LAYERS, "bfp_6bit")
+    opt_tree = init_opt_params(opt_cfg, seed=SEED, device="cpu")
+    card_vs_cpu("opt", "opt_fp32", _ppl_config("opt", TAIL_CPU_LAYERS, "bypass"),
+                _on(opt_tree, TAIL_DEVICE), 1e-4)
+    card_vs_cpu("opt", "opt_w6a6_subbyte", opt_cfg, pack_opt_params(opt_tree, opt_cfg,
+                                                             device=TAIL_DEVICE), QUANT_GATE)
+    del opt_tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_flat(tree):
+    """The port's BERT cls tree under HF BertForSequenceClassification's
+    names (CPU tensors)."""
+    flat = {}
+
+    def put(prefix, node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                put(f"{prefix}{k}.", v)
+            else:
+                flat[prefix + k] = v.cpu().contiguous()
+
+    put("bert.embeddings.", tree["embeddings"])
+    for i, layer in enumerate(tree["layers"]):
+        lp = f"bert.encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            put(f"{lp}attention.self.{n}.", layer["attention"][n])
+        put(f"{lp}attention.output.", layer["attention"]["output"])
+        put(f"{lp}intermediate.", layer["intermediate"])
+        put(f"{lp}output.", layer["output"])
+    put("bert.pooler.", tree["pooler"])
+    put("classifier.", tree["classifier"])
+    return flat
+
+
+def _fwd_ms(fn, reps=5):
+    """Card ms of a call (CUDA events over ``reps`` calls after one)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    _sync()
+    return start.elapsed_time(end) / reps
+
+
+def bert_matmuls(peaks, flush):
+    """K1 and K2 (with its actq_split) at BERT-base's three linear shapes
+    and 256 rows, W4A4 (bfp_4bit): each against its plain version (1e-4 of
+    max|y|), its ms, plain ms, bound (bytes, or operations at the bf16
+    peak) and the bf16 matmul on the pre-dequantized weight.
+    -> {kernel: {shape: row}}"""
+    from llm_mixed_q_torch.kernels.dequant_matmul import (
+        bfp_matmul_cuda, bfp_matmul_plain, bfp_matmul_subbyte_t_cuda)
+    from llm_mixed_q_torch.kernels.packing import (
+        pack_block_fp, pack_block_fp_subbyte_t, packed_nbytes, unpack)
+    from llm_mixed_q_torch.models.pack_common import _k_stride
+    from llm_mixed_q_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device=TAIL_DEVICE).manual_seed(SEED + 12)
+    m = BERT_BATCH * BERT_SEQ
+    res = {"bfp_matmul_subbyte_t": {}, "bfp_matmul_int8": {}}
+    for sname, (n, k) in BERT_SHAPES.items():
+        w = torch.randn((n, k), generator=gen, device=TAIL_DEVICE) * 0.02
+        x = torch.randn((m, k), generator=gen, device=TAIL_DEVICE)
+        for kname, wrapper, packed in (
+                ("bfp_matmul_subbyte_t", bfp_matmul_subbyte_t_cuda,
+                 pack_block_fp_subbyte_t(w, 4, 8, 127, [1, 16])),
+                ("bfp_matmul_int8", bfp_matmul_cuda,
+                 pack_block_fp(w, 4, 8, 127, [1, 16], k_stride=_k_stride(16, k)))):
+            y, ref = wrapper(x, packed, BERT_ACTQ), bfp_matmul_plain(x, packed, BERT_ACTQ)
+            err = _close_to_max(y, ref, 1e-4, f"{kname} BERT {sname} N={n} K={k} M={m}")
+            w_bf16 = unpack(packed, torch.bfloat16)
+            x_bf16 = x.to(torch.bfloat16)
+            b_bytes = (packed_nbytes(packed) + 4 * m * (k + n)) / peaks[0] * 1e3
+            b_ops = 2 * m * n * k / peaks[2] * 1e3
+            row = {"n": n, "k": k, "m": m, "max_abs_err": err,
+                   "ms": cuda_ms(lambda: wrapper(x, packed, BERT_ACTQ), flush=flush),
+                   "plain_ms": cuda_ms(lambda: bfp_matmul_plain(x, packed, BERT_ACTQ), reps=5,
+                                       flush=flush),
+                   "library_ms": cuda_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush=flush),
+                   "bound_ms": max(b_bytes, b_ops),
+                   "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+            res[kname][sname] = row
+            log(f"  {kname} BERT {sname} N={n} K={k} M={m}: max_abs_err={err:.3e} "
+                f"kernel_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f}")
+    return res
+
+
+def tail_bert(peaks, flush):
+    """Part 2, BERT-base (random weights, seed 0; a 2-label head; W4A4
+    bfp_4bit): the PTQ forward card against CPU at 2 x 128; packed
+    sub-byte (K1) and int8 (K2 + actq_split) forwards at 256 rows with the
+    launch counters around each, against the plain path and the fake-quant
+    forward; K1 and K2 at BERT's shapes; the GLUE eval through
+    ``build_model`` on the synthetic stream, PTQ and packed (1024 rows a
+    batch: no kernel); the eight heads once. -> (results, launch counts)"""
+    import argparse
+
+    from llm_mixed_q_torch.cli.common import build_model
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
+    from llm_mixed_q_torch.eval import eval_cls_glue
+    from llm_mixed_q_torch.models.bert import (
+        BertQuantizedConfig, bert_for_sequence_classification, pack_bert_params,
+        quantize_bert_params_ptq)
+    from llm_mixed_q_torch.models import get_model_fn
+    from llm_mixed_q_torch.models.hf_loader import init_bert_params
+
+    out, counts = {"card_vs_cpu": {}, "forward_ms": {}}, {}
+    cfg = BertQuantizedConfig(**BERT_BASE, quant_config=_toml("bfp_4bit"))
+    cfg32 = BertQuantizedConfig(**BERT_BASE)
+    tree = init_bert_params(cfg, task="cls", seed=SEED, device=TAIL_DEVICE)
+    rng = np.random.default_rng(SEED + 13)
+    ids = torch.as_tensor(rng.integers(1, BERT_BASE["vocab_size"], (BERT_BATCH, BERT_SEQ)))
+    mask = torch.ones_like(ids)
+    mask[1, 100:] = 0
+    tt = torch.zeros_like(ids)
+    tt[:, BERT_SEQ // 2:] = 1
+    dev_in = [t.to(TAIL_DEVICE) for t in (ids, mask, tt)]
+
+    def fwd(params, config, inputs=dev_in, **kw):
+        return bert_for_sequence_classification(params, *inputs, config=config, **kw)["logits"]
+
+    with torch.no_grad():
+        # PTQ trees prepared on the card, their bits copied to the CPU (as the
+        # perplexity phase does): the CPU quantizes no weight
+        for label, config, gate in (("bypass", cfg32, 1e-4), ("bfp_4bit", cfg, PPL_QUANT_GAP)):
+            ptq = quantize_bert_params_ptq(tree, config)
+            gap = _rel(fwd(ptq, config, quantize_weights=False).cpu(),
+                       fwd(_on(ptq, "cpu"), config, (ids, mask, tt), quantize_weights=False))
+            out["card_vs_cpu"][label] = gap
+            log(f"  BERT-base fake-quant (PTQ) forward ({label}), card vs CPU: {gap:.3e} of "
+                f"max|logit| (gate {gate})")
+            check(gap <= gate, f"BERT {label}: card and CPU differ by {gap}")
+            del ptq
+        fake = fwd(tree, cfg)
+        out["forward_ms"]["fake_quant"] = _fwd_ms(lambda: fwd(tree, cfg))
+        for path, subbyte in (("bert_packed_t", True), ("bert_packed_int8", False)):
+            packed = pack_bert_params(tree, cfg, subbyte=subbyte, device=TAIL_DEVICE)
+            fwd(packed, cfg, quantize_weights=False)  # first use
+            reset_all_launch_counts()
+            got = fwd(packed, cfg, quantize_weights=False)
+            _sync()
+            counts[path] = all_launch_counts()
+            with plain_path():
+                plain = fwd(packed, cfg, quantize_weights=False)
+            check(torch.allclose(plain, fake, rtol=5e-4, atol=5e-4),
+                  f"{path}: the plain packed forward differs from the fake-quant one")
+            out[path] = {"kernel_vs_plain": _rel(got, plain), "kernel_vs_fake": _rel(got, fake),
+                         "plain_vs_fake": _rel(plain, fake)}
+            check(out[path]["kernel_vs_plain"] <= QUANT_GATE,
+                  f"{path}: kernels against plain {out[path]['kernel_vs_plain']}")
+            out["forward_ms"][path] = _fwd_ms(lambda: fwd(packed, cfg, quantize_weights=False))
+            with plain_path():
+                out["forward_ms"][path + "_plain"] = _fwd_ms(
+                    lambda: fwd(packed, cfg, quantize_weights=False), reps=2)
+            if subbyte:
+                out["profile_packed_t"] = profile_decode(
+                    f"BERT-base packed sub-byte forward, {BERT_BATCH} x {BERT_SEQ}",
+                    lambda i: fwd(packed, cfg, quantize_weights=False), steps=2)
+            log(f"  {path}: {BERT_BATCH} x {BERT_SEQ} forward {out['forward_ms'][path]:.2f} ms "
+                f"(plain path {out['forward_ms'][path + '_plain']:.2f}, fake-quant "
+                f"{out['forward_ms']['fake_quant']:.2f}); logits kernels vs plain "
+                f"{out[path]['kernel_vs_plain']:.3e}, vs fake-quant "
+                f"{out[path]['kernel_vs_fake']:.3e}, plain vs fake-quant "
+                f"{out[path]['plain_vs_fake']:.3e} of max|logit|")
+            del packed
+    out["matmuls"] = bert_matmuls(peaks, flush)
+
+    ckpt = ROOT / "build" / "phase10_bert"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    (ckpt / "config.json").write_text(json.dumps({**BERT_BASE, "model_type": "bert"}))
+    torch.save(_bert_flat(tree), ckpt / "pytorch_model.bin")
+    del tree, fake
+    torch.cuda.empty_cache()
+    ds = make_synthetic_cls_dataset(BERT_BASE["vocab_size"], BERT_SEQ, BERT_EVAL_SAMPLES,
+                                    seed=SEED)
+    out["eval"] = {}
+    reset_all_launch_counts()
+    for label, packed in (("ptq", False), ("packed", True)):
+        args = argparse.Namespace(model_arch="bert", model_name=str(ckpt),
+                                  quant_config=_toml("bfp_4bit"), num_labels=2, packed=packed,
+                                  device=TAIL_DEVICE)
+        _, params, eval_fwd = build_model(args, "cls")
+        _sync()
+        t0 = time.perf_counter()
+        metrics = eval_cls_glue(eval_fwd, params, "sst2",
+                                numpy_dataloader(ds, batch_size=BERT_EVAL_BATCH))
+        _sync()
+        secs = time.perf_counter() - t0
+        check(0.0 <= metrics["accuracy"] <= 1.0, f"BERT eval metrics {metrics}")
+        out["eval"][label] = {"metrics": metrics, "samples_per_s": BERT_EVAL_SAMPLES / secs}
+        log(f"  eval_cls_glue (sst2, synthetic, {BERT_EVAL_SAMPLES} samples, batch "
+            f"{BERT_EVAL_BATCH}) through build_model, {label}: {metrics}, "
+            f"{BERT_EVAL_SAMPLES / secs:.1f} samples/s")
+        del params
+    counts["bert_eval"] = all_launch_counts()
+    torch.cuda.empty_cache()
+
+    out["heads"] = {}
+    with torch.no_grad():
+        for task in BERT_TASKS:
+            params = init_bert_params(cfg, task=task, seed=SEED, device=TAIL_DEVICE)
+            inputs = dev_in
+            if task == "mc":  # two choices a question: the row and its rotation
+                inputs = [torch.stack([t, t.roll(1, dims=1)], 1) for t in dev_in]
+            labels = {"cls": {"labels": torch.tensor([0, 1])},
+                      "mlm": {"labels": torch.where(dev_in[0] % 7 == 0, dev_in[0], -100)},
+                      "clm": {"labels": dev_in[0]},
+                      "nsp": {"labels": torch.tensor([0, 1])},
+                      "pretrain": {"labels": torch.where(dev_in[0] % 7 == 0, dev_in[0], -100),
+                                   "next_sentence_label": torch.tensor([1, 0])},
+                      "mc": {"labels": torch.tensor([1, 0])},
+                      "token": {"labels": dev_in[0] % 2},
+                      "qa": {"start_positions": torch.tensor([3, 5]),
+                             "end_positions": torch.tensor([9, 60])}}[task]
+            res = get_model_fn("bert", task)(params, *inputs, config=cfg,
+                                             **{k: v.to(TAIL_DEVICE) for k, v in labels.items()})
+            shapes = {k: tuple(v.shape) for k, v in res.items()}
+            check(all(bool(torch.isfinite(v).all()) for v in res.values()),
+                  f"BERT {task} head: non-finite outputs")
+            out["heads"][task] = {"loss": float(res["loss"]), "shapes": shapes}
+            del params, res
+    log(f"  the eight BERT heads at BERT-base widths: "
+        f"{ {t: round(h['loss'], 4) for t, h in out['heads'].items()} } (losses, all finite)")
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def run_tail(peaks, flush):
+    """Phase 10, the serving tail and BERT, each part's kernels launched and
+    counted between a reset and a reading. -> ({"tail": results}, launch
+    counts by path)"""
+    t0 = time.perf_counter()
+    log(f"phase 10, part 1: the serving tail at Llama-2-7B widths ({TAIL_LAYERS} layers):")
+    incremental, counts = tail_incremental()
+    log(f"  (the incremental path took {time.perf_counter() - t0:.1f} s)")
+    warm, warm_counts = tail_warmup()
+    counts.update(warm_counts)
+    log(f"  (with warmup, {time.perf_counter() - t0:.1f} s)")
+    host = tail_host_and_cpu()
+    t1 = time.perf_counter()
+    log(f"part 1 took {t1 - t0:.1f} s; phase 10, part 2: BERT-base (W4A4 bfp_4bit):")
+    bert, bert_counts = tail_bert(peaks, flush)
+    counts.update(bert_counts)
+    log(f"part 2 took {time.perf_counter() - t1:.1f} s")
+    check_path_counts(counts)
+    secs = time.perf_counter() - t0
+    log(f"phase 10 (serving tail and BERT) took {secs:.1f} s")
+    return {"tail": {"seconds": secs, "incremental": incremental, "warmup": warm,
+                     "host_and_cpu": host, "bert": bert}}, counts
+
+
 def kernel_entries(rows, path_counts):
     """The entries of the ``{"kernels": ...}`` line. launches: the sum over
     the runs that take the kernel (serving paths for K1-K5, the probe
@@ -2200,7 +2764,7 @@ def kernel_entries(rows, path_counts):
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
             "k2_vs_c32_k512_err", "k3_vs_c32_t1_err", "k4_vs_anchor_err", "v2_full_vs_anchor_err",
-            "v3_masks_vs_anchor_err", "kernels_ms", "shapes")
+            "v3_masks_vs_anchor_err", "kernels_ms", "shapes", "bert_shapes")
             if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
@@ -2239,6 +2803,12 @@ def main(only=None):
     if only == "qat":
         qat, _ = run_qat()
         print(json.dumps(qat), flush=True)
+        return
+    if only == "tail":
+        _cuda.lib("kernels")
+        flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+        tail, _ = run_tail(peaks, lambda: flush_buf.zero_())
+        print(json.dumps(tail), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -2319,6 +2889,11 @@ def main(only=None):
     probe_rows, probe_counts = run_probes(peaks, flush, libs["probes"])
     rows.update(probe_rows)
     path_counts.update(probe_counts)
+    torch.cuda.empty_cache()
+    tail, tail_counts = run_tail(peaks, flush)
+    path_counts.update(tail_counts)
+    for kname, shapes in tail["tail"]["bert"]["matmuls"].items():
+        rows[kname]["bert_shapes"] = shapes
 
     log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
         "at batch 8, K2's and K3's including their actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
@@ -2331,6 +2906,7 @@ def main(only=None):
         "under variants)")
     print(json.dumps(ppl), flush=True)
     print(json.dumps(qat), flush=True)
+    print(json.dumps(tail), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2341,5 +2917,5 @@ def main(only=None):
 if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
              "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
-             "--ppl-only": "ppl", "--qat-only": "qat"}
+             "--ppl-only": "ppl", "--qat-only": "qat", "--tail-only": "tail"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

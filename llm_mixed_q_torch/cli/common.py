@@ -17,7 +17,7 @@ logger = logging.getLogger(__name__)
 
 
 def add_common_model_args(parser: argparse.ArgumentParser):
-    parser.add_argument("--model_arch", required=True, choices=["llama", "opt"])
+    parser.add_argument("--model_arch", required=True, choices=["bert", "llama", "opt"])
     parser.add_argument("--model_name", required=True,
                         help="local HF checkpoint dir (config.json + safetensors/bin)")
     parser.add_argument("--quant_config", default=None, help="quant config TOML")
@@ -27,7 +27,8 @@ def add_common_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--num_samples", type=int, default=None)
     parser.add_argument("--packed", action="store_true",
-                        help="serve block_fp weights as packed int8 codes through bfp_matmul")
+                        help="serve block_fp weights packed through bfp_matmul (the arch's "
+                             "packer: int8 codes for llama, sub-byte words for opt and bert)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the parameters and the forward (cpu to run "
                              "without a card)")

@@ -1,13 +1,28 @@
 """Model registry (counterpart of the JAX package's ``models/__init__.py``):
 model functions, config classes, parameter loaders, PTQ preparers and
 packers by arch. Ported: Llama and OPT, with the causal-LM task ``lm``
-and the sequence-classification task ``cls``, and OPT's span
-question-answering task ``qa``; any other arch or task raises
+and the sequence-classification task ``cls``, OPT's span
+question-answering task ``qa``, and BERT with its eight tasks (``cls``,
+``mlm``, ``clm``, ``nsp``, ``pretrain``, ``mc``, ``token``, ``qa``; no
+``lm``, as in the reference); any other arch or task raises
 ``NotImplementedError`` naming it."""
 
 from __future__ import annotations
 
-from .hf_loader import llama_params_from_flat, opt_params_from_flat
+from .bert import (
+    BertQuantizedConfig,
+    bert_for_masked_lm,
+    bert_for_multiple_choice,
+    bert_for_next_sentence_prediction,
+    bert_for_pretraining,
+    bert_for_question_answering,
+    bert_for_sequence_classification,
+    bert_for_token_classification,
+    bert_lm_head_model,
+    pack_bert_params,
+    quantize_bert_params_ptq,
+)
+from .hf_loader import bert_params_from_flat, llama_params_from_flat, opt_params_from_flat
 from .llama import (
     LlamaQuantizedConfig,
     llama_for_causal_lm,
@@ -25,14 +40,22 @@ from .opt import (
 from .opt.pack import pack_opt_params
 
 MODEL_FN_MAP = {
+    "bert": {"cls": bert_for_sequence_classification, "mlm": bert_for_masked_lm,
+             "clm": bert_lm_head_model, "nsp": bert_for_next_sentence_prediction,
+             "pretrain": bert_for_pretraining, "mc": bert_for_multiple_choice,
+             "token": bert_for_token_classification, "qa": bert_for_question_answering},
     "llama": {"cls": llama_for_sequence_classification, "lm": llama_for_causal_lm},
     "opt": {"cls": opt_for_sequence_classification, "lm": opt_for_causal_lm,
             "qa": opt_for_question_answering},
 }
-CONFIG_MAP = {"llama": LlamaQuantizedConfig, "opt": OPTQuantizedConfig}
-PARAMS_LOADER_MAP = {"llama": llama_params_from_flat, "opt": opt_params_from_flat}
-PTQ_PREPARE_MAP = {"llama": quantize_llama_params_ptq, "opt": quantize_opt_params_ptq}
-PARAMS_PACKER_MAP = {"llama": pack_llama_params, "opt": pack_opt_params}
+CONFIG_MAP = {"bert": BertQuantizedConfig, "llama": LlamaQuantizedConfig,
+              "opt": OPTQuantizedConfig}
+PARAMS_LOADER_MAP = {"bert": bert_params_from_flat, "llama": llama_params_from_flat,
+                     "opt": opt_params_from_flat}
+PTQ_PREPARE_MAP = {"bert": quantize_bert_params_ptq, "llama": quantize_llama_params_ptq,
+                   "opt": quantize_opt_params_ptq}
+PARAMS_PACKER_MAP = {"bert": pack_bert_params, "llama": pack_llama_params,
+                     "opt": pack_opt_params}
 
 
 def _get(map_, arch, task=None):

@@ -1,5 +1,5 @@
-"""Llama and OPT parameters for the port (counterpart of the Llama and OPT
-parts of the JAX package's ``models/hf_loader.py``).
+"""Llama, OPT and BERT parameters for the port (counterpart of the JAX
+package's ``models/hf_loader.py``).
 
 - ``init_llama_params`` / ``init_opt_params``: random weights from a
   ``torch.Generator``, made on the target device one layer at a time; with
@@ -7,12 +7,17 @@ parts of the JAX package's ``models/hf_loader.py``).
   holds all its float32 weights at once. The task head (``lm_head``, the
   ``cls`` task's ``score`` or OPT's ``qa`` task's ``qa_outputs``) is drawn
   last, so one seed gives every task the same backbone.
+- ``init_bert_params``: BERT's tree for each of its eight tasks, drawn
+  with numpy exactly as the JAX package draws it (the same seed gives the
+  same arrays), then moved to the target device.
 - ``load_flat_state_dict``: the ``{hf_name: tensor}`` dict of a local
   checkpoint directory (safetensors or ``pytorch_model*.bin``).
-- ``llama_params_from_flat`` / ``opt_params_from_flat``: such a flat dict
-  (numpy or torch values) as the port's Llama / OPT tree, for the tasks
-  ``lm`` and ``cls`` (and OPT's ``qa``); a checkpoint without
-  ``score.weight`` gets a zero ``score``, as in the JAX package.
+- ``llama_params_from_flat`` / ``opt_params_from_flat`` /
+  ``bert_params_from_flat``: such a flat dict (numpy or torch values) as
+  the port's Llama / OPT / BERT tree, for the tasks ``lm`` and ``cls`` (and
+  OPT's ``qa``; BERT's backbone with an optional ``bert.`` prefix and
+  pooler, and the ``cls`` head); a checkpoint without ``score.weight`` or
+  ``classifier.weight`` gets a zero head, as in the JAX package.
 - ``params_from_jax``: the JAX package's parameter tree, given as numpy
   arrays (``jax.tree.map(np.asarray, params)``), as the port's tree. Packed
   nodes (``PackedBFP``, ``PackedBFPSub``, ``PackedBFPSubT``) keep their
@@ -31,7 +36,8 @@ from .. import resolve_device
 from ..kernels.packing import PACKED_TYPES
 
 _PACKED_BY_NAME = {cls.__name__: cls for cls in PACKED_TYPES}
-TASKS = {"llama": ("lm", "cls"), "opt": ("lm", "cls", "qa")}
+TASKS = {"llama": ("lm", "cls"), "opt": ("lm", "cls", "qa"),
+         "bert": ("cls", "mlm", "clm", "nsp", "pretrain", "mc", "token", "qa")}
 
 
 def _check_task(arch: str, task: str):
@@ -171,6 +177,60 @@ def init_opt_params(config, task: str = "lm", seed: int = 0, device=None,
     return params
 
 
+def init_bert_params(config, task: str = "cls", seed: int = 0, device=None) -> dict:
+    """Random-init BERT parameter dict, the tree of ``bert_params_from_flat``
+    with the head of ``task``: N(0, 0.02) weights and embeddings drawn in
+    float32 from ``numpy.random.default_rng(seed)`` in the JAX package's
+    order (so both packages' trees are equal), zero biases, unit layer
+    norms, a pooler; ``cls`` and ``token`` a classifier of ``num_labels``,
+    ``mc`` one of 1 logit, ``qa`` ``qa_outputs``, and ``mlm``, ``clm``,
+    ``nsp`` and ``pretrain`` the LM prediction head (its decoder tied to
+    the word embeddings), with ``seq_relationship`` for the last two."""
+    _check_task("bert", task)
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    h, inter, v = config.hidden_size, config.intermediate_size, config.vocab_size
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def lin(out, inp):
+        return {"weight": w(out, inp), "bias": np.zeros(out, np.float32)}
+
+    def ln(d):
+        return {"weight": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    layers = [{
+        "attention": {"query": lin(h, h), "key": lin(h, h), "value": lin(h, h),
+                      "output": {"dense": lin(h, h), "LayerNorm": ln(h)}},
+        "intermediate": {"dense": lin(inter, h)},
+        "output": {"dense": lin(h, inter), "LayerNorm": ln(h)},
+    } for _ in range(config.num_hidden_layers)]
+    params = {
+        "embeddings": {
+            "word_embeddings": {"weight": w(v, h)},
+            "position_embeddings": {"weight": w(config.max_position_embeddings, h)},
+            "token_type_embeddings": {"weight": w(config.type_vocab_size, h)},
+            "LayerNorm": ln(h),
+        },
+        "layers": layers,
+        "pooler": {"dense": lin(h, h)},
+    }
+    if task in ("cls", "token"):
+        params["classifier"] = lin(config.num_labels, h)
+    elif task == "mc":
+        params["classifier"] = lin(1, h)
+    elif task == "qa":
+        params["qa_outputs"] = lin(2, h)
+    else:
+        head = {"transform": {"dense": lin(h, h), "LayerNorm": ln(h)},
+                "bias": np.zeros(v, np.float32)}
+        if task in ("pretrain", "nsp"):
+            head["seq_relationship"] = lin(2, h)
+        params["cls"] = head
+    return params_from_jax(params, device)
+
+
 def load_flat_state_dict(model_dir) -> dict[str, torch.Tensor]:
     """``{hf_name: tensor}`` (CPU, the checkpoint's dtype) from the local
     files of a model directory: ``*.safetensors``, else
@@ -290,6 +350,46 @@ def opt_params_from_flat(flat: dict, config, task: str = "lm", device=None) -> d
                                                      config.word_embed_proj_dim)}
     elif task == "qa":
         params["qa_outputs"] = f.linear("qa_outputs")
+    return params
+
+
+def bert_params_from_flat(flat: dict, config, task: str = "cls", device=None) -> dict:
+    """HF BERT names (with or without the ``bert.`` prefix) -> the port's
+    tree, float32 on ``device``: the backbone, the pooler when the
+    checkpoint has one, and for ``cls`` the classifier (zeros without
+    ``classifier.weight``). Other tasks get no head, as in the JAX
+    package."""
+    _check_task("bert", task)
+    f = _Flat(flat, device)
+    pre = "bert." if f.prefixed("bert.") else ""
+    emb = pre + "embeddings."
+    params = {
+        "embeddings": {
+            n: {"weight": f.leaf(f"{emb}{n}.weight")}
+            for n in ("word_embeddings", "position_embeddings", "token_type_embeddings")
+        },
+        "layers": [],
+    }
+    params["embeddings"]["LayerNorm"] = f.linear(emb + "LayerNorm")
+    for i in range(config.num_hidden_layers):
+        lp = f"{pre}encoder.layer.{i}."
+        params["layers"].append({
+            "attention": {
+                **{n: f.linear(f"{lp}attention.self.{n}") for n in ("query", "key", "value")},
+                "output": {"dense": f.linear(lp + "attention.output.dense"),
+                           "LayerNorm": f.linear(lp + "attention.output.LayerNorm")},
+            },
+            "intermediate": {"dense": f.linear(lp + "intermediate.dense")},
+            "output": {"dense": f.linear(lp + "output.dense"),
+                       "LayerNorm": f.linear(lp + "output.LayerNorm")},
+        })
+    if pre + "pooler.dense.weight" in f:
+        params["pooler"] = {"dense": f.linear(pre + "pooler.dense")}
+    if task == "cls":
+        params["classifier"] = (
+            f.linear("classifier") if "classifier.weight" in f else
+            {"weight": torch.zeros((config.num_labels, config.hidden_size), device=f.device),
+             "bias": torch.zeros(config.num_labels, device=f.device)})
     return params
 
 

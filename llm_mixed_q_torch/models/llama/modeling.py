@@ -10,6 +10,9 @@ GQA repeats the kv heads. With ``config.attention_chunk`` set, attention
 takes the kv-chunked two-pass path (``ops/attention.py``): the same
 quantized attention in O(S * chunk) memory, for long contexts.
 
+``past_kvs`` (the float k/v of earlier tokens) makes the causal LM
+incremental: ``models/api.py:make_prefill_and_decode``.
+
 Heads: causal LM and sequence classification. ``remat=True`` recomputes
 each decoder layer in the backward pass (``torch.utils.checkpoint``)
 instead of keeping its activations.
@@ -108,7 +111,7 @@ def project_qkv(params, hidden, config, layer_idx, quantize_weights):
 
 def attention(params, hidden, mask, position_ids, cos, sin,
               config: LlamaQuantizedConfig, layer_idx: int,
-              quantize_weights: bool):
+              quantize_weights: bool, past_kv=None):
     b, q_len, _ = hidden.shape
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
@@ -116,6 +119,9 @@ def attention(params, hidden, mask, position_ids, cos, sin,
     q, k, v = project_qkv(params, hidden, config, layer_idx, quantize_weights)
     q, k = quantized_apply_rotary_pos_emb(
         q, k, cos, sin, position_ids, qc("rotary_positional_encoding"))
+    if past_kv is not None:
+        k = torch.cat([past_kv[0], k], dim=2)
+        v = torch.cat([past_kv[1], v], dim=2)
     new_kv = (k, v)
 
     k = _repeat_kv(k, nh // nkv)
@@ -153,11 +159,11 @@ def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
 
 
 def decoder_layer(params, hidden, mask, position_ids, cos, sin, config,
-                  layer_idx: int, quantize_weights: bool):
+                  layer_idx: int, quantize_weights: bool, past_kv=None):
     residual = hidden
     h = rms_norm(hidden, params["input_layernorm"]["weight"], config.rms_norm_eps)
     h, new_kv = attention(params["self_attn"], h, mask, position_ids, cos, sin,
-                          config, layer_idx, quantize_weights)
+                          config, layer_idx, quantize_weights, past_kv)
     hidden = residual + h
     residual = hidden
     h = rms_norm(hidden, params["post_attention_layernorm"]["weight"],
@@ -183,22 +189,30 @@ def lm_logits(params, hidden, config):
 
 
 def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
-                quantize_weights: bool = True, position_ids=None, remat: bool = False):
-    """Backbone forward -> (final hidden [b, s, h], per-layer (k, v))."""
+                quantize_weights: bool = True, position_ids=None, past_kvs=None,
+                remat: bool = False):
+    """Backbone forward -> (final hidden [b, s, h], per-layer (k, v)).
+    ``past_kvs``: per-layer float (k, v) [b, nkv, past, hd] of the earlier
+    tokens; the new tokens sit at positions past .. past + s - 1, and the
+    returned caches hold all of them. ``attention_mask`` then covers the
+    past and the new tokens, [b, past + s]."""
     b, q_len = input_ids.shape
     device = input_ids.device
+    past_len = 0 if past_kvs is None else past_kvs[0][0].shape[2]
+    kv_len = past_len + q_len
     hidden = embed(params, input_ids)
     if position_ids is None:
-        position_ids = torch.arange(q_len, device=device)[None, :].expand(b, q_len)
-    cos, sin = rope_tables(q_len, config.head_dim, config.rope_theta, device)
+        position_ids = torch.arange(past_len, kv_len, device=device)[None, :].expand(b, q_len)
+    cos, sin = rope_tables(kv_len, config.head_dim, config.rope_theta, device)
     if attention_mask is None:
-        attention_mask = torch.ones((b, q_len), dtype=torch.int32, device=device)
-    mask = make_causal_mask(attention_mask, q_len, q_len, device=device)
+        attention_mask = torch.ones((b, kv_len), dtype=torch.int32, device=device)
+    mask = make_causal_mask(attention_mask, q_len, kv_len, past_len, device=device)
     layer_fn = partial(checkpoint, decoder_layer, use_reentrant=False) if remat else decoder_layer
     new_kvs = []
     for i, layer_params in enumerate(params["layers"]):
+        past = None if past_kvs is None else past_kvs[i]
         hidden, new_kv = layer_fn(layer_params, hidden, mask, position_ids,
-                                  cos, sin, config, i, quantize_weights)
+                                  cos, sin, config, i, quantize_weights, past)
         new_kvs.append(new_kv)
     hidden = rms_norm(hidden, params["norm"]["weight"], config.rms_norm_eps)
     return hidden, new_kvs
@@ -207,10 +221,10 @@ def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
 def llama_for_causal_lm(params, input_ids, attention_mask=None, labels=None,
                         config: LlamaQuantizedConfig = None,
                         quantize_weights: bool = True, position_ids=None,
-                        remat: bool = False):
+                        past_kvs=None, remat: bool = False):
     """-> dict(logits=[b, s, vocab] float32, past_kvs=[(k, v)], loss=...)."""
     hidden, new_kvs = llama_model(params, input_ids, attention_mask, config,
-                                  quantize_weights, position_ids, remat)
+                                  quantize_weights, position_ids, past_kvs, remat)
     out = {"logits": lm_logits(params, hidden, config), "past_kvs": new_kvs}
     if labels is not None:
         out["loss"] = causal_lm_loss(out["logits"], labels)

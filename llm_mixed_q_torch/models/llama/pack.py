@@ -7,6 +7,8 @@ stores bit-packed sub-byte words in the transposed serving layout.
 ``gate_up_proj`` whenever the member configs are identical: one kernel
 launch and one activation quantize instead of three / two.
 ``bf16_embed=True`` stores the embedding table and lm_head in bfloat16.
+``pack_llama_params_host`` packs on the host (``pack_common``'s
+``host=True``), so only the packed bytes move to the card.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ _FUSE_GROUPS = {
 
 
 def pack_llama_layer(layer: dict, layer_cfg: dict, subbyte: bool = False,
-                     fuse: bool = True) -> dict:
-    """Pack one decoder layer's linear nodes (already packed nodes pass)."""
+                     fuse: bool = True, host: bool = False) -> dict:
+    """Pack one decoder layer's linear nodes (already packed nodes pass);
+    ``host``: on the host."""
     new_layer = dict(layer)
     for group, names in _LLAMA_LINEARS.items():
         new_group = dict(layer[group])
@@ -36,7 +39,7 @@ def pack_llama_layer(layer: dict, layer_cfg: dict, subbyte: bool = False,
             if all(m in new_group for m in members):
                 fused = pack_fused_nodes(
                     [new_group[m] for m in members],
-                    [layer_cfg[group][m] for m in members], subbyte,
+                    [layer_cfg[group][m] for m in members], subbyte, host,
                 )
                 if fused is not None:
                     new_group[fused_name] = fused
@@ -47,7 +50,7 @@ def pack_llama_layer(layer: dict, layer_cfg: dict, subbyte: bool = False,
             if name in done or name not in new_group:
                 continue
             new_group[name] = pack_linear_node(
-                new_group[name], layer_cfg[group][name], subbyte)
+                new_group[name], layer_cfg[group][name], subbyte, host)
         new_layer[group] = new_group
     return new_layer
 
@@ -55,18 +58,28 @@ def pack_llama_layer(layer: dict, layer_cfg: dict, subbyte: bool = False,
 @torch.no_grad()
 def pack_llama_params(params: dict, config, subbyte: bool = False,
                       fuse: bool = True, bf16_embed: bool = False,
-                      device=None) -> dict:
+                      device=None, host: bool = False) -> dict:
     """Pack every layer on ``device`` (the card unless ``device="cpu"``),
-    moving one layer there at a time. ``bf16_embed`` also stores the
-    embedding table and an untied lm_head in bfloat16 (the serving option:
-    it halves the largest dense weight stream of a decode step; the
-    backbone still computes in float32)."""
-    new_params = pack_params(params, config,
-                             partial(pack_llama_layer, subbyte=subbyte, fuse=fuse), device)
+    moving one layer there at a time; with ``host`` each layer is packed on
+    the host first. ``bf16_embed`` also stores the embedding table and an
+    untied lm_head in bfloat16 (the serving option: it halves the largest
+    dense weight stream of a decode step; the backbone still computes in
+    float32)."""
     if bf16_embed and config.quant_config is not None:
+        params = dict(params)
         for name in ("embed_tokens", "lm_head"):
-            if name in new_params:
-                node = dict(new_params[name])
-                node["weight"] = node["weight"].to(torch.bfloat16)
-                new_params[name] = node
-    return new_params
+            if name in params:
+                params[name] = {**params[name],
+                                "weight": params[name]["weight"].to(torch.bfloat16)}
+    return pack_params(params, config,
+                       partial(pack_llama_layer, subbyte=subbyte, fuse=fuse, host=host),
+                       device, host)
+
+
+def pack_llama_params_host(params: dict, config, subbyte: bool = False, fuse: bool = True,
+                           bf16_embed: bool = False, device=None) -> dict:
+    """``pack_llama_params`` with every layer packed on the host (the
+    native C++ engine), so that only the packed bytes (about a quarter of
+    the float32 weights as int8 codes, a fifth sub-byte at width 6) move to
+    the card: for a model whose float32 weights do not fit it."""
+    return pack_llama_params(params, config, subbyte, fuse, bf16_embed, device, host=True)

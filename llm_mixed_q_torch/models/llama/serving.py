@@ -448,6 +448,17 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
         logits, lengths, max_new_tokens, eos_token_id, sample)
 
 
+def generate_greedy(params, config: LlamaQuantizedConfig, input_ids, attention_mask=None,
+                    max_new_tokens: int = 32, max_len: int | None = None,
+                    quantize_weights: bool = True, packed_kv: bool | None = None,
+                    device=None) -> np.ndarray:
+    """Greedy decoding: ``generate`` at temperature 0, in the JAX
+    package's positional order."""
+    return generate(params, config, input_ids, attention_mask=attention_mask,
+                    max_new_tokens=max_new_tokens, max_len=max_len,
+                    quantize_weights=quantize_weights, packed_kv=packed_kv, device=device)
+
+
 def decode_loop(step, logits, lengths, max_new_tokens: int, eos_token_id, sample
                 ) -> np.ndarray:
     """Tokens after the prefill: ``step(last [b], positions [b])`` runs one
@@ -481,7 +492,9 @@ class ContinuousBatcher:
     admissible request in ONE batch of ``num_slots`` rows (prompts padded to
     the largest bucket) and writes their K/V into their slots. Decode runs
     up to ``decode_chunk`` steps per host round trip; per-slot counters stop
-    a finished slot (its position stops and its tokens read -1)."""
+    a finished slot (its position stops and its tokens read -1).
+    ``warmup()`` runs every bucket's admission and a decode chunk once on
+    throwaway caches, before serving."""
 
     def __init__(self, params, config: LlamaQuantizedConfig, num_slots: int = 8,
                  max_len: int = 512, quantize_weights: bool = True,
@@ -521,16 +534,57 @@ class ContinuousBatcher:
         self._emitted[rid] = []
         return rid
 
-    def _write_slots(self, tmp, rows, slots):
-        """Copy admission rows ``rows`` of the bucket cache into ``slots``."""
+    def _bucket_cache(self, bucket):
+        """A cache of ``num_slots`` rows and ``bucket`` positions in the live
+        cache's layout, whatever its length would pick: a pos-major bucket
+        cannot be copied into head-major slots (ROADMAP fault 4)."""
+        return _new_cache(self.config, self.num_slots, bucket, self._spec, self.device,
+                          self._spec is not None and self.cache.pos_major)
+
+    def _write_slots(self, cache, tmp, rows, slots):
+        """Copy admission rows ``rows`` of the bucket cache ``tmp`` into
+        ``slots`` of ``cache``; empty ``rows`` and ``slots`` write nothing."""
         if self._spec is None:
             extent = tmp.shape[4]
-            self.cache[:, :, slots, :, :extent] = tmp[:, :, rows]
+            cache[:, :, slots, :, :extent] = tmp[:, :, rows]
             return
-        for bufs, news in zip(self.cache[:4], tmp[:4]):
+        for bufs, news in zip(cache[:4], tmp[:4]):
             for buf, new in zip(bufs, news):
                 idx = (slots,) + tuple(slice(0, e) for e in new.shape[1:])
                 buf[idx] = new[rows]
+
+    def _zero_cache(self):
+        """A zero cache of the live cache's shapes and layout."""
+        if self._spec is None:
+            return torch.zeros_like(self.cache)
+        return self.cache._replace(**{
+            f: [torch.zeros_like(t) for t in getattr(self.cache, f)]
+            for f in ("k_codes", "k_scales", "v_codes", "v_scales")})
+
+    @torch.no_grad()
+    def warmup(self, buckets=None):
+        """Run once, on throwaway caches, what serving runs: the admission
+        prefill and slot write of each prompt bucket (``buckets``, default
+        the whole ladder ``prompt_bucket, 2 * prompt_bucket, ..`` up to
+        ``max_len``) and one decode chunk, so that first-use costs (the
+        kernel libraries' load, library handles, the allocator's growth)
+        land here and not in the middle of serving. The write takes an
+        empty slot list, as the JAX package's takes an out-of-range slot,
+        and the chunk runs with no active slot on a zero copy of the live
+        cache: the live cache, positions, tokens and queue do not change."""
+        if buckets is None:
+            buckets = range(self.prompt_bucket, self.max_len + 1, self.prompt_bucket)
+        scratch = self._zero_cache()
+        none = torch.zeros(0, dtype=torch.int64, device=self.device)
+        for bucket in buckets:
+            bucket = min(bucket, self.max_len)
+            ids = torch.zeros((self.num_slots, bucket), dtype=torch.int64, device=self.device)
+            tmp = self._bucket_cache(bucket)
+            prefill_into_cache(self.params, ids, torch.ones_like(ids), tmp, self.config,
+                               self.quantize_weights)
+            self._write_slots(scratch, tmp, none, none)
+        self._chunk(torch.zeros(self.num_slots, dtype=torch.int64, device=self.device), 1,
+                    scratch, self._last_tok, self._positions)
 
     def _admit(self):
         """Fill free slots from the queue with one batched prefill."""
@@ -553,10 +607,7 @@ class ContinuousBatcher:
         for i, (_, _, prompt) in enumerate(grp):
             ids[i, : len(prompt)] = prompt
             mask[i, : len(prompt)] = 1
-        # the bucket cache takes the live cache's layout, whatever its length
-        # would pick: a pos-major bucket cannot be copied into head-major slots
-        tmp = _new_cache(self.config, S, bucket, self._spec, self.device,
-                         self._spec is not None and self.cache.pos_major)
+        tmp = self._bucket_cache(bucket)
         logits, _ = prefill_into_cache(
             self.params, torch.as_tensor(ids, device=self.device),
             torch.as_tensor(mask, device=self.device), tmp, self.config,
@@ -564,7 +615,7 @@ class ContinuousBatcher:
         toks = torch.argmax(logits, dim=-1)
         rows = torch.arange(len(grp), device=self.device)
         slots = torch.as_tensor([s for s, _, _ in grp], device=self.device)
-        self._write_slots(tmp, rows, slots)
+        self._write_slots(self.cache, tmp, rows, slots)
         self._last_tok[slots] = toks[rows]
         self._positions[slots] = torch.as_tensor(
             [len(p) for _, _, p in grp], device=self.device)
@@ -583,15 +634,15 @@ class ContinuousBatcher:
             self._req[slot] = None
 
     @torch.no_grad()
-    def _chunk(self, rem, n):
-        """``n`` decode steps; inactive slots (rem == 0) keep their position
-        and token, and their buffer entries are -1."""
+    def _chunk(self, rem, n, cache, last, pos):
+        """``n`` decode steps on ``cache`` from tokens ``last`` at positions
+        ``pos``; inactive slots (rem == 0) keep their position and token,
+        and their buffer entries are -1. -> (buffer, last, pos)."""
         eos = -1 if self.eos_token_id is None else self.eos_token_id
         buf = torch.full((self.num_slots, n), -1, dtype=torch.int64, device=self.device)
-        last, pos = self._last_tok, self._positions
         for t in range(n):
             active = rem > 0
-            logits = decode_step(self.params, last[:, None], self.cache, pos,
+            logits = decode_step(self.params, last[:, None], cache, pos,
                                  self.config, self.quantize_weights)
             nxt = torch.where(active, torch.argmax(logits, dim=-1), last)
             buf[:, t] = torch.where(active, nxt, torch.full_like(nxt, -1))
@@ -600,8 +651,7 @@ class ContinuousBatcher:
             if self.eos_token_id is not None:
                 rem = torch.where(active & (nxt == eos), torch.zeros_like(rem), rem)
             last = nxt
-        self._last_tok, self._positions = last, pos
-        return buf
+        return buf, last, pos
 
     def step(self) -> bool:
         """Admit, decode up to ``decode_chunk`` tokens for every active slot,
@@ -624,7 +674,10 @@ class ContinuousBatcher:
         # with requests waiting, stop at the first slot to free up
         n = int(min(active) if self._queue else max(active))
         n = min(n, self.decode_chunk)
-        buf = self._chunk(torch.as_tensor(rem, device=self.device), n).cpu().numpy()
+        buf, self._last_tok, self._positions = self._chunk(
+            torch.as_tensor(rem, device=self.device), n, self.cache, self._last_tok,
+            self._positions)
+        buf = buf.cpu().numpy()
         for t in range(n):
             for slot in range(self.num_slots):
                 tok = int(buf[slot, t])

@@ -270,8 +270,8 @@ def test_registry_heads():
         port_models.get_model_fn("llama", "qa")
     with pytest.raises(NotImplementedError, match="'mlm' of opt"):
         port_models.get_model_fn("opt", "mlm")
-    with pytest.raises(NotImplementedError, match="bert"):
-        port_models.get_model_fn("bert", "cls")
+    with pytest.raises(NotImplementedError, match="'lm' of bert"):
+        port_models.get_model_fn("bert", "lm")
 
 
 # ------------------------------------------------------------------ data

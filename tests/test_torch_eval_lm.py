@@ -161,12 +161,12 @@ def test_registry():
         assert port_models.get_ptq_preparer(arch).__name__ == f"quantize_{arch}_params_ptq"
         assert port_models.get_params_packer(arch).__name__ == f"pack_{arch}_params"
         assert jax_model_fn(arch, "lm").__name__ == fn
-    with pytest.raises(NotImplementedError, match="bert"):
-        port_models.get_model_fn("bert", "cls")
+    with pytest.raises(NotImplementedError, match="'lm' of bert"):
+        port_models.get_model_fn("bert", "lm")
     with pytest.raises(NotImplementedError, match="'qa' of llama"):
         port_models.get_model_fn("llama", "qa")
-    with pytest.raises(NotImplementedError, match="bert"):
-        port_models.get_params_loader("bert")
+    with pytest.raises(NotImplementedError, match="gpt2"):
+        port_models.get_params_loader("gpt2")
 
 
 def test_make_forward_drops_the_kv_caches():

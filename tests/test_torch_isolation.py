@@ -3,7 +3,8 @@ import, it imports (chip_smoke.py, the probes of ``llm_mixed_q_torch.tools``
 and the ``cli``, ``datasets``, ``eval`` and ``train`` subpackages included)
 and runs Llama and OPT generation, the perplexity path under the new
 arithmetics with chunked attention, a QAT step of an OPT classifier, and
-the eight probe entry points on the CPU."""
+the eight probe entry points on the CPU, a packed BERT classifier and an
+incremental Llama decode step (``make_prefill_and_decode``)."""
 
 import subprocess
 import sys
@@ -36,7 +37,30 @@ assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
         "llm_mixed_q_torch.eval.eval_lm", "llm_mixed_q_torch.ops.attention",
         "llm_mixed_q_torch.train.qat", "llm_mixed_q_torch.cli.train_cli",
         "llm_mixed_q_torch.eval.eval_cls", "llm_mixed_q_torch.eval.metrics",
-        "llm_mixed_q_torch.datasets.glue"} <= set(sys.modules)
+        "llm_mixed_q_torch.datasets.glue", "llm_mixed_q_torch.models.bert.modeling",
+        "llm_mixed_q_torch.models.bert.quant_config",
+        "llm_mixed_q_torch.native.loader"} <= set(sys.modules)
+
+from llm_mixed_q_torch.models.api import make_forward, make_prefill_and_decode
+from llm_mixed_q_torch.models.bert import BertQuantizedConfig, pack_bert_params
+from llm_mixed_q_torch.models.hf_loader import init_bert_params, init_llama_params
+from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig
+
+bcfg = BertQuantizedConfig(vocab_size=64, hidden_size=64, num_hidden_layers=1,
+                           num_attention_heads=4, intermediate_size=128,
+                           quant_config="configs/quantization/bfp_4bit.toml")
+bp = pack_bert_params(init_bert_params(bcfg, seed=0, device="cpu"), bcfg, device="cpu")
+logits = make_forward("bert", "cls", bcfg, quantize_weights=False)(
+    bp, torch.tensor([[3, 4, 5, 6]]))["logits"]
+assert logits.shape == (1, 2) and bool(torch.isfinite(logits).all())
+lcfg = LlamaQuantizedConfig(vocab_size=64, hidden_size=64, intermediate_size=128,
+                            num_hidden_layers=1, num_attention_heads=2,
+                            quant_config="configs/quantization/bfp_6bit.toml")
+prefill, decode = make_prefill_and_decode("llama", "lm", lcfg)
+lp = init_llama_params(lcfg, seed=0, device="cpu")
+_, kvs = prefill(lp, torch.tensor([[3, 4, 5]]), torch.ones(1, 3, dtype=torch.int64))
+step, kvs = decode(lp, torch.tensor([[6]]), torch.ones(1, 4, dtype=torch.int64), kvs)
+assert step.shape == (1, 1, 64) and kvs[0][0].shape[2] == 4
 
 from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
 from llm_mixed_q_torch.models.hf_loader import init_opt_params as init_opt
