@@ -12,6 +12,7 @@
     python3 chip_smoke.py --ppl-only      # the perplexity phase (7) only (no build)
     python3 chip_smoke.py --qat-only      # the QAT phase (8) only (no build)
     python3 chip_smoke.py --tail-only     # build, then the serving-tail and BERT phase (10) only
+    python3 chip_smoke.py --stats-only    # build, then the statistics phase (11) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -24,11 +25,12 @@
    shapes) and times kernel, plain version, library yardstick and the
    memory/compute bound (the matmuls K1, K2 and K3 also at 256 rows,
    ``prefill_*``; their operations bound at the bf16 tensor-core peak, the
-   others' at the float32 one); K4 at three shapes (``K4_SHAPES``: the
-   cache nearly full, every position at 31 as in ``generate``, and GQA at
-   8192 lanes) and K5 at four (``K5_SHAPES``: the batcher's 512 positions
-   nearly full and where the batcher decodes, and 4096 positions at 32 kv
-   heads and at GQA's 8), each attention kernel with the card time of its
+   others' at the float32 one); K4 at four shapes (``K4_SHAPES``: the
+   cache nearly full, every position at 31 as in ``generate``, GQA at
+   8192 lanes, and rep 8 at 8192 lanes) and K5 at five (``K5_SHAPES``: the
+   batcher's 512 positions nearly full and where the batcher decodes, 4096
+   positions at 32 kv heads and at GQA's 8, and Llama-3-70B's 8192
+   positions at rep 8), each attention kernel with the card time of its
    four kernels; the prologue of K2 and K3, ``actq_split``, alone, bit for
    bit;
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
@@ -159,13 +161,43 @@
    ``build_model`` on the synthetic stream, 256 samples at batch 8, PTQ and
    packed (1024 rows a batch: the unpack + matmul route, no kernel); each
    of the eight heads once, finite. Its results are the ``{"tail": ...}``
-   line.
+   line;
+11. statistic profiling (``--stats-only``): (1) Llama-2-7B, OPT-6.7B and
+   BERT-base widths cut to 2 layers, random float weights (seed 0):
+   ``profile_statistics(model_fn=...)`` with the CLI's defaults on the
+   synthetic stream at 2 x 512, on the card and on the CPU from the same
+   weights: the same keys in the same order (17 or 21 entries a layer),
+   equal counts, min and max within 1e-4 of the entry's max|.|, variances
+   within rtol 1e-3, means within 1e-3 of |mean| + the standard deviation;
+   (2) Llama-2-7B widths at 32 layers: the paper's Section 1 protocol
+   (4 batches of 4 x 2048 tokens, variance_online on the activations, no
+   weight stats), then the CLI's defaults on one batch: seconds, tokens/s,
+   peak GB, the variance against depth; 32 x 17 entries, every value
+   finite; (3) that profile's 8-bit integer config (the transform, the
+   Llama formatter and parser) through ``eval_lm_wikitext2`` at seq 2048,
+   one sequence, beside float32: a finite loss, its perplexity and
+   seconds; (4) the cost model: the memory density of W6A6 and W4A4 at
+   7B widths, seq 2048, and one layer's ``param_bits`` / 8 beside its
+   packed bytes (sub-byte and int8); parts 1-4 with the counters set to 0
+   before them, all reading 0 after them; (5) the packed KV cache's route
+   (fault 13), W6A6 int8 codes (K2), bf16 embedding, 2 layers:
+   ``generate`` (batch 1, a 32-token prompt, 16 new tokens, max_len 8192)
+   with the default cache, a ``PackedKVCache``, and with
+   ``packed_kv=False``, at Meta-Llama-3-70B widths (past the JAX package's
+   cap on its kernel's cache, within K5's limits: K5 runs 2 layers x 15
+   steps) and at Mistral-Large-2 widths (rep 12, which both packages'
+   kernels refuse: the dense route runs 2 layers x 15 steps, K4 and K5 0
+   times): the same tokens, one decode step's logits within 5e-2 (K5) and
+   1e-4 (dense) of max|logit|, each cache's bytes and ms a step; and a
+   head_dim of 48 (JAX's kernel takes it, K4/K5 do not): the default
+   cache refused with a ValueError, the float32 cache generating. Its
+   results are the ``{"stats": ...}`` line.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line, the serving-tail phase's the one before it, the QAT phase's the one
-before that and the perplexity phase's the one before that. Imports
-nothing of JAX.
+line, the statistics phase's the one before it, the serving-tail phase's
+the one before that, the QAT phase's the one before that and the
+perplexity phase's the one before that. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -215,13 +247,15 @@ def check(ok, msg):
 
 
 def all_launch_counts() -> dict[str, int]:
-    """Launch counts of the serving kernels and of the probes."""
+    """Launch counts of the serving kernels (with the layer calls of the
+    packed cache's dense route, no kernel) and of the probes."""
     from llm_mixed_q_torch import kernels, tools
 
     return {**kernels.launch_counts(), **tools.launch_counts()}
 
 
 def reset_all_launch_counts():
+    """Every count of ``all_launch_counts`` to 0."""
     from llm_mixed_q_torch import kernels, tools
 
     kernels.reset_launch_counts()
@@ -478,11 +512,13 @@ def _cache_inputs(gen, s_len, nkv, hd, pos_major):
 # K4's shapes: name -> (nkv, rep, max_len, positions of the batch). "full":
 # Llama-2-7B, the cache nearly full (the kernel table's shape); "generate":
 # the same at position 31, where chip_smoke's generate runs; "gqa": GQA at
-# the pos-major layout's 8192-lane cap (8 kv heads, rep 4, 1024 positions)
+# the pos-major layout's 8192-lane cap (8 kv heads, rep 4, 1024 positions);
+# "rep8_8192": rep 8 on one kv head at that cap (8192 positions)
 K4_SHAPES = {
     "full": (HEADS, 1, 256, [255 - 9 * i for i in range(BATCH)]),
     "generate": (HEADS, 1, 256, [31] * BATCH),
     "gqa": (8, 4, 1024, [1023 - 9 * i for i in range(BATCH)]),
+    "rep8_8192": (1, 8, 8192, [8191 - 997 * i for i in range(BATCH)]),
 }
 
 # K5's shapes: name -> (nkv, rep, max_len, positions of the batch). "full":
@@ -491,12 +527,14 @@ K4_SHAPES = {
 # decodes (prompts of 5-32 tokens and 32 new ones); "long": Llama-2-7B at
 # the JAX package's head-major cap (4096 positions of head_dim 128); "gqa":
 # Llama-3-8B / Mistral-7B attention widths (8 kv heads, rep 4) at 4096
-# positions, past the pos-major layout's 1024
+# positions, past the pos-major layout's 1024; "rep8_8192": Llama-3-70B's
+# (8 kv heads, rep 8) at its 8192 positions, past the JAX package's cap
 K5_SHAPES = {
     "full": (HEADS, 1, 512, [511 - 9 * i for i in range(BATCH)]),
     "batcher": (HEADS, 1, 512, [63 - 8 * i for i in range(BATCH)]),
     "long": (HEADS, 1, 4096, [4095 - 9 * i for i in range(BATCH)]),
     "gqa": (8, 4, 4096, [4095 - 9 * i for i in range(BATCH)]),
+    "rep8_8192": (8, 8, 8192, [8191 - 997 * i for i in range(BATCH)]),
 }
 
 
@@ -624,7 +662,7 @@ def check_attention_kernels(peaks, flush, only=None, sweep=False):
                 rows[kname]["shapes"][name] = r
                 rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], r["max_abs_err"])
             del positions, cache, q, library, args
-            torch.cuda.empty_cache()  # the 4096-position caches take ~2 GB with their yardstick
+            torch.cuda.empty_cache()  # the long caches take ~2-4 GB with their yardstick
     return rows
 
 
@@ -653,7 +691,7 @@ def profile_decode(label, step, steps=4):
     """Wall time of a decode step, or of any call (host clock, no
     profiler), and the card's busy time in it by kernel (torch.profiler, a
     second window of steps); ``step(i)`` runs the i-th step.
-    -> {"wall_ms", "busy_ms", "idle_share", "gemm_ms"}"""
+    -> {"wall_ms", "busy_ms", "idle_share", "gemm_ms", "launches"}"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,10 +712,11 @@ def profile_decode(label, step, steps=4):
     busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     gemm_ms = sum(e.self_device_time_total for e in kernels
                   if "gemm" in e.key.lower()) / steps / 1e3
+    launches = sum(e.count for e in kernels) / steps
     log(f"profile ({label}, {steps} steps): "
         f"wall {wall_ms:.2f} ms a step, card busy {busy_ms:.2f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}), GEMMs {gemm_ms:.2f} ms; "
-        f"{len(kernels)} kernel names")
+        f"{len(kernels)} kernel names, {launches:.0f} launches a step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms a step, "
             f"{e.count / steps:6.1f} launches: {e.key[:90]}")
@@ -689,7 +728,7 @@ def profile_decode(label, step, steps=4):
         f"{e.self_device_time_total / steps / 1e3:.3f} ms ({e.count / steps:.0f})"
         for e in sorted(ours, key=lambda e: -e.self_device_time_total)))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "gemm_ms": gemm_ms}
+            "gemm_ms": gemm_ms, "launches": launches}
 
 
 def ragged_prompts(rng, n, vocab):
@@ -724,6 +763,16 @@ PATHS = {
     "bert_packed_t": ("bfp_matmul_subbyte_t",),
     "bert_packed_int8": ("bfp_matmul_int8", "actq_split"),
     "bert_eval": (),
+    # phase 11: statistic profiling, the integer config's eval and the cost
+    # model (the float forward and fake quantization: no Hopper kernel); fault
+    # 13's generate on int8 weights at Llama-3-70B widths, its default packed
+    # cache through K5, and at Mistral-Large-2 widths, through the dense route
+    # (no attention kernel), each also on the float32 cache
+    "stats": (),
+    "fault13_packed": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
+    "fault13_float32": ("bfp_matmul_int8", "actq_split"),
+    "fault13_dense_packed": ("bfp_matmul_int8", "actq_split", "attn_decode_packed_dense"),
+    "fault13_dense_float32": ("bfp_matmul_int8", "actq_split"),
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
@@ -2735,6 +2784,382 @@ def run_tail(peaks, flush):
                      "host_and_cpu": host, "bert": bert}}, counts
 
 
+# phase 11 (--stats-only): statistic profiling on the float tree, the
+# integer config it gives, the cost model, and the packed cache's route
+STATS_LAYERS, STATS_BATCH, STATS_SEQ = 2, 2, 512  # part 1: depth cut to 2, card against CPU
+# part 2: the paper's Section 1 protocol (experiments/emnlp/section_1_variance.py:32-60):
+# 4 batches of 4 x 2048 tokens, variance_online on the activations, no weight stats
+S1_BATCHES, S1_BATCH, S1_SEQ = 4, 4, 2048
+STATS_FAMILIES = {  # part 1's widths: Llama-2-7B, OPT-6.7B, BERT-base
+    "llama": dict(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
+                  num_attention_heads=HEADS, max_position_embeddings=4096),
+    "opt": dict(vocab_size=OPT_VOCAB, hidden_size=OPT_HIDDEN, ffn_dim=OPT_FFN,
+                num_attention_heads=OPT_HEADS, max_position_embeddings=2048,
+                do_layer_norm_before=True, activation_function="relu", enable_bias=True),
+    "bert": {k: v for k, v in BERT_BASE.items() if k != "num_hidden_layers"},
+}
+STATS_TASKS = {"llama": "lm", "opt": "lm", "bert": "cls"}
+STATS_ENTRIES = {"llama": 17, "opt": 21, "bert": 21}  # profile entries a layer
+STATS_NODES = ("self_attn:q_proj", "self_attn:k_proj", "self_attn:v_proj", "self_attn:o_proj",
+               "mlp:gate_proj", "mlp:down_proj", "mlp:up_proj")  # a Llama layer's profiled nodes
+# part 5: the route of a packed KV cache at two public configs, depth cut to
+# 2, each at 8192 positions. Meta-Llama-3-70B as its config.json has it: 64
+# heads over 8 kv heads (rep 8) at head_dim 128, past the JAX package's cap
+# on its kernel's cache (4096 x 128), within K5's limits: K5 takes it.
+# mistralai/Mistral-Large-Instruct-2407 as its config.json has it (the Llama
+# layer: no sliding window): 96 heads over 8 kv heads (rep 12), which both
+# packages' kernels refuse: the dense route takes it.
+LLAMA3_70B = dict(vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+                  num_attention_heads=64, num_key_value_heads=8, rope_theta=500000.0,
+                  rms_norm_eps=1e-5, max_position_embeddings=8192)
+MISTRAL_LARGE_2 = dict(vocab_size=32768, hidden_size=12288, intermediate_size=28672,
+                       num_attention_heads=96, num_key_value_heads=8, rope_theta=1000000.0,
+                       rms_norm_eps=1e-5, max_position_embeddings=131072)
+# name: (widths, the route of its packed cache, the counter that route adds to)
+F13_CONFIGS = {
+    "fault13": (LLAMA3_70B, "kernel", "attn_decode_head_major"),
+    "fault13_dense": (MISTRAL_LARGE_2, "dense", "attn_decode_packed_dense"),
+}
+F13_LAYERS, F13_PROMPT, F13_NEW, F13_MAX_LEN, F13_STEPS = 2, 32, 16, 8192, 8
+
+
+def _profile_gaps(got, want):
+    """Checks that two profiles have the same keys in the same order, the
+    same stats and equal counts. -> the worst gaps: min / max / range over
+    the entry's max|.|, variance relative, mean over |mean| + the entry's
+    standard deviation."""
+    check(list(got) == list(want), "the two profiles' keys or their order differ")
+    gaps = {"min_max": 0.0, "mean": 0.0, "variance": 0.0}
+    for name, stats in want.items():
+        check(list(got[name]) == list(stats), f"{name}: the stats differ")
+        rmm = stats.get("range_min_max", {})
+        scale = max(abs(rmm.get("min", 0.0)), abs(rmm.get("max", 0.0)))
+        for stat, values in stats.items():
+            g = got[name][stat]
+            check(list(g) == list(values), f"{name} {stat}: the fields differ")
+            std = math.sqrt(values.get("variance", 0.0))
+            for k, v in values.items():
+                if k == "count":
+                    check(g[k] == v, f"{name} {stat}: count {g[k]} != {v}")
+                    continue
+                den = {"mean": abs(v) + std, "variance": v}.get(k, scale)
+                key = k if k in gaps else "min_max"
+                gaps[key] = max(gaps[key], abs(g[k] - v) / den if den else abs(g[k] - v))
+    return gaps
+
+
+def _all_finite(tree):
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_all_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def stats_card_vs_cpu():
+    """Part 1: Llama-2-7B, OPT-6.7B and BERT-base widths cut to 2 layers,
+    random weights (seed 0), float: ``profile_statistics(model_fn=...)``
+    with the CLI's defaults on the synthetic stream at 2 x 512, on the card
+    and on the CPU from the same weights. Gates: the same keys in the same
+    order (17 or 21 a layer), equal counts, min and max within 1e-4 of the
+    entry's max|.|, variances within rtol 1e-3 and means within 1e-3 of
+    |mean| + the standard deviation."""
+    from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset, numpy_dataloader
+    from llm_mixed_q_torch.models import get_config_cls, get_model_fn
+    from llm_mixed_q_torch.models.hf_loader import (
+        init_bert_params, init_llama_params, init_opt_params)
+    from llm_mixed_q_torch.stats import profile_statistics
+
+    inits = {"llama": init_llama_params, "opt": init_opt_params, "bert": init_bert_params}
+    out = {}
+    for arch, widths in STATS_FAMILIES.items():
+        config = get_config_cls(arch)(**widths, num_hidden_layers=STATS_LAYERS)
+        task = STATS_TASKS[arch]
+        cpu_tree = inits[arch](config, task=task, seed=SEED, device="cpu")
+        card_tree = _on(cpu_tree, "cuda")
+        ds = make_synthetic_lm_dataset(config.vocab_size, STATS_SEQ, STATS_BATCH, seed=SEED)
+        batches = list(numpy_dataloader(ds, batch_size=STATS_BATCH))
+        row = {}
+        profiles = {}
+        for side, tree in (("card", card_tree), ("cpu", cpu_tree)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            profiles[side] = profile_statistics(batches=batches, arch=arch,
+                                                model_fn=get_model_fn(arch, task),
+                                                config=config, params=tree)
+            torch.cuda.synchronize()
+            row[f"{side}_seconds"] = time.perf_counter() - t0
+        check(len(profiles["card"]) == STATS_ENTRIES[arch] * STATS_LAYERS,
+              f"{arch}: {len(profiles['card'])} profile entries")
+        row.update(entries=len(profiles["card"]), **_profile_gaps(profiles["card"], profiles["cpu"]))
+        log(f"  {arch}: {row['entries']} entries, card {row['card_seconds']:.2f} s, CPU "
+            f"{row['cpu_seconds']:.2f} s; worst gaps min/max {row['min_max']:.3e}, mean "
+            f"{row['mean']:.3e}, variance {row['variance']:.3e}")
+        check(row["min_max"] <= 1e-4 and row["mean"] <= 1e-3 and row["variance"] <= 1e-3,
+              f"{arch}: card and CPU profiles differ: {row}")
+        out[arch] = row
+        del cpu_tree, card_tree
+    return out
+
+
+def stats_section_1():
+    """Parts 2 and 3: Llama-2-7B widths at 32 layers, float, random
+    weights (seed 0). Part 2: the Section 1 protocol (4 batches of 4 x 2048
+    tokens, variance_online on the activations, no weight stats), then the
+    CLI's defaults on one batch: seconds, tokens/s, peak GB; gates: 32 x 17
+    entries, every value finite. Part 3: that profile -> an 8-bit integer
+    config (``transform_stat_profile_to_int_quant_config``, the Llama
+    formatter and parser) -> ``eval_lm_wikitext2`` at seq 2048, one
+    sequence, weights quantized every call, beside float32; gate: the loss
+    finite."""
+    from llm_mixed_q_torch.config import transform_stat_profile_to_int_quant_config
+    from llm_mixed_q_torch.datasets import make_synthetic_lm_dataset
+    from llm_mixed_q_torch.models import (
+        get_config_cls, get_quant_config_parser, get_stat_config_formatter)
+    from llm_mixed_q_torch.models.api import make_forward
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import llama_for_causal_lm
+    from llm_mixed_q_torch.stats import profile_statistics
+
+    widths = STATS_FAMILIES["llama"]
+    config = get_config_cls("llama")(**widths, num_hidden_layers=LAYERS)
+    t0 = time.perf_counter()
+    params = init_llama_params(config, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    data = make_synthetic_lm_dataset(VOCAB, S1_SEQ, S1_BATCH * S1_BATCHES, seed=SEED)
+    batches = [{k: v[i * S1_BATCH:(i + 1) * S1_BATCH] for k, v in data.items()}
+               for i in range(S1_BATCHES)]
+    runs = {}
+    for name, kw, n in (("section_1", dict(act_stats=("variance_online",), weight_stats=()),
+                         S1_BATCHES), ("cli_defaults", {}, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = profile_statistics(batches=batches[:n], arch="llama", model_fn=llama_for_causal_lm,
+                                  config=config, params=params, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[name] = {"seconds": secs, "tokens_per_s": n * S1_BATCH * S1_SEQ / secs,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "entries": len(prof)}
+        check(len(prof) == LAYERS * STATS_ENTRIES["llama"], f"{name}: {len(prof)} entries")
+        check(_all_finite(prof), f"{name}: a value is not finite")
+        log(f"  {name}: {n} batch(es) of {S1_BATCH} x {S1_SEQ}, {len(prof)} entries, "
+            f"{secs:.2f} s, {runs[name]['tokens_per_s']:.0f} tokens/s, peak "
+            f"{runs[name]['peak_gb']:.2f} GB")
+        if name == "section_1":
+            # section_1_variance.py's reduction: a layer's mean data_in variance
+            depth = [sum(prof[f"root:model_layer_{i}:{node}:data_in"]["variance_online"]["variance"]
+                         for node in STATS_NODES) / len(STATS_NODES) for i in range(LAYERS)]
+            runs[name]["variance_vs_depth"] = depth
+            log(f"  variance vs depth (layers 0, 1, 15, 31): "
+                f"{[round(depth[i], 6) for i in (0, 1, 15, 31)]}")
+    runs["params_made_seconds"] = made
+
+    qc = transform_stat_profile_to_int_quant_config(prof, "range_min_max", width=8)
+    qc = get_quant_config_parser("llama")(get_stat_config_formatter("llama")(qc, LAYERS), LAYERS,
+                                          strict=False)
+    int_config = get_config_cls("llama")(**widths, num_hidden_layers=LAYERS, quant_config=qc)
+    ds = make_synthetic_lm_dataset(VOCAB, S1_SEQ, 1, seed=SEED)
+    evals = {}
+    for name, cfg in (("float32", config), ("int8_from_stats", int_config)):
+        res, _, secs, peak = _eval(make_forward("llama", "lm", cfg, with_labels=True), params, ds)
+        check(math.isfinite(res["loss"]), f"{name}: loss {res['loss']}")
+        evals[name] = {"loss": res["loss"], "perplexity": res["perplexity"], "seconds": secs,
+                       "peak_gb": peak}
+        log(f"  eval {name}: loss {res['loss']:.6f}, perplexity {res['perplexity']:.4f}, "
+            f"{secs:.2f} s, peak {peak:.2f} GB")
+    frac = {k: v for k, v in qc["model_layer_0"]["self_attn"]["q_proj"].items() if "frac" in k}
+    log(f"  layer 0 q_proj's frac widths from the profile: {frac}")
+    del params
+    torch.cuda.empty_cache()
+    return runs, {"evals": evals, "layer_0_q_proj": frac}
+
+
+
+def stats_cost_model():
+    """Part 4: the memory density of W6A6 (bfp_6bit) and W4A4 (bfp_4bit)
+    at Llama-2-7B widths, seq 2048, and one layer's ``param_bits`` / 8
+    beside the bytes of that layer packed by ``pack_llama_params`` (sub-byte
+    words and int8 codes): a finding, not a gate."""
+    from llm_mixed_q_torch.costmodel.profiler import compute_memory_density
+    from llm_mixed_q_torch.models import get_config_cls, get_model_profiler
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+
+    widths = STATS_FAMILIES["llama"]
+    out = {}
+    for stem in ("bfp_6bit", "bfp_4bit"):
+        prof = get_model_profiler("llama")(
+            get_config_cls("llama")(**widths, num_hidden_layers=LAYERS,
+                                    quant_config=_toml(stem)), S1_SEQ)
+        out[stem] = {"density": float(compute_memory_density(prof)),
+                     **{k: int(v) for k, v in prof.items()}}
+    one = get_config_cls("llama")(**widths, num_hidden_layers=1, quant_config=_toml("bfp_6bit"))
+    bits = int(get_model_profiler("llama")(one, S1_SEQ)["param_bits"])
+    for fmt, subbyte in (("subbyte", True), ("int8", False)):
+        tree = init_llama_params(one, seed=SEED, device="cuda", pack=dict(subbyte=subbyte))
+        layer = tree["layers"][0]
+        nbytes = _tree_nbytes({"self_attn": layer["self_attn"], "mlp": layer["mlp"]})
+        out[f"layer_packed_{fmt}"] = {"bytes": nbytes, "param_bits_over_8": bits / 8,
+                                      "ratio": nbytes / (bits / 8)}
+        del tree
+    log(f"  density (32 * (params + acts) / bits) at seq {S1_SEQ}: bfp_6bit "
+        f"{out['bfp_6bit']['density']:.4f}x, bfp_4bit {out['bfp_4bit']['density']:.4f}x; one "
+        f"layer's packed bytes over param_bits / 8 ({bits / 8:.0f}): sub-byte "
+        f"{out['layer_packed_subbyte']['ratio']:.4f}, int8 {out['layer_packed_int8']['ratio']:.4f}")
+    return out
+
+
+def _cache_bytes(cache):
+    from llm_mixed_q_torch.models.llama.serving import PackedKVCache
+
+    leaves = [t for field in cache[:4] for t in field] if isinstance(cache, PackedKVCache) else [cache]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _fault_13_config(name, widths, route, counter):
+    """One config of part 5: ``generate`` with the default (packed) cache
+    and with ``packed_kv=False``, each between a reset of the counters and a
+    reading, then one decode step's logits and a profile of 4 + 4 steps
+    (``profile_decode``) on each cache. Gates: the default cache is a
+    ``PackedKVCache`` whose ``packed_decode_route`` is ``route``;
+    ``counter`` (K5, or the dense route) counts 2 layers x 15 decode steps
+    of the packed run; the tokens
+    equal the float32 cache's; the step's logits within 1e-4 of max|logit|
+    of the float32 cache's on the dense route, and within 5e-2 through K5
+    (run_llama's gate of kernels against the plain path: ulp-level
+    differences of float32 sums flip a rounding of the 6-bit re-quantized
+    activations now and then). -> (results, launch counts by run)"""
+    from llm_mixed_q_torch.kernels.attention_decode import packed_decode_route
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import (
+        LlamaQuantizedConfig, decode_step, generate, prefill_into_cache)
+    from llm_mixed_q_torch.models.llama.serving import PackedKVCache, _cache_spec, _new_cache
+
+    config = LlamaQuantizedConfig(**widths, num_hidden_layers=F13_LAYERS,
+                                  quant_config=_toml("bfp_6bit"))
+    got_route = packed_decode_route(config, F13_MAX_LEN, "cuda")
+    check(got_route == route, f"{name}: the packed cache's route is {got_route}, not {route}")
+    t0 = time.perf_counter()
+    params = init_llama_params(config, seed=SEED, device="cuda",
+                               pack=dict(subbyte=False, bf16_embed=True))
+    torch.cuda.synchronize()
+    log(f"  {name}: hidden {widths['hidden_size']}, {widths['num_attention_heads']} heads over "
+        f"{widths['num_key_value_heads']} kv heads, {F13_LAYERS} layers, W6A6 int8 codes, bf16 "
+        f"embedding, made in {time.perf_counter() - t0:.1f} s; the packed cache's route: {route}")
+    ids = torch.as_tensor(np.random.default_rng(SEED + 16).integers(
+        2, widths["vocab_size"], (1, F13_PROMPT)), device="cuda")
+    mask = torch.ones_like(ids)
+    out, counts, tokens, logits = {"route": route}, {}, {}, {}
+    for cache_name, packed_kv in (("packed", None), ("float32", False)):
+        path = f"{name}_{cache_name}"
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens[cache_name] = generate(params, config, ids, max_new_tokens=F13_NEW,
+                                      max_len=F13_MAX_LEN, packed_kv=packed_kv, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[path] = all_launch_counts()
+        cache = _new_cache(config, 1, F13_MAX_LEN, _cache_spec(config, packed_kv), "cuda")
+        check(isinstance(cache, PackedKVCache) == (packed_kv is None),
+              f"{path}: cache {type(cache).__name__}")
+        _, lengths = prefill_into_cache(params, ids, mask, cache, config)
+        nxt = torch.as_tensor(tokens[cache_name][:, :1], device="cuda")
+        logits[cache_name] = decode_step(params, nxt, cache, lengths, config)
+        prof = profile_decode(f"{name}, {cache_name} cache", lambda i: decode_step(
+            params, nxt, cache, lengths + 1 + i, config), steps=F13_STEPS // 2)
+        out[cache_name] = {"generate_seconds": secs, "cache_bytes": _cache_bytes(cache),
+                           "step_ms": prof["wall_ms"], "profile": prof,
+                           "launches": counts[path]}
+        log(f"  {cache_name} cache ({type(cache).__name__}, "
+            f"{out[cache_name]['cache_bytes'] / 2**20:.1f} MiB): generate {secs:.2f} s, a decode "
+            f"step {out[cache_name]['step_ms']:.2f} ms; launches "
+            f"{ {k: c for k, c in counts[path].items() if c} }")
+        del cache
+    calls = counts[f"{name}_packed"][counter]
+    check(calls == F13_LAYERS * (F13_NEW - 1),
+          f"{name}: {counter} counted {calls}, not {F13_LAYERS * (F13_NEW - 1)}")
+    check((tokens["packed"] == tokens["float32"]).all(),
+          f"{name}: tokens differ: {tokens['packed']} vs {tokens['float32']}")
+    gap = _rel(logits["packed"], logits["float32"])
+    out["step_logit_gap"] = gap
+    tol = 1e-4 if route == "dense" else 5e-2
+    check(gap <= tol, f"{name}: a decode step's logits differ by {gap:.3e} of max|logit|")
+    log(f"  tokens equal; a decode step's logits within {gap:.3e} of max|logit| (gate {tol})")
+    del params
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def stats_fault_13():
+    """Part 5: the packed KV cache's route on the card, W6A6 (int8 codes:
+    K2), bf16 embedding, random weights (seed 0), ``generate`` at batch 1, a
+    32-token prompt, 16 new tokens, max_len 8192: Llama-3-70B widths through
+    K5, Mistral-Large-2 widths through the dense route (``_fault_13_config``
+    each); and a head_dim of 48, which the JAX package's kernel takes and
+    K4/K5 do not: ``generate`` with the default cache raises ValueError
+    before any work, and with ``packed_kv=False`` it runs. -> (results,
+    launch counts by run)"""
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
+
+    out, counts = {}, {}
+    for name, (widths, route, counter) in F13_CONFIGS.items():
+        out[name], run_counts = _fault_13_config(name, widths, route, counter)
+        counts.update(run_counts)
+    config = LlamaQuantizedConfig(vocab_size=96, hidden_size=96, intermediate_size=128,
+                                  num_hidden_layers=2, num_attention_heads=2,
+                                  max_position_embeddings=48, quant_config=_toml("bfp_6bit"))
+    params = init_llama_params(config, seed=SEED, device="cuda")
+    ids = torch.full((1, 4), 5, device="cuda")
+    try:
+        generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "packed_kv=False" in refused,
+          f"head_dim 48: the packed cache was not refused on the card ({refused})")
+    tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, packed_kv=False,
+                      device="cuda")
+    check(tokens.shape == (1, 4), f"head_dim 48, float32 cache: tokens {tokens.shape}")
+    out["head_dim_48_refused"] = refused
+    log(f"  head_dim 48 on the card: the packed cache refused ({refused}); the float32 cache "
+        f"generates")
+    return out, counts
+
+
+def run_stats():
+    """Phase 11, the statistics path, its parts 1-4 with every counter set
+    to 0 before them and read after them (no Hopper kernel: the float
+    forward), part 5 (fault 13) with its own readings. -> ({"stats":
+    results}, launch counts by run)"""
+    t0 = time.perf_counter()
+    reset_all_launch_counts()
+    log(f"phase 11, part 1: profiles card vs CPU at {STATS_LAYERS} layers, {STATS_BATCH} x "
+        f"{STATS_SEQ}:")
+    card_vs_cpu = stats_card_vs_cpu()
+    t1 = time.perf_counter()
+    log(f"part 1 took {t1 - t0:.1f} s; phase 11, parts 2 and 3: Llama-2-7B widths, {LAYERS} "
+        f"layers, the Section 1 protocol and the integer config from the profile:")
+    section_1, int_config = stats_section_1()
+    t2 = time.perf_counter()
+    log(f"parts 2 and 3 took {t2 - t1:.1f} s; phase 11, part 4: the cost model:")
+    cost = stats_cost_model()
+    counts = {"stats": all_launch_counts()}
+    t3 = time.perf_counter()
+    log(f"part 4 took {t3 - t2:.1f} s; phase 11, part 5: the packed cache's route (fault 13):")
+    fault_13, f13_counts = stats_fault_13()
+    counts.update(f13_counts)
+    log(f"part 5 took {time.perf_counter() - t3:.1f} s")
+    check_path_counts(counts)
+    secs = time.perf_counter() - t0
+    log(f"phase 11 (statistics) took {secs:.1f} s")
+    return {"stats": {"seconds": secs, "card_vs_cpu": card_vs_cpu, "section_1": section_1,
+                      "int_config": int_config, "cost_model": cost,
+                      "fault_13": fault_13}}, counts
+
+
 def kernel_entries(rows, path_counts):
     """The entries of the ``{"kernels": ...}`` line. launches: the sum over
     the runs that take the kernel (serving paths for K1-K5, the probe
@@ -2803,6 +3228,11 @@ def main(only=None):
     if only == "qat":
         qat, _ = run_qat()
         print(json.dumps(qat), flush=True)
+        return
+    if only == "stats":
+        _cuda.lib("kernels")
+        stats, _ = run_stats()
+        print(json.dumps(stats), flush=True)
         return
     if only == "tail":
         _cuda.lib("kernels")
@@ -2894,6 +3324,9 @@ def main(only=None):
     path_counts.update(tail_counts)
     for kname, shapes in tail["tail"]["bert"]["matmuls"].items():
         rows[kname]["bert_shapes"] = shapes
+    torch.cuda.empty_cache()
+    stats, stats_counts = run_stats()
+    path_counts.update(stats_counts)
 
     log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
         "at batch 8, K2's and K3's including their actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
@@ -2907,6 +3340,7 @@ def main(only=None):
     print(json.dumps(ppl), flush=True)
     print(json.dumps(qat), flush=True)
     print(json.dumps(tail), flush=True)
+    print(json.dumps(stats), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2917,5 +3351,6 @@ def main(only=None):
 if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
              "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
-             "--ppl-only": "ppl", "--qat-only": "qat", "--tail-only": "tail"}
+             "--ppl-only": "ppl", "--qat-only": "qat", "--tail-only": "tail",
+             "--stats-only": "stats"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

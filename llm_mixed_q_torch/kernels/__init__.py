@@ -3,6 +3,7 @@
 from .attention_decode import (
     packed_attention_decode_batch_cuda,
     packed_attention_decode_cuda,
+    packed_attention_decode_dense,
 )
 from .dequant_matmul import (
     actq_split_cuda,
@@ -39,9 +40,14 @@ KERNEL_WRAPPERS = {
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Each kernel wrapper's launches, and under "attn_decode_packed_dense"
+    the layer calls of the packed KV cache's dense route (no kernel)."""
+    return {**{name: fn.launches for name, fn in KERNEL_WRAPPERS.items()},
+            "attn_decode_packed_dense": packed_attention_decode_dense.calls}
 
 
 def reset_launch_counts():
+    """Set every count of ``launch_counts`` to 0."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    packed_attention_decode_dense.calls = 0

@@ -37,9 +37,15 @@ them identically; a float32 sum taken in two orders would differ in the
 last bit and flip a rounding of the prob quantizer now and then. This
 departs from the JAX reference, which sums in float32 (ROADMAP, faults).
 
-On the card a packed cache goes through the kernels or raises
-(``attention_kernel_error`` names the limit); ``attend_dense`` serves the
-float32 fake-quant cache, and a packed cache only on the CPU.
+``attend_dense`` serves the float32 fake-quant cache. A packed cache is
+routed by shape (``packed_decode_route``): through the kernels where
+``attention_kernel_error`` finds none of their limits passed; through
+``packed_attention_decode_dense`` (the dense path on the dequantized
+codes, no kernel, its layer calls counted) where the JAX package's kernel
+refuses it too (``reference_kernel_error``: its ``attention_kernel_ok`` is
+False), as the JAX package's ``decode_step`` then decodes densely; and on
+the card it raises where the JAX package's kernel takes the cache and
+these do not.
 """
 
 from __future__ import annotations
@@ -56,7 +62,9 @@ from .packing import effective_block_len
 NEG_INF = float(np.finfo(np.float32).min)
 _REP_MAX = 8  # GQA query rows per kv head the kernels take
 _THREADS = 256
-_SMEM_MAX = 227 * 1024
+# the JAX package's cap on its decode-attention kernel's cache: max_len *
+# head_dim (its ``_MAX_S_HD``)
+_REFERENCE_MAX_S_HD = 4096 * 128
 
 # pos-major cache when nkv * max_len fits this many lanes (the JAX
 # package's batch-folded kernel budget; the layout choice is kept so a
@@ -207,28 +215,21 @@ def _prob_q_args(prob_q):
     return (1, bs, width, -eb, 2**ew - 1 - eb)
 
 
-def kernel_shape_error(rep: int, hd: int, s_len: int) -> str | None:
+def kernel_shape_error(rep: int, hd: int) -> str | None:
     """Why the decode-attention kernels are not given ``rep`` query rows per
-    kv head, head_dim ``hd`` and a cache of ``s_len`` positions, or None.
-    The kernels themselves take rep 1..8 and head_dim 16..256, a power of
-    two, at any cache length: K4 and K5 walk the cache in chunks, and
-    neither keeps anything in shared memory that grows with it. The cache
-    length limit, 4 * rep * (hd + S + 256) bytes within 227 KB, is that of
-    K5's former design, which held every score of a row in shared memory;
-    it stands so that serving keeps routing the same caches to the kernels
-    (and the JAX package caps the head-major cache at 4096 x 128 anyway)."""
+    kv head at head_dim ``hd``, or None. They take rep 1..8 and head_dim
+    16..256, a power of two, at any cache length: K4 and K5 walk the cache
+    in chunks, and neither keeps anything in shared memory that grows with
+    it (the wrappers bound the operands and the workspace to 32-bit
+    indices)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
     if hd > _THREADS or _THREADS % hd or hd % 16:
         return f"head_dim {hd} does not divide {_THREADS} or is not a multiple of 16"
-    smem = 4 * rep * (hd + s_len + _THREADS)
-    if smem > _SMEM_MAX:
-        return (f"a cache of {s_len} positions passes serving's limit at rep {rep}: "
-                f"{smem} bytes of the former K5's shared memory (at most {_SMEM_MAX})")
     return None
 
 
-def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, prob_q):
+def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q):
     tensors = (q, kc, ks, vc, vs)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn_name}: q and the cache must be contiguous on one device")
@@ -238,9 +239,19 @@ def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, pro
         raise ValueError(f"{fn_name}: blocks {bs_k}/{bs_v} do not divide {hd}")
     if prob_q is not None and prob_q[0] < 1:
         raise ValueError(f"{fn_name}: bad prob block {prob_q[0]}")
-    error = kernel_shape_error(rep, hd, s_len)
+    error = kernel_shape_error(rep, hd)
     if error:
         raise ValueError(f"{fn_name}: {error}")
+    if max(t.numel() for t in tensors) >= 2**31:
+        raise ValueError(f"{fn_name}: an operand of 2^31 elements or more (the kernels "
+                         "index in 32 bits)")
+
+
+def _workspace(fn_name, floats, device):
+    if floats >= 2**31:
+        raise ValueError(f"{fn_name}: a workspace of {floats} floats (the kernels index "
+                         "in 32 bits)")
+    return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def _positions(positions, q):
@@ -252,7 +263,7 @@ def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
     """K5's C call on checked operands (q [b, nkv, rep, hd]; the head-major
     cache) -> ctx [b, nkv * rep, hd]; ``fn_name`` names the caller in
     errors."""
-    _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, s_len, bs_k, bs_v, prob_q)
+    _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q)
     b = q.shape[0]
     shapes = {"q": (q.shape, (b, nkv, rep, hd)),
               "K codes": (kc.shape, (b, nkv, hd, s_len)),
@@ -267,8 +278,8 @@ def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{fn_name}: prob block {prob_q[0]} is not a power of two")
     p, t = k5_geometry(nkv, rep, s_len)
-    ws = torch.empty(k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0], p),
-                     dtype=torch.float32, device=q.device)
+    ws = _workspace(fn_name, k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0],
+                                                 p), q.device)
     pos = _positions(positions, q)
     out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
     rc = _cuda.lib().lmq_attn_decode_head_major(
@@ -295,13 +306,13 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
     if nh != nkv * rep:
         raise ValueError(f"{nh} query heads != nkv {nkv} * rep {rep}")
     s_len = k_codes.shape[2] // nkv
-    _check_attention(name, q, k_codes, k_scales, v_codes, v_scales, rep, hd, s_len, bs_k,
-                     bs_v, prob_q)
+    _check_attention(name, q, k_codes, k_scales, v_codes, v_scales, rep, hd, bs_k, bs_v,
+                     prob_q)
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{name}: prob block {prob_q[0]} is not a power of two")
     g, p = k4_geometry(nkv, rep, s_len)
-    ws = torch.empty(k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0]),
-                     dtype=torch.float32, device=q.device)
+    ws = _workspace(name, k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0]),
+                    q.device)
     pos = _positions(positions, q)
     out = torch.empty((b, nh, hd), dtype=torch.float32, device=q.device)
     rc = _cuda.lib().lmq_attn_decode_pos_major(
@@ -336,6 +347,19 @@ packed_attention_decode_batch_cuda.launches = 0
 packed_attention_decode_cuda.launches = 0
 
 
+def packed_attention_decode_dense(qg, k_all_t, v_all, positions_b, prob_quantizer=None):
+    """The dense route of a packed cache (``packed_decode_route``):
+    ``attend_dense`` on its dequantized codes, as the JAX package decodes
+    outside ``attention_kernel_ok``. No kernel: its layer calls are counted
+    in ``calls``, beside the kernels' launches, so that a run shows its
+    route."""
+    packed_attention_decode_dense.calls += 1
+    return attend_dense(qg, k_all_t, v_all, positions_b, prob_quantizer)
+
+
+packed_attention_decode_dense.calls = 0
+
+
 def prob_q_spec(mm1_cfg: dict, max_len: int):
     """(bs, width, exp_width, exp_bias) of one layer's prob quantizer, or
     None for a bypass data_in. Raises ValueError when the layer cannot use
@@ -361,15 +385,9 @@ def prob_q_spec(mm1_cfg: dict, max_len: int):
     )
 
 
-def attention_kernel_error(config, max_len: int) -> str | None:
-    """Why the packed decode-attention kernels cannot serve this config at
-    this cache length, or None when every layer can decode through them."""
+def _prob_q_error(config, max_len: int) -> str | None:
     from ..models.llama.modeling import _node_cfg
 
-    rep = config.num_attention_heads // config.num_key_value_heads
-    error = kernel_shape_error(rep, config.head_dim, max_len)
-    if error:
-        return error
     try:
         for i in range(config.num_hidden_layers):
             prob_q_spec(
@@ -378,3 +396,41 @@ def attention_kernel_error(config, max_len: int) -> str | None:
     except (ValueError, KeyError) as e:
         return f"prob quantizer: {e}"
     return None
+
+
+def attention_kernel_error(config, max_len: int) -> str | None:
+    """Why the packed decode-attention kernels cannot serve this config at
+    this cache length, or None when every layer can decode through them."""
+    rep = config.num_attention_heads // config.num_key_value_heads
+    return kernel_shape_error(rep, config.head_dim) or _prob_q_error(config, max_len)
+
+
+def reference_kernel_error(config, max_len: int) -> str | None:
+    """Why the JAX package's decode-attention kernel refuses this config at
+    this cache length (its ``attention_kernel_ok`` is False), or None."""
+    rep = config.num_attention_heads // config.num_key_value_heads
+    if max_len * config.head_dim > _REFERENCE_MAX_S_HD:
+        return (f"a cache of {max_len} positions at head_dim {config.head_dim} passes "
+                f"{_REFERENCE_MAX_S_HD} elements")
+    if rep > _REP_MAX:
+        return f"{rep} query rows per kv head (at most {_REP_MAX})"
+    return _prob_q_error(config, max_len)
+
+
+def packed_decode_route(config, max_len: int, device) -> str:
+    """How ``decode_step`` attends over a packed cache of ``max_len``
+    positions on ``device``: "kernel" where ``attention_kernel_error`` finds
+    none of the kernels' limits passed (the wrappers launch K4/K5 on the
+    card and compute their plain versions on the CPU); else "dense"
+    (``packed_attention_decode_dense``) where the JAX package's kernel
+    refuses the cache too, as its ``decode_step`` then decodes densely, and
+    on the CPU, where it always does. On the card, where the JAX package's
+    kernel takes the cache and these kernels do not, raises ValueError."""
+    error = attention_kernel_error(config, max_len)
+    if error is None:
+        return "kernel"
+    if torch.device(device).type != "cuda" or reference_kernel_error(config, max_len):
+        return "dense"
+    raise ValueError(
+        f"the decode-attention kernels refuse a packed cache that the JAX package's "
+        f"kernel takes ({error}); pass packed_kv=False for the float32 cache")

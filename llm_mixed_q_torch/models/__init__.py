@@ -1,6 +1,7 @@
 """Model registry (counterpart of the JAX package's ``models/__init__.py``):
-model functions, config classes, parameter loaders, PTQ preparers and
-packers by arch. Ported: Llama and OPT, with the causal-LM task ``lm``
+model functions, config classes, parameter loaders, PTQ preparers,
+packers, cost-model profilers, quant-config parsers and stat-config
+formatters by arch. Ported: Llama and OPT, with the causal-LM task ``lm``
 and the sequence-classification task ``cls``, OPT's span
 question-answering task ``qa``, and BERT with its eight tasks (``cls``,
 ``mlm``, ``clm``, ``nsp``, ``pretrain``, ``mc``, ``token``, ``qa``; no
@@ -9,6 +10,11 @@ question-answering task ``qa``, and BERT with its eight tasks (``cls``,
 
 from __future__ import annotations
 
+from ..costmodel.models import (
+    profile_bert_quantized,
+    profile_llama_quantized,
+    profile_opt_quantized,
+)
 from .bert import (
     BertQuantizedConfig,
     bert_for_masked_lm,
@@ -19,22 +25,28 @@ from .bert import (
     bert_for_sequence_classification,
     bert_for_token_classification,
     bert_lm_head_model,
+    format_stat_profiled_int_config_bert_quantized,
     pack_bert_params,
+    parse_bert_quantized_config,
     quantize_bert_params_ptq,
 )
 from .hf_loader import bert_params_from_flat, llama_params_from_flat, opt_params_from_flat
 from .llama import (
     LlamaQuantizedConfig,
+    format_stat_profiled_int_config_llama_quantized,
     llama_for_causal_lm,
     llama_for_sequence_classification,
     pack_llama_params,
+    parse_llama_quantized_config,
     quantize_llama_params_ptq,
 )
 from .opt import (
     OPTQuantizedConfig,
+    format_stat_profiled_int_config_opt_quantized,
     opt_for_causal_lm,
     opt_for_question_answering,
     opt_for_sequence_classification,
+    parse_opt_quantized_config,
     quantize_opt_params_ptq,
 )
 from .opt.pack import pack_opt_params
@@ -56,6 +68,14 @@ PTQ_PREPARE_MAP = {"bert": quantize_bert_params_ptq, "llama": quantize_llama_par
                    "opt": quantize_opt_params_ptq}
 PARAMS_PACKER_MAP = {"bert": pack_bert_params, "llama": pack_llama_params,
                      "opt": pack_opt_params}
+PROFILER_MAP = {"bert": profile_bert_quantized, "llama": profile_llama_quantized,
+                "opt": profile_opt_quantized}
+QUANT_CONFIG_PARSER_MAP = {"bert": parse_bert_quantized_config,
+                           "llama": parse_llama_quantized_config,
+                           "opt": parse_opt_quantized_config}
+STAT_CONFIG_FORMATTER_MAP = {"bert": format_stat_profiled_int_config_bert_quantized,
+                             "llama": format_stat_profiled_int_config_llama_quantized,
+                             "opt": format_stat_profiled_int_config_opt_quantized}
 
 
 def _get(map_, arch, task=None):
@@ -90,3 +110,20 @@ def get_params_packer(arch: str):
     """Packed-storage converter: BFP weights as int8 codes (``PackedBFP``,
     the default) or sub-byte words, served through ``bfp_matmul``."""
     return _get(PARAMS_PACKER_MAP, arch)
+
+
+def get_model_profiler(arch: str):
+    """``profile(config, seq_len) -> counts``: the cost model of the arch's
+    quantized layers (``costmodel``)."""
+    return _get(PROFILER_MAP, arch)
+
+
+def get_quant_config_parser(arch: str):
+    return _get(QUANT_CONFIG_PARSER_MAP, arch)
+
+
+def get_stat_config_formatter(arch: str):
+    """Completes an integer config derived from a statistic profile
+    (``config.transform_stat_profile_to_int_quant_config``) with the arch's
+    attention matmul nodes."""
+    return _get(STAT_CONFIG_FORMATTER_MAP, arch)

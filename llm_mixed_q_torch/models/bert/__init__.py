@@ -12,4 +12,7 @@ from .modeling import (
 )
 from .pack import pack_bert_params
 from .prepare import quantize_bert_params_ptq
-from .quant_config import parse_bert_quantized_config
+from .quant_config import (
+    format_stat_profiled_int_config_bert_quantized,
+    parse_bert_quantized_config,
+)

@@ -80,7 +80,7 @@ def bert_self_attention(params, hidden, ext_mask, config, layer_idx, quantize_we
     def proj(name):
         node = params[name]
         out = quantized_linear(hidden, node["weight"], node.get("bias"), qc(name),
-                               quantize_weights)
+                               quantize_weights, f"model_layer_{layer_idx}:attention:{name}")
         return out.reshape(b, s, nh, hd).transpose(1, 2)
 
     q, k, v = proj("query"), proj("key"), proj("value")
@@ -95,18 +95,18 @@ def bert_self_attention(params, hidden, ext_mask, config, layer_idx, quantize_we
 def bert_layer(params, hidden, ext_mask, config, layer_idx, quantize_weights):
     cfg = partial(_node_cfg, config.quant_config, layer_idx)
 
-    def linear(node, x, node_cfg):
-        return quantized_linear(x, node["weight"], node.get("bias"), node_cfg,
-                                quantize_weights)
+    def linear(node, x, *path):
+        return quantized_linear(x, node["weight"], node.get("bias"), cfg(*path),
+                                quantize_weights, ":".join((f"model_layer_{layer_idx}",) + path))
 
     ctx = bert_self_attention(params["attention"], hidden, ext_mask, config, layer_idx,
                               quantize_weights)
     so = params["attention"]["output"]
-    attn_out = linear(so["dense"], ctx, cfg("attention", "output", "dense"))
+    attn_out = linear(so["dense"], ctx, "attention", "output", "dense")
     hidden = _ln(so["LayerNorm"], attn_out + hidden, config)
-    inter = linear(params["intermediate"]["dense"], hidden, cfg("intermediate", "dense"))
+    inter = linear(params["intermediate"]["dense"], hidden, "intermediate", "dense")
     inter = ACT2FN[config.hidden_act](inter)
-    out = linear(params["output"]["dense"], inter, cfg("output", "dense"))
+    out = linear(params["output"]["dense"], inter, "output", "dense")
     return _ln(params["output"]["LayerNorm"], out + hidden, config)
 
 

@@ -68,3 +68,61 @@ def parse_bert_quantized_config(config: str | dict | None, num_hidden_layers: in
         config = load_config(config)
     config = convert_str_na_to_none(config)
     return _parse_and_complete_config(config, num_hidden_layers, strict=strict)
+
+
+def format_stat_profiled_int_config_bert_quantized(
+    config: dict,
+    num_hidden_layers: int,
+    default_config: dict = None,
+    is_ptq: bool = True,
+    bypass: bool = False,
+):
+    """Synthesize matmul_0/1 from query/key/value data_out stats
+    (reference quant_config_bert.py:133-214)."""
+    if default_config is None:
+        default_config = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": 8,
+            "data_in_frac_width": 4,
+            "weight_width": 8,
+            "weight_frac_width": 8,
+            "bias_width": 8,
+            "bias_frac_width": 8,
+        }
+    for i in range(num_hidden_layers):
+        layer_entry = f"model_layer_{i}"
+        if layer_entry not in config:
+            raise ValueError(f"Cannot find {layer_entry} in config")
+        attn = config[layer_entry]["attention"]
+        attn["matmul_0"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": attn["query"]["data_out_width"],
+            "data_in_frac_width": attn["query"]["data_out_frac_width"],
+            "weight_width": attn["key"]["data_out_width"],
+            "weight_frac_width": attn["key"]["data_out_frac_width"],
+        }
+        try:
+            matmul_1_x_width = default_config[layer_entry]["attention"]["matmul_1"][
+                "data_in_width"
+            ]
+        except KeyError:
+            matmul_1_x_width = default_config["data_in_width"]
+        attn["matmul_1"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": matmul_1_x_width,
+            "data_in_frac_width": matmul_1_x_width - 1,
+            "weight_width": attn["value"]["data_out_width"],
+            "weight_frac_width": attn["value"]["data_out_frac_width"],
+        }
+        for node in ("query", "key", "value"):
+            attn[node].pop("data_out_width")
+            attn[node].pop("data_out_frac_width")
+    if "default" not in config:
+        config["default"] = default_config.get("default", dict(default_config))
+    return config

@@ -81,8 +81,10 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
-def project_qkv(params, hidden, config, layer_idx, quantize_weights):
-    """q [b, nh, s, hd], k and v [b, nkv, s, hd] (fused or separate nodes)."""
+def project_qkv(params, hidden, config, layer_idx, quantize_weights, name_nodes=False):
+    """q [b, nh, s, hd], k and v [b, nkv, s, hd] (fused or separate nodes).
+    ``name_nodes``: the separate nodes report to the stat tap (the full
+    forward's, not the decode step's, as in the JAX package)."""
     b, q_len, _ = hidden.shape
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
@@ -103,8 +105,9 @@ def project_qkv(params, hidden, config, layer_idx, quantize_weights):
 
     def proj(name, nheads):
         node = params[name]
+        node_name = f"model_layer_{layer_idx}:self_attn:{name}" if name_nodes else None
         return heads(quantized_linear(hidden, node["weight"], node.get("bias"),
-                                      qc(name), quantize_weights), nheads)
+                                      qc(name), quantize_weights, node_name), nheads)
 
     return proj("q_proj", nh), proj("k_proj", nkv), proj("v_proj", nkv)
 
@@ -116,7 +119,8 @@ def attention(params, hidden, mask, position_ids, cos, sin,
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
-    q, k, v = project_qkv(params, hidden, config, layer_idx, quantize_weights)
+    q, k, v = project_qkv(params, hidden, config, layer_idx, quantize_weights,
+                          name_nodes=True)
     q, k = quantized_apply_rotary_pos_emb(
         q, k, cos, sin, position_ids, qc("rotary_positional_encoding"))
     if past_kv is not None:
@@ -138,12 +142,15 @@ def attention(params, hidden, mask, position_ids, cos, sin,
     out = out.transpose(1, 2).reshape(b, q_len, nh * hd)
     out = quantized_linear(out, params["o_proj"]["weight"],
                            params["o_proj"].get("bias"), qc("o_proj"),
-                           quantize_weights)
+                           quantize_weights, f"model_layer_{layer_idx}:self_attn:o_proj")
     return out, new_kv
 
 
 def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
+    """The MLP; its separate nodes and down_proj report to the stat tap,
+    also from the decode step, as in the JAX package."""
     qc = partial(_node_cfg, config.quant_config, layer_idx, "mlp")
+    nn = lambda name: f"model_layer_{layer_idx}:mlp:{name}"
     if "gate_up_proj" in params:
         node = params["gate_up_proj"]
         gu = quantized_linear(hidden, node["weight"], node.get("bias"),
@@ -151,11 +158,11 @@ def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
         gate, up = gu[..., : node["splits"][0]], gu[..., node["splits"][0]:]
     else:
         gate = quantized_linear(hidden, params["gate_proj"]["weight"], None,
-                                qc("gate_proj"), quantize_weights)
+                                qc("gate_proj"), quantize_weights, nn("gate_proj"))
         up = quantized_linear(hidden, params["up_proj"]["weight"], None,
-                              qc("up_proj"), quantize_weights)
+                              qc("up_proj"), quantize_weights, nn("up_proj"))
     return quantized_linear(F.silu(gate) * up, params["down_proj"]["weight"],
-                            None, qc("down_proj"), quantize_weights)
+                            None, qc("down_proj"), quantize_weights, nn("down_proj"))
 
 
 def decoder_layer(params, hidden, mask, position_ids, cos, sin, config,

@@ -106,3 +106,90 @@ def parse_llama_quantized_config(
         config = load_config(config)
     config = convert_str_na_to_none(config)
     return _parse_and_complete_config(config, num_hidden_layers, strict=strict)
+
+
+def format_stat_profiled_int_config_llama_quantized(
+    config: dict,
+    num_hidden_layers: int,
+    default_config: dict = None,
+    is_ptq: bool = True,
+    bypass: bool = False,
+):
+    """Post-process a stat-derived integer config: synthesize matmul/rope
+    nodes from q/k/v data_out widths (functional matmuls can't be hooked) and
+    pop data_out_* keys. Reference quant_config_llama.py:119-206."""
+    if default_config is None:
+        default_config = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": 8,
+            "data_in_frac_width": 4,
+            "weight_width": 8,
+            "weight_frac_width": 8,
+            "bias_width": 8,
+            "bias_frac_width": 8,
+        }
+    for i in range(num_hidden_layers):
+        layer_entry = f"model_layer_{i}"
+        if layer_entry not in config:
+            raise ValueError(f"Cannot find {layer_entry} in config")
+        lc = config[layer_entry]
+        sa = lc["self_attn"]
+        sa["matmul_0"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": sa["q_proj"]["data_out_width"],
+            # RoPE output can't be hooked; coarse estimate (reference :147-156)
+            "data_in_frac_width": sa["q_proj"]["data_out_frac_width"] - 1,
+            "weight_width": sa["k_proj"]["data_out_width"],
+            "weight_frac_width": sa["k_proj"]["data_out_frac_width"] - 1,
+        }
+        try:
+            matmul_1_x_width = default_config[layer_entry]["self_attn"]["matmul_1"][
+                "data_in_width"
+            ]
+        except KeyError:
+            matmul_1_x_width = default_config["data_in_width"]
+        sa["matmul_1"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": matmul_1_x_width,
+            "data_in_frac_width": matmul_1_x_width - 1,
+            "weight_width": sa["v_proj"]["data_out_width"],
+            "weight_frac_width": sa["v_proj"]["data_out_frac_width"],
+        }
+        try:
+            rope_x_width = default_config[layer_entry]["self_attn"][
+                "rotary_positional_encoding"
+            ]["data_in_width"]
+        except KeyError:
+            rope_x_width = default_config["data_in_width"]
+        sa["rotary_positional_encoding"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": rope_x_width,
+            "data_in_frac_width": rope_x_width - 1,
+        }
+        for node in ("k_proj", "q_proj", "v_proj"):
+            sa[node].pop("data_out_width")
+            sa[node].pop("data_out_frac_width")
+    if "default" not in config:
+        config["default"] = default_config.get(
+            "default",
+            {
+                "name": "integer",
+                "bypass": bypass,
+                "is_ptq": is_ptq,
+                "data_in_width": 8,
+                "data_in_frac_width": 4,
+                "weight_width": 8,
+                "weight_frac_width": 8,
+                "bias_width": 8,
+                "bias_frac_width": 8,
+            },
+        )
+    return config

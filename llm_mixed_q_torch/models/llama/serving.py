@@ -15,12 +15,17 @@ layouts, chosen exactly as the JAX package chooses them:
 - head-major: K [b, nkv, hd, S] (transposed), V [b, nkv, S, hd]; decode
   attention runs kernel K5.
 
-Decode attention over a packed cache calls the kernel wrappers whenever
-every layer is within the kernels' limits (``attention_kernel_error``): on
-the card they launch K4/K5, on the CPU they compute their plain versions.
-Outside those limits a packed cache decodes through the dense path on the
-CPU and raises on the card; ``generate`` and ``ContinuousBatcher`` then
-pick the float32 fake-quant cache on the card unless ``packed_kv=True``.
+``generate`` and ``ContinuousBatcher`` pack the cache whenever the quant
+config permits (``kv_cache_pack_spec``), on either device, as the JAX
+package does. Decode attention over a packed cache is routed by shape
+(``packed_decode_route``): it calls the kernel wrappers when every layer
+is within the kernels' limits (``attention_kernel_error``), which launch
+K4/K5 on the card and compute their plain versions on the CPU; it takes
+the dense path on the dequantized codes (``packed_attention_decode_dense``,
+counted) where JAX's kernel refuses the cache too, as JAX's
+``decode_step`` does outside ``attention_kernel_ok``, and on the CPU; on
+the card it raises where JAX's kernel would take the cache and K4/K5 do
+not (a head_dim that is not a power of two from 16 to 256).
 JAX's ``jit``, ``fori_loop`` and ``while_loop`` become plain Python loops.
 """
 
@@ -36,9 +41,10 @@ from ... import resolve_device
 from ...kernels.attention_decode import (
     BATCH_KERNEL_MAX_LANES,
     attend_dense,
-    attention_kernel_error,
     packed_attention_decode_batch_cuda,
     packed_attention_decode_cuda,
+    packed_attention_decode_dense,
+    packed_decode_route,
     prob_q_spec,
 )
 from ...kernels.packing import bfp_decode_lastdim, bfp_encode_lastdim, effective_block_len
@@ -277,8 +283,9 @@ def _attention_cached(params, hidden, cache_layer, positions, cos, sin, config,
         if not mm1.get("bypass", False):
             pq = make_entry_quantizer(mm1, "data_in", skip_first_dim=True)
         if pack_spec is None:
-            k_all = k_all.transpose(2, 3)
-        ctx = attend_dense(qg, k_all, v_all, positions, pq)
+            ctx = attend_dense(qg, k_all.transpose(2, 3), v_all, positions, pq)
+        else:
+            ctx = packed_attention_decode_dense(qg, k_all, v_all, positions, pq)
     ctx = ctx.reshape(b, nh, q_len, hd).transpose(1, 2).reshape(b, q_len, nh * hd)
     return quantized_linear(ctx, params["o_proj"]["weight"],
                             params["o_proj"].get("bias"), qc("o_proj"),
@@ -292,9 +299,11 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
 
     ``position``: int or per-sequence [b] (ragged batches): each sequence's
     K/V lands at its own offset, RoPE uses its own position, attention
-    masks beyond it. A packed cache decodes through the attention kernels
-    (their plain versions on the CPU); on the card, a packed cache the
-    kernels cannot take raises."""
+    masks beyond it. A packed cache decodes by ``packed_decode_route``:
+    through the attention kernels (their plain versions on the CPU) within
+    their limits, else through the dense route on its dequantized codes
+    where JAX's kernel refuses it too, and on the CPU; on the card it
+    raises ValueError where JAX's kernel would take it."""
     packed = isinstance(cache, PackedKVCache)
     pack_spec = (cache.bs_k, cache.bs_v) if packed else None
     b = token.shape[0]
@@ -303,14 +312,7 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
     positions = positions.expand(b).contiguous() if positions.ndim == 0 else positions
     hidden = embed(params, token)
     max_len = cache.max_len if packed else cache.shape[4]
-    use_kernel = False
-    if packed:
-        error = attention_kernel_error(config, max_len)
-        use_kernel = error is None
-        if error and token.is_cuda:
-            raise ValueError(f"packed KV cache of {max_len} positions: the "
-                             f"decode-attention kernels cannot take it ({error}); "
-                             f"use the float32 cache (packed_kv=False)")
+    use_kernel = packed and packed_decode_route(config, max_len, device) == "kernel"
     cos, sin = rope_tables(max_len, config.head_dim, config.rope_theta, device)
     for i, layer_params in enumerate(params["layers"]):
         residual = hidden
@@ -390,24 +392,21 @@ def _as_index(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
 
 
-def _cache_spec(config, packed_kv, max_len, device):
+def _cache_spec(config, packed_kv):
     """(bs_k, bs_v) of a packed KV cache, or None for the float32 fake-quant
-    cache. ``packed_kv`` None packs when the config permits and, on the
-    card, the attention kernels take the cache."""
+    cache. ``packed_kv`` None packs whenever the config permits, as the JAX
+    package does, at any length and on either device."""
     if packed_kv is False:
         return None
     spec = kv_cache_pack_spec(config)
-    if packed_kv is True:
-        if spec is None:
-            raise ValueError("quant config does not permit a packed KV cache")
-        return spec
-    if spec is not None and device.type == "cuda" and attention_kernel_error(config, max_len):
-        return None
+    if packed_kv is True and spec is None:
+        raise ValueError("quant config does not permit a packed KV cache")
     return spec
 
 
 def _new_cache(config, batch, max_len, spec, device, pos_major=None):
     if spec is not None:
+        packed_decode_route(config, max_len, device)  # raises before any work
         return init_packed_kv_cache(config, batch, max_len, spec, device, pos_major)
     return init_kv_cache(config, batch, max_len, device)
 
@@ -434,7 +433,7 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
                       else _as_index(attention_mask, device))
     if max_len is None:
         max_len = prompt_len + max_new_tokens
-    spec = _cache_spec(config, packed_kv, max_len, device)
+    spec = _cache_spec(config, packed_kv)
     cache = _new_cache(config, b, max_len, spec, device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -511,7 +510,7 @@ class ContinuousBatcher:
         self.max_new_tokens = max_new_tokens
         self.prompt_bucket = prompt_bucket
         self.decode_chunk = max(1, decode_chunk)
-        spec = _cache_spec(config, packed_kv, max_len, self.device)
+        spec = _cache_spec(config, packed_kv)
         self._spec = spec
         self.cache = _new_cache(config, num_slots, max_len, spec, self.device)
         self._positions = torch.zeros(num_slots, dtype=torch.int64, device=self.device)

@@ -6,6 +6,9 @@ from .modeling import (
     opt_model,
 )
 from .prepare import quantize_opt_params_ptq
-from .quant_config import parse_opt_quantized_config
+from .quant_config import (
+    format_stat_profiled_int_config_opt_quantized,
+    parse_opt_quantized_config,
+)
 from .serving import generate as opt_generate
 from .serving import generate_greedy as opt_generate_greedy

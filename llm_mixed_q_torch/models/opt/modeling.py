@@ -71,8 +71,9 @@ def opt_learned_positional_embedding(weight, attention_mask, past_len: int = 0):
     return weight[positions[:, past_len:] + 2]
 
 
-def _linear(node, x, cfg, quantize_weights):
-    return quantized_linear(x, node["weight"], node.get("bias"), cfg, quantize_weights)
+def _linear(node, x, cfg, quantize_weights, node_name=None):
+    return quantized_linear(x, node["weight"], node.get("bias"), cfg, quantize_weights,
+                            node_name)
 
 
 def opt_attention(params, hidden, mask, config: OPTQuantizedConfig, layer_idx: int,
@@ -83,7 +84,8 @@ def opt_attention(params, hidden, mask, config: OPTQuantizedConfig, layer_idx: i
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
 
     def proj(name):
-        out = _linear(params[name], hidden, qc(name), quantize_weights)
+        out = _linear(params[name], hidden, qc(name), quantize_weights,
+                      f"model_layer_{layer_idx}:self_attn:{name}")
         return out.reshape(b, q_len, nh, hd).transpose(1, 2)
 
     q = proj("q_proj") * (hd**-0.5)  # scaled before the bmm_0 quantizer
@@ -104,12 +106,16 @@ def opt_attention(params, hidden, mask, config: OPTQuantizedConfig, layer_idx: i
     attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
     out = quantized_matmul(attn, v3, qc("bmm_1"), "bmm")
     out = out.reshape(b, nh, q_len, hd).transpose(1, 2).reshape(b, q_len, nh * hd)
-    return _linear(params["out_proj"], out, qc("out_proj"), quantize_weights), (k, v)
+    return _linear(params["out_proj"], out, qc("out_proj"), quantize_weights,
+                   f"model_layer_{layer_idx}:self_attn:out_proj"), (k, v)
 
 
-def _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend):
+def _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend,
+                   name_nodes=False):
     """One decoder layer around ``attend(self_attn_params, h) -> h`` (the
-    full-sequence attention or the cached decode attention)."""
+    full-sequence attention or the cached decode attention). ``name_nodes``:
+    fc1 and fc2 report to the stat tap (the full forward's, not the decode
+    step's, as in the JAX package)."""
     pre = config.do_layer_norm_before
     residual = hidden
     h = _ln(params["self_attn_layer_norm"], hidden) if pre else hidden
@@ -120,9 +126,13 @@ def _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend):
     residual = hidden
     h = _ln(params["final_layer_norm"], hidden) if pre else hidden
     cfg = partial(_node_cfg, config.quant_config, layer_idx)
-    h = _linear(params["fc1"], h, cfg("fc1"), quantize_weights)
+
+    def nn(name):
+        return f"model_layer_{layer_idx}:{name}" if name_nodes else None
+
+    h = _linear(params["fc1"], h, cfg("fc1"), quantize_weights, nn("fc1"))
     h = ACT2FN[config.activation_function](h)
-    h = _linear(params["fc2"], h, cfg("fc2"), quantize_weights)
+    h = _linear(params["fc2"], h, cfg("fc2"), quantize_weights, nn("fc2"))
     hidden = residual + h
     if not pre:
         hidden = _ln(params["final_layer_norm"], hidden)
@@ -139,7 +149,8 @@ def opt_decoder_layer(params, hidden, mask, config, layer_idx: int, quantize_wei
         kv.append(new_kv)
         return out
 
-    hidden = _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend)
+    hidden = _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend,
+                            name_nodes=True)
     return hidden, kv[0]
 
 

@@ -65,3 +65,80 @@ def parse_opt_quantized_config(config: str | dict | None, num_hidden_layers: int
         config = load_config(config)
     config = convert_str_na_to_none(config)
     return _parse_and_complete_config(config, num_hidden_layers, strict=strict)
+
+
+def format_stat_profiled_int_config_opt_quantized(
+    config: dict,
+    num_hidden_layers: int,
+    default_config: dict = None,
+    is_ptq: bool = True,
+    bypass: bool = False,
+):
+    """Synthesize bmm_0/1 nodes from q/k/v data_out stats.
+
+    Reference quant_config_opt.py:106-186. (The reference's inner
+    ``default_config`` swaps bypass/is_ptq at :117-119; we use the evident
+    intent — correct assignment — since that branch only fires when no
+    default_config is supplied.)
+    """
+    if default_config is None:
+        default_config = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": 8,
+            "data_in_frac_width": 4,
+            "weight_width": 8,
+            "weight_frac_width": 8,
+            "bias_width": 8,
+            "bias_frac_width": 8,
+        }
+    for i in range(num_hidden_layers):
+        layer_entry = f"model_layer_{i}"
+        if layer_entry not in config:
+            raise ValueError(f"Cannot find {layer_entry} in config")
+        lc = config[layer_entry]
+        sa = lc["self_attn"]
+        sa["bmm_0"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": sa["q_proj"]["data_out_width"],
+            "data_in_frac_width": sa["q_proj"]["data_out_frac_width"],
+            "weight_width": sa["k_proj"]["data_out_width"],
+            "weight_frac_width": sa["k_proj"]["data_out_frac_width"],
+        }
+        try:
+            bmm_1_x_width = default_config[layer_entry]["self_attn"]["bmm_1"][
+                "data_in_width"
+            ]
+        except KeyError:
+            bmm_1_x_width = default_config["data_in_width"]
+        sa["bmm_1"] = {
+            "name": "integer",
+            "bypass": bypass,
+            "is_ptq": is_ptq,
+            "data_in_width": bmm_1_x_width,
+            "data_in_frac_width": bmm_1_x_width - 1,
+            "weight_width": sa["v_proj"]["data_out_width"],
+            "weight_frac_width": sa["v_proj"]["data_out_frac_width"],
+        }
+        for node in ("k_proj", "q_proj", "v_proj"):
+            sa[node].pop("data_out_width")
+            sa[node].pop("data_out_frac_width")
+    if "default" not in config:
+        config["default"] = default_config.get(
+            "default",
+            {
+                "name": "integer",
+                "bypass": bypass,
+                "is_ptq": is_ptq,
+                "data_in_width": 8,
+                "data_in_frac_width": 4,
+                "weight_width": 8,
+                "weight_frac_width": 8,
+                "bias_width": 8,
+                "bias_frac_width": 8,
+            },
+        )
+    return config

@@ -10,15 +10,40 @@ Weights keep the ``[out_features, in_features]`` layout. Modes:
   and the product goes through ``bfp_matmul`` (the Hopper kernels at
   decode sizes), with the data_in quantizer folded into the kernel when it
   is eligible.
+
+A node given ``node_name`` reports ``(name, x, w, b, out)`` to the collector
+set by ``capture_quant_node_taps`` (statistic profiling): the raw x, w and
+b, before any quantization, and the output. With no collector set it costs
+one ``is None`` test a call.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
 from ..kernels.dequant_matmul import actq_spec, bfp_matmul
 from ..kernels.packing import PACKED_TYPES
 from .functions import make_entry_quantizer
+
+# the active tap collector of statistic profiling (the reference's forward
+# hooks, stat_manager.py:84-128); None outside ``capture_quant_node_taps``
+_TAP_COLLECTOR = None
+
+
+@contextmanager
+def capture_quant_node_taps(collector):
+    """Route every named node's tensors to ``collector.on_linear(name, x, w,
+    b, out)`` inside the block; the collector found on entry is restored on
+    exit."""
+    global _TAP_COLLECTOR
+    prev = _TAP_COLLECTOR
+    _TAP_COLLECTOR = collector
+    try:
+        yield collector
+    finally:
+        _TAP_COLLECTOR = prev
 
 
 def quantize_weight(w, config: dict):
@@ -35,8 +60,11 @@ def quantize_bias(b, config: dict):
     return make_entry_quantizer(config, "bias", skip_first_dim=False)(b)
 
 
-def quantized_linear(x, w, b, config: dict, quantize_weights: bool):
-    """y = q_a(x) @ q_w(W)^T + q_b(b); ``w`` is [out, in] or a packed tensor."""
+def quantized_linear(x, w, b, config: dict, quantize_weights: bool,
+                     node_name: str | None = None):
+    """y = q_a(x) @ q_w(W)^T + q_b(b); ``w`` is [out, in] or a packed tensor.
+    ``node_name`` names the node to the stat tap."""
+    x_raw, w_raw, b_raw = x, w, b
     if isinstance(w, PACKED_TYPES):
         aq = None
         if not config.get("bypass", False):
@@ -44,12 +72,14 @@ def quantized_linear(x, w, b, config: dict, quantize_weights: bool):
             if aq is None:
                 x = make_entry_quantizer(config, "data_in", skip_first_dim=True)(x)
         out = bfp_matmul(x, w, actq=aq)
-        return out if b is None else out + b
-
-    if not config.get("bypass", False):
-        x = make_entry_quantizer(config, "data_in", skip_first_dim=True)(x)
-        if quantize_weights:
-            w = quantize_weight(w, config)
-            b = quantize_bias(b, config)
-    out = torch.matmul(x, w.t())
-    return out if b is None else out + b
+    else:
+        if not config.get("bypass", False):
+            x = make_entry_quantizer(config, "data_in", skip_first_dim=True)(x)
+            if quantize_weights:
+                w = quantize_weight(w, config)
+                b = quantize_bias(b, config)
+        out = torch.matmul(x, w.t())
+    out = out if b is None else out + b
+    if _TAP_COLLECTOR is not None and node_name is not None:
+        _TAP_COLLECTOR.on_linear(node_name, x_raw, w_raw, b_raw, out)
+    return out

@@ -45,6 +45,8 @@ from ..kernels.attention_decode import (
 )
 from .timing import chain_ms
 
+_PROBE_THREADS = 256
+_PROBE_SMEM_MAX = 227 * 1024
 NH = NKV = 32
 REP = 1
 HD = 128
@@ -127,7 +129,12 @@ def check_operands(name, q, k_codes, k_scales, v_codes, v_scales, nkv, rep, dens
     s_len = k_codes.shape[2] // nkv
     if nh != nkv * rep:
         raise ValueError(f"{name}: {nh} query heads != nkv {nkv} * rep {rep}")
-    error = kernel_shape_error(rep, hd, s_len * (nkv if dense else 1))
+    error = kernel_shape_error(rep, hd)
+    # the probe holds q and a row's scores (every lane of the dense stages)
+    # in shared memory, as csrc/probes/attention_probe.cu checks
+    smem = 4 * rep * (hd + s_len * (nkv if dense else 1) + _PROBE_THREADS)
+    if not error and smem > _PROBE_SMEM_MAX:
+        error = f"{smem} bytes of shared memory (at most {_PROBE_SMEM_MAX})"
     if error:
         raise ValueError(f"{name}: {error}")
     return s_len

@@ -408,7 +408,7 @@ def test_lane_major_subbyte_takes_k3_on_the_card(dev):
     for m in (2, 256, 257):
         x = _qdq(torch.randn((m, 640), generator=torch.Generator().manual_seed(m))).to(dev)
         _close_rel(dm.bfp_matmul(x, packed), dm.bfp_matmul_plain(x, packed))
-    assert tk.launch_counts() == {**dict.fromkeys(tk.KERNEL_WRAPPERS, 0),
+    assert tk.launch_counts() == {**dict.fromkeys(tk.launch_counts(), 0),
                                   "bfp_matmul_subbyte": 2, "actq_split": 2}
 
 
@@ -452,6 +452,10 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     (3, 4, 2, 128, 512, 1, 16, (64, 6, 8, None), [127, 128, 511]),
     # 100 positions: K's runs off 16 bytes (element copies); V blocks of 2
     (2, 2, 1, 64, 100, 16, 2, (4, 6, 8, None), [99, 37]),
+    # Llama-3-70B attention widths (8 kv heads, rep 8) at its 8192
+    # positions, and rep 8 on one kv head at the pos-major 8192 lanes
+    (2, 8, 8, 128, 8192, 16, 16, (16, 6, 8, None), [8191, 6944]),
+    (2, 1, 8, 128, 8192, 16, 16, (16, 6, 8, None), [8191, 7000]),
 ]
 
 

@@ -3,8 +3,9 @@ import, it imports (chip_smoke.py, the probes of ``llm_mixed_q_torch.tools``
 and the ``cli``, ``datasets``, ``eval`` and ``train`` subpackages included)
 and runs Llama and OPT generation, the perplexity path under the new
 arithmetics with chunked attention, a QAT step of an OPT classifier, and
-the eight probe entry points on the CPU, a packed BERT classifier and an
-incremental Llama decode step (``make_prefill_and_decode``)."""
+the eight probe entry points on the CPU, a packed BERT classifier, an
+incremental Llama decode step (``make_prefill_and_decode``), a statistic
+profile with its integer config, and a memory density."""
 
 import subprocess
 import sys
@@ -39,7 +40,10 @@ assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
         "llm_mixed_q_torch.eval.eval_cls", "llm_mixed_q_torch.eval.metrics",
         "llm_mixed_q_torch.datasets.glue", "llm_mixed_q_torch.models.bert.modeling",
         "llm_mixed_q_torch.models.bert.quant_config",
-        "llm_mixed_q_torch.native.loader"} <= set(sys.modules)
+        "llm_mixed_q_torch.native.loader", "llm_mixed_q_torch.stats.profiler",
+        "llm_mixed_q_torch.stats.capture", "llm_mixed_q_torch.costmodel.models",
+        "llm_mixed_q_torch.cli.profile_statistics", "llm_mixed_q_torch.config.stat_to_int",
+        "llm_mixed_q_torch.config.sampler", "llm_mixed_q_torch.utils.dict_tools"} <= set(sys.modules)
 
 from llm_mixed_q_torch.models.api import make_forward, make_prefill_and_decode
 from llm_mixed_q_torch.models.bert import BertQuantizedConfig, pack_bert_params
@@ -93,6 +97,7 @@ for toml in ("block_minifloat", "log", "minifloat_denorm"):
 
 from llm_mixed_q_torch.models.hf_loader import init_llama_params
 from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
+from llm_mixed_q_torch.models.llama import llama_for_causal_lm as llama_for_causal_lm_
 
 config = LlamaQuantizedConfig(vocab_size=64, hidden_size=128, intermediate_size=256,
                               num_hidden_layers=1, num_attention_heads=1,
@@ -114,6 +119,25 @@ assert logits.shape == (1, 3, 64) and bool(torch.isfinite(logits).all())
 out = opt_generate(opt_params, opt_config, np.array([[3, 4, 5]]), max_new_tokens=2,
                    device="cpu")
 assert out.shape == (1, 2)
+from llm_mixed_q_torch.config import transform_stat_profile_to_int_quant_config
+from llm_mixed_q_torch.costmodel.profiler import compute_memory_density
+from llm_mixed_q_torch.models import get_model_profiler, get_stat_config_formatter
+from llm_mixed_q_torch.stats import profile_statistics
+
+lcfg = LlamaQuantizedConfig(vocab_size=64, hidden_size=64, intermediate_size=128,
+                            num_hidden_layers=1, num_attention_heads=2)
+prof = profile_statistics(batches=[{"input_ids": np.array([[3, 4, 5, 6]]),
+                                    "attention_mask": np.ones((1, 4), np.int64)}],
+                          model_fn=llama_for_causal_lm_, config=lcfg,
+                          params=init_llama_params(lcfg, seed=0, device="cpu"))
+assert len(prof) == 17
+qc = get_stat_config_formatter("llama")(
+    transform_stat_profile_to_int_quant_config(prof, "range_min_max", width=8), 1)
+assert qc["model_layer_0"]["self_attn"]["matmul_0"]["name"] == "integer"
+bcfg = LlamaQuantizedConfig(vocab_size=64, hidden_size=64, intermediate_size=128,
+                            num_hidden_layers=1, num_attention_heads=2,
+                            quant_config="configs/quantization/bfp_6bit.toml")
+assert 4.5 < compute_memory_density(get_model_profiler("llama")(bcfg, 64)) < 5.0
 from llm_mixed_q_torch.tools import aprobe, ksub
 
 assert "llm_mixed_q_torch.tools.timing" in sys.modules

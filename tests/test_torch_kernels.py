@@ -176,10 +176,11 @@ def test_prob_q_spec_and_gates_match_jax():
         with pytest.raises(ValueError):
             tattn.prob_q_spec(bad, 96)
     assert tattn.BATCH_KERNEL_MAX_LANES == jattn.BATCH_KERNEL_MAX_LANES
-    # the cache-length gate is the CUDA kernel's shared memory, not the
-    # TPU's VMEM budget: 8192 positions at head_dim 128 pass here only
-    assert 8192 * 128 > jattn._MAX_S_HD
-    assert tattn.kernel_shape_error(1, 128, 8192) is None
+    # the TPU kernel's cache cap is the JAX package's own: the CUDA kernels
+    # take any cache length, and the route follows the JAX cap only for a
+    # cache they refuse
+    assert 8192 * 128 > jattn._MAX_S_HD == tattn._REFERENCE_MAX_S_HD
+    assert tattn.kernel_shape_error(1, 128) is None
     from llm_mixed_q_torch.kernels.dequant_matmul import actq_spec
 
     for c in (cfg, dict(cfg, data_in_block_size=[-1, 16]), dict(cfg, name="integer"), None):
@@ -187,13 +188,14 @@ def test_prob_q_spec_and_gates_match_jax():
 
 
 @pytest.mark.parametrize("rep,hd,s_len,reason", [
-    (1, 128, 56000, None), (8, 128, 6800, None), (1, 128, 58000, "shared memory"),
-    (8, 128, 7000, "shared memory"), (9, 128, 64, "query rows"), (1, 96, 64, "head_dim"),
+    (1, 128, 56000, None), (8, 128, 6800, None), (1, 128, 131072, None),
+    (8, 128, 8192, None), (9, 128, 64, "query rows"), (1, 96, 64, "head_dim"),
     (1, 512, 64, "head_dim")])
 def test_attention_kernel_limits(rep, hd, s_len, reason):
     """The limits of csrc/attention_decode.cu, which the wrappers raise on
-    and by which serving picks its route."""
-    error = tattn.kernel_shape_error(rep, hd, s_len)
+    and by which serving picks its route: rep and head_dim, at any cache
+    length."""
+    error = tattn.kernel_shape_error(rep, hd)
     assert (error is None) if reason is None else (reason in error)
     if reason is not None:
         q = torch.zeros((1, rep, hd))
@@ -201,3 +203,16 @@ def test_attention_kernel_limits(rep, hd, s_len, reason):
             tattn._launch_attention("k", q, *(torch.zeros(1, dtype=torch.int8),
                                               torch.zeros(1)) * 2, torch.zeros(1), 1, rep,
                                     hd, s_len, 16, 16, None)
+
+
+def test_attention_wrappers_refuse_operands_past_32_bit_indices():
+    """The kernels index in 32 bits: a head-major cache of 2^31 code bytes
+    (meta tensors, nothing allocated) is refused before any launch."""
+    meta = dict(device="meta")
+    q = torch.empty((1, 1, 1, 128), **meta)
+    kc = torch.empty((1, 1, 128, 2**24), dtype=torch.int8, **meta)
+    ks = torch.empty((1, 1, 8, 2**24), **meta)
+    with pytest.raises(ValueError, match="32 bits"):
+        tattn._check_attention("k", q, kc, ks, kc, ks, 1, 128, 16, 16, None)
+    with pytest.raises(ValueError, match="32 bits"):
+        tattn._workspace("k", 2**31, "meta")
