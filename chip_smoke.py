@@ -13,6 +13,7 @@
     python3 chip_smoke.py --qat-only      # the QAT phase (8) only (no build)
     python3 chip_smoke.py --tail-only     # build, then the serving-tail and BERT phase (10) only
     python3 chip_smoke.py --stats-only    # build, then the statistics phase (11) only
+    python3 chip_smoke.py --search-only   # build, then the search and prompting phase (12) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -62,7 +63,8 @@
    crafted blocks (zeros, +-5e-9, subnormals, every power of two and
    sqrt(2)*2^k and their neighbours, as block maxima and as elements):
    no bit may differ (NaN counts equal to NaN); (2) Llama-2-7B and
-   OPT-6.7B widths at 2 layers, seq 512: each arm's PTQ-prepared tree,
+   OPT-6.7B widths at 1 layer, seq 128 (``PPL_CPU_LAYERS``, ``PPL_CPU_SEQ``): each arm's
+   PTQ-prepared tree,
    prepared on the card, runs the forward on the card and on the CPU,
    with every quantizer, matmul, softmax, rsqrt and silu of the card's run
    shadowed on the CPU on the same inputs (``shadow_on_cpu``): no
@@ -188,16 +190,42 @@
    steps) and at Mistral-Large-2 widths (rep 12, which both packages'
    kernels refuse: the dense route runs 2 layers x 15 steps, K4 and K5 0
    times): the same tokens, one decode step's logits within 5e-2 (K5) and
-   1e-4 (dense) of max|logit|, each cache's bytes and ms a step; and a
-   head_dim of 48 (JAX's kernel takes it, K4/K5 do not): the default
-   cache refused with a ValueError, the float32 cache generating. Its
-   results are the ``{"stats": ...}`` line.
+   1e-4 (dense) of max|logit|, each cache's bytes and ms a step; a head_dim
+   of 48, whose default packed cache decodes through K4 (2 layers x 3
+   steps), the dense route 0; and a head_dim of 320 (JAX's kernel takes
+   it, K4/K5 do not): the default cache refused with a ValueError, the
+   float32 cache generating. Its results are the ``{"stats": ...}`` line;
+12. search and prompting (``--search-only``): (1) fault 15's repair: K4
+   and K5 against their plain versions (rtol 2e-4 / atol 2e-5) at head_dims
+   48, 80, 96 and 112, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
+   positions, K5 at 2048), each timed beside its plain version, its bound
+   and SDPA; ``generate`` of a Llama-family config at head_dim 80 (hidden
+   2560, 32 heads over 8 kv heads, 2 layers, W6A6 int8 codes), batch 2,
+   32 + 16 tokens, on its default packed cache at max_len 48 (K4) and 2048
+   (K5), each run's counters showing its kernel launched and the dense
+   route 0, every card token the CPU's argmax on the card's own history
+   or within 1e-3 of max|logit| of it; (2) the classification search of
+   ``configs/search/llama_7b_sst2.toml`` (TPE, seed 0, 6 trials) at
+   Llama-2-7B widths cut to 4 layers, random weights, a 2-label head, 64 x
+   128 synthetic tokens a trial: each trial's seconds, accuracy, memory
+   density and average bitwidth, the peak GB, ``evaluate_best_trials``;
+   the same 6 trials at 1 layer on 8 samples on the card and on the CPU:
+   equal sampled configs and memory densities, and at most one prediction
+   a trial apart, a near tie; (3) the conditional search, 3 trials, on a
+   stat profile taken over 2 batches; (4) the prompting search, 3 trials,
+   on 32 in-memory ``sst`` examples with a toy tokenizer, then the best
+   trial's config (PTQ-prepared weights) on a 16-word greedy task through
+   ``make_serving_generate_fn``, its counters showing K4 launched and the
+   dense route 0, its greedy ids at 1 layer card against CPU as in (1).
+   Parts 2-4 launch no kernel but the greedy eval's K4. Its results are
+   the ``{"search": ...}`` line.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line, the statistics phase's the one before it, the serving-tail phase's
-the one before that, the QAT phase's the one before that and the
-perplexity phase's the one before that. Imports nothing of JAX.
+line, the search phase's the one before it, the statistics phase's the one
+before that, the serving-tail phase's the one before that, the QAT
+phase's the one before that and the perplexity phase's the one before
+that. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -205,6 +233,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -773,6 +802,15 @@ PATHS = {
     "fault13_float32": ("bfp_matmul_int8", "actq_split"),
     "fault13_dense_packed": ("bfp_matmul_int8", "actq_split", "attn_decode_packed_dense"),
     "fault13_dense_float32": ("bfp_matmul_int8", "actq_split"),
+    # phase 12: generate at head_dim 80 (fault 15) on int8 weights, its packed
+    # cache through K4 (max_len 48) and K5 (max_len 2048)
+    "head_dim_80_pos_major": ("bfp_matmul_int8", "actq_split", "attn_decode_pos_major"),
+    "head_dim_80_head_major": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
+    # the searches' trials and evals (the fake-quant forward: no Hopper
+    # kernel), and the prompting eval's serving generate_fn on the best
+    # trial's config (float weights fake-quantized, its packed cache: K4)
+    "search_cls": (), "search_conditional": (), "search_prompting": (),
+    "prompting_generate": ("attn_decode_pos_major",),
 }
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
@@ -1055,6 +1093,10 @@ PPL_QUANTIZERS = {"integer": "integer", "block_fp": "bfp_6bit",
 # whole run near its former length (part 2's CPU forwards take most of it)
 PPL_SEQ, PPL_SEQS = 2048, 1
 PPL_LONG, PPL_CHUNK = 4096, 512  # Llama-2's context, chunked attention
+# part 2's depth and length against the CPU: cut from 2 layers at seq 512
+# to 1 layer at seq 128 to leave the script's time limit room for the
+# search phase (12); its CPU forwards and shadows go with the tokens
+PPL_CPU_LAYERS, PPL_CPU_SEQ = 1, 128
 
 
 def _toml(stem):
@@ -1214,7 +1256,8 @@ def shadow_on_cpu(report):
 
 
 def ppl_card_vs_cpu():
-    """Part 2: 2 layers of Llama-2-7B and OPT-6.7B widths, seq 512: each
+    """Part 2: PPL_CPU_LAYERS layers of Llama-2-7B and OPT-6.7B widths, seq
+    PPL_CPU_SEQ: each
     arm's tree PTQ-prepared on the card, its bits copied to the CPU, the
     PTQ forward on both. On the card every quantizer and float32 op is
     shadowed on the CPU (``shadow_on_cpu``): on the same inputs no
@@ -1232,12 +1275,12 @@ def ppl_card_vs_cpu():
 
     out = {}
     for family, init in (("llama", init_llama_params), ("opt", init_opt_params)):
-        base = _ppl_config(family, 2, "bypass")
+        base = _ppl_config(family, PPL_CPU_LAYERS, "bypass")
         card_params = init(base, seed=SEED)
-        ds = make_synthetic_lm_dataset(base.vocab_size, 512, 1, seed=SEED)
+        ds = make_synthetic_lm_dataset(base.vocab_size, PPL_CPU_SEQ, 1, seed=SEED)
         rows = {}
         for arm, stem in PPL_ARMS.items():
-            config = _ppl_config(family, 2, stem)
+            config = _ppl_config(family, PPL_CPU_LAYERS, stem)
             card_tree = get_ptq_preparer(family)(card_params, config)
             cpu_tree = tree_map_tensors(lambda t: t.cpu(), card_tree)
             fwd = make_forward(family, "lm", config, quantize_weights=False, with_labels=True)
@@ -1251,7 +1294,7 @@ def ppl_card_vs_cpu():
                                          / want_logits.abs().max()).item(),
                    "ops": ops}
             rows[arm] = row
-            log(f"  {family} 2 layers, {arm}: loss card {res['loss']:.6f} cpu {want['loss']:.6f} "
+            log(f"  {family} {PPL_CPU_LAYERS} layer(s), {arm}: loss card {res['loss']:.6f} cpu {want['loss']:.6f} "
                 f"(gap {row['loss_gap_rel']:.3e} of loss), logits gap "
                 f"{row['logits_err_of_max']:.3e} of max|logit|; ops on the card's inputs, "
                 f"[calls, differing, worst]: {ops}")
@@ -1346,7 +1389,8 @@ def run_ppl():
     log("phase 7, part 1: quantizers card vs CPU (differing bits; must be 0):")
     arith = ppl_arithmetic()
     t1 = time.perf_counter()
-    log(f"part 1 took {t1 - t0:.1f} s; phase 7, part 2: 2-layer forwards card vs CPU "
+    log(f"part 1 took {t1 - t0:.1f} s; phase 7, part 2: {PPL_CPU_LAYERS}-layer forwards "
+        f"card vs CPU "
         f"(PTQ trees prepared on the card):")
     gaps = ppl_card_vs_cpu()
     t2 = time.perf_counter()
@@ -3097,10 +3141,12 @@ def stats_fault_13():
     K2), bf16 embedding, random weights (seed 0), ``generate`` at batch 1, a
     32-token prompt, 16 new tokens, max_len 8192: Llama-3-70B widths through
     K5, Mistral-Large-2 widths through the dense route (``_fault_13_config``
-    each); and a head_dim of 48, which the JAX package's kernel takes and
-    K4/K5 do not: ``generate`` with the default cache raises ValueError
-    before any work, and with ``packed_kv=False`` it runs. -> (results,
-    launch counts by run)"""
+    each); a head_dim of 48, which K4 takes (``generate``'s default packed
+    cache launches it, the dense route not at all); and a head_dim of 320,
+    past the kernels' 256, which the JAX package's kernel takes:
+    ``generate`` with the default cache raises ValueError before any work,
+    and with ``packed_kv=False`` it runs. -> (results, launch counts by
+    run)"""
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
 
@@ -3108,24 +3154,35 @@ def stats_fault_13():
     for name, (widths, route, counter) in F13_CONFIGS.items():
         out[name], run_counts = _fault_13_config(name, widths, route, counter)
         counts.update(run_counts)
-    config = LlamaQuantizedConfig(vocab_size=96, hidden_size=96, intermediate_size=128,
-                                  num_hidden_layers=2, num_attention_heads=2,
-                                  max_position_embeddings=48, quant_config=_toml("bfp_6bit"))
-    params = init_llama_params(config, seed=SEED, device="cuda")
     ids = torch.full((1, 4), 5, device="cuda")
+    small = lambda hidden: LlamaQuantizedConfig(
+        vocab_size=96, hidden_size=hidden, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=2, max_position_embeddings=48, quant_config=_toml("bfp_6bit"))
+    config = small(96)
+    params = init_llama_params(config, seed=SEED, device="cuda")
+    reset_all_launch_counts()
+    tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
+    hd48 = all_launch_counts()
+    check(tokens.shape == (1, 4) and hd48["attn_decode_pos_major"] == 2 * 3
+          and hd48["attn_decode_packed_dense"] == 0,
+          f"head_dim 48: the packed cache did not decode through K4 ({hd48})")
+    out["head_dim_48_k4_launches"] = hd48["attn_decode_pos_major"]
+    config = small(640)
+    params = init_llama_params(config, seed=SEED, device="cuda")
     try:
         generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
         refused = None
     except ValueError as e:
         refused = str(e)
     check(refused is not None and "packed_kv=False" in refused,
-          f"head_dim 48: the packed cache was not refused on the card ({refused})")
+          f"head_dim 320: the packed cache was not refused on the card ({refused})")
     tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, packed_kv=False,
                       device="cuda")
-    check(tokens.shape == (1, 4), f"head_dim 48, float32 cache: tokens {tokens.shape}")
-    out["head_dim_48_refused"] = refused
-    log(f"  head_dim 48 on the card: the packed cache refused ({refused}); the float32 cache "
-        f"generates")
+    check(tokens.shape == (1, 4), f"head_dim 320, float32 cache: tokens {tokens.shape}")
+    out["head_dim_320_refused"] = refused
+    log(f"  head_dim 48 on the card: the packed cache decodes through K4 "
+        f"({hd48['attn_decode_pos_major']} launches, the dense route 0); head_dim 320: the "
+        f"packed cache refused ({refused}); the float32 cache generates")
     return out, counts
 
 
@@ -3160,6 +3217,518 @@ def run_stats():
                       "fault_13": fault_13}}, counts
 
 
+# phase 12 (--search-only): fault 15's repair (K4 and K5 at head_dims that
+# are multiples of 16 but not powers of two), then the paper's search and
+# the prompting eval
+F15_HEAD_DIMS = (48, 80, 96, 112)
+F15_REPS = (1, 8)
+F15_NKV = 8
+F15_LENS = {"attn_decode_pos_major": 1024, "attn_decode_head_major": 2048}  # max_len by layout
+# a Llama-family config at head_dim 80: hidden 2560, 32 heads over 8 kv heads
+F15_LLAMA = dict(vocab_size=VOCAB, hidden_size=2560, intermediate_size=6912,
+                 num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=4096)
+F15_LAYERS, F15_BATCH, F15_PROMPT, F15_NEW = 2, 2, 32, 16
+F15_MAX_LENS = {"attn_decode_pos_major": F15_PROMPT + F15_NEW, "attn_decode_head_major": 2048}
+TIE = 1e-3  # two top logits within this share of max|logit|: a near tie
+
+
+def _near_tie_ok(token, logits):
+    """The card's token is the CPU's argmax, or its logit lies within TIE of
+    max|logit| of the CPU's top one. token [b]; logits [b, vocab] (CPU)."""
+    picked = logits.gather(1, token[:, None].long())[:, 0]
+    return bool(((logits.max(1).values - picked) <= TIE * logits.abs().max()).all())
+
+
+def search_head_dims(peaks, flush):
+    """Part 1a: K4 and K5 against their plain versions at head_dims 48, 80,
+    96 and 112, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024 positions, the
+    pos-major layout's 8192-lane cap; K5 at 2048), each timed beside its
+    plain version, its bound and SDPA on a dequantized cache
+    (``_attention_row``, the tolerance of check_attention_kernels).
+    -> {wrapper name: {"hd<d>_rep<r>": row}}"""
+    from llm_mixed_q_torch.kernels.attention_decode import (
+        k4_tiles, k5_tiles, packed_attention_decode_batch_cuda,
+        packed_attention_decode_batch_plain, packed_attention_decode_cuda,
+        packed_attention_decode_plain)
+    from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernels = {"attn_decode_pos_major": (True, packed_attention_decode_batch_cuda,
+                                         packed_attention_decode_batch_plain),
+               "attn_decode_head_major": (False, packed_attention_decode_cuda,
+                                          packed_attention_decode_plain)}
+    rows = {k: {} for k in kernels}
+    for kname, (pos_major, fn, plain) in kernels.items():
+        s_len, nkv = F15_LENS[kname], F15_NKV
+        for hd, rep in itertools.product(F15_HEAD_DIMS, F15_REPS):
+            positions = torch.tensor([s_len - 1 - 9 * i for i in range(BATCH)],
+                                     dtype=torch.int32, device="cuda")
+            cache = _cache_inputs(gen, s_len, nkv, hd, pos_major)
+            q = _block_fp_qdq(torch.randn((BATCH * nkv * rep, hd), generator=gen,
+                                          device="cuda"), 6, 8, 127, [1, 16], True)
+            kd = torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda")
+            vd = torch.randn_like(kd)
+            mask = (torch.arange(s_len, device="cuda")[None, None, None, :]
+                    <= positions.long()[:, None, None, None])
+            library = lambda: sdpa(q.reshape(BATCH, nkv * rep, 1, hd), kd, vd, attn_mask=mask,
+                                   enable_gqa=rep > 1)
+            if pos_major:
+                args = (q.reshape(BATCH, nkv * rep, hd), *cache, positions, 16, 16, nkv, rep,
+                        PROB_Q)
+                split = dict(zip(("dims", "dgs", "pgs"), k4_tiles(nkv, rep, hd, s_len, 16, 16)))
+            else:
+                args = (q.reshape(BATCH, nkv, rep, hd), *cache, positions, 16, 16, PROB_Q)
+                split = dict(zip(("T", "dgs", "pgs"), k5_tiles(nkv, rep, hd, s_len, 16, 16)))
+            r = _attention_row(f"{kname} hd{hd}_rep{rep}", lambda: fn(*args),
+                               lambda: plain(*args), library, positions, nkv, rep, hd, peaks,
+                               flush)
+            r.update(split=split, nkv=nkv, max_len=s_len)
+            rows[kname][f"hd{hd}_rep{rep}"] = r
+            log(f"  {kname} head_dim {hd}, rep {rep} (nkv {nkv}, max_len {s_len}, split "
+                f"{split}): max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms(SDPA)={r['library_ms']:.4f}")
+            del positions, cache, q, kd, vd, mask, library, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def search_head_dim_80():
+    """Part 1b: ``generate`` of a Llama-family config at head_dim 80 (hidden
+    2560, 32 heads over 8 kv heads, 2 layers, W6A6 int8 codes, bf16
+    embedding, random weights), batch 2, 32 prompt tokens and 16 new ones,
+    on its default packed cache: at max_len 48 (pos-major: K4) and 2048
+    (head-major: K5), each run between a reset of the counters and a
+    reading, which must show its kernel launched and the dense route at 0.
+    The card's tokens are held against the port on the CPU, teacher-forced
+    on the card's tokens: each is the CPU's argmax or within TIE of its top
+    logit (``_near_tie_ok``). -> (results, launch counts by run)"""
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import (
+        LlamaQuantizedConfig, decode_step, generate, prefill_into_cache)
+    from llm_mixed_q_torch.models.llama.serving import _cache_spec, _new_cache
+
+    config = LlamaQuantizedConfig(**F15_LLAMA, num_hidden_layers=F15_LAYERS,
+                                  quant_config=_toml("bfp_6bit"))
+    check(config.head_dim == 80, f"head_dim {config.head_dim}")
+    params = init_llama_params(config, seed=SEED, device="cuda",
+                               pack=dict(subbyte=False, bf16_embed=True))
+    cpu_params = _on(params, "cpu")
+    ids = torch.as_tensor(np.random.default_rng(SEED + 15).integers(
+        2, VOCAB, (F15_BATCH, F15_PROMPT)), device="cuda")
+    mask = torch.ones_like(ids)
+    out, counts = {}, {}
+    for kname, max_len in F15_MAX_LENS.items():
+        path = f"head_dim_80_{kname.removeprefix('attn_decode_')}"
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(params, config, ids, mask, max_new_tokens=F15_NEW, max_len=max_len,
+                          device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[path] = all_launch_counts()
+        check(counts[path][kname] == F15_LAYERS * (F15_NEW - 1)
+              and counts[path]["attn_decode_packed_dense"] == 0,
+              f"{path}: launches {counts[path]}")
+        cache = _new_cache(config, F15_BATCH, max_len, _cache_spec(config, None), "cpu")
+        logits, lengths = prefill_into_cache(cpu_params, ids.cpu(), mask.cpu(), cache, config)
+        tok = torch.as_tensor(tokens, dtype=torch.int64)
+        ties = 0
+        for t in range(F15_NEW):
+            exact = bool((logits.argmax(-1) == tok[:, t]).all())
+            check(exact or _near_tie_ok(tok[:, t], logits),
+                  f"{path}: token {t} of the card is neither the CPU's argmax nor a near tie")
+            ties += not exact
+            if t + 1 < F15_NEW:
+                logits = decode_step(cpu_params, tok[:, t:t + 1], cache, lengths + t, config)
+        out[path] = {"generate_seconds": secs, "near_ties": ties,
+                     "launches": counts[path][kname]}
+        log(f"  {path}: generate {secs:.2f} s at max_len {max_len}, {kname} launched "
+            f"{counts[path][kname]} times, the dense route 0; every card token the CPU's "
+            f"argmax on the card's history ({ties} near ties)")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# parts 2-4: the paper's search (configs/search/llama_7b_sst2.toml) at
+# Llama-2-7B widths, depth cut to 4 layers (1 where card and CPU are held
+# together), random weights, a 2-label head, make_synthetic_cls_dataset
+# the CPU side of the card-against-CPU checks fake-quantizes ~0.2 G weights a
+# layer a trial; one layer keeps the phase inside the script's time limit
+SEARCH_LAYERS, SEARCH_CPU_LAYERS = 4, 1
+SEARCH_TRIALS, COND_TRIALS, PROMPT_TRIALS = 6, 3, 3
+SEARCH_SAMPLES, SEARCH_CPU_SAMPLES, SEARCH_SEQ, SEARCH_BATCH = 64, 8, 128, 8
+SEARCH_WIDTHS = dict(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
+                     num_attention_heads=HEADS, max_position_embeddings=4096, num_labels=2)
+COND_SPACE = {"name": ["integer"], "bypass": ["!ast!False"], "is_ptq": ["!ast!True"],
+              "data_in_width": [8, 6], "weight_width": [8, 6, 4], "bias_width": [8],
+              "data_out_width": [8]}
+PROMPT_EXAMPLES, GREEDY_EXAMPLES, GREEDY_WORDS = 32, 4, 16
+
+
+class ToyTokenizer:
+    """Whitespace words as ids 2..VOCAB-1 (crc32), id 1 the start token: no
+    tokenizer file is on the machine."""
+
+    def __call__(self, text, add_special_tokens=True):
+        import zlib
+
+        ids = [1] if add_special_tokens else []
+        return {"input_ids": ids + [2 + zlib.crc32(w.encode()) % (VOCAB - 2)
+                                    for w in text.split()]}
+
+    def decode(self, ids):
+        return " ".join(f"t{i}" for i in ids)
+
+
+def _search_config(layers, trials, space=None):
+    """configs/search/llama_7b_sst2.toml cut to ``trials`` trials, seed 0
+    (its TPE sampler, thresholds and space; ``space`` replaces the seed's
+    default)."""
+    from llm_mixed_q_torch.utils import load_config
+
+    sc = load_config(ROOT / "configs/search/llama_7b_sst2.toml")
+    sc["search_strategy"].update(n_trials=trials, seed=0)
+    if space is not None:
+        sc["search_space"] = {"quant_config_seed": {"default": dict(space)}}
+    return sc
+
+
+class _TrialClock(logging.Handler):
+    """Seconds between a search's trial log records (each trial's own
+    time, the first counted from ``start``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.start, self.times = time.time(), []
+
+    def emit(self, record):
+        if "rial" in record.getMessage():
+            self.times.append(record.created)
+
+    def seconds(self):
+        ts = [self.start] + self.times
+        return [b - a for a, b in zip(ts, ts[1:])]
+
+
+@contextlib.contextmanager
+def _trial_clock():
+    clock = _TrialClock()
+    logger = logging.getLogger("llm_mixed_q_torch.search")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(clock)
+    try:
+        yield clock
+    finally:
+        logger.removeHandler(clock)
+        logger.setLevel(level)
+
+
+def _trial_rows(study, est, secs):
+    rows = []
+    for t, s in zip(study.trials, secs + [None] * len(study.trials)):
+        mem = t.values[1] / (est["alpha_memory_density"] + 1e-8)
+        rows.append({"trial": t.number, "seconds": s, "accuracy": t.values[0] / (
+            est["alpha_accuracy"] + 1e-8), "memory_density": mem,
+            "avg_bitwidth": est["compare_to"] / (mem + 1e-12)})
+        log(f"    trial {t.number}: {rows[-1]['seconds'] or 0:.2f} s, accuracy "
+            f"{rows[-1]['accuracy']:.4f}, memory density {mem:.4f}, avg bitwidth "
+            f"{rows[-1]['avg_bitwidth']:.3f}")
+    return rows
+
+
+def _cls_search(cls, layers, trials, device, samples, save_dir, sc=None, init_device=None,
+                **extra):
+    """A classification search at Llama-2-7B widths on ``device``, its
+    weights drawn on ``init_device`` (default ``device``; the CPU where the
+    card's run is held against the CPU's: the generators differ): the
+    study, the search object, its dataloader factory and its trial
+    seconds."""
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig
+
+    mck = dict(SEARCH_WIDTHS, num_hidden_layers=layers)
+    params = _on(init_llama_params(LlamaQuantizedConfig(**mck), task="cls", seed=SEED,
+                                   device=init_device or device), device)
+    data = make_synthetic_cls_dataset(VOCAB, SEARCH_SEQ, samples, seed=SEED + 12)
+    factory = lambda: numpy_dataloader(data, batch_size=SEARCH_BATCH)
+    search = cls("llama", "llama-2-7b-widths", sc or _search_config(layers, trials), save_dir,
+                 params, model_config_kwargs=mck, **extra)
+    with _trial_clock() as clock:
+        study = search.search(factory, "sst2", False, SEARCH_SEQ, samples)
+    return study, search, factory, clock.seconds()
+
+
+def _forward_logits(search, trial, ids, mask):
+    from llm_mixed_q_torch.utils.trial_extractor import trial_to_quant_config
+
+    cfg = search.make_model_config(search._trial_config(trial_to_quant_config(trial),
+                                                        search.make_model_config(None)
+                                                        .num_hidden_layers))
+    with torch.inference_mode():
+        return search.make_forward(cfg)(search.params, ids, mask)["logits"].float().cpu()
+
+
+def search_cls(tmp):
+    """Part 2: the classification search, TPE seed 0, 6 trials at 4 layers
+    on 64 samples x 128 tokens, its trial seconds, accuracies, memory
+    densities and average bitwidths and the peak device memory, then
+    ``evaluate_best_trials``; the same 6 trials at 1 layer on 8 samples on
+    the card and on the CPU: equal sampled configs and memory densities,
+    and accuracies equal but for at most one sample a trial whose two top
+    CPU logits lie within TIE of max|logit|. -> (results, launch counts)"""
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset
+    from llm_mixed_q_torch.search import SearchQuantisationForClassification as Search
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    study, search, factory, secs = _cls_search(Search, SEARCH_LAYERS, SEARCH_TRIALS, "cuda",
+                                               SEARCH_SAMPLES, tmp / "cls")
+    est = search.search_config["search_estimator"]
+    log(f"  classification search, {SEARCH_LAYERS} layers, {SEARCH_TRIALS} trials "
+        f"(TPE seed 0), {SEARCH_SAMPLES} x {SEARCH_SEQ} tokens a trial:")
+    rows = _trial_rows(study, est, secs)
+    best = search.evaluate_best_trials(study, factory, "sst2")
+    torch.cuda.synchronize()
+    counts = {"search_cls": all_launch_counts()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(study.trials) == SEARCH_TRIALS and (tmp / "cls" / "results.csv").exists()
+          and (tmp / "cls" / "best_quant_config.toml").exists(), "search artifacts missing")
+    log(f"  evaluate_best_trials: {best}; peak device memory {peak:.2f} GB")
+    del search, study
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = _cls_search(Search, SEARCH_CPU_LAYERS, SEARCH_TRIALS, device,
+                                   SEARCH_CPU_SAMPLES, tmp / f"cls_{device}", init_device="cpu")
+    (card, card_search, _, _), (cpu, cpu_search, _, cpu_secs) = runs["cuda"], runs["cpu"]
+    check([t.params for t in card.trials] == [t.params for t in cpu.trials],
+          "the card's sampled configs differ from the CPU's")
+    check([t.values[1] for t in card.trials] == [t.values[1] for t in cpu.trials],
+          "the card's memory densities differ from the CPU's")
+    data = make_synthetic_cls_dataset(VOCAB, SEARCH_SEQ, SEARCH_CPU_SAMPLES, seed=SEED + 12)
+    ids, mask = (torch.as_tensor(data[k]) for k in ("input_ids", "attention_mask"))
+    flips = 0
+    for a, b in zip(card.trials, cpu.trials):
+        if a.values[0] == b.values[0]:
+            continue
+        got = _forward_logits(card_search, a, ids.cuda(), mask.cuda())
+        want = _forward_logits(cpu_search, b, ids, mask)
+        differ = (got.argmax(-1) != want.argmax(-1)).nonzero()[:, 0]
+        check(len(differ) <= 1 and _near_tie_ok(got.argmax(-1)[differ], want[differ]),
+              f"trial {a.number}: card and CPU predictions differ beyond a near tie")
+        flips += len(differ)
+    log(f"  the same {SEARCH_TRIALS} trials at {SEARCH_CPU_LAYERS} layer(s) on "
+        f"{SEARCH_CPU_SAMPLES} samples, card vs CPU: sampled configs and memory densities "
+        f"equal, {flips} near-tie flips of accuracy (CPU {sum(cpu_secs):.1f} s)")
+    del runs, card_search, cpu_search
+    torch.cuda.empty_cache()
+    return {"trials": rows, "best": best, "peak_gb": peak, "card_vs_cpu_flips": flips}, counts
+
+
+def search_conditional(tmp):
+    """Part 3: the conditional (integer) search, 3 trials (TPE seed 0) at 4
+    layers, on a stat profile taken here over 2 batches of the float
+    classifier, then ``evaluate_best_trials``. -> (results, launch counts)"""
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import (
+        LlamaQuantizedConfig, llama_for_sequence_classification)
+    from llm_mixed_q_torch.search import SearchIntQuantisationForClassification as Search
+    from llm_mixed_q_torch.stats import profile_statistics
+
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    config = LlamaQuantizedConfig(**SEARCH_WIDTHS, num_hidden_layers=SEARCH_LAYERS)
+    params = init_llama_params(config, task="cls", seed=SEED, device="cuda")
+    data = make_synthetic_cls_dataset(VOCAB, SEARCH_SEQ, 2 * SEARCH_BATCH, seed=SEED + 13)
+    profile = profile_statistics(batches=list(numpy_dataloader(data, SEARCH_BATCH)),
+                                 model_fn=llama_for_sequence_classification, config=config,
+                                 params=params)
+    t_prof = time.perf_counter() - t0
+    del params
+    study, search, factory, secs = _cls_search(
+        Search, SEARCH_LAYERS, COND_TRIALS, "cuda", SEARCH_SAMPLES, tmp / "cond",
+        sc=_search_config(SEARCH_LAYERS, COND_TRIALS, COND_SPACE), stat_profile=profile)
+    log(f"  conditional search: a stat profile of {len(profile)} entries over 2 batches in "
+        f"{t_prof:.1f} s, then {COND_TRIALS} trials:")
+    rows = _trial_rows(study, search.search_config["search_estimator"], secs)
+    best = search.evaluate_best_trials(study, factory, "sst2")
+    torch.cuda.synchronize()
+    counts = {"search_conditional": all_launch_counts()}
+    check(len(study.trials) == COND_TRIALS and 0 <= best["accuracy"] <= 1,
+          f"conditional search: {best}")
+    log(f"  evaluate_best_trials (frac widths from the profile): {best}")
+    del search, study
+    torch.cuda.empty_cache()
+    return {"profile_entries": len(profile), "profile_seconds": t_prof, "trials": rows,
+            "best": best}, counts
+
+
+def _sst_examples(n):
+    rng = np.random.default_rng(SEED + 14)
+    words = ["good", "bad", "fine", "dull", "film", "plot", "great", "awful", "story", "cast"]
+    return [{"sentence": " ".join(rng.choice(words, size=int(rng.integers(4, 12)))),
+             "label": int(rng.integers(0, 2))} for _ in range(n)]
+
+
+def _greedy_task():
+    """A greedy task of GREEDY_WORDS gold words (register_task): a cache of
+    a 32-multiple prompt and 16 new tokens, which the prob quantizer's
+    block of 16 tiles, so that the packed cache takes the kernels."""
+    from llm_mixed_q_torch.eval.prompting import register_task
+
+    register_task("copy16", {"style": "greedy", "context": lambda ex: ex["context"],
+                             "gold_text": lambda ex: ex["gold"], "dataset": (None, None, None)})
+    rng = np.random.default_rng(SEED + 15)
+    word = lambda: "w" + str(int(rng.integers(0, 999)))
+    return [{"context": " ".join(word() for _ in range(int(rng.integers(8, 24)))),
+             "gold": " " + " ".join(word() for _ in range(GREEDY_WORDS))}
+            for _ in range(GREEDY_EXAMPLES)]
+
+
+def search_prompting(tmp):
+    """Part 4: ``SearchQuantisationForPromptingCLS``, 3 trials (TPE seed
+    0) at 4 layers on 32 in-memory ``sst`` examples with a toy tokenizer,
+    then its best trial's config (weights PTQ-prepared once, as
+    ``cli_eval_prompting_cls`` serves them) on a greedy task through
+    ``make_serving_generate_fn`` (its packed KV cache: K4), the counters
+    read around that eval; the greedy ids at 1 layer held against the
+    port on the CPU, teacher-forced. -> (results, launch counts)"""
+    from llm_mixed_q_torch.eval.prompting import (
+        eval_prompting_task, greedy_generate_ids, make_serving_generate_fn)
+    from llm_mixed_q_torch.models import get_ptq_preparer
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig
+    from llm_mixed_q_torch.search import SearchQuantisationForPromptingCLS as Search
+    from llm_mixed_q_torch.utils.trial_extractor import trial_to_quant_config
+
+    tok = ToyTokenizer()
+    examples = {"sst": _sst_examples(PROMPT_EXAMPLES)}
+    greedy = _greedy_task()
+    reset_all_launch_counts()
+    mck = dict(SEARCH_WIDTHS, num_hidden_layers=SEARCH_LAYERS)
+    params = init_llama_params(LlamaQuantizedConfig(**mck), seed=SEED, device="cuda")
+    search = Search("llama", "llama-2-7b-widths", _search_config(SEARCH_LAYERS, PROMPT_TRIALS),
+                    tmp / "prompting", params, tok, model_config_kwargs=mck)
+    with _trial_clock() as clock:
+        study = search.search_prompting(["sst"], SEARCH_SEQ, examples_by_task=examples)
+    log(f"  prompting search, {PROMPT_TRIALS} trials on {PROMPT_EXAMPLES} sst examples:")
+    rows = _trial_rows(study, search.search_config["search_estimator"], clock.seconds())
+    best = search.evaluate_best_trials_prompting(study, ["sst"], examples_by_task=examples)
+    torch.cuda.synchronize()
+    counts = {"search_prompting": all_launch_counts()}
+    log(f"  evaluate_best_trials_prompting: mean acc {best['mean_acc']:.4f} (trial "
+        f"{best['best_trial_number']})")
+    qc = trial_to_quant_config(study.trials[best["best_trial_number"]])
+    out = {"trials": rows, "best": {k: v for k, v in best.items() if k != "results"}}
+    for layers, device in ((SEARCH_LAYERS, "cuda"), (SEARCH_CPU_LAYERS, "cuda"),
+                           (SEARCH_CPU_LAYERS, "cpu")):
+        config = LlamaQuantizedConfig(**dict(mck, num_hidden_layers=layers),
+                                      quant_config=search.q_config_parser(qc, layers,
+                                                                          strict=False))
+        p = params if layers == SEARCH_LAYERS else _on(init_llama_params(
+            LlamaQuantizedConfig(**dict(mck, num_hidden_layers=layers)), seed=SEED,
+            device="cpu"), device)
+        # weights quantized once (PTQ), as the prompting eval CLI serves them
+        p = get_ptq_preparer("llama")(p, config)
+        gen = make_serving_generate_fn("llama", config, p, quantize_weights=False)
+        if layers == SEARCH_LAYERS:
+            reset_all_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eval_prompting_task(None, p, tok, "copy16", greedy, generate_fn=gen)
+            torch.cuda.synchronize()
+            counts["prompting_generate"] = all_launch_counts()
+            launched = counts["prompting_generate"]["attn_decode_pos_major"]
+            check(launched > 0 and counts["prompting_generate"]["attn_decode_packed_dense"] == 0,
+                  f"the greedy eval's generate_fn did not decode through K4: "
+                  f"{counts['prompting_generate']}")
+            out["greedy"] = {"acc": res["acc"], "n": res["n"], "seconds":
+                             time.perf_counter() - t0, "k4_launches": launched}
+            log(f"  the best trial's config on {GREEDY_EXAMPLES} greedy examples of "
+                f"{GREEDY_WORDS} gold words through make_serving_generate_fn: acc {res['acc']}, "
+                f"{out['greedy']['seconds']:.2f} s, K4 launched {launched} times, the dense "
+                f"route 0")
+            continue
+        ctxs = [greedy[i]["context"] for i in range(GREEDY_EXAMPLES)]
+        ids = greedy_generate_ids(None, p, tok, ctxs, GREEDY_WORDS, generate_fn=gen)
+        if device == "cuda":
+            card_ids, card_params = ids, p
+            continue
+        check(np.array_equal(card_ids, ids) or _teacher_forced_ok(
+            card_ids, p, config, tok, ctxs), "the card's greedy ids are neither the CPU's "
+            "nor its argmax on their own history up to a near tie")
+        out["greedy_card_vs_cpu_equal"] = bool(np.array_equal(card_ids, ids))
+        log(f"  greedy ids at {SEARCH_CPU_LAYERS} layer(s), card vs CPU: "
+            f"{'equal' if out['greedy_card_vs_cpu_equal'] else 'near ties only'}")
+        del card_params, p
+    del search, study, params
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _teacher_forced_ok(card_ids, cpu_params, config, tok, ctxs):
+    """Each card token is the CPU's argmax on the card's history, or within
+    TIE of its top logit (on PTQ-prepared weights, as the generate_fn)."""
+    from llm_mixed_q_torch.models.llama import decode_step, prefill_into_cache
+    from llm_mixed_q_torch.models.llama.serving import _cache_spec, _new_cache
+
+    enc = [tok(c)["input_ids"] for c in ctxs]
+    pad = (max(map(len, enc)) + 31) // 32 * 32
+    ids = torch.zeros((len(enc), pad), dtype=torch.int64)
+    mask = torch.zeros_like(ids)
+    for i, e in enumerate(enc):
+        ids[i, :len(e)], mask[i, :len(e)] = torch.as_tensor(e), 1
+    n = card_ids.shape[1]
+    cache = _new_cache(config, len(enc), pad + n, _cache_spec(config, None), "cpu")
+    logits, lengths = prefill_into_cache(cpu_params, ids, mask, cache, config, False)
+    tok_t = torch.as_tensor(card_ids, dtype=torch.int64)
+    for t in range(n):
+        if not _near_tie_ok(tok_t[:, t], logits):
+            return False
+        if t + 1 < n:
+            logits = decode_step(cpu_params, tok_t[:, t:t + 1], cache, lengths + t, config,
+                                 False)
+    return True
+
+
+def run_search(peaks, flush):
+    """Phase 12: part 1 (fault 15: K4/K5 at new head_dims, the head_dim-80
+    Llama); parts 2-4 (the searches and the prompting eval), each with its
+    counters set to 0 before it and read after it. -> ({"search": results},
+    kernel rows of part 1, launch counts by run)"""
+    import tempfile
+
+    t0 = time.perf_counter()
+    log("phase 12, part 1: K4 and K5 at head_dims 48, 80, 96, 112 (fault 15):")
+    head_dims = search_head_dims(peaks, flush)
+    hd80, counts = search_head_dim_80()
+    out = {"head_dim_80": hd80}
+    parts = ((2, "the classification search", "classification", search_cls),
+             (3, "the conditional search", "conditional", search_conditional),
+             (4, "the prompting search and eval", "prompting", search_prompting))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for n, what, key, fn in parts:
+            t1 = time.perf_counter()
+            log(f"phase 12, part {n}: {what} (Llama-2-7B widths, {SEARCH_LAYERS} layers):")
+            out[key], part_counts = fn(Path(tmp))
+            counts.update(part_counts)
+            out[key]["seconds"] = time.perf_counter() - t1
+            log(f"part {n} took {out[key]['seconds']:.1f} s")
+    check_path_counts(counts)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 12 (search and prompting) took {out['seconds']:.1f} s")
+    return {"search": out}, head_dims, counts
+
+
 def kernel_entries(rows, path_counts):
     """The entries of the ``{"kernels": ...}`` line. launches: the sum over
     the runs that take the kernel (serving paths for K1-K5, the probe
@@ -3189,7 +3758,7 @@ def kernel_entries(rows, path_counts):
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
             "k2_vs_c32_k512_err", "k3_vs_c32_t1_err", "k4_vs_anchor_err", "v2_full_vs_anchor_err",
-            "v3_masks_vs_anchor_err", "kernels_ms", "shapes", "bert_shapes")
+            "v3_masks_vs_anchor_err", "kernels_ms", "shapes", "bert_shapes", "head_dims")
             if key in r}
         if kname in PROBE_ALSO_REPLACES:
             extra["also_replaces"] = PROBE_ALSO_REPLACES[kname]
@@ -3233,6 +3802,13 @@ def main(only=None):
         _cuda.lib("kernels")
         stats, _ = run_stats()
         print(json.dumps(stats), flush=True)
+        return
+    if only == "search":
+        _cuda.lib("kernels")
+        flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+        search, head_dims, _ = run_search(peaks, lambda: flush_buf.zero_())
+        log(json.dumps({"head_dims": head_dims}))
+        print(json.dumps(search), flush=True)
         return
     if only == "tail":
         _cuda.lib("kernels")
@@ -3327,6 +3903,13 @@ def main(only=None):
     torch.cuda.empty_cache()
     stats, stats_counts = run_stats()
     path_counts.update(stats_counts)
+    torch.cuda.empty_cache()
+    search, head_dims, search_counts = run_search(peaks, flush)
+    path_counts.update(search_counts)
+    for kname, by_shape in head_dims.items():
+        rows[kname]["head_dims"] = by_shape
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"],
+                                         *(r["max_abs_err"] for r in by_shape.values()))
 
     log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
         "at batch 8, K2's and K3's including their actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
@@ -3341,6 +3924,7 @@ def main(only=None):
     print(json.dumps(qat), flush=True)
     print(json.dumps(tail), flush=True)
     print(json.dumps(stats), flush=True)
+    print(json.dumps(search), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3352,5 +3936,5 @@ if __name__ == "__main__":
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
              "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
              "--ppl-only": "ppl", "--qat-only": "qat", "--tail-only": "tail",
-             "--stats-only": "stats"}
+             "--stats-only": "stats", "--search-only": "search"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

@@ -1,12 +1,13 @@
-"""Eval CLIs (counterpart of the JAX package's ``cli/evals.py`` but its
-prompting eval):
+"""Eval CLIs (counterpart of the JAX package's ``cli/evals.py``):
 - ``cli_eval_cls_glue``: a GLUE task's validation metrics of a local
   checkpoint with a classification head under a quant config (mnli also
   on its mismatched split);
 - ``cli_eval_lm_wikitext2``: Wikitext2 perplexity of a local checkpoint
   under a quant config;
 - ``cli_eval_lm_wikitext2_int8_baseline``: the same under W8A8 integer
-  PTQ, the framework's own stand-in for the reference's llm.int8 baseline.
+  PTQ, the framework's own stand-in for the reference's llm.int8 baseline;
+- ``cli_eval_prompting_cls``: the mean zero-shot prompting accuracy over
+  ``--tasks`` (their splits through HF ``datasets``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import argparse
 
 from ..datasets import get_raw_dataset_dict, numpy_dataloader, preprocess_dataset_dict
 from ..datasets.glue import is_regression_task
-from ..eval import eval_cls_glue, eval_lm_wikitext2
+from ..eval import eval_cls_glue, eval_lm_wikitext2, eval_prompting_tasks
+from ..models.api import make_forward
 from .common import add_common_model_args, build_model, get_tokenizer, save_results
 
 INT8_BASELINE = {
@@ -89,3 +91,18 @@ def cli_eval_lm_wikitext2_with_config(args):
     """The perplexity eval on parsed ``args`` (``args.quant_config`` may be a
     dict)."""
     return _eval_lm(args, "eval_lm_wikitext2_int8")
+
+
+def cli_eval_prompting_cls(argv=None):
+    parser = argparse.ArgumentParser("eval_prompting_cls")
+    add_common_model_args(parser)
+    parser.add_argument("--tasks", nargs="+", required=True)
+    parser.add_argument("--limit", type=int, default=None)
+    args = parser.parse_args(argv)
+    config, params, _ = build_model(args, "lm")
+    fwd = make_forward(args.model_arch, "lm", config, quantize_weights=False)
+    tokenizer = get_tokenizer(args)
+    results = eval_prompting_tasks(fwd, params, tokenizer, args.tasks, limit=args.limit,
+                                   batch_size=args.batch_size)
+    save_results(args, results, "eval_prompting")
+    return results

@@ -17,6 +17,12 @@
 //   [1, bs] runs of positions, positions past positions[b] counting as
 //   exactly 0 (as exp(-1e9 - m) = 0 makes them on the TPU);
 //   ctx = P . deq(V), float32.
+// Both take rep 1..8 query rows a kv head and every head_dim that is a
+// multiple of 16 from 16 to 256: a power of two keeps the tiles and thread
+// groups it always had, another multiple of 16 gets tiles and dim groups
+// that divide it (chosen by kernels/attention_decode.py: k4_tiles,
+// k5_tiles, and checked by the host code here), and K5's P . V idles the
+// threads past its last whole position group.
 //
 // What bounds them on an H100: the cache bytes (1 byte per code + 4/bs per
 // scale, K and V) of the filled positions over the 3.35 TB/s memory rate;
@@ -36,8 +42,9 @@
 // (128 blocks at batch 8, 32 heads, S 256), and chunks past positions[b]
 // exit at once (read on the device, no host sync). A block queues every
 // tile of its K (or V) at once where the ring allows (up to 8 stages), a
-// tile being all of hd (up to 128 dims) where two stages fit, else 64, 32
-// or 16: a block's time went with its number of tiles, not with its bytes
+// tile being all of hd (up to 128 dims) where two stages fit, else the
+// next multiple of 16 that divides hd (64, 32 or 16 for a power of two):
+// a block's time went with its number of tiles, not with its bytes
 // (PERF.md), and bulk (TMA) copies of the same runs were no faster than
 // cp.async.
 // A thread takes a quad of 4 neighbouring lanes (4 heads of a position
@@ -162,10 +169,10 @@ struct K4Shape {
   int lbs_k, lbs_v;        // log2 of the K and V scale blocks
   int cstr, sstr, pstr;    // a stage's code row (bytes) and scale row (floats); a prob row
   int stages1, stage1_bytes, stages2, stage2_bytes;
-  int dgs;                 // scores: dim groups of threads, a power of two <= 16
+  int dgs;                 // scores: dim groups of threads
   int pgs;                 // P . V (G % 4 == 0): position groups of threads
   int nlb;                 // prob blocks of > min(P, 32) positions a row (0: none)
-  int dims;                // head dims a ring stage: 64, 32 or 16
+  int dims;                // head dims a ring stage: a multiple of 16 that divides hd
   int codes16, ks16, vs16;  // 16-byte copies for the codes and for the K and V scales
 };
 
@@ -561,6 +568,14 @@ cudaError_t allow_dynamic_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// head_dims the kernels take: every multiple of 16 from 16 to 256
+bool head_dim_ok(int hd) { return hd >= 16 && hd <= 256 && hd % 16 == 0; }
+
+// a run of n dims lies inside one scale block of bs dims, or holds whole
+// ones (bs a power of two)
+bool fits_blocks(int n, int bs) { return n % bs == 0 || bs % n == 0; }
+
+
 // The operands of a K4 call, for its launches.
 struct K4Args {
   const float *q, *ks, *vs;
@@ -605,10 +620,10 @@ int launch_k4_rep(const K4Shape& s, const K4Args& a) {
 
 int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, const void* vs,
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
-              int S, int bs_k, int bs_v, int G, int P, float sqrt_hd, lmq::BfpSpec pq,
-              cudaStream_t stream) {
+              int S, int bs_k, int bs_v, int G, int P, int dims, int dgs, int pgs,
+              float sqrt_hd, lmq::BfpSpec pq, cudaStream_t stream) {
   const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || ilog2(hd) < 4 || hd % bs_k ||
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd) || hd % bs_k ||
       hd % bs_v || lbs_k < 0 || lbs_v < 0 || G < 1 || G > nkv || G * rep > kK4Rows || lP < 0 ||
       P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30))
     return (int)cudaErrorInvalidValue;
@@ -623,31 +638,30 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
   const bool q4 = G % 4 == 0;
   const int lpb = ilog2(pq.bs);
   s.nlb = pq.on && pq.bs > (P < 32 ? P : 32) ? (S + pq.bs - 1) >> lpb : 0;
-  // the longest tile (hd up to 128 dims, else 64, 32 or 16; hd a power of
-  // two >= 16) with which two ring stages fit in each kernel: fewer tiles,
-  // fewer waits; a call allocates the slots of its tiles only
-  int smem1 = 0, smem2 = 0;
-  for (s.dims = hd < kK4MaxDims ? hd : kK4MaxDims; s.dims >= 16; s.dims /= 2) {
-    const int n_tiles = hd / s.dims;
-    s.dgs = 1;
-    while (2 * s.dgs * nq <= kK4Threads && 2 * s.dgs <= s.dims) s.dgs *= 2;
-    s.pgs = 1;
-    while (q4 && 2 * s.pgs * (G / 4) * s.dims <= kK4Threads) s.pgs *= 2;
-    s.stage1_bytes = s.dims * s.cstr + 4 * k4_scale_rows(s.dims, lbs_k) * s.sstr + 4 * s.dims * rows;
-    s.stage2_bytes = s.dims * s.cstr + 4 * k4_scale_rows(s.dims, lbs_v) * s.sstr;
-    const int persist2 = 4 * (P * rows + 2 * rows + (q4 ? s.pgs * s.dims * rows : 0));
-    const int want = n_tiles < kK4Stages ? (n_tiles > 2 ? n_tiles : 2) : kK4Stages;
-    s.stages1 = kSmemMax / s.stage1_bytes < want ? kSmemMax / s.stage1_bytes : want;
-    s.stages2 = (kSmemMax - persist2) / s.stage2_bytes < want
-                    ? (kSmemMax - persist2) / s.stage2_bytes : want;
-    const int red1 = 4 * s.dgs * rows * s.pstr;
-    const int slots1 = s.stages1 < n_tiles ? s.stages1 : n_tiles;
-    const int slots2 = s.stages2 < n_tiles ? s.stages2 : n_tiles;
-    smem1 = slots1 * s.stage1_bytes > red1 ? slots1 * s.stage1_bytes : red1;
-    smem2 = slots2 * s.stage2_bytes + persist2;
-    if (s.stages1 >= 2 && s.stages2 >= 2 && smem1 <= kSmemMax && smem2 <= kSmemMax) break;
-  }
-  if (s.dims < 16) return (int)cudaErrorInvalidValue;
+  // the ring stage's dims, the scores' dim groups and P . V's position
+  // groups, chosen by the caller (kernels/attention_decode.py: k4_tiles):
+  // checked here against what the kernels take, two ring stages fitting in
+  // each kernel's shared memory (a call allocates the slots of its tiles)
+  if (dims < 16 || dims > kK4MaxDims || dims % 16 || hd % dims || !fits_blocks(dims, bs_k) ||
+      !fits_blocks(dims, bs_v) || dgs < 1 || dims % dgs || dgs * nq > kK4Threads || pgs < 1 ||
+      (pgs > 1 && !(q4 && pgs * (G / 4) * dims <= kK4Threads)))
+    return (int)cudaErrorInvalidValue;
+  s.dims = dims, s.dgs = dgs, s.pgs = pgs;
+  const int n_tiles = hd / dims;
+  s.stage1_bytes = dims * s.cstr + 4 * k4_scale_rows(dims, lbs_k) * s.sstr + 4 * dims * rows;
+  s.stage2_bytes = dims * s.cstr + 4 * k4_scale_rows(dims, lbs_v) * s.sstr;
+  const int persist2 = 4 * (P * rows + 2 * rows + (q4 ? pgs * dims * rows : 0));
+  const int want = n_tiles < kK4Stages ? (n_tiles > 2 ? n_tiles : 2) : kK4Stages;
+  s.stages1 = kSmemMax / s.stage1_bytes < want ? kSmemMax / s.stage1_bytes : want;
+  s.stages2 = (kSmemMax - persist2) / s.stage2_bytes < want
+                  ? (kSmemMax - persist2) / s.stage2_bytes : want;
+  const int red1 = 4 * dgs * rows * s.pstr;
+  const int slots1 = s.stages1 < n_tiles ? s.stages1 : n_tiles;
+  const int slots2 = s.stages2 < n_tiles ? s.stages2 : n_tiles;
+  const int smem1 = slots1 * s.stage1_bytes > red1 ? slots1 * s.stage1_bytes : red1;
+  const int smem2 = slots2 * s.stage2_bytes + persist2;
+  if (s.stages1 < 2 || s.stages2 < 2 || smem1 > kSmemMax || smem2 > kSmemMax)
+    return (int)cudaErrorInvalidValue;
   // 16-byte copies where every run starts and ends on 16 bytes
   const auto vec = [&](const void* p, int per) {
     const bool runs = G == nkv ? (P * G) % per == 0 : G % per == 0 && nkv % per == 0;
@@ -895,7 +909,10 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   const float* emax = stats + 2 * (size_t)s.b * nh + k.row0 * nlb;  // [rep][nlb]
   __syncthreads();
 
+  // pgs whole groups of hd / 4 threads; where they do not fill the block,
+  // the threads past them idle (pg >= pgs)
   const int nd4 = s.hd >> 2, dq = threadIdx.x % nd4, pg = threadIdx.x / nd4, d0 = 4 * dq;
+  const bool pv_on = pg < s.pgs;
   const int nel = rep << s.lT, nel32 = (nel + 31) & ~31;
   float acc[4][RM];
 #pragma unroll
@@ -930,7 +947,7 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     __syncthreads();   // everyone's have, and the probabilities are in
     const uint8_t* vt = ring + (t & 1) * s.stage2;
     const float* vst = reinterpret_cast<const float*>(vt + s.T * s.hd);
-    for (int pp = pg; pp < n; pp += s.pgs) {
+    for (int pp = pv_on ? pg : n; pp < n; pp += s.pgs) {
       const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hd + d0) ^ 0x80808080u;
       const float* srow = vst + pp * s.vsc;
       const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
@@ -966,7 +983,7 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   float* red = reinterpret_cast<float*>(ring);  // [pgs][rep][hd]
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
-    if (!REP && r >= rep) break;
+    if ((!REP && r >= rep) || !pv_on) break;
     *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hd + d0) =
         make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
   }
@@ -1011,38 +1028,37 @@ int launch_k5_phases(const K5Shape& s, const K4Shape& s4, const K5Args& a) {
 
 int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, const void* vs,
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
-              int S, int bs_k, int bs_v, int P, int T, float sqrt_hd, lmq::BfpSpec pq,
-              cudaStream_t stream) {
-  const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P), lhd = ilog2(hd);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || lhd < 4 || hd > kK5Threads ||
-      lbs_k < 0 || lbs_v < 0 || bs_k > hd || bs_v > hd || lP < 0 ||
+              int S, int bs_k, int bs_v, int P, int T, int dgs, int pgs, float sqrt_hd,
+              lmq::BfpSpec pq, cudaStream_t stream) {
+  const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd) ||
+      lbs_k < 0 || lbs_v < 0 || hd % bs_k || hd % bs_v || lP < 0 ||
       ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
     return (int)cudaErrorInvalidValue;
   K5Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S;
   s.P = P, s.nch = (S + P - 1) / P;
   s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.ksr = hd >> lbs_k, s.vsc = hd >> lbs_v;
-  s.pgs = kK5Threads / (hd / 4);
-  // the longest tile, at most T, with which two ring stages fit in each
-  // kernel (head_dim 256 with a scale a code takes 64 positions)
-  int smem1 = 0, smem2 = 0;
-  for (s.T = T; s.T >= 1; s.T /= 2) {
-    s.lT = ilog2(s.T);
-    s.cstr = (s.T + 15) & ~15;
-    s.sstr = (s.T + 3) & ~3;
-    s.pstr = s.T + 1;
-    const int nq = (s.T + 3) / 4;
-    s.dgs = 1;
-    while (2 * s.dgs * nq <= kK5Threads && 2 * s.dgs <= hd) s.dgs *= 2;
-    s.red1 = (s.dgs * rep * s.pstr + 3) & ~3;
-    s.stage1 = hd * s.cstr + 4 * s.ksr * s.sstr;
-    s.stage2 = s.T * hd + 4 * ((s.T * s.vsc + 3) & ~3);
-    smem1 = 4 * (rep * hd + s.red1) + 2 * s.stage1;
-    const int ring2 = 2 * s.stage2, red2 = 4 * s.pgs * rep * hd;
-    smem2 = ((4 * (s.T * rep + 2 * rep) + 15) & ~15) + (ring2 > red2 ? ring2 : red2);
-    if (smem1 <= kSmemMax && smem2 <= kSmemMax) break;
-  }
-  if (s.T < 1) return (int)cudaErrorInvalidValue;
+  // the ring stage's positions, the scores' dim groups (each group's runs
+  // under one K scale) and P . V's position groups (the threads past pgs
+  // whole groups of hd / 4 idle), chosen by the caller
+  // (kernels/attention_decode.py: k5_tiles): checked here, two ring stages
+  // fitting in each kernel's shared memory
+  const int nq = (T + 3) / 4;
+  if (dgs < 1 || hd % dgs || !fits_blocks(hd / dgs, bs_k) || dgs * nq > kK5Threads ||
+      pgs < 1 || pgs * (hd / 4) > kK5Threads)
+    return (int)cudaErrorInvalidValue;
+  s.T = T, s.lT = ilog2(T), s.dgs = dgs, s.pgs = pgs;
+  s.cstr = (T + 15) & ~15;
+  s.sstr = (T + 3) & ~3;
+  s.pstr = T + 1;
+  s.red1 = (dgs * rep * s.pstr + 3) & ~3;
+  s.stage1 = hd * s.cstr + 4 * s.ksr * s.sstr;
+  s.stage2 = T * hd + 4 * ((T * s.vsc + 3) & ~3);
+  const int smem1 = 4 * (rep * hd + s.red1) + 2 * s.stage1;
+  const int ring2 = 2 * s.stage2, red2 = 4 * pgs * rep * hd;
+  const int smem2 = ((4 * (T * rep + 2 * rep) + 15) & ~15) + (ring2 > red2 ? ring2 : red2);
+  if (smem1 > kSmemMax || smem2 > kSmemMax) return (int)cudaErrorInvalidValue;
   // 16-byte copies where every run starts on 16 bytes and ends inside its
   // row when rounded up to 16 bytes: codes by the position (K) or by hd % 16
   // == 0 (V); scales by 4 floats; q by hd % 4 == 0
@@ -1091,30 +1107,33 @@ extern "C" {
 // K4: pos-major cache, every array [b, rows, S*nkv] with lane = pos*nkv + head;
 // ws: float32 scores [b, nh, S] then partials [b, ceil(S / P), hd, nh]; a
 // block covers G kv heads and P positions (kernels/attention_decode.py:
-// k4_geometry)
+// k4_geometry), in ring stages of dims head dims, dgs dim groups and pgs
+// position groups (k4_tiles)
 int lmq_attn_decode_pos_major(const void* q, const void* kc, const void* ks,
                               const void* vc, const void* vs, const void* positions,
                               void* out, void* ws, int b, int nkv, int rep, int hd, int S,
-                              int bs_k, int bs_v, int G, int P, float sqrt_hd, int pq_on,
-                              int pq_bs, int pq_width, int pq_emin, int pq_emax,
-                              void* stream) {
+                              int bs_k, int bs_v, int G, int P, int dims, int dgs, int pgs,
+                              float sqrt_hd, int pq_on, int pq_bs, int pq_width, int pq_emin,
+                              int pq_emax, void* stream) {
   return launch_k4(q, kc, ks, vc, vs, positions, out, ws, b, nkv, rep, hd, S, bs_k, bs_v, G, P,
-                   sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
+                   dims, dgs, pgs, sqrt_hd,
+                   lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
                    static_cast<cudaStream_t>(stream));
 }
 
 // K5: head-major cache, K [b, nkv, hd, S] / [b, nkv, hd/bs, S],
 // V [b, nkv, S, hd] / [b, nkv, S, hd/bs]; ws: float32 scores [b, nh, S],
 // partials [b, ceil(S / P), hd, nh] and stats; a block covers P positions
-// of one kv head (kernels/attention_decode.py: k5_geometry)
+// of one kv head (kernels/attention_decode.py: k5_geometry), in ring stages
+// of T positions, dgs dim groups and pgs position groups (k5_tiles)
 int lmq_attn_decode_head_major(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* positions,
                                void* out, void* ws, int b, int nkv, int rep, int hd, int S,
-                               int bs_k, int bs_v, int P, int T, float sqrt_hd, int pq_on,
-                               int pq_bs, int pq_width, int pq_emin, int pq_emax,
-                               void* stream) {
+                               int bs_k, int bs_v, int P, int T, int dgs, int pgs,
+                               float sqrt_hd, int pq_on, int pq_bs, int pq_width, int pq_emin,
+                               int pq_emax, void* stream) {
   return launch_k5(q, kc, ks, vc, vs, positions, out, ws, b, nkv, rep, hd, S, bs_k, bs_v, P, T,
-                   sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
+                   dgs, pgs, sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
                    static_cast<cudaStream_t>(stream));
 }
 

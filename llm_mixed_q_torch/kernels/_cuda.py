@@ -55,13 +55,15 @@ _SIGNATURES = {
         # x, ws, M, K, kw, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
         "lmq_actq_split": [_P, _P] + [_I] * 8 + [_P],
         # q, kc, ks, vc, vs, positions, out, ws (scores and partials), b, nkv,
-        # rep, hd, S, bs_k, bs_v, G, P (a block's heads and positions),
-        # sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
-        "lmq_attn_decode_pos_major": [_P] * 8 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
+        # rep, hd, S, bs_k, bs_v, G, P (a block's heads and positions), dims,
+        # dgs, pgs (a ring stage's dims, dim and position groups), sqrt_hd,
+        # pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
+        "lmq_attn_decode_pos_major": [_P] * 8 + [_I] * 12 + [_F] + [_I] * 5 + [_P],
         # q, kc, ks, vc, vs, positions, out, ws (scores, partials, stats), b,
         # nkv, rep, hd, S, bs_k, bs_v, P, T (a block's positions, a ring
-        # stage's), sqrt_hd, pq_on, pq_bs, pq_width, pq_emin, pq_emax, stream
-        "lmq_attn_decode_head_major": [_P] * 8 + [_I] * 9 + [_F] + [_I] * 5 + [_P],
+        # stage's), dgs, pgs (dim and position groups), sqrt_hd, pq_on, pq_bs,
+        # pq_width, pq_emin, pq_emax, stream
+        "lmq_attn_decode_head_major": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 5 + [_P],
     },
     "probes": {
         # x, words, scales, y, M, N, Kx, k_pad, width, bs, layout, variant,

@@ -45,7 +45,12 @@ codes, no kernel, its layer calls counted) where the JAX package's kernel
 refuses it too (``reference_kernel_error``: its ``attention_kernel_ok`` is
 False), as the JAX package's ``decode_step`` then decodes densely; and on
 the card it raises where the JAX package's kernel takes the cache and
-these do not.
+these do not. The kernels take rep 1..8 and every head_dim that is a
+multiple of 16 from 16 to 256 (``kernel_shape_error``; ``k4_tiles`` and
+``k5_tiles`` split such a head_dim, and the C host checks the split), so
+what the card refuses is a head_dim above 256 (within the JAX package's
+cap of 4096 x 128 cache elements) or one that is not a multiple of 16 with
+a K/V block that divides it.
 """
 
 from __future__ import annotations
@@ -61,7 +66,9 @@ from .packing import effective_block_len
 
 NEG_INF = float(np.finfo(np.float32).min)
 _REP_MAX = 8  # GQA query rows per kv head the kernels take
+_HD_MAX = 256  # the longest head_dim the kernels take (a multiple of 16)
 _THREADS = 256
+_SMEM_MAX = 227 * 1024  # shared memory a block (csrc kSmemMax)
 # the JAX package's cap on its decode-attention kernel's cache: max_len *
 # head_dim (its ``_MAX_S_HD``)
 _REFERENCE_MAX_S_HD = 4096 * 128
@@ -98,9 +105,9 @@ def k4_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
 def k5_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
     """(P, T): the positions a K5 block covers, for one kv head and its
     ``rep`` query rows, and the positions a stage of its ring holds, both
-    powers of two, T <= P <= ``s_len``. T is ``_K5_TILE`` (the kernel takes
-    fewer where two stages would not fit in shared memory: head_dim 256
-    with a scale a code); P is the longest chunk up to ``_K5_CHUNK`` that
+    powers of two, T <= P <= ``s_len``. T is ``_K5_TILE`` (``k5_tiles``
+    halves it where two stages would not fit in shared memory: head_dim
+    256 with a scale a code); P is the longest chunk up to ``_K5_CHUNK`` that
     leaves a batch element ``_K5_BLOCKS`` blocks (nkv * S / P) or more."""
     cap = 1
     while 2 * cap <= s_len:
@@ -110,6 +117,80 @@ def k5_geometry(nkv: int, rep: int, s_len: int) -> tuple[int, int]:
     while 2 * p <= min(cap, _K5_CHUNK) and nkv * s_len // (2 * p) >= _K5_BLOCKS:
         p *= 2
     return p, t
+
+
+def _fits_blocks(n: int, bs: int) -> bool:
+    """A run of n dims lies inside one scale block of ``bs`` dims or holds
+    whole ones."""
+    return n % bs == 0 or bs % n == 0
+
+
+def _dim_groups(n: int, cap: int, bs: int) -> int:
+    """The most groups, at most ``cap``, that split n dims evenly into runs
+    that fit the scale blocks of ``bs`` dims. A power of two n gives the
+    largest power of two <= min(cap, n)."""
+    for d in range(min(cap, n), 1, -1):
+        if n % d == 0 and _fits_blocks(n // d, bs):
+            return d
+    return 1
+
+
+def _k4_scale_rows(dims: int, bs: int) -> int:
+    return 1 if bs >= dims else dims // bs
+
+
+def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
+    """(dims, dgs, pgs) of a K4 call, which its C host checks: the head
+    dims a ring stage holds (the longest multiple of 16 up to 128 that
+    divides hd and fits both scale blocks, with which two stages fit in
+    each kernel's shared memory: min(hd, 128), 64, 32 or 16 for a power of
+    two), the dim groups of the scores kernel (``_dim_groups`` of a stage's
+    dims; every dim's scale is its own there) and the position groups of
+    P . V (G % 4 == 0; else 1). None where nothing fits."""
+    g, p = k4_geometry(nkv, rep, s_len)
+    rows, nq, q4 = g * rep, (p * g + 3) // 4, g % 4 == 0
+    cstr, sstr = (p * g + 15) & ~15, (p * g + 3) & ~3
+    for dims in range(min(hd, 128), 15, -16):
+        if hd % dims or not (_fits_blocks(dims, bs_k) and _fits_blocks(dims, bs_v)):
+            continue
+        n_tiles = hd // dims
+        dgs = _dim_groups(dims, _THREADS // nq, 1)
+        pgs = 1
+        while q4 and 2 * pgs * (g // 4) * dims <= _THREADS:
+            pgs *= 2
+        stage1 = dims * cstr + 4 * _k4_scale_rows(dims, bs_k) * sstr + 4 * dims * rows
+        stage2 = dims * cstr + 4 * _k4_scale_rows(dims, bs_v) * sstr
+        persist2 = 4 * (p * rows + 2 * rows + (pgs * dims * rows if q4 else 0))
+        want = max(n_tiles, 2) if n_tiles < 8 else 8
+        stages1 = min(_SMEM_MAX // stage1, want)
+        stages2 = min((_SMEM_MAX - persist2) // stage2, want)
+        smem1 = max(min(stages1, n_tiles) * stage1, 4 * dgs * rows * (p + 1))
+        smem2 = min(stages2, n_tiles) * stage2 + persist2
+        if stages1 >= 2 and stages2 >= 2 and max(smem1, smem2) <= _SMEM_MAX:
+            return dims, dgs, pgs
+    return None
+
+
+def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
+    """(T, dgs, pgs) of a K5 call, which its C host checks: the
+    positions a ring stage holds (``k5_geometry``'s T, halved until two
+    stages fit in shared memory), the dim groups of the scores kernel
+    (``_dim_groups`` of hd, each group's runs under one K scale) and the
+    whole groups of hd / 4 threads of P . V (256 // (hd / 4); the threads
+    past them idle). None where nothing fits."""
+    _, t = k5_geometry(nkv, rep, s_len)
+    ksr, vsc, pgs = hd // bs_k, hd // bs_v, _THREADS // (hd // 4)
+    while t >= 1:
+        cstr, sstr, nq = (t + 15) & ~15, (t + 3) & ~3, (t + 3) // 4
+        dgs = _dim_groups(hd, _THREADS // nq, bs_k)
+        red1 = (dgs * rep * (t + 1) + 3) & ~3
+        smem1 = 4 * (rep * hd + red1) + 2 * (hd * cstr + 4 * ksr * sstr)
+        stage2 = t * hd + 4 * ((t * vsc + 3) & ~3)
+        smem2 = ((4 * (t * rep + 2 * rep) + 15) & ~15) + max(2 * stage2, 4 * pgs * rep * hd)
+        if max(smem1, smem2) <= _SMEM_MAX:
+            return t, dgs, pgs
+        t //= 2
+    return None
 
 
 def k4_workspace_floats(b: int, nkv: int, rep: int, hd: int, s_len: int,
@@ -217,15 +298,15 @@ def _prob_q_args(prob_q):
 
 def kernel_shape_error(rep: int, hd: int) -> str | None:
     """Why the decode-attention kernels are not given ``rep`` query rows per
-    kv head at head_dim ``hd``, or None. They take rep 1..8 and head_dim
-    16..256, a power of two, at any cache length: K4 and K5 walk the cache
-    in chunks, and neither keeps anything in shared memory that grows with
-    it (the wrappers bound the operands and the workspace to 32-bit
-    indices)."""
+    kv head at head_dim ``hd``, or None. They take rep 1..8 and every
+    head_dim that is a multiple of 16 from 16 to 256 (``k4_tiles``,
+    ``k5_tiles``), at any cache length: K4 and K5 walk the cache in chunks,
+    and neither keeps anything in shared memory that grows with it (the
+    wrappers bound the operands and the workspace to 32-bit indices)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
-    if hd > _THREADS or _THREADS % hd or hd % 16:
-        return f"head_dim {hd} does not divide {_THREADS} or is not a multiple of 16"
+    if not (16 <= hd <= _HD_MAX and hd % 16 == 0):
+        return f"head_dim {hd} is not a multiple of 16 from 16 to {_HD_MAX}"
     return None
 
 
@@ -277,15 +358,18 @@ def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
         raise ValueError(f"{fn_name}: float32 scales expected")
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{fn_name}: prob block {prob_q[0]} is not a power of two")
-    p, t = k5_geometry(nkv, rep, s_len)
+    p, _ = k5_geometry(nkv, rep, s_len)
+    tiles = k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    if tiles is None:
+        raise ValueError(f"{fn_name}: no ring stage fits in shared memory")
     ws = _workspace(fn_name, k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0],
                                                  p), q.device)
     pos = _positions(positions, q)
     out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
     rc = _cuda.lib().lmq_attn_decode_head_major(
         q.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(), vs.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, nkv, rep, hd, s_len, bs_k, bs_v, p, t,
-        math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q))
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, nkv, rep, hd, s_len, bs_k, bs_v, p,
+        *tiles, math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q))
     _cuda.check(rc, fn_name)
     return out
 
@@ -311,6 +395,9 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{name}: prob block {prob_q[0]} is not a power of two")
     g, p = k4_geometry(nkv, rep, s_len)
+    tiles = k4_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    if tiles is None:
+        raise ValueError(f"{name}: no ring stage fits in shared memory")
     ws = _workspace(name, k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0]),
                     q.device)
     pos = _positions(positions, q)
@@ -318,7 +405,8 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
     rc = _cuda.lib().lmq_attn_decode_pos_major(
         q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(), v_codes.data_ptr(),
         v_scales.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, nkv, rep, hd,
-        s_len, bs_k, bs_v, g, p, math.sqrt(hd), *_prob_q_args(prob_q), _cuda.stream_ptr(q))
+        s_len, bs_k, bs_v, g, p, *tiles, math.sqrt(hd), *_prob_q_args(prob_q),
+        _cuda.stream_ptr(q))
     _cuda.check(rc, name)
     packed_attention_decode_batch_cuda.launches += 1
     return out

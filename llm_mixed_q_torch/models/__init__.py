@@ -1,7 +1,7 @@
 """Model registry (counterpart of the JAX package's ``models/__init__.py``):
 model functions, config classes, parameter loaders, PTQ preparers,
-packers, cost-model profilers, quant-config parsers and stat-config
-formatters by arch. Ported: Llama and OPT, with the causal-LM task ``lm``
+packers, cost-model profilers, quant-config parsers, stat-config
+formatters and quant-config samplers by arch, and the tokenizer class. Ported: Llama and OPT, with the causal-LM task ``lm``
 and the sequence-classification task ``cls``, OPT's span
 question-answering task ``qa``, and BERT with its eight tasks (``cls``,
 ``mlm``, ``clm``, ``nsp``, ``pretrain``, ``mc``, ``token``, ``qa``; no
@@ -127,3 +127,24 @@ def get_stat_config_formatter(arch: str):
     (``config.transform_stat_profile_to_int_quant_config``) with the arch's
     attention matmul nodes."""
     return _get(STAT_CONFIG_FORMATTER_MAP, arch)
+
+
+def get_tokenizer_cls(arch: str):
+    """The HF tokenizer class of every arch (reference TOKENIZER_MAP):
+    transformers' ``AutoTokenizer``. Raises ImportError naming the package
+    where transformers is not installed."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"get_tokenizer_cls({arch!r}) needs the transformers package, which is not "
+            "installed; pass a tokenizer object instead") from e
+    return AutoTokenizer
+
+
+def get_quant_config_sampler(arch: str):
+    """``sample(trial, name, config_seed) -> quant config``: the arch's
+    sampler of a search space (``search.samplers_model``)."""
+    from ..search.samplers_model import get_model_sampler
+
+    return get_model_sampler(arch)

@@ -39,14 +39,27 @@ from ..kernels import _cuda
 from ..kernels.attention_decode import (
     _prob_q_args,
     _prob_qdq_fn,
+    _REP_MAX,
     attend_dense,
-    kernel_shape_error,
     packed_attention_decode_batch_cuda,
 )
 from .timing import chain_ms
 
 _PROBE_THREADS = 256
 _PROBE_SMEM_MAX = 227 * 1024
+
+
+def probe_shape_error(rep: int, hd: int) -> str | None:
+    """Why the attention probes are not given ``rep`` query rows per kv head
+    at head_dim ``hd``, or None: rep 1..8 and a head_dim of 16..256 that
+    divides the block's 256 threads (csrc/probes/attention_probe.cu splits
+    them into 256 / hd parts)."""
+    if not 1 <= rep <= _REP_MAX:
+        return f"{rep} query rows per kv head (the probes take 1..{_REP_MAX})"
+    if hd > _PROBE_THREADS or _PROBE_THREADS % hd or hd % 16:
+        return f"head_dim {hd} does not divide {_PROBE_THREADS} or is not a multiple of 16"
+    return None
+
 NH = NKV = 32
 REP = 1
 HD = 128
@@ -129,7 +142,7 @@ def check_operands(name, q, k_codes, k_scales, v_codes, v_scales, nkv, rep, dens
     s_len = k_codes.shape[2] // nkv
     if nh != nkv * rep:
         raise ValueError(f"{name}: {nh} query heads != nkv {nkv} * rep {rep}")
-    error = kernel_shape_error(rep, hd)
+    error = probe_shape_error(rep, hd)
     # the probe holds q and a row's scores (every lane of the dense stages)
     # in shared memory, as csrc/probes/attention_probe.cu checks
     smem = 4 * rep * (hd + s_len * (nkv if dense else 1) + _PROBE_THREADS)

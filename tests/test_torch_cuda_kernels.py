@@ -456,6 +456,19 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     # positions, and rep 8 on one kv head at the pos-major 8192 lanes
     (2, 8, 8, 128, 8192, 16, 16, (16, 6, 8, None), [8191, 6944]),
     (2, 1, 8, 128, 8192, 16, 16, (16, 6, 8, None), [8191, 7000]),
+    # head_dims that are multiples of 16 but not powers of two: K4's stage
+    # all of hd (48, 80, 96, 112), 48 dims (144), 32 (160 with blocks of 32),
+    # 16 (208: 13 stages); K5's dim groups 3, 5, 6, 7, and P . V with idle
+    # threads past the last whole position group
+    (2, 4, 1, 48, 256, 16, 16, (16, 6, 8, None), [255, 31]),
+    (3, 8, 4, 80, 1024, 16, 16, (16, 6, 8, None), [1023, 64, 5]),
+    (2, 2, 8, 96, 512, 32, 16, (64, 6, 8, None), [511, 128]),
+    (2, 8, 8, 112, 1024, 16, 16, (16, 6, 8, None), [1000, 127]),
+    (2, 2, 2, 144, 512, 16, 16, (32, 6, 8, None), [511, 300]),
+    (2, 4, 2, 160, 512, 32, 32, (16, 6, 8, None), [511, 7]),
+    (1, 2, 3, 208, 128, 16, 16, (16, 6, 8, None), [127]),
+    (2, 2, 1, 240, 256, 1, 16, (256, 6, 8, None), [255, 100]),
+    (2, 32, 1, 80, 4096, 16, 16, (16, 6, 8, None), [4095, 2000]),
 ]
 
 

@@ -1,0 +1,211 @@
+"""K4 and K5 at head_dims that are multiples of 16 but not powers of two,
+held to the JAX package on the CPU.
+
+The JAX package's decode-attention kernel takes any head_dim whose K/V
+block divides it, and every quant config of ``configs/quantization/``
+packs a cache in blocks of 16, so a Llama-family model at head_dim 48, 80,
+96 or 112 decodes its packed cache through that kernel. K4 and K5 take
+every multiple of 16 from 16 to 256: the C host splits such a head_dim
+into ring stages and dim groups that divide it (``ad.k4_tiles``,
+``ad.k5_tiles``), and K5's P . V idles the threads past its last whole
+position group. A power of two keeps the split it always had.
+
+The schedule replicas of ``tests/test_torch_k4.py`` and
+``tests/test_torch_k5.py`` (which split the dims and positions as the
+kernels do) are held against the TPU kernels in interpret mode and against
+the port's plain versions at rtol 2e-4 / atol 2e-5, the tolerance of those
+files; generation at head_dim 80 gives the JAX package's tokens. The CUDA
+kernels are held against their plain versions at these head_dims on the
+card (``chip_smoke.py --search-only``, part 1)."""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_mixed_q_tpu.kernels import attention_decode as jattn
+from llm_mixed_q_tpu.kernels import packing as jp
+from llm_mixed_q_tpu.models.hf_loader import init_llama_params as jax_init
+from llm_mixed_q_tpu.models.llama import LlamaQuantizedConfig as JaxConfig
+from llm_mixed_q_tpu.models.llama import serving as jax_serving
+from llm_mixed_q_tpu.ops.quantizers import _block_fp_qdq as _jax_qdq
+from llm_mixed_q_torch import kernels
+from llm_mixed_q_torch.kernels import attention_decode as ad
+from llm_mixed_q_torch.models.hf_loader import params_from_jax
+from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
+from test_torch_k4 import _inputs as k4_inputs
+from test_torch_k4 import jax_kernel as k4_jax_kernel
+from test_torch_k4 import k4_schedule
+from test_torch_k5 import jax_denominator, k5_schedule
+
+RTOL, ATOL = 2e-4, 2e-5
+BFP6 = "configs/quantization/bfp_6bit.toml"
+# b, nkv, rep, hd, S, bs_k, bs_v, prob block, positions: 64-256
+# positions, rep 1 and 4, K blocks of 16 and of 32 (96 = 3 x 32)
+CASES = [
+    (2, 4, 1, 48, 128, 16, 16, 16, [127, 70]),
+    (2, 2, 4, 48, 64, 16, 16, 32, [63, 0]),
+    (2, 4, 1, 80, 64, 16, 16, 16, [63, 33]),
+    (2, 2, 4, 80, 128, 16, 16, 64, [127, 100]),
+    (2, 4, 1, 96, 64, 32, 16, 16, [63, 20]),
+    (1, 2, 4, 96, 256, 16, 32, 16, [200]),
+]
+IDS = [f"hd{c[3]}_rep{c[2]}" for c in CASES]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_k4_at_head_dim(case):
+    """K4's schedule against the TPU pos-major kernel and the plain version."""
+    b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions = case
+    q, cache, pos, prob_q = k4_inputs(*case, seed=hd + rep)
+    args = (torch.from_numpy(q), *map(torch.from_numpy, cache), torch.from_numpy(pos), bs_k,
+            bs_v, nkv, rep, prob_q)
+    got = k4_schedule(*args)
+    want = k4_jax_kernel(args)
+    assert np.isfinite(got.numpy()).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, ad.packed_attention_decode_batch_plain(*args),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _head_major(case, seed):
+    """A head-major cache packed by the JAX package and q as serving
+    quantizes it, from the seed."""
+    b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions = case
+    rng = np.random.default_rng(seed)
+    k, v = (rng.standard_normal((b, nkv, s_len, hd)).astype(np.float32) for _ in range(2))
+    kc, ks = jp.bfp_encode_lastdim(jnp.asarray(k), 6, 8, None, bs_k)
+    vc, vs = jp.bfp_encode_lastdim(jnp.asarray(v), 6, 8, None, bs_v)
+    t = lambda a: np.ascontiguousarray(np.asarray(a).transpose(0, 1, 3, 2))
+    q = rng.standard_normal((b * nkv * rep, hd)).astype(np.float32)
+    q = np.array(_jax_qdq(jnp.asarray(q), 6, 8, None, [1, 16], True)).reshape(b, nkv, rep, hd)
+    cache = [t(kc), t(ks), np.asarray(vc), np.asarray(vs)]
+    prob_q = None if pbs is None else (pbs, 6, 8, None)
+    return q, cache, np.array(positions, np.int32), prob_q
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_k5_at_head_dim(case):
+    """K5's schedule against the TPU head-major kernel (with its float32
+    denominator) and, with the port's, the plain version; the wrapper on
+    CPU tensors is the plain version."""
+    b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions = case
+    q, cache, pos, prob_q = _head_major(case, seed=hd * 10 + rep)
+    want = np.asarray(jattn.packed_attention_decode(
+        jnp.asarray(q), *map(jnp.asarray, cache), jnp.asarray(pos), bs_k, bs_v,
+        prob_q=prob_q, interpret=True))
+    args = (torch.from_numpy(q), *map(torch.from_numpy, cache), torch.from_numpy(pos), bs_k,
+            bs_v, prob_q)
+    got = k5_schedule(*args, jax_denominator).numpy()
+    assert np.isfinite(got).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    plain = ad.packed_attention_decode_plain(*args)
+    torch.testing.assert_close(k5_schedule(*args), plain, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(ad.packed_attention_decode_cuda(*args), plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nkv,rep,s_len,bs_k,bs_v", [
+    (32, 1, 256, 16, 16), (8, 4, 1024, 16, 16), (1, 8, 8192, 16, 16), (32, 8, 256, 16, 16),
+    (5, 3, 128, 8, 32), (2, 1, 64, 4, 128), (4, 1, 2048, 1, 16), (8, 8, 4096, 1, 2)])
+def test_power_of_two_head_dims_keep_their_split(nkv, rep, s_len, bs_k, bs_v):
+    """At head_dim 16-256, a power of two, the split is the one the kernels
+    had: K4's stage a power of two up to min(hd, 128), its dim groups the largest power of two <= min(256 / quads,
+    dims); K5's dim groups
+    the largest power of two <= min(256 / quads, hd) and 256 / (hd / 4)
+    position groups."""
+    for hd in (16, 32, 64, 128, 256):
+        if hd % bs_k or hd % bs_v:
+            continue
+        dims, dgs, pgs = ad.k4_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+        g, p = ad.k4_geometry(nkv, rep, s_len)
+        # min(hd, 128), halved where two stages would not fit (256 query
+        # rows a block, a scale a code)
+        assert dims & (dims - 1) == 0 and dims <= min(hd, 128)
+        nq = (p * g + 3) // 4
+        old = 1
+        while 2 * old * nq <= 256 and 2 * old <= dims:
+            old *= 2
+        assert dgs == old
+        t, dgs5, pgs5 = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+        nq5, old5 = (t + 3) // 4, 1
+        while 2 * old5 * nq5 <= 256 and 2 * old5 <= hd:
+            old5 *= 2
+        assert (dgs5, pgs5) == (old5, 256 // (hd // 4)) and 256 % (hd // 4) == 0
+
+
+@pytest.mark.parametrize("head_dims", [range(16, 65, 16), range(80, 129, 16),
+                                       range(144, 193, 16), range(208, 257, 16)],
+                         ids=["16-64", "80-128", "144-192", "208-256"])
+def test_every_multiple_of_16_splits_evenly(head_dims):
+    """Every multiple of 16 up to 256 has a K4 stage and K5 groups that
+    divide it, whose runs fit the K/V scale blocks of every block size that
+    divides it; the kernels take it at rep 1-8."""
+    for hd, rep in itertools.product(head_dims, (1, 3, 8)):
+        blocks = [bs for bs in (1, 2, 4, 8, 16, 32, 64, 128, 256) if hd % bs == 0]
+        assert ad.kernel_shape_error(rep, hd) is None
+        for bs_k in blocks:
+            for bs_v in blocks[:3] + blocks[-1:]:
+                dims, dgs, _ = ad.k4_tiles(4, rep, hd, 256, bs_k, bs_v)
+                assert hd % dims == 0 and dims % 16 == 0 and dims % dgs == 0
+                assert all(dims % bs == 0 or bs % dims == 0 for bs in (bs_k, bs_v))
+                t, dgs5, pgs5 = ad.k5_tiles(4, rep, hd, 512, bs_k, bs_v)
+                dpg = hd // dgs5
+                assert hd % dgs5 == 0 and (dpg % bs_k == 0 or bs_k % dpg == 0)
+                assert 1 <= pgs5 * (hd // 4) <= 256 and t >= 1
+
+
+@pytest.mark.parametrize("rep,hd,reason", [
+    (1, 8, "head_dim"), (1, 40, "head_dim"), (2, 88, "head_dim"), (1, 272, "head_dim"),
+    (9, 80, "query rows")])
+def test_what_the_kernels_still_refuse(rep, hd, reason):
+    """Outside the limits: a head_dim under 16, not a multiple of 16, or
+    past 256, and more than 8 query rows a kv head."""
+    assert reason in ad.kernel_shape_error(rep, hd)
+
+
+def _llama(hidden, heads, nkv, max_len, seed):
+    kw = dict(vocab_size=96, hidden_size=hidden, intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=heads, num_key_value_heads=nkv,
+              max_position_embeddings=max_len)
+    jc, tc = JaxConfig(**kw, quant_config=BFP6), LlamaQuantizedConfig(**kw, quant_config=BFP6)
+    jparams = jax_init(jc, seed=seed)
+    return jc, tc, jparams, params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.mark.parametrize("hidden,heads,nkv", [(96, 2, 2), (320, 4, 2), (384, 4, 4)],
+                         ids=["hd48", "hd80", "hd96"])
+def test_the_card_routes_these_head_dims_to_the_kernels(hidden, heads, nkv):
+    """The packed cache of such a config goes to K4/K5 on the card (and to
+    their wrappers' plain versions on the CPU), where JAX's kernel takes
+    it too."""
+    jc, tc, _, _ = _llama(hidden, heads, nkv, 256, seed=0)
+    assert jattn.attention_kernel_ok(jc, 256) and jax_serving.kv_cache_pack_spec(jc)
+    for max_len in (64, 256):
+        assert ad.attention_kernel_error(tc, max_len) is None
+        assert ad.packed_decode_route(tc, max_len, torch.device("cuda")) == "kernel"
+        assert ad.packed_decode_route(tc, max_len, "cpu") == "kernel"
+
+
+def test_generate_at_head_dim_80_matches_jax():
+    """Greedy tokens at head_dim 80 (hidden 320, 4 heads over 2 kv heads)
+    over the default packed cache, through the kernel wrappers (their plain
+    versions here) and never the dense route: the JAX package's tokens."""
+    max_len = 48
+    jc, tc, jparams, tparams = _llama(320, 4, 2, max_len, seed=7)
+    ids = np.random.default_rng(8).integers(2, 96, size=(2, 9)).astype(np.int32)
+    want = np.asarray(jax_serving.generate(jparams, jc, ids, max_new_tokens=5, max_len=max_len))
+    kernels.reset_launch_counts()
+    got = generate(tparams, tc, ids, max_new_tokens=5, max_len=max_len, device="cpu")
+    assert kernels.launch_counts()["attn_decode_packed_dense"] == 0
+    np.testing.assert_array_equal(got, want)

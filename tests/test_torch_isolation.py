@@ -5,7 +5,8 @@ and runs Llama and OPT generation, the perplexity path under the new
 arithmetics with chunked attention, a QAT step of an OPT classifier, and
 the eight probe entry points on the CPU, a packed BERT classifier, an
 incremental Llama decode step (``make_prefill_and_decode``), a statistic
-profile with its integer config, and a memory density."""
+profile with its integer config, a memory density, and a prompting search
+with its best trial's eval."""
 
 import subprocess
 import sys
@@ -43,7 +44,12 @@ assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
         "llm_mixed_q_torch.native.loader", "llm_mixed_q_torch.stats.profiler",
         "llm_mixed_q_torch.stats.capture", "llm_mixed_q_torch.costmodel.models",
         "llm_mixed_q_torch.cli.profile_statistics", "llm_mixed_q_torch.config.stat_to_int",
-        "llm_mixed_q_torch.config.sampler", "llm_mixed_q_torch.utils.dict_tools"} <= set(sys.modules)
+        "llm_mixed_q_torch.config.sampler", "llm_mixed_q_torch.utils.dict_tools",
+        "llm_mixed_q_torch.search.engine", "llm_mixed_q_torch.search.search",
+        "llm_mixed_q_torch.search.conditional", "llm_mixed_q_torch.search.prompting",
+        "llm_mixed_q_torch.search.samplers_model", "llm_mixed_q_torch.eval.prompting",
+        "llm_mixed_q_torch.utils.trial_extractor",
+        "llm_mixed_q_torch.cli.search_cli"} <= set(sys.modules)
 
 from llm_mixed_q_torch.models.api import make_forward, make_prefill_and_decode
 from llm_mixed_q_torch.models.bert import BertQuantizedConfig, pack_bert_params
@@ -164,6 +170,34 @@ res = k3.run(batch=1, device="cpu", log=lambda *a: None)
 assert set(res) == {"K4", "v2_dots", "v2_softmax", "v2_qmax", "v2_qmath", "v2_full", "v3_masks"}
 res = kexp.run(l=256, b=1, device="cpu", log=lambda *a: None)
 assert set(res) == set(kexp.ALIASES)
+import tempfile
+from llm_mixed_q_torch.eval.prompting import eval_prompting_tasks
+from llm_mixed_q_torch.search import SearchQuantisationForPromptingCLS
+
+tok = lambda text, add_special_tokens=True: {"input_ids": [1] * add_special_tokens + [
+    2 + len(w) for w in text.split()]}
+space = {"default": {"name": ["block_fp"], "bypass": ["!ast!False"], "weight_width": [6, 4],
+                     "weight_exponent_width": [8], "weight_exponent_bias": ["!ast!None"],
+                     "weight_block_size": ["!ast![1, 16]"], "data_in_width": [6],
+                     "data_in_exponent_width": [8], "data_in_exponent_bias": ["!ast!None"],
+                     "data_in_block_size": ["!ast![1, 16]"], "bias_width": [6],
+                     "bias_exponent_width": [8], "bias_exponent_bias": ["!ast!None"],
+                     "bias_block_size": ["!ast![1, 16]"]}}
+sc = {"search_strategy": {"n_trials": 2, "sampler": "tpe", "seed": 0, "accuracy_threshold": 0,
+                          "avg_bitwidth_threshold": 0},
+      "search_estimator": {"alpha_accuracy": 1.0, "alpha_memory_density": 0.1, "alpha_fps": 0,
+                           "alpha_fps_per_lut": 0, "compare_to": 32},
+      "search_space": {"quant_config_seed": space}}
+mck = dict(vocab_size=64, hidden_size=64, intermediate_size=128, num_hidden_layers=1,
+           num_attention_heads=2)
+examples = {"sst": [{"sentence": f"a b {i}", "label": i % 2} for i in range(4)]}
+with tempfile.TemporaryDirectory() as d:
+    search = SearchQuantisationForPromptingCLS(
+        "llama", "tiny", sc, d, init_llama_params(LlamaQuantizedConfig(**mck), seed=0,
+                                                  device="cpu"), tok, model_config_kwargs=mck)
+    study = search.search_prompting(["sst"], 16, examples_by_task=examples)
+    best = search.evaluate_best_trials_prompting(study, ["sst"], examples_by_task=examples)
+assert len(study.trials) == 2 and 0 <= best["mean_acc"] <= 1
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
 print("ISOLATED-OK")
 '''

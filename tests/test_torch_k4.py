@@ -37,14 +37,14 @@ from llm_mixed_q_tpu.ops.quantizers import _block_fp_qdq as _jax_qdq
 from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.ops.quantizers.exact import ceil_log2, exact_exp2
 
-RNG = np.random.default_rng(11)
+SEED = 11
 RTOL, ATOL = 2e-4, 2e-5
 
 
-def _cache(b, nkv, s_len, hd, bs_k, bs_v):
+def _cache(rng, b, nkv, s_len, hd, bs_k, bs_v):
     """A pos-major packed cache of random K/V, packed by the JAX package."""
-    k = RNG.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
-    v = RNG.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
+    k = rng.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
+    v = rng.standard_normal((b, nkv, s_len, hd)).astype(np.float32)
     kc, ks = jp.bfp_encode_lastdim(jnp.asarray(k), 6, 8, None, bs_k)
     vc, vs = jp.bfp_encode_lastdim(jnp.asarray(v), 6, 8, None, bs_v)
     flat = lambda t: np.ascontiguousarray(
@@ -52,9 +52,9 @@ def _cache(b, nkv, s_len, hd, bs_k, bs_v):
     return [flat(kc), flat(ks), flat(vc), flat(vs)]
 
 
-def _q(b, nh, hd):
+def _q(rng, b, nh, hd):
     """q as serving quantizes it (data_in block_fp [1, 16], width 6)."""
-    q = RNG.standard_normal((b * nh, hd)).astype(np.float32)
+    q = rng.standard_normal((b * nh, hd)).astype(np.float32)
     return np.array(_jax_qdq(jnp.asarray(q), 6, 8, None, [1, 16], True)).reshape(b, nh, hd)
 
 
@@ -71,16 +71,44 @@ def _qdq_given_max(x, mx, width, ew, eb):
     return torch.where(x.abs() <= 1e-8, x, q)
 
 
+def k4_scale_rows(hd, dims, bs):
+    """The scale row the kernel reads for each dim: a ring stage holds the
+    rows from its first dim's (d0 / bs) on, and dim dd of the stage reads
+    its row dd / bs (the dim's own row wherever the stage fits the
+    blocks, as ``k4_tiles`` makes it)."""
+    d = torch.arange(hd)
+    return d // dims * dims // bs + d % dims // bs
+
+
+def _ordered_sum(parts):
+    """The parts summed one after the other, as a kernel sums its thread
+    groups."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
 def k4_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, nkv, rep, prob_q):
-    """K4's phases in plain torch, chunk by chunk. -> ctx [b, nh, hd]."""
+    """K4's phases in plain torch, chunk by chunk, with the head dims in the
+    kernel's ring stages of ``dims`` dims (each dim dequantized by the
+    scale row the kernel reads), the scores' dim groups (dims dd of a
+    stage with dd // (dims / dgs) == g) summed in group order, and, where
+    G % 4 == 0, P . V's position groups (pp % pgs == g) summed in group
+    order (``ad.k4_tiles``). -> ctx [b, nh, hd]."""
     b, nh, hd = q.shape
     s_len = kc.shape[2] // nkv
     g_heads, p_len = ad.k4_geometry(nkv, rep, s_len)
+    dims, dgs, pgs = ad.k4_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    assert hd % dims == 0 and dims % dgs == 0
+    if g_heads % 4:
+        pgs = 1
+    dim_group = torch.arange(hd) % dims // (dims // dgs)
     nch = -(-s_len // p_len)
     sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32)
     # deq(K), deq(V) as [b, hd, S, nkv]
-    kd = (kc.float() * ks.repeat_interleave(bs_k, 1)).reshape(b, hd, s_len, nkv)
-    vd = (vc.float() * vs.repeat_interleave(bs_v, 1)).reshape(b, hd, s_len, nkv)
+    kd = (kc.float() * ks[:, k4_scale_rows(hd, dims, bs_k)]).reshape(b, hd, s_len, nkv)
+    vd = (vc.float() * vs[:, k4_scale_rows(hd, dims, bs_v)]).reshape(b, hd, s_len, nkv)
     qg = q.reshape(b, nkv, rep, hd)
     scores = torch.full((b, nkv, rep, s_len), float("nan"))  # the workspace
     partial = torch.full((b, nch, hd, nkv, rep), float("nan"))
@@ -93,7 +121,9 @@ def k4_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, nkv, rep, prob_q):
         for p0, n in chunks:  # phase 1
             for h0, gl in groups:
                 kt = kd[bi, :, p0:p0 + n, h0:h0 + gl]  # [hd, n, gl]
-                acc = torch.einsum("hrd,dph->hrp", qg[bi, h0:h0 + gl], kt)
+                acc = _ordered_sum([
+                    torch.einsum("hrd,dph->hrp", qg[bi, h0:h0 + gl][..., dim_group == g],
+                                 kt[dim_group == g]) for g in range(dgs)])
                 scores[bi, h0:h0 + gl, :, p0:p0 + n] = acc / sqrt_hd
         for c, (p0, n) in enumerate(chunks):  # phases 2 and 3
             for h0, gl in groups:
@@ -109,14 +139,17 @@ def k4_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, nkv, rep, prob_q):
                         mx = padded.reshape(gl, rep, p_len // pbs, pbs).amax(-1)
                         mx = mx.repeat_interleave(pbs, -1)[..., :n]
                     else:  # the max of exp over each whole block, divided
-                        mx = torch.empty_like(p)
-                        for i in range(n):
-                            k0 = (p0 + i) // pbs * pbs
-                            blk = torch.exp(scores[bi, h0:h0 + gl, :, k0:min(k0 + pbs, npos)] - m)
-                            mx[..., i] = blk.amax(-1) / denom[..., 0]
+                        blocks = range(p0 // pbs, (p0 + n - 1) // pbs + 1)
+                        emax = torch.stack([torch.exp(
+                            scores[bi, h0:h0 + gl, :, k0 * pbs:min((k0 + 1) * pbs, npos)] - m
+                        ).amax(-1) for k0 in blocks], -1) / denom
+                        mx = emax[..., (torch.arange(p0, p0 + n) // pbs) - blocks[0]]
                     p = _qdq_given_max(p, mx, width, ew, eb)
                 vt = vd[bi, :, p0:p0 + n, h0:h0 + gl]  # [hd, n, gl]
-                partial[bi, c, :, h0:h0 + gl] = torch.einsum("hrp,dph->dhr", p, vt)
+                pos_group = torch.arange(n) % pgs
+                partial[bi, c, :, h0:h0 + gl] = _ordered_sum([
+                    torch.einsum("hrp,dph->dhr", p[..., pos_group == g], vt[:, pos_group == g])
+                    for g in range(min(pgs, n))])
         acc = torch.zeros((hd, nkv, rep))  # phase 4, in chunk order
         for c in range(len(chunks)):
             acc = acc + partial[bi, c]
@@ -146,34 +179,52 @@ K4_CASES = [
 ]
 
 
-def _inputs(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions):
-    cache = _cache(b, nkv, s_len, hd, bs_k, bs_v)
-    q = _q(b, nkv * rep, hd)
+def _inputs(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions, seed=SEED):
+    rng = np.random.default_rng(seed)
+    cache = _cache(rng, b, nkv, s_len, hd, bs_k, bs_v)
+    q = _q(rng, b, nkv * rep, hd)
     prob_q = None if pbs is None else (pbs, 6, 8, None)
     return q, cache, np.array(positions, np.int32), prob_q
 
 
+_SCHEDULED = {}
+
+
+def scheduled(case, seed=SEED):
+    """(torch args of the schedule, its ctx) of a case, computed once: both
+    tests of a case hold the same run, on inputs from the case's seed."""
+    key = (repr(case), seed)
+    if key not in _SCHEDULED:
+        b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions = case
+        q, cache, pos, prob_q = _inputs(*case, seed=seed)
+        args = (torch.from_numpy(q), *map(torch.from_numpy, cache), torch.from_numpy(pos),
+                bs_k, bs_v, nkv, rep, prob_q)
+        _SCHEDULED[key] = args, k4_schedule(*args)
+    return _SCHEDULED[key]
+
+
+def jax_kernel(args):
+    """The TPU kernel in interpret mode on the schedule's args."""
+    q, kc, ks, vc, vs, pos, bs_k, bs_v, nkv, rep, prob_q = args
+    return np.asarray(jattn.packed_attention_decode_batch(
+        *(jnp.asarray(t.numpy()) for t in (q, kc, ks, vc, vs, pos)), bs_k, bs_v, nkv=nkv,
+        rep=rep, prob_q=prob_q, exact_q=True, interpret=True))
+
+
 @pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs_k,bs_v,pbs,positions", K4_CASES)
 def test_k4_schedule_matches_jax_kernel(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions):
-    q, cache, pos, prob_q = _inputs(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions)
-    want = np.asarray(jattn.packed_attention_decode_batch(
-        jnp.asarray(q), *map(jnp.asarray, cache), jnp.asarray(pos), bs_k, bs_v, nkv=nkv,
-        rep=rep, prob_q=prob_q, exact_q=True, interpret=True))
-    got = k4_schedule(torch.from_numpy(q), *map(torch.from_numpy, cache), torch.from_numpy(pos),
-                      bs_k, bs_v, nkv, rep, prob_q).numpy()
-    assert np.isfinite(got).all() and np.abs(want).max() > 0
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    args, got = scheduled((b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions))
+    want = jax_kernel(args)
+    assert np.isfinite(got.numpy()).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("b,nkv,rep,hd,s_len,bs_k,bs_v,pbs,positions", K4_CASES)
 def test_k4_schedule_matches_plain(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions):
     """The schedule against the port's plain version, which the kernel is
     held to on the card."""
-    q, cache, pos, prob_q = _inputs(b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions)
-    args = (torch.from_numpy(q), *map(torch.from_numpy, cache), torch.from_numpy(pos), bs_k,
-            bs_v, nkv, rep, prob_q)
-    torch.testing.assert_close(k4_schedule(*args),
-                               ad.packed_attention_decode_batch_plain(*args),
+    args, got = scheduled((b, nkv, rep, hd, s_len, bs_k, bs_v, pbs, positions))
+    torch.testing.assert_close(got, ad.packed_attention_decode_batch_plain(*args),
                                rtol=RTOL, atol=ATOL)
 
 

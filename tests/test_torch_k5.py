@@ -42,7 +42,7 @@ from llm_mixed_q_tpu.kernels import attention_decode as jattn
 from llm_mixed_q_tpu.kernels import packing as jp
 from llm_mixed_q_tpu.ops.quantizers import _block_fp_qdq as _jax_qdq
 from llm_mixed_q_torch.kernels import attention_decode as ad
-from test_torch_k4 import _qdq_given_max
+from test_torch_k4 import _ordered_sum, _qdq_given_max
 
 RNG = np.random.default_rng(12)
 RTOL, ATOL = 2e-4, 2e-5
@@ -77,16 +77,35 @@ def jax_denominator(e):
 _jax_row_sum = jax.jit(lambda x: jnp.sum(x, axis=1))
 
 
+def k5_scores(q, codes, scales, hd, dgs, bs_k):
+    """Phase 1 of a chunk as the kernel splits it (``ad.k5_tiles``): dgs
+    dim groups of hd / dgs dims, each walked in runs of min(hd / dgs, bs_k)
+    dims whose q . codes is multiplied by the scale row of the run's first
+    dim, the groups summed in group order. q [rep, hd]; codes [hd, n];
+    scales [hd / bs_k, n]. -> [rep, n]"""
+    dpg = hd // dgs
+    run = min(dpg, bs_k)
+    groups = []
+    for g in range(dgs):
+        starts = range(g * dpg, (g + 1) * dpg, run)
+        groups.append(_ordered_sum([
+            (q[:, d0:d0 + run] @ codes[d0:d0 + run]) * scales[d0 // bs_k] for d0 in starts]))
+    return _ordered_sum(groups)
+
+
 def k5_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, prob_q, denominator=f64_denominator):
-    """K5's phases in plain torch, chunk by chunk; ``denominator`` maps the
-    rows of exp [rep, S] (0 past pos) to their sums [rep, 1].
+    """K5's phases in plain torch, chunk by chunk, with the scores' dim
+    groups and scale runs (``k5_scores``) and P . V's position groups (a
+    chunk's position pp in group pp % T % pgs, T the positions a ring
+    stage) summed in group order (``ad.k5_tiles``); ``denominator`` maps
+    the rows of exp [rep, S] (0 past pos) to their sums [rep, 1].
     -> ctx [b, nkv, rep, hd]."""
     b, nkv, rep, hd = q.shape
     s_len = vc.shape[2]
     p_len, _ = ad.k5_geometry(nkv, rep, s_len)
+    t_len, dgs, pgs = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
     nch = -(-s_len // p_len)
     sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32)
-    kd = kc.float() * ks.repeat_interleave(bs_k, 2)  # [b, nkv, hd, S]
     vd = vc.float() * vs.repeat_interleave(bs_v, 3)  # [b, nkv, S, hd]
     scores = torch.full((b, nkv, rep, s_len), float("nan"))  # the workspace
     partial = torch.full((b, nch, hd, nkv, rep), float("nan"))
@@ -97,7 +116,8 @@ def k5_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, prob_q, denominator=f6
                   if c * p_len < npos]
         for h in range(nkv):
             for p0, n in chunks:  # phase 1
-                acc = torch.einsum("rd,dp->rp", q[bi, h], kd[bi, h, :, p0:p0 + n])
+                acc = k5_scores(q[bi, h], kc[bi, h, :, p0:p0 + n].float(),
+                                ks[bi, h, :, p0:p0 + n], hd, dgs, bs_k)
                 scores[bi, h, :, p0:p0 + n] = acc / sqrt_hd
             s_rows = scores[bi, h, :, :npos]  # phase 2
             m = s_rows.amax(-1, keepdim=True)
@@ -112,13 +132,17 @@ def k5_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, prob_q, denominator=f6
                         mx = padded.reshape(rep, p_len // pbs, pbs).amax(-1)
                         mx = mx.repeat_interleave(pbs, -1)[..., :n]
                     else:  # the max of exp over each whole block, divided
-                        mx = torch.empty_like(p)
-                        for i in range(n):
-                            k0 = (p0 + i) // pbs * pbs
-                            blk = torch.exp(scores[bi, h, :, k0:min(k0 + pbs, npos)] - m)
-                            mx[:, i] = blk.amax(-1) / denom[:, 0]
+                        blocks = range(p0 // pbs, (p0 + n - 1) // pbs + 1)
+                        emax = torch.stack([torch.exp(
+                            scores[bi, h, :, k0 * pbs:min((k0 + 1) * pbs, npos)] - m
+                        ).amax(-1) for k0 in blocks], -1) / denom
+                        mx = emax[:, (torch.arange(p0, p0 + n) // pbs) - blocks[0]]
                     p = _qdq_given_max(p, mx, width, ew, eb)
-                partial[bi, c, :, h] = torch.einsum("rp,pd->dr", p, vd[bi, h, p0:p0 + n])
+                pos_group = torch.arange(n) % t_len % pgs
+                partial[bi, c, :, h] = _ordered_sum([
+                    torch.einsum("rp,pd->dr", p[:, pos_group == g],
+                                 vd[bi, h, p0:p0 + n][pos_group == g])
+                    for g in range(min(pgs, n))])
         acc = torch.zeros((hd, nkv, rep))  # phase 4, in chunk order
         for c in range(len(chunks)):
             acc = acc + partial[bi, c]

@@ -12,13 +12,15 @@ whenever the quant config permits, on either device, as JAX's do, and
 - on the card, a ValueError where JAX's kernel takes the cache and K4/K5
   do not.
 
-Four configs (name: hidden, heads, kv heads, max_len):
-``head_dim_48`` (48 does not divide 256; JAX's kernel takes it at 48
-positions), ``rep_16`` (16 query rows per kv head: both refuse),
-``long_head_dim_48`` (head_dim 48 at 12000 positions, past JAX's cap of
-4096 x 128 elements: both refuse) and ``long_gqa_cache`` (2 kv heads, rep
-8 at head_dim 128 and 8192 positions, as Llama-3-70B's attention at 8192:
-past JAX's cap, within K5's limits). Every max_len is a multiple of the
+Six configs (name: hidden, heads, kv heads, max_len):
+``head_dim_48`` (a multiple of 16 that is not a power of two: both take
+it at 48 positions), ``head_dim_320`` (past the kernels' 256; JAX's kernel
+takes it at 48 positions), ``rep_16`` (16 query rows per kv head: both
+refuse), ``long_head_dim_48`` (head_dim 48 at 12000 positions, past JAX's
+cap of 4096 x 128 elements, within K4/K5's limits),
+``long_head_dim_320`` (head_dim 320 at 2048 positions: both refuse) and
+``long_gqa_cache`` (2 kv heads, rep 8 at head_dim 128 and 8192 positions,
+as Llama-3-70B's attention at 8192: past JAX's cap, within K5's limits). Every max_len is a multiple of the
 prob quantizer's block of 16, which both packages' kernels need.
 The route takes the device as an argument, so the CPU shows what the
 card does without one.
@@ -66,15 +68,19 @@ VOCAB = 96
 # name: (hidden, heads, kv heads, max_len)
 CASES = {
     "head_dim_48": (96, 2, 2, 48),
+    "head_dim_320": (640, 2, 2, 48),
     "rep_16": (256, 16, 1, 48),
     "long_head_dim_48": (96, 2, 2, 12000),
+    "long_head_dim_320": (640, 2, 2, 2048),
     "long_gqa_cache": (2048, 16, 2, 8192),
 }
 # name: (the route on the CPU, on the card; None: raises)
 ROUTES = {
-    "head_dim_48": ("dense", None),
+    "head_dim_48": ("kernel", "kernel"),
+    "head_dim_320": ("dense", None),
     "rep_16": ("dense", "dense"),
-    "long_head_dim_48": ("dense", "dense"),
+    "long_head_dim_48": ("kernel", "kernel"),
+    "long_head_dim_320": ("dense", "dense"),
     "long_gqa_cache": ("kernel", "kernel"),
 }
 DENSE_IN_BOTH = [name for name, (_, card) in ROUTES.items() if card == "dense"]
@@ -165,9 +171,9 @@ def test_packed_decode_takes_the_dense_route_as_jax_does(name):
 
 
 def test_packed_decode_of_a_head_dim_the_kernels_refuse_on_the_cpu():
-    """head_dim 48, which JAX's kernel takes and K4/K5 do not: on the CPU
+    """head_dim 320, which JAX's kernel takes and K4/K5 do not: on the CPU
     the dense route gives JAX's logits (JAX's CPU path is dense too)."""
-    got, want, k4, k5, tc = _decode_against_jax("head_dim_48")
+    got, want, k4, k5, tc = _decode_against_jax("head_dim_320")
     assert not k4.called and not k5.called
     assert packed_attention_decode_dense.calls == tc.num_hidden_layers
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
@@ -202,25 +208,29 @@ def test_generate_packs_outside_the_limits_as_jax_does(name):
 
 
 def test_batcher_packs_outside_the_limits():
-    """The batcher's default cache is packed too, and its rows are
-    ``generate``'s."""
-    _, tc, _, tp, _ = _case("head_dim_48", seed=5)
+    """The batcher's default cache is packed too, outside the kernels'
+    limits (head_dim 320), and its rows are JAX's batcher's. (At this
+    config a batcher row and ``generate``'s differ in both packages for
+    one prompt: the bucketed prefill quantizes other blocks.)"""
+    jc, tc, jparams, tp, _ = _case("head_dim_320", seed=5)
     srv = ContinuousBatcher(tp, tc, num_slots=2, max_len=48, max_new_tokens=4,
                             prompt_bucket=8, device="cpu")
+    jsrv = jax_serving.ContinuousBatcher(jparams, jc, num_slots=2, max_len=48,
+                                         max_new_tokens=4, prompt_bucket=8)
     assert isinstance(srv.cache, PackedKVCache)
     prompts = [_prompt(1, n, seed=n)[0] for n in (3, 6, 5)]
     rids = [srv.submit(p) for p in prompts]
-    out = srv.run()
-    for rid, p in zip(rids, prompts):
-        want = generate(tp, tc, p[None], max_new_tokens=4, max_len=48, device="cpu")[0]
-        np.testing.assert_array_equal(out[rid], want)
+    jrids = [jsrv.submit(p) for p in prompts]
+    out, want = srv.run(), jsrv.run()
+    for rid, jrid in zip(rids, jrids):
+        np.testing.assert_array_equal(out[rid], want[jrid])
 
 
 def test_the_card_refuses_a_cache_only_jax_s_kernel_takes():
     """On the card, a packed cache that JAX's kernel would take and K4/K5
     cannot is refused when it is made, before any prefill, naming the
     float32 cache; a cache that both refuse is not."""
-    _, tc, _, _, max_len = _case("head_dim_48")
+    _, tc, _, _, max_len = _case("head_dim_320")
     with pytest.raises(ValueError, match="packed_kv=False"):
         _new_cache(tc, 1, max_len, kv_cache_pack_spec(tc), torch.device("cuda"))
     _, tc, _, _, max_len = _case("rep_16")
