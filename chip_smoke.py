@@ -14,6 +14,7 @@
     python3 chip_smoke.py --tail-only     # build, then the serving-tail and BERT phase (10) only
     python3 chip_smoke.py --stats-only    # build, then the statistics phase (11) only
     python3 chip_smoke.py --search-only   # build, then the search and prompting phase (12) only
+    python3 chip_smoke.py --parallel-only # build, then the parallel phase (13) only
 
 1. builds the Hopper kernels from ``llm_mixed_q_torch/csrc`` and the probe
    kernels from ``llm_mixed_q_torch/csrc/probes`` (two libraries, every
@@ -72,7 +73,8 @@
    end |dloss| <= 1e-3 * loss and logits within 5e-2 of max|logit| for
    fp32, the quantized arms' gaps logged (a flipped rounding moves them by
    more); (3) Llama-2-7B
-   widths, 32 layers, seq 2048, batch 1, one sequence, weights quantized
+   widths, 16 layers (``PPL_LAYERS``; 32 before the parallel phase), seq 2048, batch 1,
+   one sequence, weights quantized
    every call (the sweep's one-shot mode): loss, perplexity, seconds,
    tokens/s and peak memory of each arm, every loss finite, and the
    block_minifloat arm's PTQ flow (the CLI's) bit-equal to its one-shot
@@ -90,14 +92,14 @@
    within 1e-5 relative and each leaf's gradient within 1e-4 of its
    max|grad|, bfp_4bit's loss within 2e-3 relative; (2) OPT-350M as
    published (24 layers, hidden 1024, word_embed_proj_dim 512, post-LN)
-   with a 2-label head: 32 micro-steps (8 updates) uninterrupted, timed
-   (micro-step ms, samples/s, tokens/s, peak GB); the same run cut at
-   micro-step 16 by a checkpoint and resumed, equal to it within rtol
-   1e-6 with the factory asked to seek to 16 once; 2 micro-steps timed,
+   with a 2-label head: 16 micro-steps (4 updates; 32 before phase 13)
+   uninterrupted, timed (micro-step ms, samples/s, tokens/s, peak GB); the
+   same run cut at micro-step 8 by a checkpoint and resumed, equal to it
+   within rtol 1e-6 with the factory asked to seek to 8 once; 2 micro-steps timed,
    then 2 profiled, the second of them an update (card idle share,
    kernels by card time, GEMMs' share); a fixed batch's
    loss after 8 updates (its own lr 1e-6) below its first; eval_cls_glue
-   on 256 samples (samples/s); (3) Llama-2-7B widths cut to 4 layers, a
+   on 128 samples (samples/s); (3) Llama-2-7B widths cut to 4 layers, a
    cls head, batch 16 x 128: a QAT step with ``remat`` and without, the
    same loss and gradients, the remat peak lower. The launch counters are
    set to 0 before the phase and must all read 0 after it. Its results are
@@ -146,9 +148,9 @@
    ``actq_split`` + K5), its seconds and launches, the admissions' ms
    after it, every output equal to a batcher's without it;
    ``pack_llama_params_host`` against ``pack_llama_params`` on the card
-   (2 layers, both formats): every packed leaf bit-equal, seconds a layer,
+   (1 layer, both formats): every packed leaf bit-equal, seconds a layer,
    the native engine's calls, the bytes moved; the incremental path card
-   against CPU at 2 layers of Llama-2-7B and OPT-6.7B widths (float32
+   against CPU at 1 layer of Llama-2-7B and OPT-6.7B widths (float32
    within 1e-4 of max|logit|, W6A6 packed within 5e-2); (2) BERT-base as
    ``bert-base-uncased``'s config.json has it, random weights (seed 0), a
    2-label head, W4A4 ``bfp_4bit.toml``, batch 2 x 128: the PTQ
@@ -190,14 +192,16 @@
    steps) and at Mistral-Large-2 widths (rep 12, which both packages'
    kernels refuse: the dense route runs 2 layers x 15 steps, K4 and K5 0
    times): the same tokens, one decode step's logits within 5e-2 (K5) and
-   1e-4 (dense) of max|logit|, each cache's bytes and ms a step; a head_dim
-   of 48, whose default packed cache decodes through K4 (2 layers x 3
-   steps), the dense route 0; and a head_dim of 320 (JAX's kernel takes
-   it, K4/K5 do not): the default cache refused with a ValueError, the
-   float32 cache generating. Its results are the ``{"stats": ...}`` line;
+   1e-4 (dense) of max|logit|, each cache's bytes and ms a step; head_dims
+   of 48 and 320, whose default packed cache decodes through K4 (2 layers
+   x 3 steps), the dense route 0; and a head_dim of 6 (JAX's kernel takes
+   it, K4/K5 do not: fault 18): the default cache refused with a
+   ValueError, the float32 cache generating. Its results are the
+   ``{"stats": ...}`` line;
 12. search and prompting (``--search-only``): (1) fault 15's repair: K4
-   and K5 against their plain versions (rtol 2e-4 / atol 2e-5) at head_dims
-   48, 80, 96 and 112, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
+   and K5 against their plain versions (rtol 2e-4 / atol 2e-5; at head_dims
+   320, 40 and 8, bit for bit) at head_dims 48, 80, 96, 112, 320, 40
+   (blocks of 8) and 8, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
    positions, K5 at 2048), each timed beside its plain version, its bound
    and SDPA; ``generate`` of a Llama-family config at head_dim 80 (hidden
    2560, 32 heads over 8 kv heads, 2 layers, W6A6 int8 codes), batch 2,
@@ -209,7 +213,7 @@
    Llama-2-7B widths cut to 4 layers, random weights, a 2-label head, 64 x
    128 synthetic tokens a trial: each trial's seconds, accuracy, memory
    density and average bitwidth, the peak GB, ``evaluate_best_trials``;
-   the same 6 trials at 1 layer on 8 samples on the card and on the CPU:
+   the first 2 trials at 1 layer on 8 samples on the card and on the CPU:
    equal sampled configs and memory densities, and at most one prediction
    a trial apart, a near tie; (3) the conditional search, 3 trials, on a
    stat profile taken over 2 batches; (4) the prompting search, 3 trials,
@@ -218,12 +222,34 @@
    ``make_serving_generate_fn``, its counters showing K4 launched and the
    dense route 0, its greedy ids at 1 layer card against CPU as in (1).
    Parts 2-4 launch no kernel but the greedy eval's K4. Its results are
-   the ``{"search": ...}`` line.
+   the ``{"search": ...}`` line;
+13. parallel/ (``--parallel-only``): two ranks (this script with
+   ``--parallel-rank``) share the one card over gloo: (1) TP = 2 packed
+   serving at Llama-2-7B widths cut to 2 layers on the sub-byte-T (K1) and
+   int8 (K2 + actq_split) trees, ``generate`` at batch 8, 16 + 16 tokens,
+   max_len 512 (each rank's 16 kv heads pos-major: K4) and 1024 (K5), its
+   tokens equal to the one-process run of the same tree on the card and a
+   decode step's logits within 5e-2 of max|logit| of it (bit-equal is
+   reported), each rank's counters showing its kernels launched; (2) DP = 2
+   and FSDP = 2 QAT at OPT-350M widths on global batches of 8 x 128, the
+   same loss on both ranks: under W4A4, 2 micro-steps, the losses within
+   rtol 1e-5 of one process on the ranks' slices, the parameters within lr
+   an update and all but 1 in 10^3 elements within 1e-2 of their leaf's
+   max change; in float32, 1 micro-step, the loss within rtol 1e-5 of one
+   process on the ranks' slices and on the global batch, the gradient
+   each leaf within 1e-4 of its max|grad| of the slices', the whole within
+   1e-2 (L2) of the global batch's; beside it, in one process, the first
+   forward of the global batch against its slices' (float32 logits within
+   1e-5 of max|logit| at 24 layers, the W4A4 loss within 2e-3 at 2
+   layers, and the W4A4 gap at 24 layers reported); (3) the five EMNLP
+   drivers at --synthetic on the card, their artifacts there and finite.
+   Two ranks share one card: its times are no scaling figures. Its results
+   are the ``{"parallel": ...}`` line.
 
 Any failed check raises (non-zero exit). The last line of stdout is the
 device JSON; the kernel table is the JSON line before the ``nvidia-smi``
-line, the search phase's the one before it, the statistics phase's the one
-before that, the serving-tail phase's the one before that, the QAT
+line, the parallel phase's the one before it, the search phase's the one
+before that, the statistics phase's the one before that, the serving-tail phase's the one before that, the QAT
 phase's the one before that and the perplexity phase's the one before
 that. Imports nothing of JAX.
 """
@@ -523,14 +549,15 @@ def m_sweep(flush):
     return out
 
 
-def _cache_inputs(gen, s_len, nkv, hd, pos_major):
-    """A filled packed cache of random K/V, as serving lays it out."""
+def _cache_inputs(gen, s_len, nkv, hd, pos_major, bs=16):
+    """A filled packed cache of random K/V in blocks of ``bs``, as serving
+    lays it out."""
     from llm_mixed_q_torch.kernels.packing import bfp_encode_lastdim
 
     k = torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda")
     v = torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda")
-    kc, ks = bfp_encode_lastdim(k, 6, 8, 127, 16)
-    vc, vs = bfp_encode_lastdim(v, 6, 8, 127, 16)
+    kc, ks = bfp_encode_lastdim(k, 6, 8, 127, bs)
+    vc, vs = bfp_encode_lastdim(v, 6, 8, 127, bs)
     if pos_major:
         flat = lambda t: t.permute(0, 3, 2, 1).reshape(BATCH, t.shape[3], s_len * nkv).contiguous()
         return flat(kc), flat(ks), flat(vc), flat(vs)
@@ -567,12 +594,12 @@ K5_SHAPES = {
 }
 
 
-def _attention_row(kname, run, plain, sdpa, positions, nkv, rep, hd, peaks, flush):
+def _attention_row(kname, run, plain, sdpa, positions, nkv, rep, hd, peaks, flush, bs=16):
     """Hold ``run`` against ``plain`` (rtol 2e-4 / atol 2e-5, the JAX
     package's kernel test) and time it, the plain version and ``sdpa``;
     bound: the filled positions' cache bytes (codes and scales of K and V,
-    blocks of 16), q and ctx, and 4 * hd flops a position and query row at
-    the float32 peak."""
+    blocks of ``bs``), q and ctx, and 4 * hd flops a position and query row
+    at the float32 peak."""
     from llm_mixed_q_torch.tools.timing import cuda_ms
 
     out, ref = run(), plain()
@@ -581,7 +608,7 @@ def _attention_row(kname, run, plain, sdpa, positions, nkv, rep, hd, peaks, flus
     check(torch.isfinite(out).all().item(), f"{kname}: non-finite ctx")
     check(torch.allclose(out, ref, rtol=2e-4, atol=2e-5), f"{kname}: max err {err}")
     filled = int((positions.long() + 1).sum().item())  # positions read
-    per_pos = nkv * (2 * hd + 2 * (hd // 16) * 4)  # K+V codes and scales
+    per_pos = nkv * (2 * hd + 2 * (hd // bs) * 4)  # K+V codes and scales
     nbytes = filled * per_pos + 4 * out.numel() * 2 + 4 * positions.numel()
     b_ms, b_by = bound(nbytes, filled * nkv * rep * 4 * hd, peaks)
     return dict(ms=cuda_ms(run, flush=flush), plain_ms=cuda_ms(plain, reps=5, flush=flush),
@@ -812,6 +839,7 @@ PATHS = {
     "search_cls": (), "search_conditional": (), "search_prompting": (),
     "prompting_generate": ("attn_decode_pos_major",),
 }
+PROBE_REPS = 1  # timed chains a variant in the probe entry points
 # the probe entry points: each probe kernel and the production kernels
 # they print beside it
 PROBE_PATHS = {
@@ -1093,6 +1121,9 @@ PPL_QUANTIZERS = {"integer": "integer", "block_fp": "bfp_6bit",
 # whole run near its former length (part 2's CPU forwards take most of it)
 PPL_SEQ, PPL_SEQS = 2048, 1
 PPL_LONG, PPL_CHUNK = 4096, 512  # Llama-2's context, chunked attention
+# parts 3 and 4's depth: cut from 32 layers to 16 for the parallel phase
+# (13); the arms' seconds, tokens/s and peaks are those of 16 layers
+PPL_LAYERS = 16
 # part 2's depth and length against the CPU: cut from 2 layers at seq 512
 # to 1 layer at seq 128 to leave the script's time limit room for the
 # search phase (12); its CPU forwards and shadows go with the tokens
@@ -1326,14 +1357,14 @@ def ppl_sweep():
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
 
     t0 = time.perf_counter()
-    params = init_llama_params(_ppl_config("llama", LAYERS, "bypass"), seed=SEED)
+    params = init_llama_params(_ppl_config("llama", PPL_LAYERS, "bypass"), seed=SEED)
     torch.cuda.synchronize()
-    log(f"  Llama-2-7B widths, {LAYERS} layers, float32 weights (seed {SEED}): "
+    log(f"  Llama-2-7B widths, {PPL_LAYERS} layers, float32 weights (seed {SEED}): "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s")
     ds = make_synthetic_lm_dataset(VOCAB, PPL_SEQ, PPL_SEQS, seed=SEED)
     sweep = {}
     for arm, stem in PPL_ARMS.items():
-        config = _ppl_config("llama", LAYERS, stem)
+        config = _ppl_config("llama", PPL_LAYERS, stem)
         fwd = make_forward("llama", "lm", config, quantize_weights=True, with_labels=True)
         res, _, secs, peak = _eval(fwd, params, ds)
         row = {"loss": res["loss"], "perplexity": res["perplexity"], "seconds": secs,
@@ -1364,7 +1395,7 @@ def ppl_sweep():
     long_ds = make_synthetic_lm_dataset(VOCAB, PPL_LONG, 1, seed=SEED)
     chunked = {}
     for name, chunk in (("unchunked", None), ("chunked", PPL_CHUNK)):
-        config = _ppl_config("llama", LAYERS, "block_minifloat", attention_chunk=chunk)
+        config = _ppl_config("llama", PPL_LAYERS, "block_minifloat", attention_chunk=chunk)
         res, _, secs, peak = _eval(make_forward("llama", "lm", config, with_labels=True),
                                    params, long_ds)
         chunked[name] = {"loss": res["loss"], "seconds": secs, "peak_gb": peak,
@@ -1394,7 +1425,7 @@ def run_ppl():
         f"(PTQ trees prepared on the card):")
     gaps = ppl_card_vs_cpu()
     t2 = time.perf_counter()
-    log(f"part 2 took {t2 - t1:.1f} s; phase 7, parts 3 and 4: the sweep at {LAYERS} layers, "
+    log(f"part 2 took {t2 - t1:.1f} s; phase 7, parts 3 and 4: the sweep at {PPL_LAYERS} layers, "
         f"seq {PPL_SEQ} x {PPL_SEQS}, then seq {PPL_LONG} with and without chunked attention:")
     sweep, chunked = ppl_sweep()
     log(f"parts 3 and 4 took {time.perf_counter() - t2:.1f} s")
@@ -1414,7 +1445,9 @@ OPT350 = dict(vocab_size=50272, hidden_size=1024, ffn_dim=4096, num_hidden_layer
               do_layer_norm_before=False, activation_function="relu", pad_token_id=1,
               num_labels=2)
 QAT_BATCH, QAT_SEQ, QAT_LR, QAT_ACCUM = 16, 128, 2e-5, 4
-QAT_MICRO, QAT_SAVE_AT, QAT_EVAL = 32, 16, 256  # micro-steps (8 updates), checkpoint, eval samples
+# micro-steps (4 updates), checkpoint, eval samples: cut from 32, 16, 256 to
+# leave the script's time limit room for the parallel phase (13)
+QAT_MICRO, QAT_SAVE_AT, QAT_EVAL = 16, 8, 128
 # the fixed-batch check's own lr: on random weights Adam's first steps at 2e-5
 # (every parameter moved by ~lr) overshoot, the loss rising to 2-3 nats
 QAT_FALL_LR = 1e-6
@@ -1539,10 +1572,11 @@ def _leaf_gap(a, b):
 
 def qat_protocol():
     """Part 2: the Section 4.3 protocol at OPT-350M's full widths and depth
-    through ``train_qat``: 32 micro-steps uninterrupted; the same run cut at
-    micro-step 16 (a checkpoint) and resumed, which must equal it (rtol
-    1e-6); a profiled window of micro-steps; a fixed batch's loss over 8
-    updates, which must fall; ``eval_cls_glue`` on 256 samples."""
+    through ``train_qat``: ``QAT_MICRO`` micro-steps uninterrupted; the same
+    run cut at micro-step ``QAT_SAVE_AT`` (a checkpoint) and resumed, which
+    must equal it (rtol 1e-6); a profiled window of micro-steps; a fixed
+    batch's loss over 8 updates, which must fall; ``eval_cls_glue`` on
+    ``QAT_EVAL`` samples."""
     import tempfile
 
     from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset, numpy_dataloader
@@ -2228,15 +2262,19 @@ def run_probes(peaks, flush, probes_lib):
     rows["probe_attention_v2"], rows["probe_attention_v3"] = check_k3_probes(peaks, flush)
     rows["probe_expand"] = check_expand_probe(peaks, flush, probes_lib)
 
+    # one timed chain of 100 calls a variant (the entry points' default is 3:
+    # cut to 1 to leave the script's time limit room for the
+    # parallel phase, 13)
     counts, times = {}, {}
-    for path, run in (("ksub", lambda: ksub.run(ksub.SHAPES, reps=3, log=log)),
-                      ("kvariants", lambda: kvariants.run(ksub.SHAPES, reps=3, log=log)),
-                      ("kvariants2", lambda: kvariants2.run(ksub.SHAPES, reps=3, log=log)),
-                      ("aprobe", lambda: aprobe.run(32, 256, reps=3, log=log)),
-                      ("kprobe", lambda: kprobe.run(ksub.SHAPES, reps=3, log=log)),
-                      ("ktune7b", lambda: ktune7b.run(ksub.SHAPES, reps=3, log=log)),
-                      ("k3", lambda: k3.run(32, reps=3, log=log)),
-                      ("kexp", lambda: kexp.run(8192, 32, reps=3, log=log))):
+    for path, run in (("ksub", lambda: ksub.run(ksub.SHAPES, reps=PROBE_REPS, log=log)),
+                      ("kvariants", lambda: kvariants.run(ksub.SHAPES, reps=PROBE_REPS, log=log)),
+                      ("kvariants2",
+                       lambda: kvariants2.run(ksub.SHAPES, reps=PROBE_REPS, log=log)),
+                      ("aprobe", lambda: aprobe.run(32, 256, reps=PROBE_REPS, log=log)),
+                      ("kprobe", lambda: kprobe.run(ksub.SHAPES, reps=PROBE_REPS, log=log)),
+                      ("ktune7b", lambda: ktune7b.run(ksub.SHAPES, reps=PROBE_REPS, log=log)),
+                      ("k3", lambda: k3.run(32, reps=PROBE_REPS, log=log)),
+                      ("kexp", lambda: kexp.run(8192, 32, reps=PROBE_REPS, log=log))):
         reset_all_launch_counts()
         torch.cuda.synchronize()
         times[path] = run()
@@ -2310,7 +2348,9 @@ def run_probes(peaks, flush, probes_lib):
 # the serving-tail and BERT phase (10); its device is a name of its own so
 # that the phase can be rehearsed on the CPU with the plain versions
 TAIL_DEVICE = "cuda"
-TAIL_LAYERS, TAIL_CPU_LAYERS = 4, 2  # depth cut: 4 layers on the card, 2 against the CPU
+# depth cut: 4 layers on the card, 1 against the CPU (2 until phase 13
+# needed the time)
+TAIL_LAYERS, TAIL_CPU_LAYERS = 4, 1
 TAIL_PREFILL, TAIL_STEPS, TAIL_CPU_STEPS = 32, 16, 2
 # BERT-base as published in bert-base-uncased's config.json, with a 2-label head
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
@@ -2507,10 +2547,11 @@ def _trees_equal(a, b):
 
 def tail_host_and_cpu():
     """Part 1c: ``pack_llama_params_host`` against ``pack_llama_params`` on
-    the card, from one float tree on the host (Llama-2-7B widths, 2
-    layers): every packed leaf bit-equal, seconds a layer, the native
-    engine's calls, the bytes moved. Part 1d: the incremental path card
-    against CPU at 2 layers, Llama and OPT-6.7B widths: float32 within 1e-4
+    the card, from one float tree on the host (Llama-2-7B widths,
+    ``TAIL_CPU_LAYERS`` layers): every packed leaf bit-equal, seconds a
+    layer, the native engine's calls, the bytes moved. Part 1d: the
+    incremental path card against CPU at ``TAIL_CPU_LAYERS`` layers, Llama
+    and OPT-6.7B widths: float32 within 1e-4
     of max|logit|, W6A6 packed within QUANT_GATE. -> results"""
     from llm_mixed_q_torch.models.api import make_prefill_and_decode
     from llm_mixed_q_torch.models.hf_loader import init_llama_params, init_opt_params
@@ -3078,11 +3119,13 @@ def _fault_13_config(name, widths, route, counter):
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import (
         LlamaQuantizedConfig, decode_step, generate, prefill_into_cache)
-    from llm_mixed_q_torch.models.llama.serving import PackedKVCache, _cache_spec, _new_cache
+    from llm_mixed_q_torch.models.llama.serving import (
+        PackedKVCache, _cache_spec, _new_cache, packed_cache_layout)
 
     config = LlamaQuantizedConfig(**widths, num_hidden_layers=F13_LAYERS,
                                   quant_config=_toml("bfp_6bit"))
-    got_route = packed_decode_route(config, F13_MAX_LEN, "cuda")
+    got_route = packed_decode_route(config, F13_MAX_LEN, "cuda",
+                                    *packed_cache_layout(config, F13_MAX_LEN))
     check(got_route == route, f"{name}: the packed cache's route is {got_route}, not {route}")
     t0 = time.perf_counter()
     params = init_llama_params(config, seed=SEED, device="cuda",
@@ -3141,12 +3184,12 @@ def stats_fault_13():
     K2), bf16 embedding, random weights (seed 0), ``generate`` at batch 1, a
     32-token prompt, 16 new tokens, max_len 8192: Llama-3-70B widths through
     K5, Mistral-Large-2 widths through the dense route (``_fault_13_config``
-    each); a head_dim of 48, which K4 takes (``generate``'s default packed
-    cache launches it, the dense route not at all); and a head_dim of 320,
-    past the kernels' 256, which the JAX package's kernel takes:
-    ``generate`` with the default cache raises ValueError before any work,
-    and with ``packed_kv=False`` it runs. -> (results, launch counts by
-    run)"""
+    each); head_dims of 48 and 320, which K4 takes (``generate``'s default
+    packed cache launches it, the dense route not at all; 320 since fault
+    15's repair); and a head_dim of 6, which the JAX package's kernel
+    takes and K4/K5 do not (fault 18): ``generate`` with the default cache
+    raises ValueError before any work, and with ``packed_kv=False`` it
+    runs. -> (results, launch counts by run)"""
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
 
@@ -3158,16 +3201,18 @@ def stats_fault_13():
     small = lambda hidden: LlamaQuantizedConfig(
         vocab_size=96, hidden_size=hidden, intermediate_size=128, num_hidden_layers=2,
         num_attention_heads=2, max_position_embeddings=48, quant_config=_toml("bfp_6bit"))
-    config = small(96)
-    params = init_llama_params(config, seed=SEED, device="cuda")
-    reset_all_launch_counts()
-    tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
-    hd48 = all_launch_counts()
-    check(tokens.shape == (1, 4) and hd48["attn_decode_pos_major"] == 2 * 3
-          and hd48["attn_decode_packed_dense"] == 0,
-          f"head_dim 48: the packed cache did not decode through K4 ({hd48})")
-    out["head_dim_48_k4_launches"] = hd48["attn_decode_pos_major"]
-    config = small(640)
+    launches = {}
+    for hd in (48, 320):
+        config = small(2 * hd)
+        params = init_llama_params(config, seed=SEED, device="cuda")
+        reset_all_launch_counts()
+        tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
+        c = all_launch_counts()
+        check(tokens.shape == (1, 4) and c["attn_decode_pos_major"] == 2 * 3
+              and c["attn_decode_packed_dense"] == 0,
+              f"head_dim {hd}: the packed cache did not decode through K4 ({c})")
+        launches[hd] = out[f"head_dim_{hd}_k4_launches"] = c["attn_decode_pos_major"]
+    config = small(12)
     params = init_llama_params(config, seed=SEED, device="cuda")
     try:
         generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
@@ -3175,14 +3220,14 @@ def stats_fault_13():
     except ValueError as e:
         refused = str(e)
     check(refused is not None and "packed_kv=False" in refused,
-          f"head_dim 320: the packed cache was not refused on the card ({refused})")
+          f"head_dim 6: the packed cache was not refused on the card ({refused})")
     tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, packed_kv=False,
                       device="cuda")
-    check(tokens.shape == (1, 4), f"head_dim 320, float32 cache: tokens {tokens.shape}")
-    out["head_dim_320_refused"] = refused
-    log(f"  head_dim 48 on the card: the packed cache decodes through K4 "
-        f"({hd48['attn_decode_pos_major']} launches, the dense route 0); head_dim 320: the "
-        f"packed cache refused ({refused}); the float32 cache generates")
+    check(tokens.shape == (1, 4), f"head_dim 6, float32 cache: tokens {tokens.shape}")
+    out["head_dim_6_refused"] = refused
+    log(f"  head_dims 48 and 320 on the card: the packed cache decodes through K4 "
+        f"({launches} launches, the dense route 0); head_dim 6: the packed cache refused "
+        f"({refused}); the float32 cache generates")
     return out, counts
 
 
@@ -3218,9 +3263,13 @@ def run_stats():
 
 
 # phase 12 (--search-only): fault 15's repair (K4 and K5 at head_dims that
-# are multiples of 16 but not powers of two), then the paper's search and
-# the prompting eval
-F15_HEAD_DIMS = (48, 80, 96, 112)
+# are not powers of two: multiples of 16, and 320, 40 and 8, held bit for
+# bit), then the paper's search and the prompting eval
+F15_HEAD_DIMS = (48, 80, 96, 112, 320, 40, 8)
+F15_BIT_EQUAL = (320, 40, 8)
+# the K/V block: 16 (every TOML's), cut to the head at 8; 8 at 40, which 16
+# does not divide
+F15_BLOCKS = {40: 8, 8: 8}
 F15_REPS = (1, 8)
 F15_NKV = 8
 F15_LENS = {"attn_decode_pos_major": 1024, "attn_decode_head_major": 2048}  # max_len by layout
@@ -3241,11 +3290,11 @@ def _near_tie_ok(token, logits):
 
 def search_head_dims(peaks, flush):
     """Part 1a: K4 and K5 against their plain versions at head_dims 48, 80,
-    96 and 112, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024 positions, the
-    pos-major layout's 8192-lane cap; K5 at 2048), each timed beside its
-    plain version, its bound and SDPA on a dequantized cache
-    (``_attention_row``, the tolerance of check_attention_kernels).
-    -> {wrapper name: {"hd<d>_rep<r>": row}}"""
+    96, 112, 320, 40 and 8, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
+    positions, the pos-major layout's 8192-lane cap; K5 at 2048), each timed
+    beside its plain version, its bound and SDPA on a dequantized cache
+    (``_attention_row``, the tolerance of check_attention_kernels; bit for
+    bit at ``F15_BIT_EQUAL``). -> {wrapper name: {"hd<d>_rep<r>": row}}"""
     from llm_mixed_q_torch.kernels.attention_decode import (
         k4_tiles, k5_tiles, packed_attention_decode_batch_cuda,
         packed_attention_decode_batch_plain, packed_attention_decode_cuda,
@@ -3264,7 +3313,8 @@ def search_head_dims(peaks, flush):
         for hd, rep in itertools.product(F15_HEAD_DIMS, F15_REPS):
             positions = torch.tensor([s_len - 1 - 9 * i for i in range(BATCH)],
                                      dtype=torch.int32, device="cuda")
-            cache = _cache_inputs(gen, s_len, nkv, hd, pos_major)
+            bs = F15_BLOCKS.get(hd, 16)
+            cache = _cache_inputs(gen, s_len, nkv, hd, pos_major, bs)
             q = _block_fp_qdq(torch.randn((BATCH * nkv * rep, hd), generator=gen,
                                           device="cuda"), 6, 8, 127, [1, 16], True)
             kd = torch.randn((BATCH, nkv, s_len, hd), generator=gen, device="cuda")
@@ -3274,19 +3324,22 @@ def search_head_dims(peaks, flush):
             library = lambda: sdpa(q.reshape(BATCH, nkv * rep, 1, hd), kd, vd, attn_mask=mask,
                                    enable_gqa=rep > 1)
             if pos_major:
-                args = (q.reshape(BATCH, nkv * rep, hd), *cache, positions, 16, 16, nkv, rep,
+                args = (q.reshape(BATCH, nkv * rep, hd), *cache, positions, bs, bs, nkv, rep,
                         PROB_Q)
-                split = dict(zip(("dims", "dgs", "pgs"), k4_tiles(nkv, rep, hd, s_len, 16, 16)))
+                split = dict(zip(("dims", "dgs", "pgs"), k4_tiles(nkv, rep, hd, s_len, bs, bs)))
             else:
-                args = (q.reshape(BATCH, nkv, rep, hd), *cache, positions, 16, 16, PROB_Q)
-                split = dict(zip(("T", "dgs", "pgs"), k5_tiles(nkv, rep, hd, s_len, 16, 16)))
+                args = (q.reshape(BATCH, nkv, rep, hd), *cache, positions, bs, bs, PROB_Q)
+                split = dict(zip(("T", "dgs", "pgs"), k5_tiles(nkv, rep, hd, s_len, bs, bs)))
             r = _attention_row(f"{kname} hd{hd}_rep{rep}", lambda: fn(*args),
                                lambda: plain(*args), library, positions, nkv, rep, hd, peaks,
-                               flush)
-            r.update(split=split, nkv=nkv, max_len=s_len)
+                               flush, bs)
+            if hd in F15_BIT_EQUAL:
+                check(r["max_abs_err"] == 0.0, f"{kname} head_dim {hd}, rep {rep}: "
+                                               f"{r['max_abs_err']} from its plain version")
+            r.update(split=split, nkv=nkv, max_len=s_len, block=bs)
             rows[kname][f"hd{hd}_rep{rep}"] = r
-            log(f"  {kname} head_dim {hd}, rep {rep} (nkv {nkv}, max_len {s_len}, split "
-                f"{split}): max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+            log(f"  {kname} head_dim {hd}, rep {rep} (nkv {nkv}, max_len {s_len}, block {bs}, "
+                f"split {split}): max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"library_ms(SDPA)={r['library_ms']:.4f}")
             del positions, cache, q, kd, vd, mask, library, args
@@ -3360,6 +3413,9 @@ def search_head_dim_80():
 # layer a trial; one layer keeps the phase inside the script's time limit
 SEARCH_LAYERS, SEARCH_CPU_LAYERS = 4, 1
 SEARCH_TRIALS, COND_TRIALS, PROMPT_TRIALS = 6, 3, 3
+# the card-against-CPU pair: the first 2 of the 6 trials (all 6 until phase
+# 13 needed the time; the CPU side took 61.6 s of them)
+SEARCH_CPU_TRIALS = 2
 SEARCH_SAMPLES, SEARCH_CPU_SAMPLES, SEARCH_SEQ, SEARCH_BATCH = 64, 8, 128, 8
 SEARCH_WIDTHS = dict(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
                      num_attention_heads=HEADS, max_position_embeddings=4096, num_labels=2)
@@ -3478,7 +3534,7 @@ def search_cls(tmp):
     """Part 2: the classification search, TPE seed 0, 6 trials at 4 layers
     on 64 samples x 128 tokens, its trial seconds, accuracies, memory
     densities and average bitwidths and the peak device memory, then
-    ``evaluate_best_trials``; the same 6 trials at 1 layer on 8 samples on
+    ``evaluate_best_trials``; the first 2 trials at 1 layer on 8 samples on
     the card and on the CPU: equal sampled configs and memory densities,
     and accuracies equal but for at most one sample a trial whose two top
     CPU logits lie within TIE of max|logit|. -> (results, launch counts)"""
@@ -3505,7 +3561,7 @@ def search_cls(tmp):
 
     runs = {}
     for device in ("cuda", "cpu"):
-        runs[device] = _cls_search(Search, SEARCH_CPU_LAYERS, SEARCH_TRIALS, device,
+        runs[device] = _cls_search(Search, SEARCH_CPU_LAYERS, SEARCH_CPU_TRIALS, device,
                                    SEARCH_CPU_SAMPLES, tmp / f"cls_{device}", init_device="cpu")
     (card, card_search, _, _), (cpu, cpu_search, _, cpu_secs) = runs["cuda"], runs["cpu"]
     check([t.params for t in card.trials] == [t.params for t in cpu.trials],
@@ -3524,7 +3580,7 @@ def search_cls(tmp):
         check(len(differ) <= 1 and _near_tie_ok(got.argmax(-1)[differ], want[differ]),
               f"trial {a.number}: card and CPU predictions differ beyond a near tie")
         flips += len(differ)
-    log(f"  the same {SEARCH_TRIALS} trials at {SEARCH_CPU_LAYERS} layer(s) on "
+    log(f"  the first {SEARCH_CPU_TRIALS} trials at {SEARCH_CPU_LAYERS} layer(s) on "
         f"{SEARCH_CPU_SAMPLES} samples, card vs CPU: sampled configs and memory densities "
         f"equal, {flips} near-tie flips of accuracy (CPU {sum(cpu_secs):.1f} s)")
     del runs, card_search, cpu_search
@@ -3707,7 +3763,7 @@ def run_search(peaks, flush):
     import tempfile
 
     t0 = time.perf_counter()
-    log("phase 12, part 1: K4 and K5 at head_dims 48, 80, 96, 112 (fault 15):")
+    log("phase 12, part 1: K4 and K5 at head_dims 48, 80, 96, 112, 320, 40, 8 (fault 15):")
     head_dims = search_head_dims(peaks, flush)
     hd80, counts = search_head_dim_80()
     out = {"head_dim_80": hd80}
@@ -3727,6 +3783,483 @@ def run_search(peaks, flush):
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 12 (search and prompting) took {out['seconds']:.1f} s")
     return {"search": out}, head_dims, counts
+
+
+# phase 13 (--parallel-only): parallel/ on torch.distributed, two ranks on
+# the one card over gloo (NCCL refuses two ranks on one device); the ranks
+# are this script run with --parallel-rank, each loading the kernels this
+# process built. Part 1: TP = 2 packed serving at Llama-2-7B widths cut to 2
+# layers, batch 8, 16 prompt tokens and 16 new ones, at max_len 512 (16 kv
+# heads a rank: a pos-major cache of 8192 lanes, K4, where the whole width's
+# is head-major, K5) and 1024 (head-major on a rank too: K5); part 2: DP = 2
+# and FSDP = 2 QAT at OPT-350M widths, 2 micro-steps on global batches of
+# 8 x 128, under W4A4 (bfp_4bit.toml) and in float32; part 3: the five
+# EMNLP drivers at --synthetic on the card, in this process
+P13_RANKS = 2
+P13_LAYERS, P13_BATCH, P13_PROMPT, P13_NEW = 2, 8, 16, 16
+P13_MAX_LENS = {512: "attn_decode_pos_major", 1024: "attn_decode_head_major"}
+P13_FORMATS = {"subbyte_t": ("bfp_matmul_subbyte_t",),
+               "int8": ("bfp_matmul_int8", "actq_split")}
+P13_QAT_BATCH, P13_QAT_STEPS = 8, 2
+# part 2 holds W4A4 steps to one process on the ranks' slices (the ranks'
+# GEMM shapes): a sum in another order at another M flips a 3-bit rounding
+# now and then, and 24 random layers carry the flips to the loss. float32
+# has no such rounding, so its gradient is held to one process's on the
+# global batch too (a gradient, not a step: Adam's first update is lr times
+# the gradient's sign, which rounding noise flips where the gradient is
+# ~0), as a whole: a ReLU whose input is ~0 may pass its gradient on one
+# side and not the other, and the pooled token carries most of a unit's
+# gradient, so a leaf's largest element may move by ~1/8, and the whole
+# gradient by 3.0e-3 (L2; one process's slices against its global batch,
+# H100 80GB HBM3 at 700 W): held within 1e-2. The witness: the
+# first forward of a global batch against its slices', no step between,
+# by (layers, quant config)
+P13_WITNESS = {"float32_24": (24, "bypass"), "w4a4_24": (24, "bfp_4bit"),
+               "w4a4_2": (2, "bfp_4bit")}
+P13_TIMEOUT = 600  # seconds for both ranks
+# each rank's runs: the TP generates launch their tree's matmul and their
+# cache's attention kernel; QAT and the drivers (the fake-quant forward and
+# its backward, search) no Hopper kernel
+PATHS.update({f"tp_{fmt}_{n}_rank{r}": names + (attn,) for r in range(P13_RANKS)
+              for fmt, names in P13_FORMATS.items() for n, attn in P13_MAX_LENS.items()})
+PATHS.update({f"qat_{arm}_{mode}_rank{r}": () for r in range(P13_RANKS)
+              for arm in ("w4a4", "float32") for mode in ("dp", "fsdp")})
+PATHS["emnlp_drivers"] = ()
+
+
+def _p13_serving(mesh, rank):
+    """Part 1 on this rank: for each packed tree, ``generate`` on the rank's
+    local tree at both cache lengths (counters set to 0 before each and
+    read after), then one decode step's logits after a prefill; rank 0 also
+    runs the same on the whole tree in this one process."""
+    from llm_mixed_q_torch.models.hf_loader import init_llama_params
+    from llm_mixed_q_torch.models.llama import (LlamaQuantizedConfig, decode_step, generate,
+                                                prefill_into_cache)
+    from llm_mixed_q_torch.models.llama.serving import _cache_spec, _new_cache
+    from llm_mixed_q_torch.parallel import shard_params, tp
+
+    config = LlamaQuantizedConfig(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
+                                  num_hidden_layers=P13_LAYERS, num_attention_heads=HEADS,
+                                  max_position_embeddings=2048, quant_config=_toml("bfp_6bit"))
+    ids = torch.as_tensor(np.random.default_rng(SEED + 13).integers(
+        2, VOCAB, (P13_BATCH, P13_PROMPT)), device="cuda")
+    mask = torch.ones_like(ids)
+
+    def run(params, max_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(params, config, ids, mask, max_new_tokens=P13_NEW, max_len=max_len,
+                          device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cache = _new_cache(config, P13_BATCH, max_len, _cache_spec(config, None), "cuda")
+        logits, lengths = prefill_into_cache(params, ids, mask, cache, config)
+        step = decode_step(params, logits.argmax(-1)[:, None], cache, lengths, config)
+        return {"tokens": np.asarray(tokens), "step": step.float().cpu().numpy(),
+                "seconds": secs, "pos_major": cache.pos_major, "kv_heads": cache.nkv}
+
+    def columns(full, local):
+        """Whether rank 0's columns of the fused q/k/v node (its kernel at
+        N = 6144 against 12288) and of lm_head (the float32 GEMM at 16000
+        columns against 32000) are the whole node's bits."""
+        from llm_mixed_q_torch.models.llama.modeling import _node_cfg
+        from llm_mixed_q_torch.ops.linear import quantized_linear
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        x = torch.randn((P13_BATCH, HIDDEN), generator=gen, device="cuda")
+        cfg = _node_cfg(config.quant_config, 0, "self_attn", "q_proj")
+        nodes = [t["layers"][0]["self_attn"]["qkv_proj"] for t in (full, local)]
+        y_full, y_local = (quantized_linear(x, n["weight"], None, cfg, True) for n in nodes)
+        starts = np.cumsum([0, *nodes[0]["splits"]])[:-1]
+        want = torch.cat([y_full[:, a:a + n] for a, n in zip(starts, nodes[1]["splits"])], 1)
+        h = x.to(torch.bfloat16).float()
+        lm = [h @ t["lm_head"]["weight"].float().t() for t in (full, local)]
+        return {"qkv_bit_equal": bool(torch.equal(y_local, want)),
+                "qkv_max_gap": float((y_local - want).abs().max() / want.abs().max()),
+                "lm_head_bit_equal": bool(torch.equal(lm[1], lm[0][:, :lm[1].shape[1]])),
+                "lm_head_max_gap": float((lm[1] - lm[0][:, :lm[1].shape[1]]).abs().max()
+                                         / lm[0].abs().max())}
+
+    out, counts = {}, {}
+    for fmt in P13_FORMATS:
+        full = init_llama_params(config, seed=SEED, device="cuda",
+                                 pack=dict(subbyte=fmt == "subbyte_t", bf16_embed=True))
+        local = shard_params(full, mesh, config=config)
+        if rank == 0:
+            out[f"columns_{fmt}"] = columns(full, local)
+        for max_len in P13_MAX_LENS:
+            path = f"tp_{fmt}_{max_len}_rank{rank}"
+            reset_all_launch_counts()
+            with tp.spmd(mesh):
+                out[path] = run(local, max_len)
+            counts[path] = all_launch_counts()
+            if rank == 0:
+                out[f"one_{fmt}_{max_len}"] = run(full, max_len)
+        del full, local
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def _p13_batch_witness(params, batch):
+    """Rank 0, one process, no step: the first forward of the global batch
+    against the forwards of its ``P13_RANKS`` slices, for each arm of
+    ``P13_WITNESS`` (the first layers of the same weights). A row's
+    arithmetic is the same in both (the quantizers' blocks lie within a
+    row, and the zero-block fill changes no output), so only the GEMMs'
+    sum order at another M differs. -> {arm: gaps}"""
+    from llm_mixed_q_torch.models import get_model_fn
+
+    model = get_model_fn("opt", "cls")
+    ids, mask, labels = (torch.as_tensor(batch[k], device="cuda")
+                         for k in ("input_ids", "attention_mask", "labels"))
+    m = P13_QAT_BATCH // P13_RANKS
+    out = {}
+    for name, (layers, stem) in P13_WITNESS.items():
+        config = _qat_config("opt", layers, stem)
+        tree = {**params, "layers": params["layers"][:layers]}
+        with torch.no_grad():
+            whole = model(tree, ids, mask, labels=labels, config=config, quantize_weights=True)
+            parts = [model(tree, ids[i:i + m], mask[i:i + m], labels=labels[i:i + m],
+                           config=config, quantize_weights=True)
+                     for i in range(0, P13_QAT_BATCH, m)]
+        logits = torch.cat([q["logits"] for q in parts])
+        loss, loss_slices = float(whole["loss"]), sum(float(q["loss"]) for q in parts) / len(parts)
+        out[name] = {"loss_whole": loss, "loss_slices": loss_slices,
+                     "loss_gap_rel": abs(loss - loss_slices) / loss,
+                     "logits_gap": float((whole["logits"] - logits).abs().max()
+                                         / whole["logits"].abs().max()),
+                     "labels_differ": int((whole["logits"].argmax(-1)
+                                           != logits.argmax(-1)).sum())}
+    return out
+
+
+def _p13_qat(mesh, rank):
+    """Part 2 on this rank: DP and FSDP runs of the rank's slice of each
+    global batch: under W4A4 the QAT micro-steps, the losses and the whole
+    parameters after them; in float32 one micro-step whose optimizer does
+    not update, its loss and the whole gradient. Rank 0 also runs, in this
+    one process, the references: each global batch taken as the ranks'
+    slices accumulated ("slices": the ranks' GEMM shapes, DP's sums in one
+    process; ``MultiSteps`` over the slices under W4A4), and in float32
+    the micro-step on the global batch ("global"); and
+    ``_p13_batch_witness``."""
+    from types import SimpleNamespace
+
+    from llm_mixed_q_torch.datasets import make_synthetic_cls_dataset
+    from llm_mixed_q_torch.models.hf_loader import init_opt_params
+    from llm_mixed_q_torch.parallel import global_batch
+    from llm_mixed_q_torch.train.qat import (MeshLayout, MultiSteps, _to_device, leaves_of,
+                                             make_adamw, make_qat_train_step, named_leaves,
+                                             shard_for_training, whole_params)
+
+    w4a4, float32 = (_qat_config("opt", OPT350["num_hidden_layers"], stem)
+                     for stem in ("bfp_4bit", "bypass"))
+    params = init_opt_params(w4a4, task="cls", seed=SEED, device="cuda")
+    data = make_synthetic_cls_dataset(OPT350["vocab_size"], QAT_SEQ,
+                                      P13_QAT_BATCH * P13_QAT_STEPS, seed=SEED + 13)
+    batches = [{k: v[i * P13_QAT_BATCH:(i + 1) * P13_QAT_BATCH] for k, v in data.items()}
+               for i in range(P13_QAT_STEPS)]
+    flat = lambda tree: {".".join(map(str, p)): t.detach() for p, t in named_leaves(tree)}
+
+    def run(config, mesh_=None, fsdp=False, slices=1, update=True):
+        """-> (losses, whole parameters, or without ``update`` the mean
+        gradient of the slices, seconds)"""
+        tree = shard_for_training(params, mesh_, fsdp, config)
+        opt = (MultiSteps(*make_adamw(leaves_of(tree), QAT_LR, 0.0), every_k=slices) if update
+               else SimpleNamespace(step=lambda: None))
+        step = make_qat_train_step("opt", "cls", config, opt, mesh_, fsdp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches if update else batches[:1]:
+            if mesh_ is not None:
+                b, _ = global_batch(mesh_, b)
+            m = P13_QAT_BATCH // slices
+            parts = [{k: v[i * m:(i + 1) * m] for k, v in b.items()} for i in range(slices)]
+            losses.append(sum(float(step(tree, _to_device(p, "cuda"))) for p in parts) / slices)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        layout = None if mesh_ is None else MeshLayout(mesh_, fsdp)
+        if update:
+            return losses, flat(tree if layout is None else whole_params(layout, leaves_of(tree))), secs
+        grads = {}
+        for p, t in named_leaves(leaves_of(tree)):  # the same leaves on every rank
+            if t.grad is not None:
+                grads[".".join(map(str, p))] = (
+                    t.grad / slices if layout is None else layout.full(t.grad, layout.spec(p, t)))
+        return losses, grads, secs
+
+    def step_gaps(after, ref, start):
+        """An attention key's bias has a gradient of 0 in exact arithmetic
+        (``_grad_gaps``): its change is each side's rounding noise, held by
+        the lr bound only, and reported over the largest leaf change."""
+        change = {k: (ref[k] - start[k]).abs().max() for k in ref}
+        noise = [k for k in ref if k.endswith("k_proj.bias")]
+        return {"max_param_gap_over_lr": max(float((after[k] - ref[k]).abs().max())
+                                             for k in ref) / QAT_LR,
+                "beyond_1e_2_of_change": sum(int(((after[k] - ref[k]).abs() > 1e-2 * change[k])
+                                                 .sum()) for k in ref if k not in noise),
+                "elements": sum(ref[k].numel() for k in ref if k not in noise),
+                "key_bias_change": max(float(change[k]) for k in noise)
+                / max(float(c) for c in change.values())}
+
+    def grad_gaps(got, want):
+        """Each leaf's max|got - want| over its max|want|, the leaves beyond
+        1e-4 of it, and the whole gradient's |got - want| over |want| (L2);
+        the key biases' gradients (rounding noise: ``_grad_gaps``) apart,
+        over the largest leaf's max on both sides."""
+        top = max(float(w.abs().max()) for w in want.values())
+        noise = [k for k in want if k.endswith("k_proj.bias")]
+        keys = [k for k in want if k in got and k not in noise]
+        gaps = {k: float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+                for k in keys}
+        worst = max(gaps, key=gaps.get)
+        diff2 = sum(float((got[k] - want[k]).double().square().sum()) for k in keys)
+        norm2 = sum(float(want[k].double().square().sum()) for k in keys)
+        return {"same_leaves": sorted(got) == sorted(want), "leaves": len(want),
+                "grad_gap_of_leaf_max": gaps[worst], "worst_leaf": worst,
+                "leaves_beyond_1e_4": sum(g > 1e-4 for g in gaps.values()),
+                "grad_rel_l2": (diff2 / norm2) ** 0.5,
+                "key_bias_noise": max(max(float(got[k].abs().max()), float(want[k].abs().max()))
+                                      for k in noise) / top}
+
+    out, counts = {}, {}
+    start = flat(params)
+    if rank == 0:
+        out["witness"] = _p13_batch_witness(params, batches[0])
+        refs = {"w4a4": {"slices": run(w4a4, slices=P13_RANKS)},
+                "float32": {"slices": run(float32, slices=P13_RANKS, update=False),
+                            "global": run(float32, update=False)}}
+        out["float32_slices_vs_global"] = grad_gaps(refs["float32"]["slices"][1],
+                                                    refs["float32"]["global"][1])
+    for arm, config in (("w4a4", w4a4), ("float32", float32)):
+        for fsdp in (False, True):
+            path = f"qat_{arm}_{'fsdp' if fsdp else 'dp'}_rank{rank}"
+            reset_all_launch_counts()
+            losses, got, secs = run(config, mesh, fsdp, update=arm == "w4a4")
+            counts[path] = all_launch_counts()
+            out[path] = {"losses": losses, "seconds": secs}
+            if rank == 0:
+                gaps = (lambda ref: step_gaps(got, ref, start)) if arm == "w4a4" else (
+                    lambda ref: grad_gaps(got, ref))
+                out[path]["refs"] = {name: {"losses": losses_, "seconds": secs_, **gaps(ref)}
+                                     for name, (losses_, ref, secs_) in refs[arm].items()}
+            del got
+            torch.cuda.empty_cache()
+    return out, counts
+
+
+def parallel_rank(rank: int, port: int, outdir: Path):
+    """One rank of phase 13 (run by ``run_parallel`` as ``chip_smoke.py
+    --parallel-rank <rank> <port> <dir>``): its results and launch counts
+    to ``<dir>/rank<r>.pkl``, or the error that stopped it."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    result = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=P13_RANKS, timeout=timedelta(seconds=P13_TIMEOUT))
+        from llm_mixed_q_torch.kernels import _cuda
+        from llm_mixed_q_torch.parallel import make_mesh
+
+        _cuda.lib("kernels")  # built by the parent: the same sources, the same library
+        serving, counts = _p13_serving(make_mesh(data=1, model=P13_RANKS, device_type="cuda"), rank)
+        dist.barrier()
+        qat, qat_counts = _p13_qat(make_mesh(data=P13_RANKS, model=1, device_type="cuda"), rank)
+        result = {"serving": serving, "qat": qat, "counts": {**counts, **qat_counts}}
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    with open(outdir / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    sys.exit(1 if "error" in result else 0)
+
+
+def _p13_drivers(tmp: Path):
+    """Part 3: the five EMNLP drivers of the port at --synthetic on the
+    card, in this process; their artifacts present and their numbers
+    finite. -> {driver: seconds}"""
+    import csv
+    import importlib
+
+    runs = {"section_1_variance": ["--model_arch", "llama"],
+            "section_4_2_perplexity": [], "section_4_2_downstream": [],
+            "section_4_3_qat": [], "section_4_4_search": []}
+    artifacts = {"section_1_variance": ("variance_vs_depth.json", "variance_vs_depth.csv"),
+                 "section_4_2_perplexity": ("perplexity_summary.csv", "ppl_w6a6_bfp.json"),
+                 "section_4_2_downstream": ("downstream_summary.csv", "downstream_w4a4_bfp.json"),
+                 "section_4_3_qat": ("qat_history.json",),
+                 "section_4_4_search": ("search_summary.json", "results.csv", "study.pkl")}
+    secs = {}
+    for name, extra in runs.items():
+        out = tmp / name
+        t0 = time.perf_counter()
+        importlib.import_module(f"llm_mixed_q_torch.experiments.emnlp.{name}").main(
+            ["--synthetic", "--device", "cuda", "--save_dir", str(out), *extra])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        for a in artifacts[name]:
+            check((out / a).is_file(), f"{name} wrote no {a}")
+            numbers = []
+            if a.endswith(".csv"):
+                rows = list(csv.reader(open(out / a)))[1:]
+                numbers = [float(x) for r in rows for x in r[1:]]
+            elif a.endswith(".json"):
+                text = (out / a).read_text()
+                check("NaN" not in text and "Infinity" not in text, f"{name}: {a} not finite")
+            check(all(math.isfinite(x) for x in numbers), f"{name}: {a} not finite")
+        log(f"  {name}: {secs[name]:.1f} s, artifacts {', '.join(artifacts[name])}")
+    return secs
+
+
+def run_parallel(smi):
+    """Phase 13: two ranks on the one card (``parallel_rank``), then the
+    drivers here. -> ({"parallel": results}, launch counts by run)"""
+    import pickle
+    import socket
+    import tempfile
+
+    t0 = time.perf_counter()
+    log(f"phase 13: parallel/ over gloo, {P13_RANKS} ranks sharing the one card ({smi}); "
+        f"the times below are no scaling figures")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--parallel-rank", str(r), str(port), str(tmp)], cwd=ROOT)
+                 for r in range(P13_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=P13_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r in range(P13_RANKS):
+            path = tmp / f"rank{r}.pkl"
+            check(path.is_file(), f"phase 13: rank {r} wrote no results (exit "
+                                  f"{procs[r].returncode})")
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            check("error" not in ranks[-1], f"phase 13: rank {r} failed:\n"
+                                            f"{ranks[-1].get('error')}")
+        t1 = time.perf_counter()
+        log(f"phase 13, parts 1 and 2 (both ranks, with their start) took {t1 - t0:.1f} s")
+        out = {"serving": {}, "qat": {}}
+        counts = {}
+        for rank in ranks:
+            counts.update(rank["counts"])
+        for fmt in P13_FORMATS:
+            for max_len, attn in P13_MAX_LENS.items():
+                one = ranks[0]["serving"][f"one_{fmt}_{max_len}"]
+                row = {"one_process_seconds": one["seconds"]}
+                for r, rank in enumerate(ranks):
+                    got = rank["serving"][f"tp_{fmt}_{max_len}_rank{r}"]
+                    check(np.array_equal(got["tokens"], one["tokens"]),
+                          f"TP {fmt} max_len {max_len}: rank {r}'s tokens differ from the "
+                          f"one-process run")
+                    gap = float(np.abs(got["step"] - one["step"]).max()
+                                / np.abs(one["step"]).max())
+                    check(gap <= QUANT_GATE, f"TP {fmt} max_len {max_len}: logits gap {gap}")
+                    c = counts[f"tp_{fmt}_{max_len}_rank{r}"]
+                    row[f"rank{r}"] = {"seconds": got["seconds"], "logits_gap": gap,
+                                       "bit_equal": gap == 0.0, "pos_major": got["pos_major"],
+                                       "kv_heads": got["kv_heads"],
+                                       "launches": {k: v for k, v in c.items() if v}}
+                row["columns"] = ranks[0]["serving"][f"columns_{fmt}"]
+                out["serving"][f"{fmt}_{max_len}"] = row
+                log(f"  TP=2 {fmt}, max_len {max_len}: tokens equal to the one-process run on "
+                    f"both ranks; logits gap {row['rank0']['logits_gap']:.3e} / "
+                    f"{row['rank1']['logits_gap']:.3e} of max|logit|; local cache "
+                    f"{'pos-major' if row['rank0']['pos_major'] else 'head-major'} "
+                    f"({row['rank0']['kv_heads']} kv heads; the one-process run "
+                    f"{'pos-major' if one['pos_major'] else 'head-major'}); generate "
+                    f"{row['rank0']['seconds']:.2f} / {row['rank1']['seconds']:.2f} s against "
+                    f"{one['seconds']:.2f} s alone; launches rank 0 {row['rank0']['launches']}, "
+                    f"rank 1 {row['rank1']['launches']}; rank 0's columns against the whole "
+                    f"node's: {row['columns']}")
+        witness = ranks[0]["qat"]["witness"]
+        log(f"  one process, the first forward of the global batch of {P13_QAT_BATCH} against "
+            f"its {P13_RANKS} slices (OPT-350M widths): {witness}")
+        # float32 at 24 layers: only the sum order differs; W4A4 at 2 layers:
+        # phase 8's gate for a float32 sum in another order
+        check(witness["float32_24"]["logits_gap"] <= 1e-5,
+              f"float32: the global batch's logits against its slices' {witness['float32_24']}")
+        check(witness["w4a4_2"]["loss_gap_rel"] <= 2e-3,
+              f"W4A4, 2 layers: the global batch's loss against its slices' {witness['w4a4_2']}")
+        out["qat"]["witness"] = witness
+        one = ranks[0]["qat"]["float32_slices_vs_global"]
+        log(f"  one process, float32, the gradient of the global batch's slices against the "
+            f"global batch's: {one}")
+        out["qat"]["float32_slices_vs_global"] = one
+        names = {"slices": "the ranks' slices", "global": "the global batch"}
+        for arm in ("w4a4", "float32"):
+            for mode in ("dp", "fsdp"):
+                key = f"qat_{arm}_{mode}"
+                got = ranks[0]["qat"][f"{key}_rank0"]
+                losses = [rank["qat"][f"{key}_rank{r}"]["losses"] for r, rank in enumerate(ranks)]
+                check(losses[0] == losses[1], f"{key}: the ranks' losses differ: {losses}")
+                held = []
+                for name, ref in got["refs"].items():
+                    check(np.allclose(losses[0], ref["losses"], rtol=1e-5, atol=0),
+                          f"{key}: losses {losses[0]} against one process on {names[name]} "
+                          f"{ref['losses']}")
+                    if arm == "w4a4":
+                        # Adam moves an element by at most ~lr an update, so a
+                        # gradient near 0 summed in another order may move it
+                        # anywhere within that
+                        ok = (ref["max_param_gap_over_lr"] <= P13_QAT_STEPS * (1 + 1e-3)
+                              and ref["beyond_1e_2_of_change"] <= ref["elements"] // 1000)
+                        held.append(
+                            f"on {names[name]} {ref['losses']}: parameters within "
+                            f"{ref['max_param_gap_over_lr']:.3f} lr, "
+                            f"{ref['beyond_1e_2_of_change']} of {ref['elements']} elements "
+                            f"beyond 1e-2 of their leaf's max change, the key biases' change "
+                            f"(rounding noise) {ref['key_bias_change']:.3e} of the largest")
+                    else:
+                        # on the slices (the same GEMM shapes) phase 8's gate of a
+                        # float32 gradient, each leaf within 1e-4 of its max; on
+                        # the global batch the whole within 1e-2 (L2), past the
+                        # ReLU kinks above
+                        ok = ref["same_leaves"] and ref["key_bias_noise"] < 1e-5 and (
+                            ref["grad_gap_of_leaf_max"] <= 1e-4 if name == "slices"
+                            else ref["grad_rel_l2"] <= 1e-2)
+                        held.append(
+                            f"on {names[name]} {ref['losses']}: the gradient within "
+                            f"{ref['grad_rel_l2']:.3e} (L2), each leaf within "
+                            f"{ref['grad_gap_of_leaf_max']:.3e} of its max ({ref['worst_leaf']}; "
+                            f"{ref['leaves_beyond_1e_4']} of {ref['leaves']} leaves beyond "
+                            f"1e-4), the key biases' (rounding noise) "
+                            f"{ref['key_bias_noise']:.3e} of the largest leaf's max")
+                    check(ok, f"{key}: against one process on {names[name]}: {ref}")
+                out["qat"][f"{arm}_{mode}"] = {
+                    **got, "losses": losses[0],
+                    "rank1_seconds": ranks[1]["qat"][f"{key}_rank1"]["seconds"]}
+                what = (f"{P13_QAT_STEPS} micro-steps" if arm == "w4a4"
+                        else "1 micro-step with no update")
+                alone = min(ref["seconds"] for ref in got["refs"].values())
+                log(f"  {mode.upper()}=2 QAT, OPT-350M widths, {arm}, {what} on {P13_QAT_BATCH} x "
+                    f"{QAT_SEQ}: losses {losses[0]}, the same on both ranks; one process "
+                    f"{'; '.join(held)}; {got['seconds']:.2f} s on rank 0 against "
+                    f"{alone:.2f} s alone")
+        log("phase 13, part 3: the five EMNLP drivers at --synthetic on the card:")
+        reset_all_launch_counts()
+        out["drivers_seconds"] = _p13_drivers(tmp)
+        counts["emnlp_drivers"] = all_launch_counts()
+    check_path_counts(counts)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 (parallel and the drivers) took {out['seconds']:.1f} s ({smi})")
+    return {"parallel": out}, counts
 
 
 def kernel_entries(rows, path_counts):
@@ -3802,6 +4335,11 @@ def main(only=None):
         _cuda.lib("kernels")
         stats, _ = run_stats()
         print(json.dumps(stats), flush=True)
+        return
+    if only == "parallel":
+        _cuda.lib("kernels")
+        parallel, _ = run_parallel(smi)
+        print(json.dumps(parallel), flush=True)
         return
     if only == "search":
         _cuda.lib("kernels")
@@ -3910,6 +4448,9 @@ def main(only=None):
         rows[kname]["head_dims"] = by_shape
         rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"],
                                          *(r["max_abs_err"] for r in by_shape.values()))
+    torch.cuda.empty_cache()
+    parallel, parallel_counts = run_parallel(smi)
+    path_counts.update(parallel_counts)
 
     log("(matmul rows and actq_split: sums over one Llama-2-7B layer's four projections "
         "at batch 8, K2's and K3's including their actq_split, opt_mlp_ms: OPT-6.7B fc1 and fc2 at "
@@ -3925,6 +4466,7 @@ def main(only=None):
     print(json.dumps(tail), flush=True)
     print(json.dumps(stats), flush=True)
     print(json.dumps(search), flush=True)
+    print(json.dumps(parallel), flush=True)
     print(json.dumps({"kernels": kernel_entries(rows, path_counts)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3933,8 +4475,12 @@ def main(only=None):
 
 
 if __name__ == "__main__":
+    if "--parallel-rank" in sys.argv:  # a rank of phase 13, started by run_parallel
+        i = sys.argv.index("--parallel-rank")
+        parallel_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), Path(sys.argv[i + 3]))
     flags = {"--k1-only": "k1", "--k2-only": "k2", "--k3-only": "k3", "--k4-only": "k4",
              "--k5-only": "k5", "--m-sweep": "m_sweep", "--probes-only": "probes",
              "--ppl-only": "ppl", "--qat-only": "qat", "--tail-only": "tail",
-             "--stats-only": "stats", "--search-only": "search"}
+             "--stats-only": "stats", "--search-only": "search",
+             "--parallel-only": "parallel"}
     main(only=next((flags[a] for a in sys.argv[1:] if a in flags), None))

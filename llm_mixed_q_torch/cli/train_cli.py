@@ -1,11 +1,21 @@
 """QAT fine-tune CLIs (counterpart of the JAX package's
 ``cli/train_cli.py``): ``dp_train_runner``, ``fsdp_train_runner`` and
-their reference alias ``ddp_train_runner``, on one ``--device``.
+their reference alias ``ddp_train_runner``.
 
-The JAX package builds a data mesh when it sees more than one device and
-ignores ``fsdp`` without one; the port trains on one device, so
-``fsdp_train_runner`` runs as ``dp_train_runner`` does (multi-card
-training waits for ``parallel/``).
+The JAX package builds a data mesh over every device it sees when there
+is more than one. The port does the same over the ranks of a ``torchrun``
+launch (``parallel.distributed.initialize``: one process a rank, NCCL when
+each has a card of its own, else gloo): ``make_mesh(data=WORLD_SIZE)``,
+each rank training on its slice of every global batch of
+``--batch_size``, the gradients averaged over the ranks (DP), and under
+``fsdp_train_runner`` the 2-D weights and their optimizer state sharded
+over them by ``torch.distributed.fsdp.fully_shard``. A single process trains on ``--device`` alone
+(``fsdp`` then changes nothing, as in the JAX package). Rank 0 writes the
+checkpoints and the results. For example, two ranks:
+
+    torchrun --nproc_per_node 2 -m llm_mixed_q_torch.cli.train_cli fsdp \
+        --model_arch opt --model_name <dir> --task sst2 \
+        --quant_config configs/quantization/bfp_4bit.toml --batch_size 16
 """
 
 from __future__ import annotations
@@ -13,17 +23,22 @@ from __future__ import annotations
 import argparse
 from functools import partial
 
+import torch.distributed as dist
+
 from ..datasets import get_raw_dataset_dict, numpy_dataloader, preprocess_dataset_dict
 from ..datasets.glue import is_regression_task
 from ..eval import eval_cls_glue
 from ..models import get_config_cls, get_params_loader
 from ..models.api import make_forward
 from ..models.hf_loader import load_flat_state_dict
+from ..parallel import initialize, make_mesh
 from ..train import train_qat
 from .common import add_common_model_args, get_tokenizer, save_results
 
 
 def _train(args, fsdp: bool):
+    world = initialize()
+    mesh = make_mesh(data=world) if world > 1 else None
     config = get_config_cls(args.model_arch).from_pretrained(
         args.model_name, quant_config=args.quant_config, num_labels=args.num_labels)
     flat = load_flat_state_dict(args.model_name)
@@ -54,9 +69,10 @@ def _train(args, fsdp: bool):
         weight_decay=args.weight_decay, grad_accum_steps=args.gradient_accumulation_steps,
         schedule=args.lr_scheduler_type, warmup_steps=args.num_warmup_steps,
         checkpoint_dir=args.checkpoint_dir, save_every_steps=args.checkpointing_steps,
-        resume=args.resume_from_checkpoint, fsdp=fsdp,
+        resume=args.resume_from_checkpoint, mesh=mesh, fsdp=fsdp,
         steps_per_epoch=len(ds["train"]) // args.batch_size)
-    save_results(args, {"history": history}, "train_history")
+    if mesh is None or dist.get_rank() == 0:
+        save_results(args, {"history": history}, "train_history")
     return params, history
 
 
@@ -87,3 +103,9 @@ def fsdp_train_runner(argv=None):
 
 
 ddp_train_runner = dp_train_runner  # the reference's name
+
+
+if __name__ == "__main__":  # python -m llm_mixed_q_torch.cli.train_cli {dp,fsdp} <args>
+    import sys
+
+    {"dp": dp_train_runner, "fsdp": fsdp_train_runner}[sys.argv[1]](sys.argv[2:])

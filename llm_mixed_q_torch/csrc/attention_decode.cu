@@ -18,11 +18,15 @@
 //   exactly 0 (as exp(-1e9 - m) = 0 makes them on the TPU);
 //   ctx = P . deq(V), float32.
 // Both take rep 1..8 query rows a kv head and every head_dim that is a
-// multiple of 16 from 16 to 256: a power of two keeps the tiles and thread
-// groups it always had, another multiple of 16 gets tiles and dim groups
-// that divide it (chosen by kernels/attention_decode.py: k4_tiles,
-// k5_tiles, and checked by the host code here), and K5's P . V idles the
-// threads past its last whole position group.
+// multiple of 4 (K5: up to 1024), with K and V scale blocks that are powers
+// of two or the whole head: a power of two keeps the tiles and thread
+// groups it always had, another head_dim gets tiles and dim groups that
+// divide it (chosen by kernels/attention_decode.py: k4_tiles, k5_tiles,
+// and checked by the host code here), and K5's P . V idles the threads
+// past its last whole position group. A head_dim off 16 bytes stages K5's
+// V codes with 4-byte copies; past 128 dims, K4 walks a head in ring
+// stages, each stage's dims summed into the same scores and written to
+// their own rows of P . V's partials.
 //
 // What bounds them on an H100: the cache bytes (1 byte per code + 4/bs per
 // scale, K and V) of the filled positions over the 3.35 TB/s memory rate;
@@ -109,6 +113,9 @@ namespace {
 
 constexpr int kRepMax = 8;
 constexpr int kSmemMax = 227 * 1024;
+// the shift of a scale block as long as the head (a length that need not
+// be a power of two): every dim's index shifted by it is 0
+constexpr int kWholeHead = 16;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -166,7 +173,8 @@ __device__ __forceinline__ float k4_code(uint32_t biased, int j) {
 struct K4Shape {
   int b, nkv, rep, hd, S, L;  // L = S * nkv lanes
   int G, P, lP, nch;       // heads and positions (2^lP) a block; chunks of S
-  int lbs_k, lbs_v;        // log2 of the K and V scale blocks
+  int lbs_k, lbs_v;        // log2 of the K and V scale blocks (kWholeHead: the head)
+  int nsk, nsv;            // K and V scale rows a batch element (hd / bs)
   int cstr, sstr, pstr;    // a stage's code row (bytes) and scale row (floats); a prob row
   int stages1, stage1_bytes, stages2, stage2_bytes;
   int dgs;                 // scores: dim groups of threads
@@ -266,7 +274,7 @@ k4_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   const int rep = REP ? REP : s.rep, G = s.G, nh = s.nkv * rep;
   const int nsr = k4_scale_rows(s.dims, s.lbs_k), n_tiles = s.hd / s.dims;
   const int8_t* kcb = kc + (size_t)k.b * s.hd * s.L;
-  const float* ksb = ks + ((size_t)k.b * s.hd >> s.lbs_k) * s.L;
+  const float* ksb = ks + (size_t)k.b * s.nsk * s.L;
   const float* qb = q + ((size_t)k.b * nh + (size_t)k.h0 * rep) * s.hd;
   const int qrows = k.gl * rep;
 
@@ -427,7 +435,7 @@ k4_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   const int rep = REP ? REP : s.rep, G = s.G, nh = s.nkv * rep;
   const int n_tiles = s.hd / s.dims;
   const int8_t* vcb = vc + (size_t)k.b * s.hd * s.L;
-  const float* vsb = vs + ((size_t)k.b * s.hd >> s.lbs_v) * s.L;
+  const float* vsb = vs + (size_t)k.b * s.nsv * s.L;
   const int qrows = k.gl * rep, maxrows = G * rep;
   // [P][rep][G], after the ring's slots (as many as the tiles, at most stages2)
   float* prT = reinterpret_cast<float*>(smem_k4 + min(s.stages2, n_tiles) * s.stage2_bytes);
@@ -568,11 +576,20 @@ cudaError_t allow_dynamic_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// head_dims the kernels take: every multiple of 16 from 16 to 256
-bool head_dim_ok(int hd) { return hd >= 16 && hd <= 256 && hd % 16 == 0; }
+// head_dims the kernels take: every multiple of 4 (K5: up to kK5MaxHd,
+// 256 threads of 4 dims in P . V), under kWholeHead's 2^16
+constexpr int kK5MaxHd = 1024;
+bool head_dim_ok(int hd, int most) { return hd >= 4 && hd <= most && hd % 4 == 0; }
+
+// log2 of a scale block of bs dims, kWholeHead for a block as long as the
+// head, -1 for any other block
+int block_shift(int bs, int hd) {
+  const int l = ilog2(bs);
+  return l >= 0 ? l : (bs == hd ? kWholeHead : -1);
+}
 
 // a run of n dims lies inside one scale block of bs dims, or holds whole
-// ones (bs a power of two)
+// ones (bs a power of two or the head)
 bool fits_blocks(int n, int bs) { return n % bs == 0 || bs % n == 0; }
 
 
@@ -622,15 +639,16 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
               int S, int bs_k, int bs_v, int G, int P, int dims, int dgs, int pgs,
               float sqrt_hd, lmq::BfpSpec pq, cudaStream_t stream) {
-  const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd) || hd % bs_k ||
+  const int lbs_k = block_shift(bs_k, hd), lbs_v = block_shift(bs_v, hd), lP = ilog2(P);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax ||
+      !head_dim_ok(hd, (1 << kWholeHead) - 1) || hd % bs_k ||
       hd % bs_v || lbs_k < 0 || lbs_v < 0 || G < 1 || G > nkv || G * rep > kK4Rows || lP < 0 ||
       P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   K4Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S, s.L = S * nkv;
   s.G = G, s.P = P, s.lP = lP, s.nch = (S + P - 1) / P;
-  s.lbs_k = lbs_k, s.lbs_v = lbs_v;
+  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.nsk = hd / bs_k, s.nsv = hd / bs_v;
   s.cstr = (P * G + 15) & ~15;
   s.sstr = (P * G + 3) & ~3;
   s.pstr = P + 1;
@@ -642,7 +660,7 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
   // groups, chosen by the caller (kernels/attention_decode.py: k4_tiles):
   // checked here against what the kernels take, two ring stages fitting in
   // each kernel's shared memory (a call allocates the slots of its tiles)
-  if (dims < 16 || dims > kK4MaxDims || dims % 16 || hd % dims || !fits_blocks(dims, bs_k) ||
+  if (dims < 4 || dims > kK4MaxDims || dims % 4 || hd % dims || !fits_blocks(dims, bs_k) ||
       !fits_blocks(dims, bs_v) || dgs < 1 || dims % dgs || dgs * nq > kK4Threads || pgs < 1 ||
       (pgs > 1 && !(q4 && pgs * (G / 4) * dims <= kK4Threads)))
     return (int)cudaErrorInvalidValue;
@@ -698,8 +716,10 @@ struct K5Shape {
   int cstr, sstr, pstr;    // K tile: a code row (bytes), a scale row (floats); a score row
   int dgs, pgs;            // scores: dim groups; P . V: position groups
   int stage1, stage2;      // bytes of a ring stage: K tile, V tile
+  int vco;                 // bytes of a V stage's codes, rounded up to 16 (its scales follow)
   int red1;                // floats of the scores kernel's dim-group sums
   int kc16, ks16, vc16, vs16, q16;  // 16-byte copies (else an element at a time)
+  int vc4;                 // V codes by 4-byte copies (where vc16 is off)
 };
 
 // The block's chunk of (batch element b, kv head h): positions p0 .. p0 +
@@ -890,9 +910,14 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   auto load = [&](int t) {
     uint8_t* vt = ring + (t & 1) * s.stage2;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
-    k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
-                  s.vc16);
-    k5_queue_rows(reinterpret_cast<float*>(vt + s.T * s.hd), 0, vs + (pos0 + t0) * s.vsc, 1,
+    if (s.vc4)  // hd % 4 == 0: a tile's run of codes is whole 4-byte words
+      k5_queue_rows(reinterpret_cast<uint32_t*>(vt), 0,
+                    reinterpret_cast<const uint32_t*>(vc + (pos0 + t0) * s.hd), 1,
+                    n * s.hd / 4, 0, false);
+    else
+      k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
+                    s.vc16);
+    k5_queue_rows(reinterpret_cast<float*>(vt + s.vco), 0, vs + (pos0 + t0) * s.vsc, 1,
                   n * s.vsc, 0, s.vs16);
   };
   load(0);
@@ -946,7 +971,7 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     cp_async_wait(1);  // this thread's copies of tile t have landed
     __syncthreads();   // everyone's have, and the probabilities are in
     const uint8_t* vt = ring + (t & 1) * s.stage2;
-    const float* vst = reinterpret_cast<const float*>(vt + s.T * s.hd);
+    const float* vst = reinterpret_cast<const float*>(vt + s.vco);
     for (int pp = pv_on ? pg : n; pp < n; pp += s.pgs) {
       const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hd + d0) ^ 0x80808080u;
       const float* srow = vst + pp * s.vsc;
@@ -1030,15 +1055,15 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
               int S, int bs_k, int bs_v, int P, int T, int dgs, int pgs, float sqrt_hd,
               lmq::BfpSpec pq, cudaStream_t stream) {
-  const int lbs_k = ilog2(bs_k), lbs_v = ilog2(bs_v), lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd) ||
+  const int lbs_k = block_shift(bs_k, hd), lbs_v = block_shift(bs_v, hd), lP = ilog2(P);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd, kK5MaxHd) ||
       lbs_k < 0 || lbs_v < 0 || hd % bs_k || hd % bs_v || lP < 0 ||
       ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
     return (int)cudaErrorInvalidValue;
   K5Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S;
   s.P = P, s.nch = (S + P - 1) / P;
-  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.ksr = hd >> lbs_k, s.vsc = hd >> lbs_v;
+  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.ksr = hd / bs_k, s.vsc = hd / bs_v;
   // the ring stage's positions, the scores' dim groups (each group's runs
   // under one K scale) and P . V's position groups (the threads past pgs
   // whole groups of hd / 4 idle), chosen by the caller
@@ -1054,18 +1079,20 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
   s.pstr = T + 1;
   s.red1 = (dgs * rep * s.pstr + 3) & ~3;
   s.stage1 = hd * s.cstr + 4 * s.ksr * s.sstr;
-  s.stage2 = T * hd + 4 * ((T * s.vsc + 3) & ~3);
+  s.vco = (T * hd + 15) & ~15;
+  s.stage2 = s.vco + 4 * ((T * s.vsc + 3) & ~3);
   const int smem1 = 4 * (rep * hd + s.red1) + 2 * s.stage1;
   const int ring2 = 2 * s.stage2, red2 = 4 * pgs * rep * hd;
   const int smem2 = ((4 * (T * rep + 2 * rep) + 15) & ~15) + (ring2 > red2 ? ring2 : red2);
   if (smem1 > kSmemMax || smem2 > kSmemMax) return (int)cudaErrorInvalidValue;
   // 16-byte copies where every run starts on 16 bytes and ends inside its
   // row when rounded up to 16 bytes: codes by the position (K) or by hd % 16
-  // == 0 (V); scales by 4 floats; q by hd % 4 == 0
+  // == 0 (V, else 4-byte copies); scales by 4 floats; q by hd % 4 == 0
   const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   s.kc16 = al(kc) && S % 16 == 0 && s.T % 16 == 0;
   s.ks16 = al(ks) && S % 4 == 0 && s.T % 4 == 0;
-  s.vc16 = al(vc);
+  s.vc16 = al(vc) && hd % 16 == 0;
+  s.vc4 = !s.vc16 && reinterpret_cast<uintptr_t>(vc) % 4 == 0;
   s.vs16 = al(vs) && s.vsc % 4 == 0;
   s.q16 = al(q);
 

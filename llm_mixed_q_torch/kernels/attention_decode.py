@@ -46,11 +46,14 @@ refuses it too (``reference_kernel_error``: its ``attention_kernel_ok`` is
 False), as the JAX package's ``decode_step`` then decodes densely; and on
 the card it raises where the JAX package's kernel takes the cache and
 these do not. The kernels take rep 1..8 and every head_dim that is a
-multiple of 16 from 16 to 256 (``kernel_shape_error``; ``k4_tiles`` and
-``k5_tiles`` split such a head_dim, and the C host checks the split), so
-what the card refuses is a head_dim above 256 (within the JAX package's
-cap of 4096 x 128 cache elements) or one that is not a multiple of 16 with
-a K/V block that divides it.
+multiple of 4 (K5, the head-major layout: up to 1024), with K/V scale
+blocks that are powers of two or the whole head (``kernel_shape_error``,
+``kernel_block_error``; ``k4_tiles`` and ``k5_tiles`` split such a
+head_dim, and the C host checks the split). What the card refuses within
+the JAX package's cap of 4096 x 128 cache elements is a head_dim that is
+not a multiple of 4 (a cache of 2- or 6-dim heads), a head-major cache of
+more than 1024 dims a head (at most 512 positions), and a scale block that
+is neither a power of two nor the head.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ from .packing import effective_block_len
 
 NEG_INF = float(np.finfo(np.float32).min)
 _REP_MAX = 8  # GQA query rows per kv head the kernels take
-_HD_MAX = 256  # the longest head_dim the kernels take (a multiple of 16)
+_K5_HD_MAX = 1024  # the longest head_dim K5 takes (256 threads of 4 dims in P . V)
+_HD_MAX = 2**16 - 1  # K4's (csrc kWholeHead: a shift past every dim)
 _THREADS = 256
 _SMEM_MAX = 227 * 1024  # shared memory a block (csrc kSmemMax)
 # the JAX package's cap on its decode-attention kernel's cache: max_len *
@@ -139,18 +143,26 @@ def _k4_scale_rows(dims: int, bs: int) -> int:
     return 1 if bs >= dims else dims // bs
 
 
+def _stage_dims(hd: int):
+    """K4's candidate ring stages, longest first: the multiples of 16 up
+    to min(hd, 128), then the other multiples of 4 (a head_dim off 16)."""
+    top = min(hd, 128)
+    return [*range(top - top % 16, 15, -16),
+            *(d for d in range(top - top % 4, 3, -4) if d % 16)]
+
+
 def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
     """(dims, dgs, pgs) of a K4 call, which its C host checks: the head
-    dims a ring stage holds (the longest multiple of 16 up to 128 that
-    divides hd and fits both scale blocks, with which two stages fit in
-    each kernel's shared memory: min(hd, 128), 64, 32 or 16 for a power of
-    two), the dim groups of the scores kernel (``_dim_groups`` of a stage's
-    dims; every dim's scale is its own there) and the position groups of
-    P . V (G % 4 == 0; else 1). None where nothing fits."""
+    dims a ring stage holds (the first of ``_stage_dims`` that divides hd
+    and fits both scale blocks, with which two stages fit in each kernel's
+    shared memory: min(hd, 128), 64, 32 or 16 for a power of two; 80 of
+    320, 40 of 40), the dim groups of the scores kernel (``_dim_groups`` of
+    a stage's dims; every dim's scale is its own there) and the position
+    groups of P . V (G % 4 == 0; else 1). None where nothing fits."""
     g, p = k4_geometry(nkv, rep, s_len)
     rows, nq, q4 = g * rep, (p * g + 3) // 4, g % 4 == 0
     cstr, sstr = (p * g + 15) & ~15, (p * g + 3) & ~3
-    for dims in range(min(hd, 128), 15, -16):
+    for dims in _stage_dims(hd):
         if hd % dims or not (_fits_blocks(dims, bs_k) and _fits_blocks(dims, bs_v)):
             continue
         n_tiles = hd // dims
@@ -178,6 +190,8 @@ def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
     (``_dim_groups`` of hd, each group's runs under one K scale) and the
     whole groups of hd / 4 threads of P . V (256 // (hd / 4); the threads
     past them idle). None where nothing fits."""
+    if hd % 4 or hd > _K5_HD_MAX:
+        return None
     _, t = k5_geometry(nkv, rep, s_len)
     ksr, vsc, pgs = hd // bs_k, hd // bs_v, _THREADS // (hd // 4)
     while t >= 1:
@@ -185,7 +199,7 @@ def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
         dgs = _dim_groups(hd, _THREADS // nq, bs_k)
         red1 = (dgs * rep * (t + 1) + 3) & ~3
         smem1 = 4 * (rep * hd + red1) + 2 * (hd * cstr + 4 * ksr * sstr)
-        stage2 = t * hd + 4 * ((t * vsc + 3) & ~3)
+        stage2 = ((t * hd + 15) & ~15) + 4 * ((t * vsc + 3) & ~3)
         smem2 = ((4 * (t * rep + 2 * rep) + 15) & ~15) + max(2 * stage2, 4 * pgs * rep * hd)
         if max(smem1, smem2) <= _SMEM_MAX:
             return t, dgs, pgs
@@ -296,21 +310,34 @@ def _prob_q_args(prob_q):
     return (1, bs, width, -eb, 2**ew - 1 - eb)
 
 
-def kernel_shape_error(rep: int, hd: int) -> str | None:
-    """Why the decode-attention kernels are not given ``rep`` query rows per
-    kv head at head_dim ``hd``, or None. They take rep 1..8 and every
-    head_dim that is a multiple of 16 from 16 to 256 (``k4_tiles``,
-    ``k5_tiles``), at any cache length: K4 and K5 walk the cache in chunks,
-    and neither keeps anything in shared memory that grows with it (the
-    wrappers bound the operands and the workspace to 32-bit indices)."""
+def kernel_shape_error(rep: int, hd: int, pos_major: bool = False) -> str | None:
+    """Why the decode-attention kernel of a layout (K4 for ``pos_major``,
+    else K5) is not given ``rep`` query rows per kv head at head_dim
+    ``hd``, or None. They take rep 1..8 and every head_dim that is a
+    multiple of 4 (K5 up to 1024) (``k4_tiles``, ``k5_tiles``), at any
+    cache length: K4 and K5 walk the cache in chunks, and neither keeps
+    anything in shared memory that grows with it (the wrappers bound the
+    operands and the workspace to 32-bit indices)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
-    if not (16 <= hd <= _HD_MAX and hd % 16 == 0):
-        return f"head_dim {hd} is not a multiple of 16 from 16 to {_HD_MAX}"
+    most = _HD_MAX if pos_major else _K5_HD_MAX
+    if not (4 <= hd <= most and hd % 4 == 0):
+        return f"head_dim {hd} is not a multiple of 4 from 4 to {most}"
     return None
 
 
-def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q):
+def kernel_block_error(hd: int, bs_k: int, bs_v: int) -> str | None:
+    """Why the kernels do not take K/V scale blocks of ``bs_k``/``bs_v``
+    dims at head_dim ``hd``, or None: a block must divide hd and be a power
+    of two or the whole head."""
+    for what, bs in (("K", bs_k), ("V", bs_v)):
+        if bs < 1 or hd % bs or (bs & (bs - 1) and bs != hd):
+            return f"{what} scale block {bs} at head_dim {hd} (a power of two or the head)"
+    return None
+
+
+def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q,
+                     pos_major=False):
     tensors = (q, kc, ks, vc, vs)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn_name}: q and the cache must be contiguous on one device")
@@ -320,7 +347,7 @@ def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q):
         raise ValueError(f"{fn_name}: blocks {bs_k}/{bs_v} do not divide {hd}")
     if prob_q is not None and prob_q[0] < 1:
         raise ValueError(f"{fn_name}: bad prob block {prob_q[0]}")
-    error = kernel_shape_error(rep, hd)
+    error = kernel_shape_error(rep, hd, pos_major) or kernel_block_error(hd, bs_k, bs_v)
     if error:
         raise ValueError(f"{fn_name}: {error}")
     if max(t.numel() for t in tensors) >= 2**31:
@@ -391,7 +418,7 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
         raise ValueError(f"{nh} query heads != nkv {nkv} * rep {rep}")
     s_len = k_codes.shape[2] // nkv
     _check_attention(name, q, k_codes, k_scales, v_codes, v_scales, rep, hd, bs_k, bs_v,
-                     prob_q)
+                     prob_q, pos_major=True)
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{name}: prob block {prob_q[0]} is not a power of two")
     g, p = k4_geometry(nkv, rep, s_len)
@@ -474,23 +501,28 @@ def prob_q_spec(mm1_cfg: dict, max_len: int):
 
 
 def _prob_q_error(config, max_len: int) -> str | None:
-    from ..models.llama.modeling import _node_cfg
-
+    if config.quant_config is None:
+        return None
     try:
         for i in range(config.num_hidden_layers):
             prob_q_spec(
-                _node_cfg(config.quant_config, i, "self_attn", "matmul_1"), max_len
+                config.quant_config[f"model_layer_{i}"]["self_attn"]["matmul_1"], max_len
             )
     except (ValueError, KeyError) as e:
         return f"prob quantizer: {e}"
     return None
 
 
-def attention_kernel_error(config, max_len: int) -> str | None:
+def attention_kernel_error(config, max_len: int, pos_major: bool,
+                           blocks: tuple[int, int]) -> str | None:
     """Why the packed decode-attention kernels cannot serve this config at
-    this cache length, or None when every layer can decode through them."""
+    this cache length, or None when every layer can decode through the
+    kernel of its cache's layout. The cache's maker states the layout:
+    ``pos_major`` (K4, else K5) and its K/V ``blocks`` (bs_k, bs_v)."""
     rep = config.num_attention_heads // config.num_key_value_heads
-    return kernel_shape_error(rep, config.head_dim) or _prob_q_error(config, max_len)
+    return (kernel_shape_error(rep, config.head_dim, pos_major)
+            or kernel_block_error(config.head_dim, *blocks)
+            or _prob_q_error(config, max_len))
 
 
 def reference_kernel_error(config, max_len: int) -> str | None:
@@ -505,16 +537,18 @@ def reference_kernel_error(config, max_len: int) -> str | None:
     return _prob_q_error(config, max_len)
 
 
-def packed_decode_route(config, max_len: int, device) -> str:
+def packed_decode_route(config, max_len: int, device, pos_major: bool,
+                        blocks: tuple[int, int]) -> str:
     """How ``decode_step`` attends over a packed cache of ``max_len``
-    positions on ``device``: "kernel" where ``attention_kernel_error`` finds
-    none of the kernels' limits passed (the wrappers launch K4/K5 on the
-    card and compute their plain versions on the CPU); else "dense"
+    positions, of layout ``pos_major`` and K/V ``blocks``, on ``device``:
+    "kernel" where ``attention_kernel_error`` finds none of the kernels'
+    limits passed (the wrappers launch K4/K5 on the card and compute their
+    plain versions on the CPU); else "dense"
     (``packed_attention_decode_dense``) where the JAX package's kernel
     refuses the cache too, as its ``decode_step`` then decodes densely, and
     on the CPU, where it always does. On the card, where the JAX package's
     kernel takes the cache and these kernels do not, raises ValueError."""
-    error = attention_kernel_error(config, max_len)
+    error = attention_kernel_error(config, max_len, pos_major, blocks)
     if error is None:
         return "kernel"
     if torch.device(device).type != "cuda" or reference_kernel_error(config, max_len):

@@ -13,6 +13,11 @@ the JAX package's activation map has it for BERT ("gelu_new" is the tanh
 form). The pooler, the heads and the masked-LM decoder (tied to the word
 embeddings) are plain float32 matmuls, as in the JAX package.
 
+Under tensor parallelism (``parallel/tp.py``, a local tree from
+``parallel.shard_params``) a rank runs ``heads / tp`` heads: query/key/value
+and intermediate.dense column-parallel, the output.dense nodes
+row-parallel, the classifier column-parallel with its logits gathered.
+
 Heads (``TASK`` names of the registry): sequence classification (``cls``,
 MSE for one label), masked LM (``mlm``), the causal-LM-style head with
 shifted labels (``clm``), next-sentence prediction (``nsp``), pretraining
@@ -31,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.functions import quantized_matmul
-from ...ops.linear import quantized_linear
+from ...ops.linear import quantized_linear, row_parallel_linear
+from ...parallel import tp
 from ..opt.modeling import layer_norm
 from .configuration import BertQuantizedConfig
 
@@ -63,6 +69,12 @@ def _dense(node, x):
     return torch.matmul(x, node["weight"].t()) + node["bias"]
 
 
+def _classifier(node, x):
+    """The classifier, column-parallel on the labels: the ranks' logits
+    gathered (the whole node outside tensor parallelism)."""
+    return tp.gather_from_group(_dense(node, tp.copy_to_group(x)))
+
+
 def bert_embeddings(params, input_ids, token_type_ids, config):
     pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
     h = (params["word_embeddings"]["weight"][input_ids]
@@ -74,8 +86,9 @@ def bert_embeddings(params, input_ids, token_type_ids, config):
 def bert_self_attention(params, hidden, ext_mask, config, layer_idx, quantize_weights):
     """-> the attention context [b, s, hidden] (before attention.output)."""
     b, s, _ = hidden.shape
-    nh, hd = config.num_attention_heads, config.head_dim
+    nh, hd = tp.local(config.num_attention_heads), config.head_dim
     qc = partial(_node_cfg, config.quant_config, layer_idx, "attention")
+    hidden = tp.copy_to_group(hidden)  # the input of column-parallel nodes
 
     def proj(name):
         node = params[name]
@@ -95,18 +108,21 @@ def bert_self_attention(params, hidden, ext_mask, config, layer_idx, quantize_we
 def bert_layer(params, hidden, ext_mask, config, layer_idx, quantize_weights):
     cfg = partial(_node_cfg, config.quant_config, layer_idx)
 
-    def linear(node, x, *path):
-        return quantized_linear(x, node["weight"], node.get("bias"), cfg(*path),
-                                quantize_weights, ":".join((f"model_layer_{layer_idx}",) + path))
+    def row(node, x, *path):  # the output.dense nodes are row-parallel
+        return row_parallel_linear(x, node, cfg(*path), quantize_weights,
+                                   ":".join((f"model_layer_{layer_idx}",) + path))
 
     ctx = bert_self_attention(params["attention"], hidden, ext_mask, config, layer_idx,
                               quantize_weights)
     so = params["attention"]["output"]
-    attn_out = linear(so["dense"], ctx, "attention", "output", "dense")
+    attn_out = row(so["dense"], ctx, "attention", "output", "dense")
     hidden = _ln(so["LayerNorm"], attn_out + hidden, config)
-    inter = linear(params["intermediate"]["dense"], hidden, "intermediate", "dense")
+    node = params["intermediate"]["dense"]  # column-parallel
+    inter = quantized_linear(tp.copy_to_group(hidden), node["weight"], node.get("bias"),
+                             cfg("intermediate", "dense"), quantize_weights,
+                             f"model_layer_{layer_idx}:intermediate:dense")
     inter = ACT2FN[config.hidden_act](inter)
-    out = linear(params["output"]["dense"], inter, "output", "dense")
+    out = row(params["output"]["dense"], inter, "output", "dense")
     return _ln(params["output"]["LayerNorm"], out + hidden, config)
 
 
@@ -211,7 +227,7 @@ def bert_for_multiple_choice(params, input_ids, attention_mask=None, token_type_
     flat = lambda x: None if x is None else x.reshape(b * n, s)
     _, pooled = bert_model(params, flat(input_ids), flat(attention_mask),
                            flat(token_type_ids), config, quantize_weights)
-    out = {"logits": _dense(params["classifier"], pooled).reshape(b, n)}
+    out = {"logits": _classifier(params["classifier"], pooled).reshape(b, n)}
     if labels is not None:
         out["loss"] = _token_ce_loss(out["logits"], labels)
     return out
@@ -223,7 +239,7 @@ def bert_for_token_classification(params, input_ids, attention_mask=None,
                                   quantize_weights: bool = True):
     hidden, _ = bert_model(params, input_ids, attention_mask, token_type_ids, config,
                            quantize_weights)
-    out = {"logits": _dense(params["classifier"], hidden)}
+    out = {"logits": _classifier(params["classifier"], hidden)}
     if labels is not None:
         out["loss"] = _token_ce_loss(out["logits"], labels)
     return out
@@ -253,7 +269,7 @@ def bert_for_sequence_classification(params, input_ids, attention_mask=None,
     loss is the MSE for one label (regression), else the cross-entropy."""
     _, pooled = bert_model(params, input_ids, attention_mask, token_type_ids, config,
                            quantize_weights)
-    logits = _dense(params["classifier"], pooled)
+    logits = _classifier(params["classifier"], pooled)
     out = {"logits": logits}
     if labels is not None:
         if config.num_labels == 1:

@@ -13,6 +13,12 @@ quantized attention in O(S * chunk) memory, for long contexts.
 ``past_kvs`` (the float k/v of earlier tokens) makes the causal LM
 incremental: ``models/api.py:make_prefill_and_decode``.
 
+Under tensor parallelism (``parallel/tp.py``, a local tree from
+``parallel.shard_params``) a rank runs ``heads / tp`` heads: q/k/v and
+gate/up column-parallel, o_proj and down_proj row-parallel, the embedding
+vocab-parallel, lm_head and score column-parallel with their logits
+gathered.
+
 Heads: causal LM and sequence classification. ``remat=True`` recomputes
 each decoder layer in the backward pass (``torch.utils.checkpoint``)
 instead of keeping its activations.
@@ -30,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import chunked_quantized_attention
 from ...ops.functions import quantized_apply_rotary_pos_emb, quantized_matmul
-from ...ops.linear import quantized_linear
+from ...ops.linear import quantized_linear, row_parallel_linear
+from ...parallel import tp
 from .configuration import LlamaQuantizedConfig
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -81,18 +88,25 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
+def local_heads(config) -> tuple[int, int, int]:
+    """(query heads, kv heads, head_dim) of this rank (all of them outside
+    tensor parallelism)."""
+    return (tp.local(config.num_attention_heads), tp.local(config.num_key_value_heads),
+            config.head_dim)
+
+
 def project_qkv(params, hidden, config, layer_idx, quantize_weights, name_nodes=False):
     """q [b, nh, s, hd], k and v [b, nkv, s, hd] (fused or separate nodes).
     ``name_nodes``: the separate nodes report to the stat tap (the full
     forward's, not the decode step's, as in the JAX package)."""
     b, q_len, _ = hidden.shape
-    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
+    nh, nkv, hd = local_heads(config)
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
 
     def heads(out, nheads):
         return out.reshape(b, q_len, nheads, hd).transpose(1, 2)
 
+    hidden = tp.copy_to_group(hidden)  # the input of column-parallel nodes
     if "qkv_proj" in params:
         # fused packed projection: member configs are identical, so
         # q_proj's config speaks for all three
@@ -116,8 +130,7 @@ def attention(params, hidden, mask, position_ids, cos, sin,
               config: LlamaQuantizedConfig, layer_idx: int,
               quantize_weights: bool, past_kv=None):
     b, q_len, _ = hidden.shape
-    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
+    nh, nkv, hd = local_heads(config)
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
     q, k, v = project_qkv(params, hidden, config, layer_idx, quantize_weights,
                           name_nodes=True)
@@ -140,9 +153,8 @@ def attention(params, hidden, mask, position_ids, cos, sin,
         attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
         out = quantized_matmul(attn, v, qc("matmul_1"))
     out = out.transpose(1, 2).reshape(b, q_len, nh * hd)
-    out = quantized_linear(out, params["o_proj"]["weight"],
-                           params["o_proj"].get("bias"), qc("o_proj"),
-                           quantize_weights, f"model_layer_{layer_idx}:self_attn:o_proj")
+    out = row_parallel_linear(out, params["o_proj"], qc("o_proj"), quantize_weights,
+                              f"model_layer_{layer_idx}:self_attn:o_proj")
     return out, new_kv
 
 
@@ -151,6 +163,7 @@ def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
     also from the decode step, as in the JAX package."""
     qc = partial(_node_cfg, config.quant_config, layer_idx, "mlp")
     nn = lambda name: f"model_layer_{layer_idx}:mlp:{name}"
+    hidden = tp.copy_to_group(hidden)  # the input of column-parallel nodes
     if "gate_up_proj" in params:
         node = params["gate_up_proj"]
         gu = quantized_linear(hidden, node["weight"], node.get("bias"),
@@ -161,8 +174,8 @@ def mlp(params, hidden, config, layer_idx: int, quantize_weights: bool):
                                 qc("gate_proj"), quantize_weights, nn("gate_proj"))
         up = quantized_linear(hidden, params["up_proj"]["weight"], None,
                               qc("up_proj"), quantize_weights, nn("up_proj"))
-    return quantized_linear(F.silu(gate) * up, params["down_proj"]["weight"],
-                            None, qc("down_proj"), quantize_weights, nn("down_proj"))
+    return row_parallel_linear(F.silu(gate) * up, params["down_proj"], qc("down_proj"),
+                               quantize_weights, nn("down_proj"))
 
 
 def decoder_layer(params, hidden, mask, position_ids, cos, sin, config,
@@ -181,7 +194,7 @@ def decoder_layer(params, hidden, mask, position_ids, cos, sin, config,
 
 def embed(params, input_ids):
     # a bf16 table (pack_llama_params(bf16_embed=True)) upcasts at the lookup
-    return params["embed_tokens"]["weight"][input_ids].to(torch.float32)
+    return tp.vocab_parallel_embed(params["embed_tokens"]["weight"], input_ids).to(torch.float32)
 
 
 def lm_logits(params, hidden, config):
@@ -192,7 +205,8 @@ def lm_logits(params, hidden, config):
     lm_w = params.get(name, params["embed_tokens"])["weight"]
     if lm_w.dtype != torch.float32:
         hidden = hidden.to(lm_w.dtype)
-    return torch.matmul(hidden.to(torch.float32), lm_w.to(torch.float32).t())
+    hidden = tp.copy_to_group(hidden.to(torch.float32))
+    return tp.gather_from_group(torch.matmul(hidden, lm_w.to(torch.float32).t()))
 
 
 def llama_model(params, input_ids, attention_mask, config: LlamaQuantizedConfig,
@@ -259,7 +273,8 @@ def pooled_index(input_ids, pad_token_id):
 def sequence_classification_head(params, hidden, input_ids, labels, config):
     """``score`` on every position, pooled at ``pooled_index``; the loss is
     the MSE for one label (regression), else the float32 cross-entropy."""
-    logits = torch.matmul(hidden, params["score"]["weight"].t())
+    logits = tp.gather_from_group(torch.matmul(tp.copy_to_group(hidden),
+                                               params["score"]["weight"].t()))
     rows = torch.arange(input_ids.shape[0], device=input_ids.device)
     pooled = logits[rows, pooled_index(input_ids, config.pad_token_id)]
     out = {"logits": pooled}

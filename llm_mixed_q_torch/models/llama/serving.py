@@ -25,7 +25,12 @@ the dense path on the dequantized codes (``packed_attention_decode_dense``,
 counted) where JAX's kernel refuses the cache too, as JAX's
 ``decode_step`` does outside ``attention_kernel_ok``, and on the CPU; on
 the card it raises where JAX's kernel would take the cache and K4/K5 do
-not (a head_dim that is not a power of two from 16 to 256).
+not (a head_dim off a multiple of 4, a head-major one past 1024, a block
+neither a power of two nor the head: ROADMAP fault 18).
+
+Under tensor parallelism (``parallel.tp.spmd`` around a local tree from
+``parallel.shard_params``) the caches hold this rank's kv heads, and their
+layout and route follow the rank's count.
 JAX's ``jit``, ``fori_loop`` and ``while_loop`` become plain Python loops.
 """
 
@@ -49,7 +54,8 @@ from ...kernels.attention_decode import (
 )
 from ...kernels.packing import bfp_decode_lastdim, bfp_encode_lastdim, effective_block_len
 from ...ops.functions import make_entry_quantizer, quantized_apply_rotary_pos_emb
-from ...ops.linear import quantized_linear
+from ...ops.linear import row_parallel_linear
+from ...parallel import tp
 from .configuration import LlamaQuantizedConfig
 from .modeling import (
     NEG_INF,
@@ -57,6 +63,7 @@ from .modeling import (
     embed,
     llama_for_causal_lm,
     lm_logits,
+    local_heads,
     mlp,
     project_qkv,
     rms_norm,
@@ -67,8 +74,8 @@ from .modeling import (
 def init_kv_cache(config: LlamaQuantizedConfig, batch: int, max_len: int,
                   device=None) -> torch.Tensor:
     """Fake-quant f32 cache [L, 2, b, nkv, max_len, hd]."""
-    shape = (config.num_hidden_layers, 2, batch, config.num_key_value_heads,
-             max_len, config.head_dim)
+    shape = (config.num_hidden_layers, 2, batch, local_heads(config)[1], max_len,
+             config.head_dim)
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
@@ -120,16 +127,24 @@ def kv_cache_pack_spec(config: LlamaQuantizedConfig):
     return tuple(spec)
 
 
+def packed_cache_layout(config: LlamaQuantizedConfig, max_len: int):
+    """(pos_major, (bs_k, bs_v) or None) of the packed cache that
+    ``init_packed_kv_cache`` makes at ``max_len`` by default: pos-major
+    where this rank's ``nkv * max_len`` fits the lanes of K4."""
+    nkv = local_heads(config)[1]
+    return nkv * max_len <= BATCH_KERNEL_MAX_LANES, kv_cache_pack_spec(config)
+
+
 def init_packed_kv_cache(config: LlamaQuantizedConfig, batch: int, max_len: int,
                          spec, device=None, pos_major: bool | None = None
                          ) -> PackedKVCache:
-    """``pos_major`` None picks the layout from ``nkv * max_len``; an
+    """``pos_major`` None picks the layout by ``packed_cache_layout``; an
     admission's bucket cache passes the live cache's layout instead."""
     bs_k, bs_v = spec
     L = config.num_hidden_layers
-    nkv, hd = config.num_key_value_heads, config.head_dim
+    _, nkv, hd = local_heads(config)
     if pos_major is None:
-        pos_major = nkv * max_len <= BATCH_KERNEL_MAX_LANES
+        pos_major = packed_cache_layout(config, max_len)[0]
 
     def zeros(shape, dtype):
         return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)]
@@ -238,8 +253,7 @@ def _attention_cached(params, hidden, cache_layer, positions, cos, sin, config,
     """One layer's decode attention. ``positions`` [b]: each sequence's
     length before this token (its write offset)."""
     b, q_len, _ = hidden.shape  # q_len == 1
-    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
+    nh, nkv, hd = local_heads(config)
     if pack_spec is None:
         max_len = cache_layer.shape[3]
     elif pos_major:
@@ -287,9 +301,7 @@ def _attention_cached(params, hidden, cache_layer, positions, cos, sin, config,
         else:
             ctx = packed_attention_decode_dense(qg, k_all, v_all, positions, pq)
     ctx = ctx.reshape(b, nh, q_len, hd).transpose(1, 2).reshape(b, q_len, nh * hd)
-    return quantized_linear(ctx, params["o_proj"]["weight"],
-                            params["o_proj"].get("bias"), qc("o_proj"),
-                            quantize_weights)
+    return row_parallel_linear(ctx, params["o_proj"], qc("o_proj"), quantize_weights)
 
 
 @torch.no_grad()
@@ -312,7 +324,8 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
     positions = positions.expand(b).contiguous() if positions.ndim == 0 else positions
     hidden = embed(params, token)
     max_len = cache.max_len if packed else cache.shape[4]
-    use_kernel = packed and packed_decode_route(config, max_len, device) == "kernel"
+    use_kernel = packed and packed_decode_route(
+        config, max_len, device, cache.pos_major, pack_spec) == "kernel"
     cos, sin = rope_tables(max_len, config.head_dim, config.rope_theta, device)
     for i, layer_params in enumerate(params["layers"]):
         residual = hidden
@@ -406,7 +419,9 @@ def _cache_spec(config, packed_kv):
 
 def _new_cache(config, batch, max_len, spec, device, pos_major=None):
     if spec is not None:
-        packed_decode_route(config, max_len, device)  # raises before any work
+        if pos_major is None:
+            pos_major = packed_cache_layout(config, max_len)[0]
+        packed_decode_route(config, max_len, device, pos_major, spec)  # raises before any work
         return init_packed_kv_cache(config, batch, max_len, spec, device, pos_major)
     return init_kv_cache(config, batch, max_len, device)
 
@@ -472,8 +487,8 @@ def decode_loop(step, logits, lengths, max_new_tokens: int, eos_token_id, sample
                         device=logits.device)
     tokens[:, 0] = last
     for t in range(1, max_new_tokens):
-        if eos_token_id is not None and bool(done.all()):
-            break  # the remaining columns already hold EOS
+        if eos_token_id is not None and tp.everywhere(bool(done.all())):
+            break  # the remaining columns already hold EOS (on every data slice)
         nxt = sample(step(last, lengths + (t - 1)))
         if eos_token_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos), nxt)

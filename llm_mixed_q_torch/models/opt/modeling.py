@@ -13,6 +13,11 @@ pre- or post-LN per ``do_layer_norm_before``; optional project_in/out.
 ``jax.nn.gelu`` default has it (the reference's transformers mapping uses
 the exact erf GELU there; the port follows the JAX package).
 
+Under tensor parallelism (``parallel/tp.py``, a local tree from
+``parallel.shard_params``) a rank runs ``heads / tp`` heads: q/k/v and fc1
+column-parallel, out_proj and fc2 row-parallel, the embedding
+vocab-parallel and the logits gathered.
+
 Heads: causal LM, sequence classification (``score`` on the
 ``word_embed_proj_dim``-wide output, pooled at ``pooled_index``) and span
 question answering (``qa_outputs``).
@@ -27,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.functions import quantized_matmul
-from ...ops.linear import quantized_linear
+from ...ops.linear import quantized_linear, row_parallel_linear
+from ...parallel import tp
 from ..llama.modeling import causal_lm_loss, make_causal_mask, sequence_classification_head
 from .configuration import OPTQuantizedConfig
 
@@ -80,8 +86,9 @@ def opt_attention(params, hidden, mask, config: OPTQuantizedConfig, layer_idx: i
                   quantize_weights: bool, past_kv=None):
     """-> (output [b, t, hidden], (k, v) [b, heads, kv_len, head_dim])."""
     b, q_len, _ = hidden.shape
-    nh, hd = config.num_attention_heads, config.head_dim
+    nh, hd = tp.local(config.num_attention_heads), config.head_dim
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
+    hidden = tp.copy_to_group(hidden)  # the input of column-parallel nodes
 
     def proj(name):
         out = _linear(params[name], hidden, qc(name), quantize_weights,
@@ -106,8 +113,8 @@ def opt_attention(params, hidden, mask, config: OPTQuantizedConfig, layer_idx: i
     attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
     out = quantized_matmul(attn, v3, qc("bmm_1"), "bmm")
     out = out.reshape(b, nh, q_len, hd).transpose(1, 2).reshape(b, q_len, nh * hd)
-    return _linear(params["out_proj"], out, qc("out_proj"), quantize_weights,
-                   f"model_layer_{layer_idx}:self_attn:out_proj"), (k, v)
+    return row_parallel_linear(out, params["out_proj"], qc("out_proj"), quantize_weights,
+                               f"model_layer_{layer_idx}:self_attn:out_proj"), (k, v)
 
 
 def _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend,
@@ -130,9 +137,9 @@ def _decoder_layer(params, hidden, config, layer_idx, quantize_weights, attend,
     def nn(name):
         return f"model_layer_{layer_idx}:{name}" if name_nodes else None
 
-    h = _linear(params["fc1"], h, cfg("fc1"), quantize_weights, nn("fc1"))
+    h = _linear(params["fc1"], tp.copy_to_group(h), cfg("fc1"), quantize_weights, nn("fc1"))
     h = ACT2FN[config.activation_function](h)
-    h = _linear(params["fc2"], h, cfg("fc2"), quantize_weights, nn("fc2"))
+    h = row_parallel_linear(h, params["fc2"], cfg("fc2"), quantize_weights, nn("fc2"))
     hidden = residual + h
     if not pre:
         hidden = _ln(params["final_layer_norm"], hidden)
@@ -156,7 +163,7 @@ def opt_decoder_layer(params, hidden, mask, config, layer_idx: int, quantize_wei
 
 def embed_tokens(params, input_ids):
     """Token embeddings, through project_in when the model has one."""
-    hidden = params["embed_tokens"]["weight"][input_ids]
+    hidden = tp.vocab_parallel_embed(params["embed_tokens"]["weight"], input_ids)
     if "project_in" in params:
         hidden = torch.matmul(hidden, params["project_in"]["weight"].t())
     return hidden
@@ -174,7 +181,7 @@ def final_hidden(params, hidden, config):
 def lm_logits(params, hidden):
     """Tied (or explicit) lm_head in float32."""
     lm_w = params.get("lm_head", params["embed_tokens"])["weight"]
-    return torch.matmul(hidden, lm_w.t())
+    return tp.gather_from_group(torch.matmul(tp.copy_to_group(hidden), lm_w.t()))
 
 
 def opt_model(params, input_ids, attention_mask, config: OPTQuantizedConfig,

@@ -20,6 +20,8 @@ import torch
 
 from ... import resolve_device
 from ...ops.functions import make_entry_quantizer
+from ...ops.linear import row_parallel_linear
+from ...parallel import tp
 from ..llama.serving import _as_index, _sample_fn, _scatter_, decode_loop
 from ..llama.serving import _quantize_kv_append as _quantize_kv
 from .configuration import OPTQuantizedConfig
@@ -37,8 +39,8 @@ from .modeling import (
 
 def init_kv_cache(config: OPTQuantizedConfig, batch: int, max_len: int,
                   device=None) -> torch.Tensor:
-    shape = (config.num_hidden_layers, 2, batch, config.num_attention_heads, max_len,
-             config.head_dim)
+    shape = (config.num_hidden_layers, 2, batch, tp.local(config.num_attention_heads),
+             max_len, config.head_dim)
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
@@ -47,12 +49,14 @@ def _attention_cached(params, hidden, cache_layer, positions, config, layer_idx,
     """One layer's decode attention over the fixed cache; ``positions`` [b]
     is each sequence's length before this token (its write offset)."""
     b, q_len, _ = hidden.shape  # q_len == 1
-    nh, hd = config.num_attention_heads, config.head_dim
+    nh, hd = tp.local(config.num_attention_heads), config.head_dim
     max_len = cache_layer.shape[3]
     qc = partial(_node_cfg, config.quant_config, layer_idx, "self_attn")
     # a position past the cache writes the last row, as the JAX package's
     # clamped dynamic_update_slice does (and every row is then valid)
     positions = positions.clamp(max=max_len - 1)
+
+    hidden = tp.copy_to_group(hidden)
 
     def proj(name):
         out = _linear(params[name], hidden, qc(name), quantize_weights)
@@ -77,7 +81,7 @@ def _attention_cached(params, hidden, cache_layer, positions, config, layer_idx,
             probs.reshape(b * nh, q_len, max_len)).reshape(b, nh, q_len, max_len)
     ctx = torch.matmul(probs, cache_layer[1])
     ctx = ctx.transpose(1, 2).reshape(b, q_len, nh * hd)
-    return _linear(params["out_proj"], ctx, qc("out_proj"), quantize_weights)
+    return row_parallel_linear(ctx, params["out_proj"], qc("out_proj"), quantize_weights)
 
 
 @torch.no_grad()

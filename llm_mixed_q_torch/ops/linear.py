@@ -11,6 +11,14 @@ Weights keep the ``[out_features, in_features]`` layout. Modes:
   decode sizes), with the data_in quantizer folded into the kernel when it
   is eligible.
 
+Under tensor parallelism (``parallel/tp.py``) a node runs on its rank's
+part: a column-parallel node is ``quantized_linear`` on the local
+out-features (its input through ``tp.copy_to_group``, by the model code);
+``row_parallel_linear`` takes the local in-features, its partial products
+summed over the group before the bias; a row-parallel node that the
+sharding rules keep whole (a sub-byte packed one) takes the ranks' inputs
+gathered instead, and no sum.
+
 A node given ``node_name`` reports ``(name, x, w, b, out)`` to the collector
 set by ``capture_quant_node_taps`` (statistic profiling): the raw x, w and
 b, before any quantization, and the output. With no collector set it costs
@@ -25,6 +33,7 @@ import torch
 
 from ..kernels.dequant_matmul import actq_spec, bfp_matmul
 from ..kernels.packing import PACKED_TYPES
+from ..parallel import tp
 from .functions import make_entry_quantizer
 
 # the active tap collector of statistic profiling (the reference's forward
@@ -83,3 +92,26 @@ def quantized_linear(x, w, b, config: dict, quantize_weights: bool,
     if _TAP_COLLECTOR is not None and node_name is not None:
         _TAP_COLLECTOR.on_linear(node_name, x_raw, w_raw, b_raw, out)
     return out
+
+
+def _in_features(w) -> int:
+    return w.in_features if isinstance(w, PACKED_TYPES) else w.shape[-1]
+
+
+def row_parallel_linear(x, node: dict, config: dict, quantize_weights: bool,
+                        node_name: str | None = None):
+    """A row-parallel node: x holds the rank's in-features; the partial
+    products are summed over the group, then the bias is added once. A
+    node kept whole on every rank (its K is the full width) takes the
+    ranks' x gathered, and no sum."""
+    w, b = node["weight"], node.get("bias")
+    if tp.size() == 1:
+        return quantized_linear(x, w, b, config, quantize_weights, node_name)
+    if x.shape[-1] != _in_features(w):
+        return quantized_linear(tp.gather_from_group(x), w, b, config, quantize_weights)
+    out = tp.reduce_from_group(quantized_linear(x, w, None, config, quantize_weights))
+    if b is None:
+        return out
+    if quantize_weights and not isinstance(w, PACKED_TYPES):
+        b = quantize_bias(b, config)
+    return out + b

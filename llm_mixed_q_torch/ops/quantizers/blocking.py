@@ -44,12 +44,18 @@ def _fix_zero_blocks(pbm: torch.Tensor, zero_fill: str = "nonzero_min") -> torch
     """Replace zero per-block maxes: with 1.0 (``zero_fill="one"``), or with
     the smallest nonzero block max of the whole tensor (1.0 if every block
     is zero), as the reference does. The fill never changes a block_fp
-    output: a zero block's elements all take the |x| <= 1e-8 passthrough."""
+    output: a zero block's elements all take the |x| <= 1e-8 passthrough.
+    On a mesh (``parallel.tp.spmd``) the whole tensor spans the ranks, and
+    the minimum is taken over all of them, as XLA takes it over the
+    global array."""
     is_zero = pbm == 0
     one = torch.ones((), dtype=pbm.dtype, device=pbm.device)
     if zero_fill == "one":
         return torch.where(is_zero, one, pbm)
-    nonzero_min = torch.where(is_zero, torch.full_like(pbm, float("inf")), pbm).amin()
+    from ...parallel.tp import global_min  # parallel/ imports the quantizers
+
+    nonzero_min = global_min(
+        torch.where(is_zero, torch.full_like(pbm, float("inf")), pbm).amin())
     fill = torch.where(torch.isinf(nonzero_min), one, nonzero_min)
     return torch.where(is_zero, fill, pbm)
 

@@ -1,5 +1,5 @@
 """Quantization-aware training (counterpart of the JAX package's
-``train/qat.py``), on one device.
+``train/qat.py``), on one device or on a (data, model) mesh.
 
 The QAT property comes from the model: ``quantize_weights=True``
 fake-quantizes weights and activations in every forward, and the
@@ -21,6 +21,21 @@ A checkpoint is ``torch.save`` of the parameters, the optimizer's state
 (AdamW's, the schedule's, the accumulation's) and the step, in
 ``<checkpoint_dir>/<step>/state.pt``; the newest 3 are kept and resume
 takes the latest.
+
+On a mesh (``parallel.make_mesh``; one process a rank) each rank trains
+its training tree (``shard_for_training``) on its slice of the global
+batch (``parallel.global_batch``), as the JAX package's step sees the
+global batch sharded: TP over "model" through the model code's
+collectives (``parallel/tp.py``); DP over "data", the gradients averaged
+over the group after the backward (DDP); with ``fsdp`` the leaves the
+plan stores over "data" (the 2-D weights) are sharded there by
+``torch.distributed.fsdp.fully_shard`` (``FSDPTree``: gathered for each
+step, their gradients reduce-scattered), the others stay DDP's, as JAX
+replicates them. The loss is the global batch's mean: each rank's mean
+weighted by its share of the loss's elements (the examples, or an LM's
+labelled tokens), the same on every rank. A checkpoint holds the whole
+tree and state, the one-device format, written by rank 0; a resume cuts
+them to each rank's part again.
 """
 
 from __future__ import annotations
@@ -36,8 +51,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models import get_model_fn
+from ..parallel import tp
+from ..parallel.distributed import global_batch, process_allgather_scalar
+from ..parallel.sharding import leaf_spec, local_part, shard_params
 
 logger = logging.getLogger(__name__)
 
@@ -164,24 +184,196 @@ class MultiSteps:
             p.grad = None if g is None else g.to(p.device).clone()
 
 
+def _names(path) -> list[str]:
+    """A ``named_leaves`` path as the sharding rules name it."""
+    return [f"#{k}" if isinstance(k, int) else str(k) for k in path]
+
+
+class MeshLayout:
+    """How a training tree lies on a mesh: each leaf's spec
+    (``parallel.sharding.leaf_spec``), and the whole of a leaf or state
+    tensor from the ranks' parts (``full``) or a rank's part of a whole one
+    shaped as ``like`` (``part``). A ZeRO-3 leaf is a DTensor of
+    ``fully_shard``, its "data" parts FSDP's."""
+
+    def __init__(self, mesh, fsdp: bool):
+        self.mesh, self.fsdp = mesh, fsdp
+
+    def spec(self, path, leaf) -> tuple:
+        return leaf_spec(_names(path), leaf, self.fsdp)
+
+    def full(self, t, spec):
+        if isinstance(t, DTensor):  # FSDP's parts over "data", gathered by plain
+            # c10d (DTensor's functional collectives crash under gloo on CUDA
+            # tensors with torch 2.11)
+            (shard,) = t.placements
+            t = tp.all_gather_along(t.to_local(), shard.dim, self.mesh.group("data"),
+                                    self.mesh.shape["data"])
+            spec = tuple(None if a == "data" else a for a in spec)
+        for dim, axis in enumerate(spec):
+            if axis is not None and self.mesh.shape[axis] > 1:
+                t = tp.all_gather_along(t, dim, self.mesh.group(axis), self.mesh.shape[axis])
+        return t
+
+    def part(self, t, spec, like):
+        t = local_part(t, spec, self.mesh.coords, self.mesh.shape)
+        if isinstance(like, DTensor):
+            return DTensor.from_local(t.to(like.device), like.device_mesh, like.placements)
+        return t
+
+    def zero3(self, spec) -> int | None:
+        """The dim stored in parts over "data" (ZeRO-3), or None."""
+        if "data" in spec and self.mesh.shape["data"] > 1:
+            return spec.index("data")
+        return None
+
+
+class _ZeroLeaves(torch.nn.Module):
+    """The ZeRO-3 leaves of a training tree as the parameters of one module,
+    for ``fully_shard``: ``forward(fn)`` calls fn with them whole."""
+
+    def __init__(self, leaves):
+        super().__init__()
+        self.n = len(leaves)
+        for i, t in enumerate(leaves):
+            self.register_parameter(f"p{i}", torch.nn.Parameter(t))
+
+    def forward(self, fn):
+        return fn([getattr(self, f"p{i}") for i in range(self.n)])
+
+
+class FSDPTree:
+    """A training tree under ``fsdp`` on a mesh of several data ranks:
+    ``params``, the tree whose leaves that the plan stores over "data" are
+    the parameters (DTensors) of one module sharded by
+    ``torch.distributed.fsdp.fully_shard`` over the mesh's "data" dim, each
+    on its own dim (``shard_placement_fn``); ``self(fn)`` calls fn with the
+    tree whole (FSDP gathers those leaves for the call and reduce-scatters
+    their gradients, averaged over "data", after the backward)."""
+
+    def __init__(self, params, layout: MeshLayout):
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        leaves = dict(named_leaves(params))
+        dims = {p: layout.zero3(layout.spec(p, t)) for p, t in leaves.items()}
+        self.paths = [p for p, d in dims.items() if d is not None]
+        n = layout.mesh.shape["data"]
+        for p in self.paths:  # even parts: the plan's, and the gather's in ``MeshLayout.full``
+            if leaves[p].shape[dims[p]] % n:
+                raise ValueError(f"{':'.join(_names(p))}: {leaves[p].shape[dims[p]]} along dim "
+                                 f"{dims[p]} does not split in {n} data parts")
+        self.module = _ZeroLeaves([leaves[p].detach() for p in self.paths])
+        placement = {id(param): Shard(dims[p])
+                     for p, param in zip(self.paths, self.module.parameters())}
+        fully_shard(self.module, mesh=layout.mesh.device_mesh["data"],
+                    shard_placement_fn=lambda param: placement[id(param)])
+        sharded = {p: getattr(self.module, f"p{i}") for i, p in enumerate(self.paths)}
+        self.params = _map_leaves(lambda p, t: sharded.get(p, t), params)
+
+    def __call__(self, fn):
+        def whole_tree(whole):
+            by_path = dict(zip(self.paths, whole))
+            return fn(_map_leaves(lambda p, t: by_path.get(p, t), self.params))
+
+        return self.module(whole_tree)
+
+
+def shard_for_training(params, mesh, fsdp: bool = False, config=None):
+    """The trainable tree a rank trains on ``mesh`` (the whole tree on none,
+    or on one rank): its local part over "model" (``shard_params``), and
+    under ``fsdp`` an ``FSDPTree`` over "data". -> tree or FSDPTree"""
+    if mesh is None or mesh.size == 1:
+        return _trainable(params)
+    params = _trainable(shard_params(params, mesh, False, config))
+    layout = MeshLayout(mesh, fsdp)
+    if any(layout.zero3(layout.spec(p, t)) is not None for p, t in named_leaves(params)):
+        return FSDPTree(params, layout)
+    return params
+
+
+def leaves_of(tree):
+    """The tensor tree of a training tree (``FSDPTree.params``, or itself)."""
+    return tree.params if isinstance(tree, FSDPTree) else tree
+
+
+def _map_leaves(fn, tree, path=()):
+    """The tree with ``fn(path, tensor)`` in place of each tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return tree
+
+
+def _loss_weight(task: str, batch) -> torch.Tensor:
+    """The elements a micro-batch's mean loss averages: an LM's labelled
+    tokens after the shift, else its examples."""
+    labels = batch["labels"]
+    if task == "lm":
+        return (labels[:, 1:] != -100).sum().double()
+    return torch.tensor(float(labels.shape[0]), dtype=torch.float64, device=labels.device)
+
+
 def make_qat_train_step(arch, task, config, optimizer, mesh=None, fsdp=False):
     """-> ``train_step(params, batch) -> loss``: one micro-step, the
     forward with weights fake-quantized, the backward through the STE,
     then ``optimizer.step()`` (a ``MultiSteps``), which updates ``params``
     in place. ``batch`` = dict(input_ids, attention_mask, labels) of
     tensors on the parameters' device; the loss comes back detached, on
-    the device. ``fsdp`` shards only across a mesh and is ignored here; a
-    mesh raises until ``parallel/`` is ported."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh needs parallel/, which is not ported yet")
+    the device. On a ``mesh`` of several ranks, ``params`` is the rank's
+    training tree (``shard_for_training(..., fsdp=fsdp)``), ``batch`` its
+    slice of the global batch, and the loss the global batch's, the same
+    on every rank."""
     model_fn = get_model_fn(arch, task)
 
+    def forward(params, batch):
+        return model_fn(params, batch["input_ids"], batch["attention_mask"],
+                        labels=batch["labels"], config=config, quantize_weights=True)["loss"]
+
+    if mesh is None or mesh.size == 1:
+        def train_step(params, batch):
+            loss = forward(params, batch)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        return train_step
+
+    data, n_data = mesh.group("data"), mesh.shape["data"]
+
     def train_step(params, batch):
-        out = model_fn(params, batch["input_ids"], batch["attention_mask"],
-                       labels=batch["labels"], config=config, quantize_weights=True)
-        out["loss"].backward()
+        leaves = [t for _, t in named_leaves(leaves_of(params)) if t.requires_grad]
+        held = [t.grad for t in leaves]  # the accumulated micro-steps'
+        for t in leaves:
+            t.grad = None
+        weight = _loss_weight(task, batch)
+        total = weight.clone()
+        if data is not None:
+            dist.all_reduce(total, group=data)
+        # the rank's share of the global mean, times the data ranks: every
+        # gradient is averaged over them (FSDP's reduce-scatter, DDP's sum
+        # divided below)
+        scale = (weight / total * n_data).float()
+        with tp.spmd(mesh):
+            if isinstance(params, FSDPTree):
+                loss = params(lambda tree: forward(tree, batch)) * scale
+            else:
+                loss = forward(params, batch) * scale
+        loss.backward()
+        for t, g in zip(leaves, held):
+            if data is not None and t.grad is not None and not isinstance(t, DTensor):
+                dist.all_reduce(t.grad, group=data)  # DDP
+                t.grad.div_(n_data)
+            if g is not None:
+                t.grad = g if t.grad is None else g + t.grad
         optimizer.step()
-        return out["loss"].detach()
+        loss = loss.detach()
+        if data is not None:
+            dist.all_reduce(loss, group=data)
+        return loss / n_data
 
     return train_step
 
@@ -270,27 +462,36 @@ def train_qat(
     in its epoch. ``metrics_path`` defaults to
     ``<checkpoint_dir>/metrics.jsonl`` when checkpointing is on.
     ``eval_fn(params) -> dict`` runs after each epoch.
+    On a ``mesh`` of several ranks (every rank calls this with the same
+    whole ``params`` and the same global batches) each rank trains its
+    local tree on its slice of each batch; ``eval_fn`` and the result get
+    the whole tree on every rank, and rank 0 alone writes the checkpoints
+    and the metrics.
     Returns (params, history): history holds each epoch's last loss and
     its eval metrics."""
     total_steps = num_epochs * steps_per_epoch if steps_per_epoch is not None else None
-    params = _trainable(params)
+    layout = MeshLayout(mesh, fsdp) if mesh is not None and mesh.size > 1 else None
+    tree = shard_for_training(params, mesh, fsdp, config)
+    params = leaves_of(tree)
     device = next(t for _, t in named_leaves(params)).device
     optimizer = MultiSteps(*make_adamw(params, learning_rate, weight_decay, total_steps,
                                        warmup_steps, schedule), every_k=grad_accum_steps)
     step_fn = make_qat_train_step(arch, task, config, optimizer, mesh, fsdp)
+    writer = layout is None or dist.get_rank() == 0
+    whole = (lambda p: p) if layout is None else (lambda p: whole_params(layout, p))
 
     start_step = 0
     mngr = None
     if checkpoint_dir is not None:
         mngr = _checkpoint_manager(checkpoint_dir)
         if resume:
-            restored = restore_checkpoint(mngr, params, optimizer)
+            restored = restore_checkpoint(mngr, params, optimizer, layout)
             if restored is not None:
                 params, optimizer, start_step = restored
                 logger.info(f"Resumed from step {start_step}")
         if metrics_path is None:
             metrics_path = str(Path(checkpoint_dir) / "metrics.jsonl")
-    metrics = MetricsWriter(metrics_path) if metrics_path else None
+    metrics = MetricsWriter(metrics_path) if metrics_path and writer else None
 
     factory_seekable = "start" in inspect.signature(train_batches_factory).parameters
     start_epoch, skip_in_epoch = 0, 0
@@ -319,32 +520,65 @@ def train_qat(
             if skip > 0:
                 skip -= 1
                 continue
-            loss = step_fn(params, _to_device(batch, device))
+            if layout is not None:
+                batch, _ = global_batch(mesh, batch)
+            loss = step_fn(tree, _to_device(batch, device))
             global_step += 1
             if metrics is not None:
                 metrics.log(global_step, loss)
             if global_step % log_every == 0:
                 logger.info(f"step {global_step} loss {float(loss):.4f}")
             if mngr is not None and save_every_steps and global_step % save_every_steps == 0:
-                save_checkpoint(mngr, params, optimizer, global_step)
+                save_checkpoint(mngr, params, optimizer, global_step, layout)
         if loss is None:
             # an empty epoch (a resume on the epoch boundary, or a source that
             # yielded nothing)
             logger.warning(f"epoch {epoch}: no batches")
             epoch_metrics = {"epoch": epoch, "loss": None}
         else:
-            epoch_metrics = {"epoch": epoch, "loss": float(loss)}
+            epoch_metrics = {"epoch": epoch, "loss": _allgather_mean_scalar(float(loss))}
         if eval_fn is not None:
-            epoch_metrics.update(eval_fn(params))
+            epoch_metrics.update(eval_fn(whole(params)))
             logger.info(f"epoch {epoch}: {epoch_metrics}")
         history.append(epoch_metrics)
         if metrics is not None:
             metrics.flush(extra=epoch_metrics)
     if mngr is not None and mngr.latest_step() != global_step:
-        save_checkpoint(mngr, params, optimizer, global_step)
+        save_checkpoint(mngr, params, optimizer, global_step, layout)
     if metrics is not None:
         metrics.flush()
-    return params, history
+    return whole(params), history
+
+
+def _allgather_mean_scalar(x: float) -> float:
+    """The mean of a host scalar over the ranks (the JAX package's
+    ``_allgather_mean_scalar``; each rank's epoch loss is the global
+    batch's already, so the mean is that loss)."""
+    return float(np.mean(process_allgather_scalar(x)))
+
+
+def whole_params(layout: MeshLayout, params):
+    """The whole tree (detached) from the ranks' local trees; every rank
+    calls it."""
+    return _map_leaves(lambda p, t: layout.full(t.detach(), layout.spec(p, t)), params)
+
+
+def _map_state(state: dict, params, fn):
+    """``MultiSteps.state_dict()`` with ``fn(tensor, param path, param)`` in
+    place of each tensor that has its parameter's shape (AdamW's moments,
+    the accumulated gradients)."""
+    leaves = [(p, t) for p, t in named_leaves(params) if t.requires_grad]
+    # make_adamw's order: the decayed leaves, then the others
+    order = ([x for x in leaves if is_decay(*x)] + [x for x in leaves if not is_decay(*x)])
+    adamw = dict(state["adamw"])
+    groups = [i for g in adamw["param_groups"] for i in g["params"]]
+    new = {}
+    for key, st in adamw["state"].items():
+        path, t = order[groups.index(key)]
+        new[key] = {k: fn(v, path, t) if k != "step" else v for k, v in st.items()}
+    adamw["state"] = new
+    grads = [None if g is None else fn(g, p, t) for g, (p, t) in zip(state["grads"], order)]
+    return {**state, "adamw": adamw, "grads": grads}
 
 
 # ------------------------------------------------------------- checkpointing
@@ -385,17 +619,29 @@ def _checkpoint_manager(checkpoint_dir: str) -> CheckpointManager:
     return CheckpointManager(checkpoint_dir, max_to_keep=3)
 
 
-def save_checkpoint(mngr, params, opt_state, step: int):
-    """``opt_state``: the ``MultiSteps`` that trains ``params``."""
-    detached = {".".join(map(str, p)): t.detach() for p, t in named_leaves(params)}
-    mngr.save(step, {"params": detached, "opt_state": opt_state.state_dict(), "step": step})
+@torch.no_grad()
+def save_checkpoint(mngr, params, opt_state, step: int, layout: MeshLayout | None = None):
+    """``opt_state``: the ``MultiSteps`` that trains ``params``. On a mesh
+    (``layout``) every rank calls it: the whole tree and state are
+    gathered, and rank 0 writes them in the one-device format."""
+    state = opt_state.state_dict()
+    if layout is not None:
+        full = lambda v, p, t: layout.full(v, layout.spec(p, t))
+        state = _map_state(state, params, full)
+        params = whole_params(layout, params)
+    if layout is None or dist.get_rank() == 0:
+        detached = {".".join(map(str, p)): t.detach() for p, t in named_leaves(params)}
+        mngr.save(step, {"params": detached, "opt_state": state, "step": step})
+    if layout is not None:
+        dist.barrier()
 
 
 @torch.no_grad()
-def restore_checkpoint(mngr, params_like, opt_state_like):
+def restore_checkpoint(mngr, params_like, opt_state_like, layout: MeshLayout | None = None):
     """The latest checkpoint copied into ``params_like`` and
     ``opt_state_like`` in place -> (params, opt_state, step), or None
-    when there is none."""
+    when there is none. On a mesh (``layout``) the one-device checkpoint is
+    cut to each rank's part."""
     step = mngr.latest_step()
     if step is None:
         return None
@@ -406,7 +652,13 @@ def restore_checkpoint(mngr, params_like, opt_state_like):
     if set(names) != set(saved):
         raise ValueError(f"checkpoint {step} holds another tree: "
                          f"{sorted(set(names) ^ set(saved))[:4]}")
-    for name, (_, t) in zip(names, leaves):
-        t.copy_(saved[name])
-    opt_state_like.load_state_dict(state["opt_state"])
+    part = (lambda v, p, t: v) if layout is None else (
+        lambda v, p, t: layout.part(v, layout.spec(p, t), t))
+    for name, (p, t) in zip(names, leaves):
+        value = part(saved[name], p, t)
+        if isinstance(t, DTensor):  # FSDP's part over "data"
+            t.to_local().copy_(value.to_local())
+        else:
+            t.copy_(value)
+    opt_state_like.load_state_dict(_map_state(state["opt_state"], params_like, part))
     return params_like, opt_state_like, step

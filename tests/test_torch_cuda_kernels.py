@@ -469,6 +469,18 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     (1, 2, 3, 208, 128, 16, 16, (16, 6, 8, None), [127]),
     (2, 2, 1, 240, 256, 1, 16, (256, 6, 8, None), [255, 100]),
     (2, 32, 1, 80, 4096, 16, 16, (16, 6, 8, None), [4095, 2000]),
+    # past 256 and off 16 (fault 15's repair): K4's four stages of 80 dims
+    # at 320 (two stages of 128 at 1024), one stage of 40 and of 8 dims;
+    # K5's 5 dim groups and 3 position groups of 80 threads at 320, V codes
+    # by 4-byte copies at 40, 8 and 12, a scale block of the whole head (12)
+    (2, 2, 1, 320, 256, 16, 16, (16, 6, 8, None), [255, 40]),
+    (3, 8, 4, 320, 512, 16, 16, (16, 6, 8, None), [511, 100, 0]),
+    (2, 4, 2, 40, 256, 8, 8, (32, 6, 8, None), [255, 31]),
+    (2, 8, 8, 40, 2048, 8, 8, (16, 6, 8, None), [2047, 900]),
+    (2, 2, 1, 8, 64, 8, 8, (16, 6, 8, None), [63, 3]),
+    (3, 16, 2, 8, 1024, 8, 8, (16, 6, 8, None), [1023, 17, 500]),
+    (2, 2, 2, 12, 128, 12, 4, (16, 6, 8, None), [127, 60]),
+    (1, 2, 1, 1024, 64, 16, 16, (16, 6, 8, None), [63]),
 ]
 
 

@@ -1,14 +1,17 @@
-"""K4 and K5 at head_dims that are multiples of 16 but not powers of two,
-held to the JAX package on the CPU.
+"""K4 and K5 at head_dims that are not powers of two, held to the JAX
+package on the CPU.
 
 The JAX package's decode-attention kernel takes any head_dim whose K/V
-block divides it, and every quant config of ``configs/quantization/``
-packs a cache in blocks of 16, so a Llama-family model at head_dim 48, 80,
-96 or 112 decodes its packed cache through that kernel. K4 and K5 take
-every multiple of 16 from 16 to 256: the C host splits such a head_dim
-into ring stages and dim groups that divide it (``ad.k4_tiles``,
-``ad.k5_tiles``), and K5's P . V idles the threads past its last whole
-position group. A power of two keeps the split it always had.
+block divides it, within its cap of 4096 x 128 cache elements; every
+quant config of ``configs/quantization/`` packs a cache in blocks of 16,
+so a Llama-family model at head_dim 48, 80, 96, 112 or 320 (or 8, a block
+of 16 cut to the head) decodes its packed cache through that kernel, and
+a config with blocks of 8 at head_dim 40. K4 and K5 take every multiple
+of 4 (K5 up to 1024): the C host splits such a head_dim into ring stages
+and dim groups that divide it (``ad.k4_tiles``, ``ad.k5_tiles``; K4's
+stage 80 of 320's dims, 40 of 40's, 8 of 8's), and K5's P . V idles the
+threads past its last whole position group. A power of two keeps the
+split it always had.
 
 The schedule replicas of ``tests/test_torch_k4.py`` and
 ``tests/test_torch_k5.py`` (which split the dims and positions as the
@@ -36,6 +39,7 @@ from llm_mixed_q_torch import kernels
 from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.models.hf_loader import params_from_jax
 from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
+from llm_mixed_q_torch.models.llama.serving import packed_cache_layout
 from test_torch_k4 import _inputs as k4_inputs
 from test_torch_k4 import jax_kernel as k4_jax_kernel
 from test_torch_k4 import k4_schedule
@@ -52,6 +56,12 @@ CASES = [
     (2, 2, 4, 80, 128, 16, 16, 64, [127, 100]),
     (2, 4, 1, 96, 64, 32, 16, 16, [63, 20]),
     (1, 2, 4, 96, 256, 16, 32, 16, [200]),
+    # past 256 (K4: four stages of 80 dims; K5: 5 dim groups, 3 position
+    # groups of 80 threads), and off 16 with blocks of 8 (40: V codes by
+    # 4-byte copies) and a head of 8
+    (2, 2, 1, 320, 64, 16, 16, 16, [63, 20]),
+    (2, 2, 4, 40, 64, 8, 8, 16, [63, 7]),
+    (2, 4, 2, 8, 128, 8, 8, 32, [127, 50]),
 ]
 IDS = [f"hd{c[3]}_rep{c[2]}" for c in CASES]
 
@@ -166,12 +176,17 @@ def test_every_multiple_of_16_splits_evenly(head_dims):
 
 
 @pytest.mark.parametrize("rep,hd,reason", [
-    (1, 8, "head_dim"), (1, 40, "head_dim"), (2, 88, "head_dim"), (1, 272, "head_dim"),
+    (1, 2, "head_dim"), (1, 6, "head_dim"), (2, 90, "head_dim"), (1, 1040, "head_dim"),
     (9, 80, "query rows")])
 def test_what_the_kernels_still_refuse(rep, hd, reason):
-    """Outside the limits: a head_dim under 16, not a multiple of 16, or
-    past 256, and more than 8 query rows a kv head."""
+    """Outside the limits: a head_dim that is not a multiple of 4, a
+    head-major one past 1024 (K4 takes it), and more than 8 query rows a kv
+    head; a scale block that is neither a power of two nor the head."""
     assert reason in ad.kernel_shape_error(rep, hd)
+    if hd == 1040:
+        assert ad.kernel_shape_error(rep, hd, pos_major=True) is None
+    assert "scale block" in ad.kernel_block_error(48, 12, 16)
+    assert ad.kernel_block_error(12, 12, 4) is None
 
 
 def _llama(hidden, heads, nkv, max_len, seed):
@@ -192,9 +207,10 @@ def test_the_card_routes_these_head_dims_to_the_kernels(hidden, heads, nkv):
     jc, tc, _, _ = _llama(hidden, heads, nkv, 256, seed=0)
     assert jattn.attention_kernel_ok(jc, 256) and jax_serving.kv_cache_pack_spec(jc)
     for max_len in (64, 256):
-        assert ad.attention_kernel_error(tc, max_len) is None
-        assert ad.packed_decode_route(tc, max_len, torch.device("cuda")) == "kernel"
-        assert ad.packed_decode_route(tc, max_len, "cpu") == "kernel"
+        layout = packed_cache_layout(tc, max_len)
+        assert ad.attention_kernel_error(tc, max_len, *layout) is None
+        assert ad.packed_decode_route(tc, max_len, torch.device("cuda"), *layout) == "kernel"
+        assert ad.packed_decode_route(tc, max_len, "cpu", *layout) == "kernel"
 
 
 def test_generate_at_head_dim_80_matches_jax():

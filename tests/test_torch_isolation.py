@@ -6,7 +6,8 @@ arithmetics with chunked attention, a QAT step of an OPT classifier, and
 the eight probe entry points on the CPU, a packed BERT classifier, an
 incremental Llama decode step (``make_prefill_and_decode``), a statistic
 profile with its integer config, a memory density, and a prompting search
-with its best trial's eval."""
+with its best trial's eval; ``parallel/`` and the EMNLP drivers import,
+and the perplexity driver runs a CI-scale arm."""
 
 import subprocess
 import sys
@@ -49,7 +50,27 @@ assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
         "llm_mixed_q_torch.search.conditional", "llm_mixed_q_torch.search.prompting",
         "llm_mixed_q_torch.search.samplers_model", "llm_mixed_q_torch.eval.prompting",
         "llm_mixed_q_torch.utils.trial_extractor",
-        "llm_mixed_q_torch.cli.search_cli"} <= set(sys.modules)
+        "llm_mixed_q_torch.cli.search_cli", "llm_mixed_q_torch.parallel.mesh",
+        "llm_mixed_q_torch.parallel.sharding", "llm_mixed_q_torch.parallel.distributed",
+        "llm_mixed_q_torch.parallel.tp", "llm_mixed_q_torch.experiments.emnlp.common",
+        "llm_mixed_q_torch.experiments.emnlp.section_1_variance",
+        "llm_mixed_q_torch.experiments.emnlp.section_4_2_perplexity",
+        "llm_mixed_q_torch.experiments.emnlp.section_4_2_downstream",
+        "llm_mixed_q_torch.experiments.emnlp.section_4_3_qat",
+        "llm_mixed_q_torch.experiments.emnlp.section_4_4_search"} <= set(sys.modules)
+
+import tempfile
+from llm_mixed_q_torch.experiments.emnlp import section_4_2_perplexity
+from llm_mixed_q_torch.parallel import make_mesh, shard_params
+
+mesh = make_mesh()
+assert mesh.size == 1
+
+with tempfile.TemporaryDirectory() as d:
+    rows = section_4_2_perplexity.main(["--synthetic", "--device", "cpu", "--save_dir", d,
+                                        "--arms", "fp32", "--seq_len", "16", "--num_samples",
+                                        "2"])
+assert rows[0]["arm"] == "fp32" and np.isfinite(rows[0]["perplexity"])
 
 from llm_mixed_q_torch.models.api import make_forward, make_prefill_and_decode
 from llm_mixed_q_torch.models.bert import BertQuantizedConfig, pack_bert_params

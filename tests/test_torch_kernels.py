@@ -190,11 +190,13 @@ def test_prob_q_spec_and_gates_match_jax():
 @pytest.mark.parametrize("rep,hd,s_len,reason", [
     (1, 128, 56000, None), (8, 128, 6800, None), (1, 128, 131072, None),
     (8, 128, 8192, None), (9, 128, 64, "query rows"), (1, 96, 64, None),
-    (1, 272, 64, "head_dim"), (1, 512, 64, "head_dim")])
+    (1, 272, 64, None), (1, 512, 64, None), (1, 1040, 64, "head_dim"),
+    (2, 2048, 64, "head_dim")])
 def test_attention_kernel_limits(rep, hd, s_len, reason):
     """The limits of csrc/attention_decode.cu, which the wrappers raise on
     and by which serving picks its route: rep 1..8 and a head_dim that is a
-    multiple of 16 up to 256 (96 too), at any cache length."""
+    multiple of 4, up to 1024 for K5 (``_launch_attention``), at any cache
+    length."""
     error = tattn.kernel_shape_error(rep, hd)
     assert (error is None) if reason is None else (reason in error)
     if reason is not None:

@@ -274,7 +274,7 @@ def test_cache_choice_follows_the_kernel_limits(gqa):
     the JAX package's is; the kernel limits (rep 2 at head_dim 128: any
     cache length) choose the decode route, not the cache."""
     from llm_mixed_q_torch.kernels.attention_decode import attention_kernel_error
-    from llm_mixed_q_torch.models.llama.serving import _cache_spec
+    from llm_mixed_q_torch.models.llama.serving import _cache_spec, packed_cache_layout
 
     _, tc, _, _ = gqa
     spec = kv_cache_pack_spec(tc)
@@ -282,8 +282,8 @@ def test_cache_choice_follows_the_kernel_limits(gqa):
     assert _cache_spec(tc, None) == spec
     assert _cache_spec(tc, True) == spec
     assert _cache_spec(tc, False) is None
-    assert attention_kernel_error(tc, 4160) is None
-    assert attention_kernel_error(tc, 40000) is None
+    for max_len in (4160, 40000):
+        assert attention_kernel_error(tc, max_len, *packed_cache_layout(tc, max_len)) is None
 
 
 def _flat(tree, path=""):

@@ -12,16 +12,19 @@ whenever the quant config permits, on either device, as JAX's do, and
 - on the card, a ValueError where JAX's kernel takes the cache and K4/K5
   do not.
 
-Six configs (name: hidden, heads, kv heads, max_len):
+Eight configs (name: hidden, heads, kv heads, max_len):
 ``head_dim_48`` (a multiple of 16 that is not a power of two: both take
-it at 48 positions), ``head_dim_320`` (past the kernels' 256; JAX's kernel
-takes it at 48 positions), ``rep_16`` (16 query rows per kv head: both
-refuse), ``long_head_dim_48`` (head_dim 48 at 12000 positions, past JAX's
-cap of 4096 x 128 elements, within K4/K5's limits),
-``long_head_dim_320`` (head_dim 320 at 2048 positions: both refuse) and
-``long_gqa_cache`` (2 kv heads, rep 8 at head_dim 128 and 8192 positions,
-as Llama-3-70B's attention at 8192: past JAX's cap, within K5's limits). Every max_len is a multiple of the
-prob quantizer's block of 16, which both packages' kernels need.
+it at 48 positions), ``head_dim_320`` (past 256: both take it at 48
+positions), ``head_dim_6`` (not a multiple of 4, a block of 16 cut to the
+head: JAX's kernel takes it, K4/K5 do not), ``rep_16`` and ``rep_12``
+(16 and 12 query rows per kv head: both refuse), ``long_head_dim_48``
+(head_dim 48 at 12000 positions, past JAX's cap of 4096 x 128 elements,
+within K4/K5's limits), ``long_head_dim_320`` (head_dim 320 at 2048
+positions: past JAX's cap, within K4's) and ``long_gqa_cache`` (2 kv
+heads, rep 8 at head_dim 128 and 8192 positions, as Llama-3-70B's
+attention at 8192: past JAX's cap, within K5's limits). Every max_len is a
+multiple of the prob quantizer's block of 16, which both packages'
+kernels need.
 The route takes the device as an argument, so the CPU shows what the
 card does without one.
 
@@ -69,7 +72,9 @@ VOCAB = 96
 CASES = {
     "head_dim_48": (96, 2, 2, 48),
     "head_dim_320": (640, 2, 2, 48),
+    "head_dim_6": (12, 2, 2, 48),
     "rep_16": (256, 16, 1, 48),
+    "rep_12": (384, 12, 1, 48),
     "long_head_dim_48": (96, 2, 2, 12000),
     "long_head_dim_320": (640, 2, 2, 2048),
     "long_gqa_cache": (2048, 16, 2, 8192),
@@ -77,10 +82,12 @@ CASES = {
 # name: (the route on the CPU, on the card; None: raises)
 ROUTES = {
     "head_dim_48": ("kernel", "kernel"),
-    "head_dim_320": ("dense", None),
+    "head_dim_320": ("kernel", "kernel"),
+    "head_dim_6": ("dense", None),
     "rep_16": ("dense", "dense"),
+    "rep_12": ("dense", "dense"),
     "long_head_dim_48": ("kernel", "kernel"),
-    "long_head_dim_320": ("dense", "dense"),
+    "long_head_dim_320": ("kernel", "kernel"),
     "long_gqa_cache": ("kernel", "kernel"),
 }
 DENSE_IN_BOTH = [name for name, (_, card) in ROUTES.items() if card == "dense"]
@@ -125,15 +132,16 @@ def test_route_follows_both_packages_kernels(name):
     """The route on each device, and ``reference_kernel_error`` as JAX's
     ``attention_kernel_ok`` says."""
     jc, tc, _, _, max_len = _case(name)
+    layout = serving.packed_cache_layout(tc, max_len)
     assert (reference_kernel_error(tc, max_len) is None) == attention_kernel_ok(jc, max_len)
-    assert (attention_kernel_error(tc, max_len) is None) == (ROUTES[name][0] == "kernel")
+    assert (attention_kernel_error(tc, max_len, *layout) is None) == (ROUTES[name][0] == "kernel")
     cpu, card = ROUTES[name]
-    assert packed_decode_route(tc, max_len, "cpu") == cpu
+    assert packed_decode_route(tc, max_len, "cpu", *layout) == cpu
     if card is None:
         with pytest.raises(ValueError, match="packed_kv=False"):
-            packed_decode_route(tc, max_len, torch.device("cuda"))
+            packed_decode_route(tc, max_len, torch.device("cuda"), *layout)
     else:
-        assert packed_decode_route(tc, max_len, torch.device("cuda")) == card
+        assert packed_decode_route(tc, max_len, torch.device("cuda"), *layout) == card
 
 
 def _decode_against_jax(name):
@@ -171,9 +179,9 @@ def test_packed_decode_takes_the_dense_route_as_jax_does(name):
 
 
 def test_packed_decode_of_a_head_dim_the_kernels_refuse_on_the_cpu():
-    """head_dim 320, which JAX's kernel takes and K4/K5 do not: on the CPU
+    """head_dim 6, which JAX's kernel takes and K4/K5 do not: on the CPU
     the dense route gives JAX's logits (JAX's CPU path is dense too)."""
-    got, want, k4, k5, tc = _decode_against_jax("head_dim_320")
+    got, want, k4, k5, tc = _decode_against_jax("head_dim_6")
     assert not k4.called and not k5.called
     assert packed_attention_decode_dense.calls == tc.num_hidden_layers
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
@@ -209,10 +217,10 @@ def test_generate_packs_outside_the_limits_as_jax_does(name):
 
 def test_batcher_packs_outside_the_limits():
     """The batcher's default cache is packed too, outside the kernels'
-    limits (head_dim 320), and its rows are JAX's batcher's. (At this
-    config a batcher row and ``generate``'s differ in both packages for
+    limits (head_dim 6), and its rows are JAX's batcher's. (At such a
+    config a batcher row and ``generate``'s may differ in both packages for
     one prompt: the bucketed prefill quantizes other blocks.)"""
-    jc, tc, jparams, tp, _ = _case("head_dim_320", seed=5)
+    jc, tc, jparams, tp, _ = _case("head_dim_6", seed=5)
     srv = ContinuousBatcher(tp, tc, num_slots=2, max_len=48, max_new_tokens=4,
                             prompt_bucket=8, device="cpu")
     jsrv = jax_serving.ContinuousBatcher(jparams, jc, num_slots=2, max_len=48,
@@ -226,17 +234,44 @@ def test_batcher_packs_outside_the_limits():
         np.testing.assert_array_equal(out[rid], want[jrid])
 
 
-def test_the_card_refuses_a_cache_only_jax_s_kernel_takes():
-    """On the card, a packed cache that JAX's kernel would take and K4/K5
-    cannot is refused when it is made, before any prefill, naming the
-    float32 cache; a cache that both refuse is not."""
-    _, tc, _, _, max_len = _case("head_dim_320")
-    with pytest.raises(ValueError, match="packed_kv=False"):
-        _new_cache(tc, 1, max_len, kv_cache_pack_spec(tc), torch.device("cuda"))
-    _, tc, _, _, max_len = _case("rep_16")
-    cache = _new_cache(tc, 1, max_len, kv_cache_pack_spec(tc), torch.device("cpu"))
-    assert isinstance(cache, PackedKVCache)
-    assert packed_decode_route(tc, max_len, torch.device("cuda")) == "dense"
+def _blocks_of(bs):
+    """bfp_6bit.toml with every [1, 16] block cut to [1, bs]."""
+    import tomllib
+
+    with open(BFP6, "rb") as f:
+        qc = tomllib.load(f)
+    for key in ("weight_block_size", "data_in_block_size"):
+        qc["default"][key] = [1, bs]
+    return qc
+
+
+# head_dim, K/V block, kv heads, max_len, the cache's layout: each a cache
+# JAX's kernel takes (within its 4096 x 128 cap), pos-major (K4) and
+# head-major (K5, nkv * max_len > 8192)
+CARD_HEAD_DIMS = [(320, 16, 2, 48, True), (320, 16, 8, 1040, False),
+                  (40, 8, 2, 48, True), (40, 8, 8, 2048, False),
+                  (8, 16, 2, 48, True), (8, 16, 16, 1024, False)]
+
+
+@pytest.mark.parametrize("hd,bs,nkv,max_len,pos_major", CARD_HEAD_DIMS,
+                         ids=[f"hd{c[0]}_{'k4' if c[4] else 'k5'}" for c in CARD_HEAD_DIMS])
+def test_the_card_routes_head_dims_320_40_and_8_to_the_kernels(hd, bs, nkv, max_len, pos_major):
+    """A packed cache of head_dim 320, 40 (blocks of 8) or 8 (a block of 16
+    cut to the head), which JAX's kernel takes, goes to K4 or K5 by its
+    layout on the card, made without a refusal (fault 15's repair)."""
+    qc = _blocks_of(bs) if bs != 16 else BFP6
+    kw = dict(vocab_size=VOCAB, hidden_size=hd * nkv, intermediate_size=64,
+              num_hidden_layers=2, num_attention_heads=nkv, num_key_value_heads=nkv,
+              max_position_embeddings=max_len)
+    jc, tc = JaxConfig(**kw, quant_config=qc), LlamaQuantizedConfig(**kw, quant_config=qc)
+    spec = kv_cache_pack_spec(tc)
+    assert spec == jax_serving.kv_cache_pack_spec(jc) == (min(bs, hd),) * 2
+    assert serving.packed_cache_layout(tc, max_len) == (pos_major, spec)
+    assert attention_kernel_ok(jc, max_len)
+    assert attention_kernel_error(tc, max_len, pos_major, spec) is None
+    assert packed_decode_route(tc, max_len, torch.device("cuda"), pos_major, spec) == "kernel"
+    cache = _new_cache(tc, 1, max_len, spec, torch.device("cpu"))
+    assert isinstance(cache, PackedKVCache) and cache.pos_major == pos_major
 
 
 @pytest.mark.parametrize("pos_major", [True, False])
@@ -245,7 +280,7 @@ def test_within_the_limits_the_kernels_take_the_cache(pos_major):
     cache within the limits goes to the kernel wrapper of its layout."""
     _, tc, _, tp, _ = _case((256, 2, 2, 4160))
     max_len = 64 if pos_major else 4160
-    assert attention_kernel_error(tc, max_len) is None
+    assert attention_kernel_error(tc, max_len, pos_major, kv_cache_pack_spec(tc)) is None
     cache = init_packed_kv_cache(tc, 1, max_len, kv_cache_pack_spec(tc))
     assert cache.pos_major == pos_major
     ids = torch.as_tensor(_prompt(1, 5))

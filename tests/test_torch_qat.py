@@ -328,12 +328,17 @@ def test_resume_seeks_and_matches_the_uninterrupted_run(tmp_path):
 
 
 def test_empty_epoch_and_mesh():
+    """An empty epoch; a mesh of one rank (``parallel.make_mesh()`` without a
+    process group) trains as no mesh does. Meshes of several ranks:
+    ``tests/test_torch_parallel_world.py``."""
+    from llm_mixed_q_torch.parallel import make_mesh
+
     _, tc, _, tp = _trees("llama", _toml("bfp_4bit"))
     p, hist = train_qat("llama", "cls", tc, tp, lambda: iter(()), num_epochs=1)
     assert hist == [{"epoch": 0, "loss": None}]
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train_qat("llama", "cls", tc, tp, lambda: iter(()), mesh=object())
-    step = make_qat_train_step("llama", "cls", tc, None, fsdp=True)
+    p, hist = train_qat("llama", "cls", tc, tp, lambda: iter(()), mesh=make_mesh(), fsdp=True)
+    assert hist == [{"epoch": 0, "loss": None}]
+    step = make_qat_train_step("llama", "cls", tc, None, mesh=make_mesh(), fsdp=True)
     assert callable(step)
 
 

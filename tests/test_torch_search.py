@@ -154,9 +154,13 @@ def test_study_save_load_and_best_trial(tmp_path):
     assert decode_ast_value("!ast![1, 16]") == [1, 16] and decode_ast_value(4) == 4
 
 
-def test_optimize_timeout_and_n_jobs(caplog):
+def test_optimize_timeout_and_n_jobs(caplog, monkeypatch):
     """``timeout`` stops before ``n_trials``; ``n_jobs`` > 1 runs the trials
-    one after another and says so; a failing objective marks its trial."""
+    one after another and says so; a failing objective marks its trial.
+    (The package logger stops propagating once a CLI has set its verbosity,
+    ``utils/logger.py``, which an earlier test in the same process may have
+    done: it propagates to ``caplog`` here whatever ran before.)"""
+    monkeypatch.setattr(logging.getLogger("llm_mixed_q_torch"), "propagate", True)
     study = create_study(["maximize"], get_sampler("random", seed=0))
 
     def slow(trial):
