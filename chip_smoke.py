@@ -34,7 +34,12 @@
    positions at 32 kv heads and at GQA's 8, and Llama-3-70B's 8192
    positions at rep 8), each attention kernel with the card time of its
    four kernels; the prologue of K2 and K3, ``actq_split``, alone, bit for
-   bit;
+   bit; K2 and K3 timed as their C call, as actq_split alone and as the
+   matmul alone on the workspace it filled (``split_ms``,
+   ``matmul_alone_ms``), and, since the matmul starts as actq_split's
+   programmatic dependent (PDL), 200 unsynchronised calls of each at
+   qkv_proj's shape alternating two x on one workspace, every output its
+   own x's bit for bit (``pdl_race``);
 3. builds Llama-2-7B widths with random weights (seed 0), W6A6 block_fp
    (configs/quantization/bfp_6bit.toml), bf16 embedding / lm_head;
 4. runs ``generate`` on sub-byte weights (pos-major cache: K1 + K4) and
@@ -64,7 +69,7 @@
    crafted blocks (zeros, +-5e-9, subnormals, every power of two and
    sqrt(2)*2^k and their neighbours, as block maxima and as elements):
    no bit may differ (NaN counts equal to NaN); (2) Llama-2-7B and
-   OPT-6.7B widths at 1 layer, seq 128 (``PPL_CPU_LAYERS``, ``PPL_CPU_SEQ``): each arm's
+   OPT-6.7B widths at 1 layer, seq 64 (``PPL_CPU_LAYERS``, ``PPL_CPU_SEQ``): each arm's
    PTQ-prepared tree,
    prepared on the card, runs the forward on the card and on the CPU,
    with every quantizer, matmul, softmax, rsqrt and silu of the card's run
@@ -194,17 +199,20 @@
    times): the same tokens, one decode step's logits within 5e-2 (K5) and
    1e-4 (dense) of max|logit|, each cache's bytes and ms a step; head_dims
    of 48 and 320, whose default packed cache decodes through K4 (2 layers
-   x 3 steps), the dense route 0; and a head_dim of 6 (JAX's kernel takes
-   it, K4/K5 do not: fault 18): the default cache refused with a
-   ValueError, the float32 cache generating. Its results are the
-   ``{"stats": ...}`` line;
-12. search and prompting (``--search-only``): (1) fault 15's repair: K4
-   and K5 against their plain versions (rtol 2e-4 / atol 2e-5; at head_dims
-   320, 40 and 8, bit for bit) at head_dims 48, 80, 96, 112, 320, 40
-   (blocks of 8) and 8, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
-   positions, K5 at 2048), each timed beside its plain version, its bound
-   and SDPA; ``generate`` of a Llama-family config at head_dim 80 (hidden
-   2560, 32 heads over 8 kv heads, 2 layers, W6A6 int8 codes), batch 2,
+   x 3 steps), the dense route 0; and a head_dim of 6 (fault 18's repair:
+   JAX's kernel takes it, and K4/K5 now too), whose default packed cache
+   decodes through K4 at max_len 48 and through K5 at 4112 (2 layers x 3
+   steps each), the dense route 0, its tokens the float32 cache's. Its
+   results are the ``{"stats": ...}`` line;
+12. search and prompting (``--search-only``): (1) faults 15's and 18's
+   repairs: K4 and K5 against their plain versions (rtol 2e-4 / atol 2e-5;
+   at head_dims 320, 40, 8, 6, 48 with blocks of 12 and 1280, bit for bit)
+   at head_dims 48, 80, 96, 112, 320, 40 (blocks of 8), 8, 6 (blocks of
+   6), 48 with blocks of 12 and 1280 (K5: P . V in passes of 1024 dims),
+   rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024 positions, K5 at 2048),
+   each timed beside its plain version, its bound and SDPA; ``generate``
+   of a Llama-family config at head_dim 80 (hidden 2560, 32 heads over 8
+   kv heads, 2 layers, W6A6 int8 codes), batch 2,
    32 + 16 tokens, on its default packed cache at max_len 48 (K4) and 2048
    (K5), each run's counters showing its kernel launched and the dense
    route 0, every card token the CPU's argmax on the card's own history
@@ -345,12 +353,41 @@ def bound(nbytes, flops, peaks, bf16=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _split_and_matmul(kname, x, packed, actq):
+    """K2's or K3's two kernels apart, on x: (actq_split alone into a
+    workspace, the matmul alone on the workspace it filled: the C entry with
+    split = 0, an ordinary launch), as callables."""
+    from llm_mixed_q_torch.kernels import _cuda
+    from llm_mixed_q_torch.kernels.dequant_matmul import _actq_args, _k_padded, actq_split_cuda
+
+    k_pad = _k_padded(packed)
+    hi, _, _ = actq_split_cuda(x, actq, k_pad)  # hi starts the workspace
+    m, n, kw = x.shape[0], packed.out_features, hi.shape[1]
+    y = torch.empty((m, n), device="cuda")
+    entry, fmt = (("lmq_bfp_matmul_int8", ()) if kname.startswith("bfp_matmul_int8")
+                  else ("lmq_bfp_matmul_subbyte", (packed.width,)))
+
+    def matmul():
+        rc = getattr(_cuda.lib(), entry)(
+            x.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(), y.data_ptr(),
+            hi.data_ptr(), m, n, packed.in_features, k_pad, kw, *fmt, packed.block_size,
+            *_actq_args(actq), 0, _cuda.stream_ptr(x))
+        _cuda.check(rc, entry)
+        return y
+
+    return (lambda: actq_split_cuda(x, actq, k_pad)), matmul
+
+
 def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_cores=False):
     """Hold one kernel against its plain version at decode rows (batch 8)
     and at the PREFILL_M rows of a prefill, with ACTQ and on raw float32 x;
     time it at batch 8, and a tensor-core kernel (K1, K2, K3) also at
     PREFILL_M rows (``prefill_*``). The operations bound is taken at the
-    peak of the units the kernel runs on: the bf16 tensor cores."""
+    peak of the units the kernel runs on: the bf16 tensor cores. K2 and K3
+    (actq_split, then the matmul with PDL, in one C call) are also timed
+    apart at batch 8: actq_split alone (``split_ms``) and the matmul alone
+    on the workspace it filled (``matmul_alone_ms``, its output the C
+    call's bit for bit)."""
     from llm_mixed_q_torch.kernels.dequant_matmul import bfp_matmul_plain
     from llm_mixed_q_torch.kernels.packing import packed_nbytes, unpack
     from llm_mixed_q_torch.tools.timing import cuda_ms
@@ -383,6 +420,15 @@ def _measure_matmul(kname, wrapper, packed, n, k, gen, peaks, flush, tensor_core
         out[pre + "bound_ops_ms"] = 2 * m * n * k / op_peak * 1e3
     out["plain_ms"] = cuda_ms(lambda: bfp_matmul_plain(xs[BATCH], packed, ACTQ), reps=5,
                               flush=flush)
+    if kname.startswith(("bfp_matmul_int8", "bfp_matmul_subbyte ")):
+        split, alone = _split_and_matmul(kname, xs[BATCH], packed, ACTQ)
+        check(torch.equal(alone(), wrapper(xs[BATCH], packed, ACTQ)),
+              f"{kname}: the matmul alone is not the C call's output")
+        out["split_ms"] = cuda_ms(split, flush=flush)
+        out["matmul_alone_ms"] = cuda_ms(alone, flush=flush)
+        log(f"  {kname} N={n} K={k} M={BATCH}: the C call {out['ms']:.4f} ms = actq_split "
+            f"alone {out['split_ms']:.4f} + the matmul alone {out['matmul_alone_ms']:.4f} - "
+            f"{out['split_ms'] + out['matmul_alone_ms'] - out['ms']:.4f} of overlap")
     del w_bf16
     for m in (BATCH, PREFILL_M) if tensor_cores else (BATCH,):
         pre = "" if m == BATCH else "prefill_"
@@ -501,6 +547,48 @@ def check_actq_split(peaks, flush):
         f"plain_ms={row['plain_ms']:.4f} bound_ms="
         f"{max(row['bound_bytes_ms'], row['bound_ops_ms']):.5f}")
     return row
+
+
+PDL_CALLS = 200
+
+
+def check_pdl_race():
+    """K2 and K3 at qkv_proj's shape (N 12288, K 4096), batch 8: their
+    matmul starts as actq_split's programmatic dependent and must wait for
+    it before it reads the workspace. PDL_CALLS calls alternating x1 (raw
+    float32: lo terms) and x2 (ACTQ-quantized: none) on ONE workspace, with
+    no synchronisation between them: every output equal bit for bit to its
+    own x's output from a synchronised call. -> {kernel: result}"""
+    from llm_mixed_q_torch.kernels import dequant_matmul as dm
+    from llm_mixed_q_torch.kernels.packing import pack_block_fp, pack_block_fp_subbyte
+    from llm_mixed_q_torch.models.pack_common import _k_stride
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    n, k = MATMUL_SHAPES["qkv_proj"]
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+    kernels = {"bfp_matmul_int8": (dm.bfp_matmul_cuda, pack_block_fp(
+                   w, 6, 8, 127, [1, 16], k_stride=_k_stride(16, k))),
+               "bfp_matmul_subbyte": (dm.bfp_matmul_subbyte_cuda,
+                                      pack_block_fp_subbyte(w, 6, 8, 127, [1, 16]))}
+    x1 = torch.randn((BATCH, k), generator=gen, device="cuda")
+    x2 = dm._actq_qdq(torch.randn((BATCH, k), generator=gen, device="cuda") * 100, ACTQ)
+    out = {}
+    for kname, (fn, packed) in kernels.items():
+        refs = [fn(x, packed) for x in (x1, x2)]
+        torch.cuda.synchronize()
+        one = dm._split_workspace(BATCH, dm._k_padded(packed), "cuda")
+        with mock.patch.object(dm, "_split_workspace", lambda *_: one):
+            ys = [fn((x1, x2)[i % 2], packed) for i in range(PDL_CALLS)]
+        torch.cuda.synchronize()
+        wrong = sum(not torch.equal(y, refs[i % 2]) for i, y in enumerate(ys))
+        check(wrong == 0, f"{kname}: {wrong} of {PDL_CALLS} unsynchronised calls on one "
+                          f"workspace differ from their own x's output")
+        out[kname] = {"calls": PDL_CALLS, "differing": wrong}
+        log(f"  {kname} qkv_proj, batch {BATCH}: {PDL_CALLS} calls alternating two x on one "
+            f"workspace, unsynchronised: every output its own x's, bit for bit")
+    del w, kernels
+    torch.cuda.empty_cache()
+    return out
 
 
 SWEEP_M = (8, 16, 32, 64, 128, 256)
@@ -1126,8 +1214,9 @@ PPL_LONG, PPL_CHUNK = 4096, 512  # Llama-2's context, chunked attention
 PPL_LAYERS = 16
 # part 2's depth and length against the CPU: cut from 2 layers at seq 512
 # to 1 layer at seq 128 to leave the script's time limit room for the
-# search phase (12); its CPU forwards and shadows go with the tokens
-PPL_CPU_LAYERS, PPL_CPU_SEQ = 1, 128
+# search phase (12), then to seq 64 for fault 18's shapes and the PDL
+# checks; its CPU forwards and shadows go with the tokens
+PPL_CPU_LAYERS, PPL_CPU_SEQ = 1, 64
 
 
 def _toml(stem):
@@ -3187,9 +3276,11 @@ def stats_fault_13():
     each); head_dims of 48 and 320, which K4 takes (``generate``'s default
     packed cache launches it, the dense route not at all; 320 since fault
     15's repair); and a head_dim of 6, which the JAX package's kernel
-    takes and K4/K5 do not (fault 18): ``generate`` with the default cache
-    raises ValueError before any work, and with ``packed_kv=False`` it
-    runs. -> (results, launch counts by run)"""
+    takes and K4/K5 take since fault 18's repair: ``generate``'s default
+    cache decodes through K4 at max_len 48 and through K5 at 4112 (2 kv
+    heads past 8192 lanes), 2 layers x 3 steps each, the dense route 0,
+    its tokens those of the float32 cache (``packed_kv=False``). ->
+    (results, launch counts by run)"""
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig, generate
 
@@ -3198,9 +3289,9 @@ def stats_fault_13():
         out[name], run_counts = _fault_13_config(name, widths, route, counter)
         counts.update(run_counts)
     ids = torch.full((1, 4), 5, device="cuda")
-    small = lambda hidden: LlamaQuantizedConfig(
+    small = lambda hidden, max_len=48: LlamaQuantizedConfig(
         vocab_size=96, hidden_size=hidden, intermediate_size=128, num_hidden_layers=2,
-        num_attention_heads=2, max_position_embeddings=48, quant_config=_toml("bfp_6bit"))
+        num_attention_heads=2, max_position_embeddings=max_len, quant_config=_toml("bfp_6bit"))
     launches = {}
     for hd in (48, 320):
         config = small(2 * hd)
@@ -3212,22 +3303,27 @@ def stats_fault_13():
               and c["attn_decode_packed_dense"] == 0,
               f"head_dim {hd}: the packed cache did not decode through K4 ({c})")
         launches[hd] = out[f"head_dim_{hd}_k4_launches"] = c["attn_decode_pos_major"]
-    config = small(12)
-    params = init_llama_params(config, seed=SEED, device="cuda")
-    try:
-        generate(params, config, ids, max_new_tokens=4, max_len=48, device="cuda")
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    check(refused is not None and "packed_kv=False" in refused,
-          f"head_dim 6: the packed cache was not refused on the card ({refused})")
-    tokens = generate(params, config, ids, max_new_tokens=4, max_len=48, packed_kv=False,
-                      device="cuda")
-    check(tokens.shape == (1, 4), f"head_dim 6, float32 cache: tokens {tokens.shape}")
-    out["head_dim_6_refused"] = refused
+    hd6 = {}
+    for max_len, kname in ((48, "attn_decode_pos_major"), (4112, "attn_decode_head_major")):
+        config = small(12, max_len)
+        params = init_llama_params(config, seed=SEED, device="cuda")
+        reset_all_launch_counts()
+        tokens = generate(params, config, ids, max_new_tokens=4, max_len=max_len,
+                          device="cuda")
+        c = all_launch_counts()
+        f32 = generate(params, config, ids, max_new_tokens=4, max_len=max_len, packed_kv=False,
+                       device="cuda")
+        check(c[kname] == 2 * 3 and c["attn_decode_packed_dense"] == 0,
+              f"head_dim 6, max_len {max_len}: the packed cache did not decode through "
+              f"{kname} ({c})")
+        check(bool((tokens == f32).all()), f"head_dim 6, max_len {max_len}: tokens {tokens} on "
+                                        f"the packed cache, {f32} on the float32 cache")
+        hd6[max_len] = {kname: c[kname], "tokens_equal": True}
+    out["head_dim_6"] = hd6
     log(f"  head_dims 48 and 320 on the card: the packed cache decodes through K4 "
-        f"({launches} launches, the dense route 0); head_dim 6: the packed cache refused "
-        f"({refused}); the float32 cache generates")
+        f"({launches} launches, the dense route 0); head_dim 6 (fault 18's repair): through "
+        f"K4 at max_len 48 and K5 at 4112 ({hd6}), the dense route 0, the float32 cache's "
+        f"tokens")
     return out, counts
 
 
@@ -3262,14 +3358,17 @@ def run_stats():
                       "fault_13": fault_13}}, counts
 
 
-# phase 12 (--search-only): fault 15's repair (K4 and K5 at head_dims that
-# are not powers of two: multiples of 16, and 320, 40 and 8, held bit for
-# bit), then the paper's search and the prompting eval
-F15_HEAD_DIMS = (48, 80, 96, 112, 320, 40, 8)
-F15_BIT_EQUAL = (320, 40, 8)
-# the K/V block: 16 (every TOML's), cut to the head at 8; 8 at 40, which 16
-# does not divide
-F15_BLOCKS = {40: 8, 8: 8}
+# phase 12 (--search-only): fault 15's and fault 18's repairs (K4 and K5 at
+# head_dims that are not powers of two: multiples of 16, 320, 40 and 8;
+# since fault 18's, 6, a block of 12 and K5 past 1024 dims; all but the
+# multiples of 16 held bit for bit), then the paper's search and the
+# prompting eval. Row name: (head_dim, K/V block): 16 (every TOML's); 8 at
+# 40, which 16 does not divide, and at 8 (16 cut to the head); 6 at 6 (16
+# cut to the head); 12 at 48, neither a power of two nor the head
+F15_SHAPES = {"hd48": (48, 16), "hd80": (80, 16), "hd96": (96, 16), "hd112": (112, 16),
+              "hd320": (320, 16), "hd40": (40, 8), "hd8": (8, 8), "hd6": (6, 6),
+              "hd48_bs12": (48, 12), "hd1280": (1280, 16)}
+F15_BIT_EQUAL = ("hd320", "hd40", "hd8", "hd6", "hd48_bs12", "hd1280")
 F15_REPS = (1, 8)
 F15_NKV = 8
 F15_LENS = {"attn_decode_pos_major": 1024, "attn_decode_head_major": 2048}  # max_len by layout
@@ -3289,12 +3388,14 @@ def _near_tie_ok(token, logits):
 
 
 def search_head_dims(peaks, flush):
-    """Part 1a: K4 and K5 against their plain versions at head_dims 48, 80,
-    96, 112, 320, 40 and 8, rep 1 and 8, 8 kv heads, batch 8 (K4 at 1024
-    positions, the pos-major layout's 8192-lane cap; K5 at 2048), each timed
-    beside its plain version, its bound and SDPA on a dequantized cache
-    (``_attention_row``, the tolerance of check_attention_kernels; bit for
-    bit at ``F15_BIT_EQUAL``). -> {wrapper name: {"hd<d>_rep<r>": row}}"""
+    """Part 1a: K4 and K5 against their plain versions at the head_dims and
+    blocks of ``F15_SHAPES`` (48, 80, 96, 112, 320, 40 and 8; since fault
+    18's repair 6, a block of 12 at 48 and 1280), rep 1 and 8, 8 kv heads,
+    batch 8 (K4 at 1024 positions, the pos-major layout's 8192-lane cap; K5
+    at 2048), each timed beside its plain version, its bound and SDPA on a
+    dequantized cache (``_attention_row``, the tolerance of
+    check_attention_kernels; bit for bit at ``F15_BIT_EQUAL``). ->
+    {wrapper name: {"<shape>_rep<r>": row}}"""
     from llm_mixed_q_torch.kernels.attention_decode import (
         k4_tiles, k5_tiles, packed_attention_decode_batch_cuda,
         packed_attention_decode_batch_plain, packed_attention_decode_cuda,
@@ -3310,10 +3411,9 @@ def search_head_dims(peaks, flush):
     rows = {k: {} for k in kernels}
     for kname, (pos_major, fn, plain) in kernels.items():
         s_len, nkv = F15_LENS[kname], F15_NKV
-        for hd, rep in itertools.product(F15_HEAD_DIMS, F15_REPS):
+        for (shape, (hd, bs)), rep in itertools.product(F15_SHAPES.items(), F15_REPS):
             positions = torch.tensor([s_len - 1 - 9 * i for i in range(BATCH)],
                                      dtype=torch.int32, device="cuda")
-            bs = F15_BLOCKS.get(hd, 16)
             cache = _cache_inputs(gen, s_len, nkv, hd, pos_major, bs)
             q = _block_fp_qdq(torch.randn((BATCH * nkv * rep, hd), generator=gen,
                                           device="cuda"), 6, 8, 127, [1, 16], True)
@@ -3330,14 +3430,14 @@ def search_head_dims(peaks, flush):
             else:
                 args = (q.reshape(BATCH, nkv, rep, hd), *cache, positions, bs, bs, PROB_Q)
                 split = dict(zip(("T", "dgs", "pgs"), k5_tiles(nkv, rep, hd, s_len, bs, bs)))
-            r = _attention_row(f"{kname} hd{hd}_rep{rep}", lambda: fn(*args),
+            r = _attention_row(f"{kname} {shape}_rep{rep}", lambda: fn(*args),
                                lambda: plain(*args), library, positions, nkv, rep, hd, peaks,
                                flush, bs)
-            if hd in F15_BIT_EQUAL:
+            if shape in F15_BIT_EQUAL:
                 check(r["max_abs_err"] == 0.0, f"{kname} head_dim {hd}, rep {rep}: "
                                                f"{r['max_abs_err']} from its plain version")
             r.update(split=split, nkv=nkv, max_len=s_len, block=bs)
-            rows[kname][f"hd{hd}_rep{rep}"] = r
+            rows[kname][f"{shape}_rep{rep}"] = r
             log(f"  {kname} head_dim {hd}, rep {rep} (nkv {nkv}, max_len {s_len}, block {bs}, "
                 f"split {split}): max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
@@ -3763,7 +3863,7 @@ def run_search(peaks, flush):
     import tempfile
 
     t0 = time.perf_counter()
-    log("phase 12, part 1: K4 and K5 at head_dims 48, 80, 96, 112, 320, 40, 8 (fault 15):")
+    log(f"phase 12, part 1: K4 and K5 at {', '.join(F15_SHAPES)} (faults 15 and 18):")
     head_dims = search_head_dims(peaks, flush)
     hd80, counts = search_head_dim_80()
     out = {"head_dim_80": hd80}
@@ -4290,6 +4390,7 @@ def kernel_entries(rows, path_counts):
         extra = {key: r[key] for key in (
             "prefill_ms", "prefill_bound_ms", "prefill_bound_by", "prefill_library_ms",
             "opt_mlp_ms", "opt_mlp_prefill_ms", "variants", "beside_ms", "aliases", "sass_ldg",
+            "split_ms", "matmul_alone_ms", "pdl_race",
             "k2_vs_c32_k512_err", "k3_vs_c32_t1_err", "k4_vs_anchor_err", "v2_full_vs_anchor_err",
             "v3_masks_vs_anchor_err", "kernels_ms", "shapes", "bert_shapes", "head_dims")
             if key in r}
@@ -4386,7 +4487,8 @@ def main(only=None):
             f"and {PREFILL_M} rows:")
         log(json.dumps({"bfp_matmul_int8": check_matmul_kernels(peaks, flush,
                                                                 only="bfp_matmul_int8"),
-                        "actq_split": check_actq_split(peaks, flush)}))
+                        "actq_split": check_actq_split(peaks, flush),
+                        "pdl_race": check_pdl_race()}))
         return
     if only == "k3":
         log(f"K3 (with actq_split) vs its plain version at 7B decode shapes and OPT fc1/fc2, "
@@ -4414,6 +4516,9 @@ def main(only=None):
         f"{PREFILL_M} rows):")
     rows = check_matmul_kernels(peaks, flush)
     rows["actq_split"] = check_actq_split(peaks, flush)
+    log(f"K2 and K3 under PDL: unsynchronised calls on one workspace ({smi}):")
+    for kname, race in check_pdl_race().items():
+        rows[kname]["pdl_race"] = race
     rows.update(check_attention_kernels(peaks, flush))
     for r in rows.values():
         for pre in ("", "prefill_"):

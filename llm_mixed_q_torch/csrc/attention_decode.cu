@@ -17,16 +17,23 @@
 //   [1, bs] runs of positions, positions past positions[b] counting as
 //   exactly 0 (as exp(-1e9 - m) = 0 makes them on the TPU);
 //   ctx = P . deq(V), float32.
-// Both take rep 1..8 query rows a kv head and every head_dim that is a
-// multiple of 4 (K5: up to 1024), with K and V scale blocks that are powers
-// of two or the whole head: a power of two keeps the tiles and thread
-// groups it always had, another head_dim gets tiles and dim groups that
-// divide it (chosen by kernels/attention_decode.py: k4_tiles, k5_tiles,
-// and checked by the host code here), and K5's P . V idles the threads
-// past its last whole position group. A head_dim off 16 bytes stages K5's
-// V codes with 4-byte copies; past 128 dims, K4 walks a head in ring
-// stages, each stage's dims summed into the same scores and written to
-// their own rows of P . V's partials.
+// Both take rep 1..8 query rows a kv head, every head_dim (K4: up to
+// 65535; K5: wherever two ring stages fit in shared memory, up to 3011
+// dims at rep 8 and a scale a code) and every K and V scale block that divides
+// it: a power of two keeps the tiles, thread groups and shifts it always
+// had, another head_dim gets tiles and dim groups that divide it (chosen
+// by kernels/attention_decode.py: k4_tiles, k5_tiles, and checked by the
+// host code here), and K5's P . V idles the threads past its last whole
+// position group. Another block length takes a dim's scale row by a
+// counter or a quotient taken once for the dims a thread owns, never by a
+// division in an inner loop. A head_dim off 16 bytes stages K5's V codes
+// with 4-byte copies; one off 4 bytes stages them a byte at a time into
+// rows padded to 4 bytes in shared memory (the cache itself keeps the JAX
+// package's layout), whose last, partial group of 4 dims is computed and
+// not stored. Past 128 dims, K4 walks a head in ring stages, each stage's
+// dims summed into the same scores and written to their own rows of P .
+// V's partials; past 1024 dims, K5's P . V walks a head in passes of 1024
+// dims, each pass's sums kept in shared memory from tile to tile.
 //
 // What bounds them on an H100: the cache bytes (1 byte per code + 4/bs per
 // scale, K and V) of the filled positions over the 3.35 TB/s memory rate;
@@ -113,9 +120,13 @@ namespace {
 
 constexpr int kRepMax = 8;
 constexpr int kSmemMax = 227 * 1024;
-// the shift of a scale block as long as the head (a length that need not
-// be a power of two): every dim's index shifted by it is 0
-constexpr int kWholeHead = 16;
+
+// The scale row of dim d under blocks of bs dims: a shift where bs is a
+// power of two (lbs = log2 bs), else a quotient (lbs = -1). For the dims a
+// thread owns, once, outside the loops that read the scales.
+__host__ __device__ __forceinline__ int block_of(int d, int bs, int lbs) {
+  return lbs >= 0 ? d >> lbs : d / bs;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -173,14 +184,15 @@ __device__ __forceinline__ float k4_code(uint32_t biased, int j) {
 struct K4Shape {
   int b, nkv, rep, hd, S, L;  // L = S * nkv lanes
   int G, P, lP, nch;       // heads and positions (2^lP) a block; chunks of S
-  int lbs_k, lbs_v;        // log2 of the K and V scale blocks (kWholeHead: the head)
+  int bs_k, bs_v;          // K and V scale blocks (dims)
+  int lbs_k, lbs_v;        // their log2, -1 where not a power of two
   int nsk, nsv;            // K and V scale rows a batch element (hd / bs)
   int cstr, sstr, pstr;    // a stage's code row (bytes) and scale row (floats); a prob row
   int stages1, stage1_bytes, stages2, stage2_bytes;
   int dgs;                 // scores: dim groups of threads
   int pgs;                 // P . V (G % 4 == 0): position groups of threads
   int nlb;                 // prob blocks of > min(P, 32) positions a row (0: none)
-  int dims;                // head dims a ring stage: a multiple of 16 that divides hd
+  int dims;                // head dims a ring stage: a divisor of hd that fits the blocks
   int codes16, ks16, vs16;  // 16-byte copies for the codes and for the K and V scales
 };
 
@@ -238,20 +250,22 @@ __device__ __forceinline__ void k4_queue_rows(uint8_t* dst, int dstr, const T* s
 
 // Scale rows a tile of `dims` dims uses: dims / bs, or the one row of a
 // longer block.
-__host__ __device__ __forceinline__ int k4_scale_rows(int dims, int lbs) {
-  return (1 << lbs) >= dims ? 1 : dims >> lbs;
+__host__ __device__ __forceinline__ int k4_scale_rows(int dims, int bs) {
+  return bs >= dims ? 1 : dims / bs;
 }
 
 // Queue tile t (dims t * s.dims ..) of the block's codes (row d at csrc +
-// d * L) and their scale rows (row i at ssrc + i * L) into `slot`.
+// d * L) and their scale rows (row i at ssrc + i * L; blocks of bs dims,
+// log2 lbs) into `slot`.
 __device__ __forceinline__ void k4_queue_tile(uint8_t* slot, const int8_t* csrc,
-                                              const float* ssrc, int lbs, int t,
+                                              const float* ssrc, int bs, int lbs, int t,
                                               const K4Shape& s, const K4Block& k,
                                               bool scales16) {
   const int d0 = t * s.dims;
   k4_queue_rows(slot, s.cstr, csrc + (size_t)d0 * s.L, s.dims, s, k, s.codes16);
-  k4_queue_rows(slot + s.dims * s.cstr, 4 * s.sstr, ssrc + (size_t)(d0 >> lbs) * s.L,
-                k4_scale_rows(s.dims, lbs), s, k, scales16);
+  k4_queue_rows(slot + s.dims * s.cstr, 4 * s.sstr,
+                ssrc + (size_t)block_of(d0, bs, lbs) * s.L, k4_scale_rows(s.dims, bs), s, k,
+                scales16);
 }
 
 // Phase 1: scores of the block's lanes. A ring stage holds s.dims dims of
@@ -260,7 +274,9 @@ __device__ __forceinline__ void k4_queue_tile(uint8_t* slot, const int8_t* csrc,
 // (one 4-byte code load and one 16-byte scale load a dim; where G % 4 == 0
 // (Q4) they are heads hh .. hh + 3 of one position, and q comes in one
 // 16-byte load a row) and dims dg * dims / dgs .. of every tile, REP rows
-// each (0: s.rep at run time). The dim groups are summed in order.
+// each (0: s.rep at run time); a tile's dim dd reads scale row dd / bs_k of
+// the stage (a stage starts on a block or inside one), by a shift or, for
+// another block length, by a counter. The dim groups are summed in order.
 // -> scores [b, nh, S].
 template <int REP, bool Q4>
 __global__ void __launch_bounds__(kK4Threads)
@@ -272,7 +288,7 @@ k4_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   K4Block k;
   if (!k4_block(s, positions, k)) return;
   const int rep = REP ? REP : s.rep, G = s.G, nh = s.nkv * rep;
-  const int nsr = k4_scale_rows(s.dims, s.lbs_k), n_tiles = s.hd / s.dims;
+  const int nsr = k4_scale_rows(s.dims, s.bs_k), n_tiles = s.hd / s.dims;
   const int8_t* kcb = kc + (size_t)k.b * s.hd * s.L;
   const float* ksb = ks + (size_t)k.b * s.nsk * s.L;
   const float* qb = q + ((size_t)k.b * nh + (size_t)k.h0 * rep) * s.hd;
@@ -280,7 +296,7 @@ k4_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 
   auto load = [&](int t) {
     uint8_t* slot = smem_k4 + (t % s.stages1) * s.stage1_bytes;
-    k4_queue_tile(slot, kcb, ksb, s.lbs_k, t, s, k, s.ks16);
+    k4_queue_tile(slot, kcb, ksb, s.bs_k, s.lbs_k, t, s, k, s.ks16);
     const int d0 = t * s.dims;
     float* qs = reinterpret_cast<float*>(slot + s.dims * s.cstr + 4 * nsr * s.sstr);
     for (int i = threadIdx.x; i < qrows * s.dims; i += kK4Threads) {
@@ -296,6 +312,9 @@ k4_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   const int nq = (s.P * G + 3) / 4, lq = threadIdx.x % nq, dg = threadIdx.x / nq;
   const int dpg = s.dims / s.dgs, l0 = 4 * lq;
   const bool active = dg < s.dgs && l0 < k.np * G;
+  // the scale row of this thread's first dim of a stage, and that dim's
+  // place in its block
+  const int krow0 = block_of(dg * dpg, s.bs_k, s.lbs_k), kin0 = dg * dpg - krow0 * s.bs_k;
   int hq[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) hq[j] = (l0 + j) % G;
@@ -314,12 +333,15 @@ k4_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     const uint8_t* slot = smem_k4 + (t % s.stages1) * s.stage1_bytes;
     const float* ss = reinterpret_cast<const float*>(slot + s.dims * s.cstr);
     const float* qs = ss + nsr * s.sstr;
+    int krow = krow0, kin = kin0;
 #pragma unroll 4
     for (int i = 0; i < dpg; ++i) {
       const int dd = dg * dpg + i;
       const uint32_t w =
           *reinterpret_cast<const uint32_t*>(slot + dd * s.cstr + l0) ^ 0x80808080u;
-      const float4 sc = *reinterpret_cast<const float4*>(ss + (dd >> s.lbs_k) * s.sstr + l0);
+      const int sr = s.lbs_k >= 0 ? dd >> s.lbs_k : krow;
+      if (s.lbs_k < 0 && ++kin == s.bs_k) kin = 0, ++krow;
+      const float4 sc = *reinterpret_cast<const float4*>(ss + sr * s.sstr + l0);
       const float kv[4] = {k4_code(w, 0) * sc.x, k4_code(w, 1) * sc.y, k4_code(w, 2) * sc.z,
                            k4_code(w, 3) * sc.w};
       const float* qd = qs + dd * rep * G;
@@ -444,8 +466,8 @@ k4_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   float* red = drow + maxrows;  // [pgs][dims][maxrows]
 
   auto load = [&](int t) {
-    k4_queue_tile(smem_k4 + (t % s.stages2) * s.stage2_bytes, vcb, vsb, s.lbs_v, t, s, k,
-                  s.vs16);
+    k4_queue_tile(smem_k4 + (t % s.stages2) * s.stage2_bytes, vcb, vsb, s.bs_v, s.lbs_v, t, s,
+                  k, s.vs16);
   };
   for (int t = 0; t < s.stages2 - 1; ++t) {
     if (t < n_tiles) load(t);
@@ -500,7 +522,7 @@ k4_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
            it += kK4Threads) {
         const int dd = it / (G / 4), hh = 4 * (it % (G / 4));
         const uint8_t* crow = slot + dd * s.cstr + hh;
-        const float* srow = ss + (dd >> s.lbs_v) * s.sstr + hh;
+        const float* srow = ss + block_of(dd, s.bs_v, s.lbs_v) * s.sstr + hh;
         float acc[4][RM];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -540,7 +562,7 @@ k4_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
       for (int o = threadIdx.x; o < qrows * s.dims; o += kK4Threads) {
         const int dd = o / qrows, row = o % qrows, hh = row / rep, r = row % rep;
         const int8_t* crow = reinterpret_cast<const int8_t*>(slot) + dd * s.cstr + hh;
-        const float* srow = ss + (dd >> s.lbs_v) * s.sstr + hh;
+        const float* srow = ss + block_of(dd, s.bs_v, s.lbs_v) * s.sstr + hh;
         float acc = 0.f;
         for (int pp = 0; pp < k.np; ++pp)
           acc = fmaf(prT[(pp * rep + r) * G + hh], (float)crow[pp * G] * srow[pp * G], acc);
@@ -576,20 +598,14 @@ cudaError_t allow_dynamic_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// head_dims the kernels take: every multiple of 4 (K5: up to kK5MaxHd,
-// 256 threads of 4 dims in P . V), under kWholeHead's 2^16
-constexpr int kK5MaxHd = 1024;
-bool head_dim_ok(int hd, int most) { return hd >= 4 && hd <= most && hd % 4 == 0; }
+// the longest head_dim K4 takes (K5's is where its ring stages fit)
+constexpr int kK4MaxHd = (1 << 16) - 1;
 
-// log2 of a scale block of bs dims, kWholeHead for a block as long as the
-// head, -1 for any other block
-int block_shift(int bs, int hd) {
-  const int l = ilog2(bs);
-  return l >= 0 ? l : (bs == hd ? kWholeHead : -1);
-}
+// a scale block of bs dims that divides the head
+bool block_ok(int bs, int hd) { return bs >= 1 && hd % bs == 0; }
 
 // a run of n dims lies inside one scale block of bs dims, or holds whole
-// ones (bs a power of two or the head)
+// ones
 bool fits_blocks(int n, int bs) { return n % bs == 0 || bs % n == 0; }
 
 
@@ -639,16 +655,16 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
               int S, int bs_k, int bs_v, int G, int P, int dims, int dgs, int pgs,
               float sqrt_hd, lmq::BfpSpec pq, cudaStream_t stream) {
-  const int lbs_k = block_shift(bs_k, hd), lbs_v = block_shift(bs_v, hd), lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax ||
-      !head_dim_ok(hd, (1 << kWholeHead) - 1) || hd % bs_k ||
-      hd % bs_v || lbs_k < 0 || lbs_v < 0 || G < 1 || G > nkv || G * rep > kK4Rows || lP < 0 ||
-      P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30))
+  const int lP = ilog2(P);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || hd < 1 || hd > kK4MaxHd ||
+      !block_ok(bs_k, hd) || !block_ok(bs_v, hd) || G < 1 || G > nkv || G * rep > kK4Rows ||
+      lP < 0 || P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   K4Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S, s.L = S * nkv;
   s.G = G, s.P = P, s.lP = lP, s.nch = (S + P - 1) / P;
-  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.nsk = hd / bs_k, s.nsv = hd / bs_v;
+  s.bs_k = bs_k, s.bs_v = bs_v, s.lbs_k = ilog2(bs_k), s.lbs_v = ilog2(bs_v);
+  s.nsk = hd / bs_k, s.nsv = hd / bs_v;
   s.cstr = (P * G + 15) & ~15;
   s.sstr = (P * G + 3) & ~3;
   s.pstr = P + 1;
@@ -660,14 +676,17 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
   // groups, chosen by the caller (kernels/attention_decode.py: k4_tiles):
   // checked here against what the kernels take, two ring stages fitting in
   // each kernel's shared memory (a call allocates the slots of its tiles)
-  if (dims < 4 || dims > kK4MaxDims || dims % 4 || hd % dims || !fits_blocks(dims, bs_k) ||
+  if (dims < 1 || dims > kK4MaxDims || hd % dims || !fits_blocks(dims, bs_k) ||
       !fits_blocks(dims, bs_v) || dgs < 1 || dims % dgs || dgs * nq > kK4Threads || pgs < 1 ||
       (pgs > 1 && !(q4 && pgs * (G / 4) * dims <= kK4Threads)))
     return (int)cudaErrorInvalidValue;
   s.dims = dims, s.dgs = dgs, s.pgs = pgs;
   const int n_tiles = hd / dims;
-  s.stage1_bytes = dims * s.cstr + 4 * k4_scale_rows(dims, lbs_k) * s.sstr + 4 * dims * rows;
-  s.stage2_bytes = dims * s.cstr + 4 * k4_scale_rows(dims, lbs_v) * s.sstr;
+  // q's tile rounded up to 16 bytes (dims * rows off 4 where dims is), so
+  // that every slot starts on 16 bytes
+  s.stage1_bytes =
+      dims * s.cstr + 4 * k4_scale_rows(dims, bs_k) * s.sstr + ((4 * dims * rows + 15) & ~15);
+  s.stage2_bytes = dims * s.cstr + 4 * k4_scale_rows(dims, bs_v) * s.sstr;
   const int persist2 = 4 * (P * rows + 2 * rows + (q4 ? pgs * dims * rows : 0));
   const int want = n_tiles < kK4Stages ? (n_tiles > 2 ? n_tiles : 2) : kK4Stages;
   s.stages1 = kSmemMax / s.stage1_bytes < want ? kSmemMax / s.stage1_bytes : want;
@@ -711,15 +730,21 @@ struct K5Shape {
   int b, nkv, rep, hd, S;
   int P, nch;              // positions a block (a power of two); chunks of S
   int T, lT;               // positions a ring stage (2^lT): a block's tiles
-  int lbs_k, lbs_v;        // log2 of the K and V scale blocks
+  int bs_k, bs_v;          // K and V scale blocks (dims)
+  int lbs_k, lbs_v;        // their log2, -1 where not a power of two
   int ksr, vsc;            // K scale rows (hd / bs_k); V scales a position (hd / bs_v)
   int cstr, sstr, pstr;    // K tile: a code row (bytes), a scale row (floats); a score row
   int dgs, pgs;            // scores: dim groups; P . V: position groups
+  int hdp;                 // hd rounded up to 4: a V code row and a row of P . V's sums
+  int qfl;                 // floats of q's rows in shared memory (rep * hd rounded up to 4)
+  int vw, npass;           // P . V: threads of a position group (4 dims each); passes
   int stage1, stage2;      // bytes of a ring stage: K tile, V tile
-  int vco;                 // bytes of a V stage's codes, rounded up to 16 (its scales follow)
+  int kco, vco;            // bytes of a K / V stage's codes, rounded up to 16 (scales follow)
   int red1;                // floats of the scores kernel's dim-group sums
   int kc16, ks16, vc16, vs16, q16;  // 16-byte copies (else an element at a time)
-  int vc4;                 // V codes by 4-byte copies (where vc16 is off)
+  int vc4;                 // V codes by 4-byte copies (where vc16 is off; hd % 4 == 0)
+  int vfold;               // bs_v % 4 == 0: a thread's 4 dims share one V scale
+  int vs4;                 // bs_v == 1, hd % 4 == 0: a thread's 4 V scales in one load
 };
 
 // The block's chunk of (batch element b, kv head h): positions p0 .. p0 +
@@ -777,8 +802,9 @@ __device__ __forceinline__ void k5_queue_rows(T* dst, int dstr, const T* src, in
 // Thread (quad lq, dim group dg) takes positions 4 lq .. 4 lq + 3 of the
 // tile and dims dg * hd / dgs .. of REP rows (0: s.rep at run time): one
 // 4-byte code load a dim and one q load a row serve the four positions,
-// and q . codes over the dims of one scale row is multiplied by that row's
-// four scales (one 16-byte load); the dim groups are summed in order.
+// and q . codes over the dims of one scale row (a run of min(hd / dgs,
+// bs_k) dims, the next run the next row) is multiplied by that row's four
+// scales (one 16-byte load); the dim groups are summed in order.
 // -> scores [b, nh, S].
 template <int REP>
 __global__ void __launch_bounds__(kK5Threads)
@@ -791,7 +817,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   if (!k5_block(s, positions, k)) return;
   const int rep = REP ? REP : s.rep;
   float* qs = reinterpret_cast<float*>(smem_k5);  // [rep][hd]
-  float* red = qs + rep * s.hd;                   // [dgs][rep][pstr]
+  float* red = qs + s.qfl;                        // [dgs][rep][pstr]
   uint8_t* ring = reinterpret_cast<uint8_t*>(red + s.red1);
 
   const int8_t* kcb = kc + k.bh * s.hd * s.S + k.p0;
@@ -800,7 +826,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     uint8_t* kt = ring + (t & 1) * s.stage1;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
     k5_queue_rows(kt, s.cstr, reinterpret_cast<const uint8_t*>(kcb) + t0, s.hd, n, s.S, s.kc16);
-    k5_queue_rows(reinterpret_cast<float*>(kt + s.hd * s.cstr), s.sstr, ksb + t0, s.ksr, n, s.S,
+    k5_queue_rows(reinterpret_cast<float*>(kt + s.kco), s.sstr, ksb + t0, s.ksr, n, s.S,
                   s.ks16);
   };
   k5_queue_rows(qs, 0, q + k.row0 * s.hd, 1, rep * s.hd, 0, s.q16);
@@ -809,7 +835,8 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 
   const int nq = (s.T + 3) >> 2, lq = threadIdx.x % nq, dg = threadIdx.x / nq;
   const int dpg = s.hd / s.dgs, l0 = 4 * lq;
-  const int run = min(dpg, 1 << s.lbs_k);  // a thread's dims under one scale row
+  const int run = min(dpg, s.bs_k);  // a thread's dims under one scale row
+  const int kr0 = block_of(dg * dpg, s.bs_k, s.lbs_k);  // the scale row of its first dim
   float* out = scores + k.row0 * s.S + k.p0;
   for (int t = 0; t < k.nt; ++t) {
     if (t + 1 < k.nt) load(t + 1);
@@ -817,7 +844,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     cp_async_wait(1);  // this thread's copies of tile t have landed
     __syncthreads();   // everyone's have
     const uint8_t* kt = ring + (t & 1) * s.stage1;
-    const float* kst = reinterpret_cast<const float*>(kt + s.hd * s.cstr);
+    const float* kst = reinterpret_cast<const float*>(kt + s.kco);
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
     const bool active = dg < s.dgs && l0 < n;
     float acc[4][RM];
@@ -827,7 +854,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
       for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
     if (active) {
       // q . codes over the dims of one scale row, then times the scales
-      for (int i0 = 0; i0 < dpg; i0 += run) {
+      for (int i0 = 0, kr = kr0; i0 < dpg; i0 += run, ++kr) {
         float part[4][RM];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -846,8 +873,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
             for (int j = 0; j < 4; ++j) part[j][r] = fmaf(qv, c[j], part[j][r]);
           }
         }
-        const float4 sc4 = *reinterpret_cast<const float4*>(
-            kst + ((dg * dpg + i0) >> s.lbs_k) * s.sstr + l0);
+        const float4 sc4 = *reinterpret_cast<const float4*>(kst + kr * s.sstr + l0);
         const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -879,14 +905,19 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 
 // Phase 3 (phase 2 is k4_stats_kernel): the block's V tiles, each one run
 // of T * hd code bytes and one of T * hd / bs_v scale floats, through a
-// 2-stage cp.async ring, the next tile queued before this one's
+// 2-stage cp.async ring (a head_dim off 4: the code rows staged a byte at
+// a time into rows of hdp bytes), the next tile queued before this one's
 // probabilities are built: from phase 2's statistics, quantized (a block
 // of <= min(T, 32) positions by a shuffle of its lanes, a longer one by its
 // max of exp over the denominator), into prT [T][rep]; then P . deq(V) of
 // the tile: thread (dim quad dq, position group pg) takes dims 4 dq .. 4 dq
-// + 3 (one 4-byte code load a position; a scale block of 4 dims or more
-// folds its scale, a power of two, into the probability) and positions pg,
-// pg + pgs, ... of every tile, the groups summed in order at the end.
+// + 3 (one 4-byte code load a position; a scale block of a multiple of 4
+// dims folds its scale into the probability; the dims past hd of the last
+// quad are computed and not stored) and positions pg, pg + pgs, ... of
+// every tile, the groups summed in order at the end. Past 1024 dims
+// (npass > 1, one position group) a thread takes dims 4 dq + 1024 i .. in
+// pass i, each pass's sums kept in shared memory [rep][hdp] from tile to
+// tile.
 // -> partial [b, nch, hd, nh].
 template <int REP>
 __global__ void __launch_bounds__(kK5Threads)
@@ -903,20 +934,25 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   float* mrow = prT + s.T * rep;
   float* drow = mrow + rep;
   // the ring after them (16-byte aligned); at the end, the position
-  // groups' sums [pgs][rep][hd] in its place
+  // groups' sums [pgs][rep][hdp] in its place, or, with passes, after it
   uint8_t* ring = smem_k5 + ((4 * (s.T * rep + 2 * rep) + 15) & ~15);
+  const bool passes = s.npass > 1;
+  float* red = reinterpret_cast<float*>(passes ? ring + 2 * s.stage2 : ring);
 
   const size_t pos0 = k.bh * s.S + k.p0;  // the chunk's first position in the cache
   auto load = [&](int t) {
     uint8_t* vt = ring + (t & 1) * s.stage2;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
-    if (s.vc4)  // hd % 4 == 0: a tile's run of codes is whole 4-byte words
+    if (s.vc16)
+      k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
+                    true);
+    else if (s.vc4)  // hd % 4 == 0: a tile's run of codes is whole 4-byte words
       k5_queue_rows(reinterpret_cast<uint32_t*>(vt), 0,
                     reinterpret_cast<const uint32_t*>(vc + (pos0 + t0) * s.hd), 1,
                     n * s.hd / 4, 0, false);
-    else
-      k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
-                    s.vc16);
+    else  // a byte at a time, a position's hd codes to a row of hdp bytes
+      k5_queue_rows(reinterpret_cast<int8_t*>(vt), s.hdp, vc + (pos0 + t0) * s.hd, n, s.hd,
+                    s.hd, false);
     k5_queue_rows(reinterpret_cast<float*>(vt + s.vco), 0, vs + (pos0 + t0) * s.vsc, 1,
                   n * s.vsc, 0, s.vs16);
   };
@@ -931,12 +967,14 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     mrow[r] = stats[k.row0 + r];
     drow[r] = stats[(size_t)s.b * nh + k.row0 + r];
   }
+  if (passes)
+    for (int i = threadIdx.x; i < rep * s.hdp; i += kK5Threads) red[i] = 0.f;
   const float* emax = stats + 2 * (size_t)s.b * nh + k.row0 * nlb;  // [rep][nlb]
   __syncthreads();
 
-  // pgs whole groups of hd / 4 threads; where they do not fill the block,
-  // the threads past them idle (pg >= pgs)
-  const int nd4 = s.hd >> 2, dq = threadIdx.x % nd4, pg = threadIdx.x / nd4, d0 = 4 * dq;
+  // pgs whole groups of vw threads; where they do not fill the block, the
+  // threads past them idle (pg >= pgs)
+  const int dq = threadIdx.x % s.vw, pg = threadIdx.x / s.vw, d0 = 4 * dq;
   const bool pv_on = pg < s.pgs;
   const int nel = rep << s.lT, nel32 = (nel + 31) & ~31;
   float acc[4][RM];
@@ -944,6 +982,54 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+
+  // P . deq(V) of the tile's positions pg, pg + pgs, ... < n for dims
+  // dd .. dd + 3 into a, a loop for each way of taking the scales (a loop
+  // that tested the way at each position ran 12% slower at rep 1 on an
+  // H100); each dim's scale row taken once, clamped to the head's last for
+  // the dims past hd, which are not stored
+  auto pv = [&](float (&a)[4][RM], int dd, const uint8_t* vt, const float* vst, int n) {
+    if (s.vfold) {  // one scale for the four dims: folded into the probability
+      const int si = block_of(dd, s.bs_v, s.lbs_v);
+      for (int pp = pg; pp < n; pp += s.pgs) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hdp + dd) ^ 0x80808080u;
+        const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
+        const float sc = vst[pp * s.vsc + si];
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (!REP && r >= rep) break;
+          const float ps = prT[pp * rep + r] * sc;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j][r] = fmaf(ps, c[j], a[j][r]);
+        }
+      }
+      return;
+    }
+    int si[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) si[j] = block_of(min(dd + j, s.hd - 1), s.bs_v, s.lbs_v);
+    for (int pp = pg; pp < n; pp += s.pgs) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hdp + dd) ^ 0x80808080u;
+      const float* srow = vst + pp * s.vsc;
+      const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
+      float v[4];
+      if (s.vs4) {
+        const float4 v4 = *reinterpret_cast<const float4*>(srow + dd);
+        v[0] = c[0] * v4.x, v[1] = c[1] * v4.y, v[2] = c[2] * v4.z, v[3] = c[3] * v4.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = c[j] * srow[si[j]];
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        if (!REP && r >= rep) break;
+        const float pr = prT[pp * rep + r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j][r] = fmaf(pr, v[j], a[j][r]);
+      }
+    }
+  };
+
   for (int t = 0; t < k.nt; ++t) {
     if (t + 1 < k.nt) load(t + 1);
     cp_async_commit();
@@ -972,52 +1058,42 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     __syncthreads();   // everyone's have, and the probabilities are in
     const uint8_t* vt = ring + (t & 1) * s.stage2;
     const float* vst = reinterpret_cast<const float*>(vt + s.vco);
-    for (int pp = pv_on ? pg : n; pp < n; pp += s.pgs) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hd + d0) ^ 0x80808080u;
-      const float* srow = vst + pp * s.vsc;
-      const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
-      if (s.lbs_v >= 2) {  // one scale for the four dims: folded into the probability
-        const float sc = srow[d0 >> s.lbs_v];
+    if (!passes) {
+      if (pv_on) pv(acc, d0, vt, vst, n);
+    } else {  // each pass's sums from shared memory through acc and back
+      for (int i = 0; i < s.npass && d0 + 4 * s.vw * i < s.hd; ++i) {
+        const int dd = d0 + 4 * s.vw * i;
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           if (!REP && r >= rep) break;
-          const float ps = prT[pp * rep + r] * sc;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[j][r] = fmaf(ps, c[j], acc[j][r]);
+          const float4 v4 = *reinterpret_cast<const float4*>(red + r * s.hdp + dd);
+          acc[0][r] = v4.x, acc[1][r] = v4.y, acc[2][r] = v4.z, acc[3][r] = v4.w;
         }
-      } else {
-        float v[4];
-        if (s.lbs_v == 1) {
-          v[0] = c[0] * srow[d0 >> 1], v[1] = c[1] * srow[d0 >> 1];
-          v[2] = c[2] * srow[(d0 >> 1) + 1], v[3] = c[3] * srow[(d0 >> 1) + 1];
-        } else {
-          const float4 v4 = *reinterpret_cast<const float4*>(srow + d0);
-          v[0] = c[0] * v4.x, v[1] = c[1] * v4.y, v[2] = c[2] * v4.z, v[3] = c[3] * v4.w;
-        }
+        pv(acc, dd, vt, vst, n);
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           if (!REP && r >= rep) break;
-          const float pr = prT[pp * rep + r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[j][r] = fmaf(pr, v[j], acc[j][r]);
+          *reinterpret_cast<float4*>(red + r * s.hdp + dd) =
+              make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
         }
       }
     }
     __syncthreads();  // tile t's stage and the probabilities are free
   }
-  float* red = reinterpret_cast<float*>(ring);  // [pgs][rep][hd]
+  if (!passes) {  // the position groups' sums [pgs][rep][hdp], in the ring's place
 #pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    if ((!REP && r >= rep) || !pv_on) break;
-    *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hd + d0) =
-        make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+    for (int r = 0; r < RM; ++r) {
+      if ((!REP && r >= rep) || !pv_on) break;
+      *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hdp + d0) =
+          make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   float* pout = partial + ((size_t)k.b * s.nch + k.c) * s.hd * nh + (size_t)k.h * rep;
   for (int o = threadIdx.x; o < rep * s.hd; o += kK5Threads) {
     const int d = o / rep, r = o % rep;
-    float a = red[r * s.hd + d];
-    for (int g = 1; g < s.pgs; ++g) a += red[(g * rep + r) * s.hd + d];
+    float a = red[r * s.hdp + d];
+    for (int g = 1; g < s.pgs; ++g) a += red[(g * rep + r) * s.hdp + d];
     pout[(size_t)d * nh + r] = a;
   }
 }
@@ -1055,57 +1131,70 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
               int S, int bs_k, int bs_v, int P, int T, int dgs, int pgs, float sqrt_hd,
               lmq::BfpSpec pq, cudaStream_t stream) {
-  const int lbs_k = block_shift(bs_k, hd), lbs_v = block_shift(bs_v, hd), lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || !head_dim_ok(hd, kK5MaxHd) ||
-      lbs_k < 0 || lbs_v < 0 || hd % bs_k || hd % bs_v || lP < 0 ||
-      ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
+  const int lP = ilog2(P);
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || hd < 1 || !block_ok(bs_k, hd) ||
+      !block_ok(bs_v, hd) || lP < 0 || ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
     return (int)cudaErrorInvalidValue;
   K5Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S;
   s.P = P, s.nch = (S + P - 1) / P;
-  s.lbs_k = lbs_k, s.lbs_v = lbs_v, s.ksr = hd / bs_k, s.vsc = hd / bs_v;
+  s.bs_k = bs_k, s.bs_v = bs_v, s.lbs_k = ilog2(bs_k), s.lbs_v = ilog2(bs_v);
+  s.ksr = hd / bs_k, s.vsc = hd / bs_v;
+  s.hdp = (hd + 3) & ~3;
+  s.qfl = (rep * hd + 3) & ~3;
+  // P . V: a thread 4 dims of a pass, up to 1024 dims a pass
+  const int nd4 = s.hdp / 4;
+  s.vw = nd4 < kK5Threads ? nd4 : kK5Threads;
+  s.npass = (nd4 + s.vw - 1) / s.vw;
   // the ring stage's positions, the scores' dim groups (each group's runs
   // under one K scale) and P . V's position groups (the threads past pgs
-  // whole groups of hd / 4 idle), chosen by the caller
-  // (kernels/attention_decode.py: k5_tiles): checked here, two ring stages
-  // fitting in each kernel's shared memory
+  // whole groups of vw idle; one group where a head takes passes), chosen
+  // by the caller (kernels/attention_decode.py: k5_tiles): checked here,
+  // two ring stages fitting in each kernel's shared memory
   const int nq = (T + 3) / 4;
   if (dgs < 1 || hd % dgs || !fits_blocks(hd / dgs, bs_k) || dgs * nq > kK5Threads ||
-      pgs < 1 || pgs * (hd / 4) > kK5Threads)
+      pgs < 1 || pgs * s.vw > kK5Threads || (s.npass > 1 && pgs != 1))
     return (int)cudaErrorInvalidValue;
   s.T = T, s.lT = ilog2(T), s.dgs = dgs, s.pgs = pgs;
-  s.cstr = (T + 15) & ~15;
+  // a K code row: 16-byte copies of T >= 16 positions, else element
+  // copies into rows of 4-byte words
+  s.cstr = T >= 16 ? (T + 15) & ~15 : (T + 3) & ~3;
   s.sstr = (T + 3) & ~3;
   s.pstr = T + 1;
   s.red1 = (dgs * rep * s.pstr + 3) & ~3;
-  s.stage1 = hd * s.cstr + 4 * s.ksr * s.sstr;
-  s.vco = (T * hd + 15) & ~15;
+  s.kco = (hd * s.cstr + 15) & ~15;
+  s.stage1 = s.kco + 4 * s.ksr * s.sstr;
+  s.vco = (T * s.hdp + 15) & ~15;
   s.stage2 = s.vco + 4 * ((T * s.vsc + 3) & ~3);
-  const int smem1 = 4 * (rep * hd + s.red1) + 2 * s.stage1;
-  const int ring2 = 2 * s.stage2, red2 = 4 * pgs * rep * hd;
-  const int smem2 = ((4 * (T * rep + 2 * rep) + 15) & ~15) + (ring2 > red2 ? ring2 : red2);
+  const int smem1 = 4 * (s.qfl + s.red1) + 2 * s.stage1;
+  const int ring2 = 2 * s.stage2, red2 = 4 * pgs * rep * s.hdp;
+  const int smem2 = ((4 * (T * rep + 2 * rep) + 15) & ~15) +
+                    (s.npass > 1 ? ring2 + red2 : (ring2 > red2 ? ring2 : red2));
   if (smem1 > kSmemMax || smem2 > kSmemMax) return (int)cudaErrorInvalidValue;
   // 16-byte copies where every run starts on 16 bytes and ends inside its
   // row when rounded up to 16 bytes: codes by the position (K) or by hd % 16
-  // == 0 (V, else 4-byte copies); scales by 4 floats; q by hd % 4 == 0
+  // == 0 (V, else 4-byte copies where hd % 4 == 0, else bytes); scales by
+  // 4 floats; q by hd % 4 == 0
   const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   s.kc16 = al(kc) && S % 16 == 0 && s.T % 16 == 0;
   s.ks16 = al(ks) && S % 4 == 0 && s.T % 4 == 0;
   s.vc16 = al(vc) && hd % 16 == 0;
-  s.vc4 = !s.vc16 && reinterpret_cast<uintptr_t>(vc) % 4 == 0;
+  s.vc4 = !s.vc16 && hd % 4 == 0 && reinterpret_cast<uintptr_t>(vc) % 4 == 0;
   s.vs16 = al(vs) && s.vsc % 4 == 0;
-  s.q16 = al(q);
+  s.q16 = al(q) && hd % 4 == 0;
+  s.vfold = bs_v % 4 == 0;
+  s.vs4 = bs_v == 1 && hd % 4 == 0;
 
   // K4's stats and sum kernels read only the workspace: K4's shape with
   // one head a block, chunks of P, and a max of exp for each prob block
-  // longer than min(T, 32) (T >= 32 where P >= 32, so min(P, 32) too)
+  // longer than min(T, 32) (the workspace holds them: k4_workspace_floats
+  // with K5's T)
   K4Shape s4{};
   s4.b = b, s4.nkv = nkv, s4.rep = rep, s4.hd = hd, s4.S = S, s4.L = S * nkv;
   s4.G = 1, s4.P = P, s4.lP = lP, s4.nch = s.nch;
   const int lpb = ilog2(pq.bs);
   const int shuffle_max = s.T < 32 ? s.T : 32;
   s4.nlb = pq.on && pq.bs > shuffle_max ? (S + pq.bs - 1) >> lpb : 0;
-  if ((s.T < 32) != (P < 32)) return (int)cudaErrorInvalidValue;
 
   // ws: scores [b, nh, S], partials [b, nch, hd, nh], stats (2 + nlb) [b, nh]
   K5Args a{};

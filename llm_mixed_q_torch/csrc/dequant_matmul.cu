@@ -18,7 +18,11 @@
 // into shared memory, a quantizer block being a run of 1..32 lanes of a
 // warp. K2 and K3 run it once a call, in a kernel of its own (actq_split),
 // that writes x as two bf16 terms into a workspace; the same C call then
-// launches the matmul on that workspace.
+// launches the matmul on that workspace with programmatic dependent launch
+// (PDL): the matmul's blocks start while actq_split runs, queue the first
+// ring stages of their weights (which do not depend on x), and wait for
+// actq_split (griddepcontrol.wait) before their first read of the
+// workspace.
 //
 // What bounds them on an H100: at decode M (<= 16 rows) the product does
 // 2*M flops per weight element and reads the packed weight once, so its
@@ -54,9 +58,9 @@
 //   quantizes all of x, and 2 blocks of 128 registers a thread leave 4
 //   warps a scheduler to hide the latency of a tile's barrier and dependent
 //   mma chain.
-// - K2: actq_split quantizes x once a call (one block a row) and writes hi =
-//   bf16(q) and lo = bf16(q - hi) [M][kw] and a flag a row where lo is
-//   nonzero; with no quantizer it only splits, so raw float32 x keeps
+// - K2: actq_split quantizes x once a call (a block a row and 512 K) and
+//   writes hi = bf16(q) and lo = bf16(q - hi) [M][kw] and a flag a row and
+//   512 K where lo is nonzero; with no quantizer it only splits, so raw float32 x keeps
 //   float32 semantics as in K1. int8_kernel then streams codes [N, K_pad]
 //   (A's natural row-major layout), float32 scales and x hi through a
 //   4-stage cp.async ring (16 bytes a thread, coalesced along K); lo comes
@@ -145,6 +149,16 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
+
+// Programmatic dependent launch (Hopper): a kernel launched after another
+// with cudaLaunchAttributeProgrammaticStreamSerialization may start once
+// every block of the one before it has run launch_dependents (or exited);
+// its wait returns when that grid has finished and its writes are visible
+// (at once for a kernel launched without the attribute).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
 // d += a . b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
 // d 16 x 8 float32.
@@ -458,23 +472,33 @@ subbyte_t_kernel(const float* __restrict__ x, const uint32_t* __restrict__ words
 
 // ---------------------------------------------------------------- K2
 
-// actq_split: x [M, K] float32 -> the workspace of K2: hi [M][kw] and lo
-// [M][kw] bf16 (hi = bf16(q), lo = bf16(q - hi), q = actq(x) or x itself,
-// 0 past K), then lo_rows [M] bytes (1 where a row has a nonzero lo). One
-// block a row; a thread takes 4 consecutive K, so a quantizer block
-// (aq.bs | 32) is held by one thread or by a run of aq.bs / 4 lanes; kw is
-// a multiple of 128, so every warp is either inside the row or past kw.
-constexpr int kSplitThreads = 1024;
+// actq_split: x [M, K] float32 -> the workspace of K2 and K3: hi [M][kw]
+// and lo [M][kw] bf16 (hi = bf16(q), lo = bf16(q - hi), q = actq(x) or x
+// itself, 0 past K), then lo_flags [M][kw / kSplitK] bytes (1 where a
+// chunk of a row has a nonzero lo; a row has a lo where any of its chunks
+// has). A block a chunk of kSplitK = 512 K of a row (kw is a multiple of
+// it: 8 x 8 = 64 blocks at M = 8 and K = 4096, where one block a row left
+// 124 of 132 SMs idle), a thread 4 consecutive K, so a quantizer block
+// (aq.bs | 32) is held by one thread or by a run of aq.bs / 4 lanes and
+// never straddles a chunk. Each block first lets the matmul launched
+// behind it with PDL start (pdl_launch_dependents): its blocks queue their
+// first weight stages while this kernel runs, and wait for it before they
+// read the workspace. What bounds it: latency (a few hundred bytes a block),
+// not its bytes.
+constexpr int kSplitThreads = 128;
+constexpr int kSplitK = 4 * kSplitThreads;
 
 __global__ void __launch_bounds__(kSplitThreads)
 actq_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
-                  __nv_bfloat16* __restrict__ lo, uint8_t* __restrict__ lo_rows, int K, int kw,
+                  __nv_bfloat16* __restrict__ lo, uint8_t* __restrict__ lo_flags, int K, int kw,
                   lmq::BfpSpec aq) {
-  const int row = blockIdx.x;
+  pdl_launch_dependents();
+  const int row = blockIdx.y;
   const float* xr = x + (size_t)row * K;
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   uint32_t lo_bits = 0;
-  for (int k = 4 * threadIdx.x; k < kw; k += 4 * kSplitThreads) {
+  {
+    const int k = blockIdx.x * kSplitK + 4 * threadIdx.x;
     float q[4];
     if (vec && k + 3 < K) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(xr + k));
@@ -509,7 +533,17 @@ actq_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ hi,
     *reinterpret_cast<uint2*>(lo + (size_t)row * kw + k) = make_uint2(l[0], l[1]);
   }
   const int any = __syncthreads_or(lo_bits != 0);
-  if (threadIdx.x == 0) lo_rows[row] = any ? 1 : 0;
+  if (threadIdx.x == 0) lo_flags[(size_t)row * gridDim.x + blockIdx.x] = any ? 1 : 0;
+}
+
+// Whether any of `rows` rows from m0 has a lo term: an OR over their chunk
+// flags (nck a row), by the whole block.
+__device__ __forceinline__ bool rows_have_lo(const uint8_t* __restrict__ lo_flags, int m0,
+                                             int rows, int nck) {
+  bool mine = false;
+  for (int i = threadIdx.x; i < rows * nck; i += kThreads)
+    mine |= lo_flags[(size_t)m0 * nck + i] != 0;
+  return __syncthreads_or(mine);
 }
 
 // int8_kernel: y [M, N] = (hi + lo) . (codes * scales)^T on the tensor
@@ -554,16 +588,31 @@ __host__ __device__ __forceinline__ int k2_slot_bytes(int lbs) {
   return COLS * T::CSTR + 2 * R * T::XSTR + 4 * COLS * k2_sstr<PC>(T::KT, lbs);
 }
 
-// Queue stage t (K t*KT ..) of the block's codes, scales and x hi into
-// `slot`, zero past N, past k_pad and past the live rows: 16-byte copies
-// where the rows allow them, else 4-byte ones (codes at bs 1 and 2 with k_pad
-// off 4 bytes: a byte at a time).
+// Queue stage t (K t*KT ..) of the block's x hi into `slot`, zero past the
+// live rows (16-byte copies: kw is a multiple of KT).
+template <int COLS, int R>
+__device__ __forceinline__ void k2_load_x(uint8_t* slot, const __nv_bfloat16* __restrict__ xhi,
+                                          int t, int m0, int M, int kw) {
+  using T = K2Tile<COLS>;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * T::CSTR);
+  for (int i = threadIdx.x; i < R * T::KT / 8; i += kThreads) {
+    const int r = i / (T::KT / 8), c = 8 * (i % (T::KT / 8));
+    const bool in = m0 + r < M;
+    cp_async16(xs + r * T::XSTR + c, in ? xhi + (size_t)(m0 + r) * kw + t * T::KT + c : xhi,
+               in ? 16 : 0);
+  }
+}
+
+// Queue stage t (K t*KT ..) of the block's codes and scales into `slot`,
+// zero past N and past k_pad: 16-byte copies where the rows allow them,
+// else 4-byte ones (codes at bs 1 and 2 with k_pad off 4 bytes: a byte at
+// a time). They do not depend on x: the first stages are queued before the
+// kernel waits for actq_split.
 template <int COLS, int R, bool PC>
-__device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __restrict__ codes,
-                                              const float* __restrict__ scales,
-                                              const __nv_bfloat16* __restrict__ xhi, int t,
-                                              int col0, int m0, int M, int N, int k_pad, int kw,
-                                              int lbs, bool codes16, bool scales16) {
+__device__ __forceinline__ void k2_load_weights(uint8_t* slot, const int8_t* __restrict__ codes,
+                                                const float* __restrict__ scales, int t, int col0,
+                                                int N, int k_pad, int lbs, bool codes16,
+                                                bool scales16) {
   using T = K2Tile<COLS>;
   const int k0 = t * T::KT;
   if (codes16) {
@@ -586,12 +635,6 @@ __device__ __forceinline__ void k2_load_stage(uint8_t* slot, const int8_t* __res
       cp_async4(slot + r * T::CSTR + c, in ? codes + (size_t)(col0 + r) * k_pad + k0 + c : codes,
                 in ? 4 : 0);
     }
-  }
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * T::CSTR);
-  for (int i = threadIdx.x; i < R * T::KT / 8; i += kThreads) {
-    const int r = i / (T::KT / 8), c = 8 * (i % (T::KT / 8));
-    const bool in = m0 + r < M;
-    cp_async16(xs + r * T::XSTR + c, in ? xhi + (size_t)(m0 + r) * kw + k0 + c : xhi, in ? 16 : 0);
   }
   if (PC) return;  // the scales come from L2 where they are applied
   float* ss = reinterpret_cast<float*>(slot + COLS * T::CSTR + 2 * R * T::XSTR);
@@ -644,7 +687,7 @@ __device__ __forceinline__ void k2_a_frag_pc(uint32_t (&a)[4], uint32_t wd0, uin
 template <int COLS, int R, bool PC>
 __global__ void __launch_bounds__(kThreads, COLS == 32 && R == 8 ? 3 : 2)
 int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restrict__ xlo,
-            const uint8_t* __restrict__ lo_rows, const int8_t* __restrict__ codes,
+            const uint8_t* __restrict__ lo_flags, const int8_t* __restrict__ codes,
             const float* __restrict__ scales, float* __restrict__ y, int M, int N, int k_pad,
             int kw, int lbs, bool codes16, bool scales16) {
   using T = K2Tile<COLS>;
@@ -662,9 +705,24 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
   const int rows = min(R, M - m0);
   const int live_nt = (rows + 7) / 8;
   const int n_tiles = (k_pad + T::KT - 1) / T::KT;
+
+  // the first stages' codes and scales, then (after actq_split, where it
+  // runs before this kernel under PDL) their x, each stage's x in a copy
+  // group of its own: stage s's copies have landed once group s has
+#pragma unroll
+  for (int s = 0; s < kK2Stages - 1; ++s)
+    if (s < n_tiles)
+      k2_load_weights<COLS, R, PC>(smem_k2 + s * slot_bytes, codes, scales, s, col0, N, k_pad,
+                                   lbs, codes16, scales16);
+  pdl_wait();
   // the lo products run only where some row of the block has a lo term (a
   // zero lo adds exactly 0 to the others)
-  const bool any_lo = __syncthreads_or(threadIdx.x < rows && lo_rows[m0 + threadIdx.x] != 0);
+  const bool any_lo = rows_have_lo(lo_flags, m0, rows, kw / kSplitK);
+#pragma unroll
+  for (int s = 0; s < kK2Stages - 1; ++s) {
+    if (s < n_tiles) k2_load_x<COLS, R>(smem_k2 + s * slot_bytes, xhi, s, m0, M, kw);
+    cp_async_commit();
+  }
 
   float acc[NT][4], fix[NT][4];
 #pragma unroll
@@ -673,21 +731,16 @@ int8_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restri
     for (int i = 0; i < 4; ++i) acc[nt][i] = fix[nt][i] = 0.f;
   bool fixed = false;  // warp-uniform: some scale of this warp was below kK2Bf16Scale
 
-#pragma unroll
-  for (int s = 0; s < kK2Stages - 1; ++s) {
-    if (s < n_tiles)
-      k2_load_stage<COLS, R, PC>(smem_k2 + s * slot_bytes, codes, scales, xhi, s, col0, m0, M,
-                                 N, k_pad, kw, lbs, codes16, scales16);
-    cp_async_commit();
-  }
-
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kK2Stages - 2>();  // this thread's copies of stage t have landed
     __syncthreads();                 // everyone's have, and everyone is done with t - 1
-    if (t + kK2Stages - 1 < n_tiles)
-      k2_load_stage<COLS, R, PC>(smem_k2 + ((t + kK2Stages - 1) % kK2Stages) * slot_bytes,
-                                 codes, scales, xhi, t + kK2Stages - 1, col0, m0, M, N, k_pad,
-                                 kw, lbs, codes16, scales16);
+    const int nxt = t + kK2Stages - 1;
+    if (nxt < n_tiles) {
+      uint8_t* slot = smem_k2 + (nxt % kK2Stages) * slot_bytes;
+      k2_load_weights<COLS, R, PC>(slot, codes, scales, nxt, col0, N, k_pad, lbs, codes16,
+                                   scales16);
+      k2_load_x<COLS, R>(slot, xhi, nxt, m0, M, kw);
+    }
     cp_async_commit();
 
     const uint8_t* slot = smem_k2 + (t % kK2Stages) * slot_bytes;
@@ -846,18 +899,32 @@ __device__ __forceinline__ int k3_word_slot(int row, int col) {
   return col * kSlice + (row ^ ((col & 1) << 4));
 }
 
-// Queue packing tile t of the block's words, scale bytes and x hi into
-// `slot`, zero past N and past the live rows. Words: 16-byte copies where
-// the buffer is 16-byte aligned, else 4-byte ones. Scales: the block's
-// columns of tile t are one run of COLS * nsb bytes, copied in pieces of
-// smode bytes (16 or 4 where every run is so aligned, else plain loads).
+// Queue packing tile t of the block's x hi into `slot`, zero past the
+// live rows.
 template <int COLS, int R>
-__device__ __forceinline__ void k3_load_stage(uint8_t* slot, const uint32_t* __restrict__ words,
-                                              const uint8_t* __restrict__ scales,
-                                              const __nv_bfloat16* __restrict__ xhi, int t,
-                                              int col0, int m0, int M, int N, int n_words,
-                                              int tile, int nsb, int kw, bool words16,
-                                              int smode) {
+__device__ __forceinline__ void k3_load_x(uint8_t* slot, const __nv_bfloat16* __restrict__ xhi,
+                                          int t, int m0, int M, int tile, int kw) {
+  const int xstr = k3_xstr(tile);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * kSlice * 4);
+  for (int i = threadIdx.x; i < R * tile / 8; i += kThreads) {
+    const int r = i / (tile / 8), c = 8 * (i % (tile / 8));
+    const bool in = m0 + r < M;
+    cp_async16(xs + r * xstr + c, in ? xhi + (size_t)(m0 + r) * kw + (size_t)t * tile + c : xhi,
+               in ? 16 : 0);
+  }
+}
+
+// Queue packing tile t of the block's words and scale bytes into `slot`,
+// zero past N. Words: 16-byte copies where the buffer is 16-byte aligned,
+// else 4-byte ones. Scales: the block's columns of tile t are one run of
+// COLS * nsb bytes, copied in pieces of smode bytes (16 or 4 where every
+// run is so aligned, else plain loads). They do not depend on x: the first
+// stages are queued before the kernel waits for actq_split.
+template <int COLS, int R>
+__device__ __forceinline__ void k3_load_weights(uint8_t* slot, const uint32_t* __restrict__ words,
+                                                const uint8_t* __restrict__ scales, int t,
+                                                int col0, int N, int n_words, int tile, int nsb,
+                                                bool words16, int smode) {
   uint32_t* dw = reinterpret_cast<uint32_t*>(slot);
   const uint32_t* src = words + (size_t)col0 * n_words + (size_t)t * kSlice;
   if (words16) {
@@ -875,15 +942,7 @@ __device__ __forceinline__ void k3_load_stage(uint8_t* slot, const uint32_t* __r
                 in ? 4 : 0);
     }
   }
-  const int xstr = k3_xstr(tile);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + COLS * kSlice * 4);
-  for (int i = threadIdx.x; i < R * tile / 8; i += kThreads) {
-    const int r = i / (tile / 8), c = 8 * (i % (tile / 8));
-    const bool in = m0 + r < M;
-    cp_async16(xs + r * xstr + c, in ? xhi + (size_t)(m0 + r) * kw + (size_t)t * tile + c : xhi,
-               in ? 16 : 0);
-  }
-  uint8_t* ss = slot + COLS * kSlice * 4 + R * xstr * 2;
+  uint8_t* ss = slot + COLS * kSlice * 4 + R * k3_xstr(tile) * 2;
   const uint8_t* ssrc = scales + ((size_t)t * N + col0) * nsb;
   const int total = COLS * nsb, valid = min(COLS, N - col0) * nsb;
   if (smode == 16) {
@@ -918,7 +977,7 @@ __device__ __forceinline__ float k3_deq(uint32_t word, int sh, uint32_t mask, fl
 template <int COLS, int R>
 __global__ void __launch_bounds__(kThreads, 2)
 subbyte_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __restrict__ xlo,
-               const uint8_t* __restrict__ lo_rows, const uint32_t* __restrict__ words,
+               const uint8_t* __restrict__ lo_flags, const uint32_t* __restrict__ words,
                const uint8_t* __restrict__ scales, float* __restrict__ y, int M, int N,
                int k_pad, int kw, int width, int lbs, int stages, bool words16, int smode) {
   using T = K3Tile<COLS>;
@@ -941,9 +1000,22 @@ subbyte_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __res
   const int m0 = blockIdx.x * R, col0 = blockIdx.y * COLS;
   const int rows = min(R, M - m0);
   const int live_nt = (rows + 7) / 8;
+
+  // the first stages' words and scales, then (after actq_split, where it
+  // runs before this kernel under PDL) their x, each stage's x in a copy
+  // group of its own: stage s's copies have landed once group s has
+  for (int s = 0; s < stages - 1; ++s)
+    if (s < n_tiles)
+      k3_load_weights<COLS, R>(smem_k3 + s * slot_bytes, words, scales, s, col0, N, n_words,
+                               tile, nsb, words16, smode);
+  pdl_wait();
   // the lo products run only where some row of the block has a lo term (a
   // zero lo adds exactly 0 to the others)
-  const bool any_lo = __syncthreads_or(threadIdx.x < rows && lo_rows[m0 + threadIdx.x] != 0);
+  const bool any_lo = rows_have_lo(lo_flags, m0, rows, kw / kSplitK);
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < n_tiles) k3_load_x<COLS, R>(smem_k3 + s * slot_bytes, xhi, s, m0, M, tile, kw);
+    cp_async_commit();
+  }
 
   float acc[NT][4];
 #pragma unroll
@@ -951,20 +1023,16 @@ subbyte_kernel(const __nv_bfloat16* __restrict__ xhi, const __nv_bfloat16* __res
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 
-  for (int s = 0; s < stages - 1; ++s) {
-    if (s < n_tiles)
-      k3_load_stage<COLS, R>(smem_k3 + s * slot_bytes, words, scales, xhi, s, col0, m0, M, N,
-                             n_words, tile, nsb, kw, words16, smode);
-    cp_async_commit();
-  }
-
   for (int t = 0; t < n_tiles; ++t) {
     k3_wait_ring(stages);  // this thread's copies of tile t have landed
     __syncthreads();       // everyone's have, and everyone is done with t - 1
-    if (t + stages - 1 < n_tiles)
-      k3_load_stage<COLS, R>(smem_k3 + ((t + stages - 1) % stages) * slot_bytes, words, scales,
-                             xhi, t + stages - 1, col0, m0, M, N, n_words, tile, nsb, kw,
-                             words16, smode);
+    const int nxt = t + stages - 1;
+    if (nxt < n_tiles) {
+      uint8_t* slot = smem_k3 + (nxt % stages) * slot_bytes;
+      k3_load_weights<COLS, R>(slot, words, scales, nxt, col0, N, n_words, tile, nsb, words16,
+                               smode);
+      k3_load_x<COLS, R>(slot, xhi, nxt, m0, M, tile, kw);
+    }
     cp_async_commit();
 
     const uint8_t* slot = smem_k3 + (t % stages) * slot_bytes;
@@ -1044,6 +1112,28 @@ cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Launch a matmul that reads actq_split's workspace: with `pdl`, as a
+// programmatic dependent of the kernel before it on the stream (its blocks
+// queue their first weight stages while actq_split runs, and wait for it
+// before they read the workspace); else as an ordinary launch (the
+// workspace is filled already). Returns the launch's error, 0 if none.
+template <typename... Params, typename... Args>
+int launch_after_split(void (*kernel)(Params...), dim3 grid, int smem, cudaStream_t stream,
+                       bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 int k1_smem_bytes(int R, int width, int bs) {
   const int tile = (32 / width) * kSlice;
   return kK1Stages * k1_slot_bytes(tile / bs) + 2 * 2 * 2 * tile * R;
@@ -1085,7 +1175,8 @@ int launch_subbyte_t_p(const void* x, const void* words, const void* scales, voi
 
 template <int COLS, int R>
 int launch_subbyte(const void* ws, const void* words, const void* scales, void* y, int M, int N,
-                   int k_pad, int kw, int width, int lbs, int stages, cudaStream_t stream) {
+                   int k_pad, int kw, int width, int lbs, int stages, bool pdl,
+                   cudaStream_t stream) {
   const int tile = (32 / width) * kSlice;
   const int smem = stages * k3_slot_bytes(COLS, R, tile, tile >> lbs);
   if (stages < 2 || smem > kSmemMax) return (int)cudaErrorInvalidValue;
@@ -1093,7 +1184,7 @@ int launch_subbyte(const void* ws, const void* words, const void* scales, void* 
   if (err != cudaSuccess) return (int)err;
   const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(ws);
   const __nv_bfloat16* lo = hi + (size_t)M * kw;
-  const uint8_t* lo_rows = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
+  const uint8_t* lo_flags = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
   // a column's words start 512-byte aligned within the buffer (k_pad /
   // per_word is a multiple of 128); the scale runs at t * N * nsb bytes
   // (col0 * nsb is a multiple of 16)
@@ -1104,10 +1195,9 @@ int launch_subbyte(const void* ws, const void* words, const void* scales, void* 
   // rows fastest: the row blocks of a column block run together and share
   // its weights through L2
   const dim3 grid((M + R - 1) / R, (N + COLS - 1) / COLS);
-  subbyte_kernel<COLS, R><<<grid, kThreads, smem, stream>>>(
-      hi, lo, lo_rows, (const uint32_t*)words, (const uint8_t*)scales, (float*)y, M, N, k_pad,
-      kw, width, lbs, stages, words16, smode);
-  return (int)cudaGetLastError();
+  return launch_after_split(subbyte_kernel<COLS, R>, grid, smem, stream, pdl, hi, lo, lo_flags,
+                            (const uint32_t*)words, (const uint8_t*)scales, (float*)y, M, N,
+                            k_pad, kw, width, lbs, stages, words16, smode);
 }
 
 // Ring stages of K3 for cols columns and rows rows a block: as many as 4
@@ -1122,7 +1212,7 @@ int k3_stages(int cols, int rows, int tile, int nsb) {
 
 template <int COLS, int R, bool PC>
 int launch_int8(const void* ws, const void* codes, const void* scales, void* y, int M, int N,
-                int k_pad, int kw, int lbs, cudaStream_t stream) {
+                int k_pad, int kw, int lbs, bool pdl, cudaStream_t stream) {
   using T = K2Tile<COLS>;
   const int smem = kK2Stages * k2_slot_bytes<COLS, R, PC>(lbs);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
@@ -1130,24 +1220,24 @@ int launch_int8(const void* ws, const void* codes, const void* scales, void* y, 
   if (err != cudaSuccess) return (int)err;
   const __nv_bfloat16* hi = static_cast<const __nv_bfloat16*>(ws);
   const __nv_bfloat16* lo = hi + (size_t)M * kw;
-  const uint8_t* lo_rows = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
+  const uint8_t* lo_flags = reinterpret_cast<const uint8_t*>(lo + (size_t)M * kw);
   const bool codes16 = k_pad % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   const bool scales16 = (T::KT >> lbs) % 4 == 0 && (k_pad >> lbs) % 4 == 0 &&
                         reinterpret_cast<uintptr_t>(scales) % 16 == 0;
   // rows fastest: the row blocks of a column block run together and share
   // its weights through L2
   const dim3 grid((M + R - 1) / R, (N + COLS - 1) / COLS);
-  int8_kernel<COLS, R, PC><<<grid, kThreads, smem, stream>>>(
-      hi, lo, lo_rows, (const int8_t*)codes, (const float*)scales, (float*)y, M, N, k_pad, kw,
-      lbs, codes16, scales16);
-  return (int)cudaGetLastError();
+  return launch_after_split(int8_kernel<COLS, R, PC>, grid, smem, stream, pdl, hi, lo, lo_flags,
+                            (const int8_t*)codes, (const float*)scales, (float*)y, M, N, k_pad,
+                            kw, lbs, codes16, scales16);
 }
 
+// ws: hi, lo [M][kw] bf16, then lo_flags [M][kw / kSplitK] bytes
 int launch_actq_split(const void* x, void* ws, int M, int K, int kw, lmq::BfpSpec aq,
                       cudaStream_t stream) {
   __nv_bfloat16* hi = static_cast<__nv_bfloat16*>(ws);
   __nv_bfloat16* lo = hi + (size_t)M * kw;
-  actq_split_kernel<<<M, kSplitThreads, 0, stream>>>(
+  actq_split_kernel<<<dim3(kw / kSplitK, M), kSplitThreads, 0, stream>>>(
       (const float*)x, hi, lo, reinterpret_cast<uint8_t*>(lo + (size_t)M * kw), K, kw, aq);
   return (int)cudaGetLastError();
 }
@@ -1179,11 +1269,13 @@ int lmq_bfp_matmul_subbyte_t(const void* x, const void* words, const void* scale
 }
 
 // K3: actq_split into the workspace ws (as K2's), then subbyte_kernel from
-// it, on one stream.
+// it as its programmatic dependent, on one stream; with split = 0,
+// subbyte_kernel alone on a workspace that actq_split has filled (x then
+// unread).
 int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales, void* y,
                            void* ws, int M, int N, int K, int k_pad, int kw, int width, int bs,
                            int aq_on, int aq_bs, int aq_width, int aq_emin, int aq_emax,
-                           void* stream) {
+                           int split, void* stream) {
   const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
   int lbs = 0;
   while ((1 << lbs) < bs) ++lbs;
@@ -1193,8 +1285,11 @@ int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales,
       N < 1 || !actq_ok(aq))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
-  if (rc) return rc;
+  const bool pdl = split != 0;
+  if (pdl) {
+    const int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
+    if (rc) return rc;
+  }
   // columns a block by N alone, as K2; rows a block by M (a row's sums do
   // not depend on it), 8 where 16 would leave under 2 stages
   int dev = 0, sms = 132;
@@ -1204,11 +1299,9 @@ int lmq_bfp_matmul_subbyte(const void* x, const void* words, const void* scales,
   const int cols = wide ? 32 : 16, nsb = tile >> lbs;
   const bool rows16 = M > 8 && k3_stages(cols, 16, tile, nsb) >= 2;
   const int stages = k3_stages(cols, rows16 ? 16 : 8, tile, nsb);
-  if (rows16)
-    return wide ? launch_subbyte<32, 16>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s)
-                : launch_subbyte<16, 16>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s);
-  return wide ? launch_subbyte<32, 8>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s)
-              : launch_subbyte<16, 8>(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, s);
+  const auto run = rows16 ? (wide ? &launch_subbyte<32, 16> : &launch_subbyte<16, 16>)
+                         : (wide ? &launch_subbyte<32, 8> : &launch_subbyte<16, 8>);
+  return run(ws, words, scales, y, M, N, k_pad, kw, width, lbs, stages, pdl, s);
 }
 
 int lmq_actq_split(const void* x, void* ws, int M, int K, int kw, int aq_on, int aq_bs,
@@ -1218,12 +1311,14 @@ int lmq_actq_split(const void* x, void* ws, int M, int K, int kw, int aq_on, int
   return launch_actq_split(x, ws, M, K, kw, aq, static_cast<cudaStream_t>(stream));
 }
 
-// K2: actq_split into the workspace ws (hi, lo [M][kw] bf16, lo_rows [M]
-// bytes), then int8_kernel from it, on one stream.
+// K2: actq_split into the workspace ws (hi, lo [M][kw] bf16, lo_flags
+// [M][kw / 512] bytes), then int8_kernel from it as its programmatic
+// dependent, on one stream; with split = 0, int8_kernel alone on a
+// workspace that actq_split has filled (x then unread).
 int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, void* y,
                         void* ws, int M, int N, int K, int k_pad, int kw, int bs,
                         int aq_on, int aq_bs, int aq_width, int aq_emin, int aq_emax,
-                        void* stream) {
+                        int split, void* stream) {
   const lmq::BfpSpec aq{aq_on, aq_bs, aq_width, aq_emin, aq_emax};
   int lbs = 0;
   while ((1 << lbs) < bs) ++lbs;
@@ -1231,8 +1326,11 @@ int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, vo
       N < 1 || !actq_ok(aq))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
-  if (rc) return rc;
+  const bool pdl = split != 0;
+  if (pdl) {
+    const int rc = launch_actq_split(x, ws, M, K, kw, aq, s);
+    if (rc) return rc;
+  }
   // 32 columns a block where that leaves every SM at least 2 blocks, else
   // 16 (N = 4096: 256 blocks on 132 SMs); a choice by N alone, so a row's
   // sums never depend on M
@@ -1240,18 +1338,13 @@ int lmq_bfp_matmul_int8(const void* x, const void* codes, const void* scales, vo
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const bool wide = (N + 31) / 32 >= 2 * sms;
-  if (bs < 4) {  // a scale a code or a pair
-    if (M <= 8)
-      return wide ? launch_int8<32, 8, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-                  : launch_int8<16, 8, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
-    return wide ? launch_int8<32, 16, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-                : launch_int8<16, 16, true>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
-  }
-  if (M <= 8)
-    return wide ? launch_int8<32, 8, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-                : launch_int8<16, 8, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
-  return wide ? launch_int8<32, 16, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s)
-              : launch_int8<16, 16, false>(ws, codes, scales, y, M, N, k_pad, kw, lbs, s);
+  const auto run =
+      bs < 4  // a scale a code or a pair
+          ? (M <= 8 ? (wide ? &launch_int8<32, 8, true> : &launch_int8<16, 8, true>)
+                    : (wide ? &launch_int8<32, 16, true> : &launch_int8<16, 16, true>))
+          : (M <= 8 ? (wide ? &launch_int8<32, 8, false> : &launch_int8<16, 8, false>)
+                    : (wide ? &launch_int8<32, 16, false> : &launch_int8<16, 16, false>));
+  return run(ws, codes, scales, y, M, N, k_pad, kw, lbs, pdl, s);
 }
 
 }  // extern "C"

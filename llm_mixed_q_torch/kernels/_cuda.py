@@ -47,11 +47,13 @@ _SIGNATURES = {
         # aq_width, aq_emin, aq_emax, stream
         "lmq_bfp_matmul_subbyte_t": [_P, _P, _P, _P] + [_I] * 11 + [_P],
         # x, codes, scales, y, ws (actq_split's workspace), M, N, K, k_pad,
-        # kw, bs, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
-        "lmq_bfp_matmul_int8": [_P] * 5 + [_I] * 11 + [_P],
+        # kw, bs, aq_on, aq_bs, aq_width, aq_emin, aq_emax, split (1:
+        # actq_split, then the matmul with PDL; 0: the matmul alone on a
+        # filled workspace), stream
+        "lmq_bfp_matmul_int8": [_P] * 5 + [_I] * 12 + [_P],
         # x, words, scales, y, ws, M, N, K, k_pad, kw, width, bs, aq_on,
-        # aq_bs, aq_width, aq_emin, aq_emax, stream
-        "lmq_bfp_matmul_subbyte": [_P] * 5 + [_I] * 12 + [_P],
+        # aq_bs, aq_width, aq_emin, aq_emax, split, stream
+        "lmq_bfp_matmul_subbyte": [_P] * 5 + [_I] * 13 + [_P],
         # x, ws, M, K, kw, aq_on, aq_bs, aq_width, aq_emin, aq_emax, stream
         "lmq_actq_split": [_P, _P] + [_I] * 8 + [_P],
         # q, kc, ks, vc, vs, positions, out, ws (scores and partials), b, nkv,

@@ -45,15 +45,19 @@ codes, no kernel, its layer calls counted) where the JAX package's kernel
 refuses it too (``reference_kernel_error``: its ``attention_kernel_ok`` is
 False), as the JAX package's ``decode_step`` then decodes densely; and on
 the card it raises where the JAX package's kernel takes the cache and
-these do not. The kernels take rep 1..8 and every head_dim that is a
-multiple of 4 (K5, the head-major layout: up to 1024), with K/V scale
-blocks that are powers of two or the whole head (``kernel_shape_error``,
-``kernel_block_error``; ``k4_tiles`` and ``k5_tiles`` split such a
-head_dim, and the C host checks the split). What the card refuses within
-the JAX package's cap of 4096 x 128 cache elements is a head_dim that is
-not a multiple of 4 (a cache of 2- or 6-dim heads), a head-major cache of
-more than 1024 dims a head (at most 512 positions), and a scale block that
-is neither a power of two nor the head.
+these do not. The kernels take rep 1..8, every head_dim (K4 up to
+65535) and every K/V scale block that divides it (``kernel_shape_error``,
+``kernel_block_error``), wherever ``k4_tiles`` / ``k5_tiles`` find a split
+whose ring stages fit in shared memory (the C host checks the split): a
+head_dim off 4 keeps the JAX package's cache layout and is padded to 4
+dims only in shared memory, a block that is not a power of two takes its
+scale rows by a counter or a quotient, and K5 walks a head of more than
+1024 dims in passes. Within the JAX package's cap of 4096 x 128 cache
+elements and its 8 query rows, what the card still refuses is a cache
+whose split does not fit: a head-major one past 3011 dims a head at rep 8
+and a scale a code (5433 with one scale a head; at most 174 positions
+under that cap), or a pos-major one past 65535 dims (at most 8
+positions).
 """
 
 from __future__ import annotations
@@ -69,8 +73,7 @@ from .packing import effective_block_len
 
 NEG_INF = float(np.finfo(np.float32).min)
 _REP_MAX = 8  # GQA query rows per kv head the kernels take
-_K5_HD_MAX = 1024  # the longest head_dim K5 takes (256 threads of 4 dims in P . V)
-_HD_MAX = 2**16 - 1  # K4's (csrc kWholeHead: a shift past every dim)
+_HD_MAX = 2**16 - 1  # the longest head_dim the kernels take (csrc kK4MaxHd)
 _THREADS = 256
 _SMEM_MAX = 227 * 1024  # shared memory a block (csrc kSmemMax)
 # the JAX package's cap on its decode-attention kernel's cache: max_len *
@@ -129,6 +132,10 @@ def _fits_blocks(n: int, bs: int) -> bool:
     return n % bs == 0 or bs % n == 0
 
 
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
 def _dim_groups(n: int, cap: int, bs: int) -> int:
     """The most groups, at most ``cap``, that split n dims evenly into runs
     that fit the scale blocks of ``bs`` dims. A power of two n gives the
@@ -145,10 +152,12 @@ def _k4_scale_rows(dims: int, bs: int) -> int:
 
 def _stage_dims(hd: int):
     """K4's candidate ring stages, longest first: the multiples of 16 up
-    to min(hd, 128), then the other multiples of 4 (a head_dim off 16)."""
+    to min(hd, 128), then the other multiples of 4 (a head_dim off 16),
+    then every other length (a head_dim off 4)."""
     top = min(hd, 128)
     return [*range(top - top % 16, 15, -16),
-            *(d for d in range(top - top % 4, 3, -4) if d % 16)]
+            *(d for d in range(top - top % 4, 3, -4) if d % 16),
+            *(d for d in range(top, 0, -1) if d % 4)]
 
 
 def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
@@ -158,7 +167,8 @@ def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
     shared memory: min(hd, 128), 64, 32 or 16 for a power of two; 80 of
     320, 40 of 40), the dim groups of the scores kernel (``_dim_groups`` of
     a stage's dims; every dim's scale is its own there) and the position
-    groups of P . V (G % 4 == 0; else 1). None where nothing fits."""
+    groups of P . V (G % 4 == 0; else 1). q's tile of a stage is rounded
+    up to 16 bytes. None where nothing fits."""
     g, p = k4_geometry(nkv, rep, s_len)
     rows, nq, q4 = g * rep, (p * g + 3) // 4, g % 4 == 0
     cstr, sstr = (p * g + 15) & ~15, (p * g + 3) & ~3
@@ -170,7 +180,8 @@ def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
         pgs = 1
         while q4 and 2 * pgs * (g // 4) * dims <= _THREADS:
             pgs *= 2
-        stage1 = dims * cstr + 4 * _k4_scale_rows(dims, bs_k) * sstr + 4 * dims * rows
+        stage1 = dims * cstr + 4 * _k4_scale_rows(dims, bs_k) * sstr + (
+            (4 * dims * rows + 15) & ~15)
         stage2 = dims * cstr + 4 * _k4_scale_rows(dims, bs_v) * sstr
         persist2 = 4 * (p * rows + 2 * rows + (pgs * dims * rows if q4 else 0))
         want = max(n_tiles, 2) if n_tiles < 8 else 8
@@ -183,24 +194,39 @@ def k4_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
     return None
 
 
+def k5_pv_threads(hd: int) -> tuple[int, int]:
+    """(vw, passes) of K5's P . V: the threads of a position group, each
+    taking 4 dims of a pass (hd rounded up to 4, over 4, at most 256), and
+    the passes over the head (more than one past 1024 dims)."""
+    nd4 = _round4(hd) // 4
+    vw = min(nd4, _THREADS)
+    return vw, -(-nd4 // vw)
+
+
 def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
     """(T, dgs, pgs) of a K5 call, which its C host checks: the
     positions a ring stage holds (``k5_geometry``'s T, halved until two
     stages fit in shared memory), the dim groups of the scores kernel
     (``_dim_groups`` of hd, each group's runs under one K scale) and the
-    whole groups of hd / 4 threads of P . V (256 // (hd / 4); the threads
-    past them idle). None where nothing fits."""
-    if hd % 4 or hd > _K5_HD_MAX:
-        return None
+    whole groups of ``k5_pv_threads``' vw threads of P . V (256 // vw; the
+    threads past them idle; 1 where a head takes passes, whose sums then
+    sit in shared memory beside the ring). q's rows, a V code row and a row
+    of P . V's sums take hd rounded up to 4 in shared memory. None where
+    nothing fits."""
     _, t = k5_geometry(nkv, rep, s_len)
-    ksr, vsc, pgs = hd // bs_k, hd // bs_v, _THREADS // (hd // 4)
+    hdp, (vw, npass) = _round4(hd), k5_pv_threads(hd)
+    ksr, vsc, pgs = hd // bs_k, hd // bs_v, _THREADS // vw
     while t >= 1:
-        cstr, sstr, nq = (t + 15) & ~15, (t + 3) & ~3, (t + 3) // 4
+        cstr = (t + 15) & ~15 if t >= 16 else _round4(t)
+        sstr, nq = _round4(t), (t + 3) // 4
         dgs = _dim_groups(hd, _THREADS // nq, bs_k)
         red1 = (dgs * rep * (t + 1) + 3) & ~3
-        smem1 = 4 * (rep * hd + red1) + 2 * (hd * cstr + 4 * ksr * sstr)
-        stage2 = ((t * hd + 15) & ~15) + 4 * ((t * vsc + 3) & ~3)
-        smem2 = ((4 * (t * rep + 2 * rep) + 15) & ~15) + max(2 * stage2, 4 * pgs * rep * hd)
+        kco = (hd * cstr + 15) & ~15  # a stage's K codes, rounded up to 16 bytes
+        smem1 = 4 * (_round4(rep * hd) + red1) + 2 * (kco + 4 * ksr * sstr)
+        stage2 = ((t * hdp + 15) & ~15) + 4 * ((t * vsc + 3) & ~3)
+        red2 = 4 * pgs * rep * hdp
+        ring2 = 2 * stage2 + red2 if npass > 1 else max(2 * stage2, red2)
+        smem2 = ((4 * (t * rep + 2 * rep) + 15) & ~15) + ring2
         if max(smem1, smem2) <= _SMEM_MAX:
             return t, dgs, pgs
         t //= 2
@@ -208,17 +234,20 @@ def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
 
 
 def k4_workspace_floats(b: int, nkv: int, rep: int, hd: int, s_len: int,
-                        prob_block: int | None = None, p: int | None = None) -> int:
-    """float32 elements of the workspace of K4 (and of K5, given its P):
-    the scores [b, nh, S], the chunks' P . V partials [b, ceil(S / P), hd,
-    nh], then each row's max and denominator [b, nh] and, for a prob block
-    longer than min(P, 32), each block's max of exp [b, nh, ceil(S /
-    block)]. ``p``: the positions a block; K4's (``k4_geometry``) when
-    None."""
+                        prob_block: int | None = None, p: int | None = None,
+                        t: int | None = None) -> int:
+    """float32 elements of the workspace of K4 (and of K5, given its P and
+    T): the scores [b, nh, S], the chunks' P . V partials [b, ceil(S / P),
+    hd, nh], then each row's max and denominator [b, nh] and, for a prob
+    block longer than min(T, 32), each block's max of exp [b, nh, ceil(S /
+    block)]. ``p``: the positions a block, K4's (``k4_geometry``) when
+    None; ``t``: the positions whose prob blocks a block quantizes by a
+    shuffle of its lanes (K5's ring stage), P when None."""
     if p is None:
         _, p = k4_geometry(nkv, rep, s_len)
     nh = nkv * rep
-    long_blocks = -(-s_len // prob_block) if prob_block and prob_block > min(p, 32) else 0
+    shuffled = min(p if t is None else t, 32)
+    long_blocks = -(-s_len // prob_block) if prob_block and prob_block > shuffled else 0
     return b * nh * (s_len + (-(-s_len // p)) * hd + 2 + long_blocks)
 
 
@@ -310,34 +339,43 @@ def _prob_q_args(prob_q):
     return (1, bs, width, -eb, 2**ew - 1 - eb)
 
 
-def kernel_shape_error(rep: int, hd: int, pos_major: bool = False) -> str | None:
-    """Why the decode-attention kernel of a layout (K4 for ``pos_major``,
-    else K5) is not given ``rep`` query rows per kv head at head_dim
-    ``hd``, or None. They take rep 1..8 and every head_dim that is a
-    multiple of 4 (K5 up to 1024) (``k4_tiles``, ``k5_tiles``), at any
-    cache length: K4 and K5 walk the cache in chunks, and neither keeps
-    anything in shared memory that grows with it (the wrappers bound the
-    operands and the workspace to 32-bit indices)."""
+def kernel_shape_error(rep: int, hd: int) -> str | None:
+    """Why the decode-attention kernels (K4, K5) are not given ``rep``
+    query rows per kv head at head_dim ``hd``, or None. They take rep 1..8
+    and every head_dim from 1 to 65535,
+    at any cache length: K4 and K5 walk the cache in chunks, and neither
+    keeps anything in shared memory that grows with it (the wrappers bound
+    the operands and the workspace to 32-bit indices). Whether a split of
+    the head fits in shared memory is ``k4_tiles`` / ``k5_tiles``' to say
+    (``attention_kernel_error``)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
-    most = _HD_MAX if pos_major else _K5_HD_MAX
-    if not (4 <= hd <= most and hd % 4 == 0):
-        return f"head_dim {hd} is not a multiple of 4 from 4 to {most}"
+    if not 1 <= hd <= _HD_MAX:
+        return f"head_dim {hd} is not from 1 to {_HD_MAX}"
     return None
 
 
 def kernel_block_error(hd: int, bs_k: int, bs_v: int) -> str | None:
     """Why the kernels do not take K/V scale blocks of ``bs_k``/``bs_v``
-    dims at head_dim ``hd``, or None: a block must divide hd and be a power
-    of two or the whole head."""
+    dims at head_dim ``hd``, or None: a block must divide hd."""
     for what, bs in (("K", bs_k), ("V", bs_v)):
-        if bs < 1 or hd % bs or (bs & (bs - 1) and bs != hd):
-            return f"{what} scale block {bs} at head_dim {hd} (a power of two or the head)"
+        if bs < 1 or hd % bs:
+            return f"{what} scale block {bs} does not divide head_dim {hd}"
     return None
 
 
-def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q,
-                     pos_major=False):
+def kernel_tiles_error(nkv: int, rep: int, hd: int, s_len: int, pos_major: bool,
+                       blocks: tuple[int, int]) -> str | None:
+    """Why no split of the head fits the shared memory of the kernel of a
+    layout (``k4_tiles`` / ``k5_tiles`` find none), or None."""
+    tiles = k4_tiles if pos_major else k5_tiles
+    if tiles(nkv, rep, hd, s_len, *blocks) is None:
+        return (f"no ring stage of head_dim {hd} at rep {rep} and blocks {blocks} fits in "
+                f"shared memory")
+    return None
+
+
+def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q):
     tensors = (q, kc, ks, vc, vs)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn_name}: q and the cache must be contiguous on one device")
@@ -347,7 +385,7 @@ def _check_attention(fn_name, q, kc, ks, vc, vs, rep, hd, bs_k, bs_v, prob_q,
         raise ValueError(f"{fn_name}: blocks {bs_k}/{bs_v} do not divide {hd}")
     if prob_q is not None and prob_q[0] < 1:
         raise ValueError(f"{fn_name}: bad prob block {prob_q[0]}")
-    error = kernel_shape_error(rep, hd, pos_major) or kernel_block_error(hd, bs_k, bs_v)
+    error = kernel_shape_error(rep, hd) or kernel_block_error(hd, bs_k, bs_v)
     if error:
         raise ValueError(f"{fn_name}: {error}")
     if max(t.numel() for t in tensors) >= 2**31:
@@ -390,7 +428,7 @@ def _launch_attention(fn_name, q, kc, ks, vc, vs, positions, nkv, rep, hd,
     if tiles is None:
         raise ValueError(f"{fn_name}: no ring stage fits in shared memory")
     ws = _workspace(fn_name, k4_workspace_floats(b, nkv, rep, hd, s_len, prob_q and prob_q[0],
-                                                 p), q.device)
+                                                 p, tiles[0]), q.device)
     pos = _positions(positions, q)
     out = torch.empty((b, nkv * rep, hd), dtype=torch.float32, device=q.device)
     rc = _cuda.lib().lmq_attn_decode_head_major(
@@ -418,7 +456,7 @@ def packed_attention_decode_batch_cuda(q, k_codes, k_scales, v_codes, v_scales,
         raise ValueError(f"{nh} query heads != nkv {nkv} * rep {rep}")
     s_len = k_codes.shape[2] // nkv
     _check_attention(name, q, k_codes, k_scales, v_codes, v_scales, rep, hd, bs_k, bs_v,
-                     prob_q, pos_major=True)
+                     prob_q)
     if prob_q is not None and prob_q[0] & (prob_q[0] - 1):
         raise ValueError(f"{name}: prob block {prob_q[0]} is not a power of two")
     g, p = k4_geometry(nkv, rep, s_len)
@@ -520,8 +558,10 @@ def attention_kernel_error(config, max_len: int, pos_major: bool,
     kernel of its cache's layout. The cache's maker states the layout:
     ``pos_major`` (K4, else K5) and its K/V ``blocks`` (bs_k, bs_v)."""
     rep = config.num_attention_heads // config.num_key_value_heads
-    return (kernel_shape_error(rep, config.head_dim, pos_major)
+    return (kernel_shape_error(rep, config.head_dim)
             or kernel_block_error(config.head_dim, *blocks)
+            or kernel_tiles_error(config.num_key_value_heads, rep, config.head_dim, max_len,
+                                  pos_major, blocks)
             or _prob_q_error(config, max_len))
 
 

@@ -15,9 +15,12 @@ The block_fp data_in quantizer (``actq``, blocks of at most 32 along K;
 longer blocks are quantized before the call) is ``_qdq_lanes_signed`` on
 the TPU. K1 folds it into its prologue; K2 and K3 run it once a call in a
 kernel of their own, ``actq_split`` (wrapper ``actq_split_cuda``, plain
-version ``actq_split_plain``), which writes x as two bf16 terms, hi =
-bf16(q) and lo = bf16(q - hi), into a workspace that the matmul then
-reads; one C call launches both. All three multiply on the tensor cores,
+version ``actq_split_plain``; a block a row and 512 K), which writes x as
+two bf16 terms, hi = bf16(q) and lo = bf16(q - hi), and a flag a row and
+512 K where lo is nonzero into a workspace that the matmul then reads; one
+C call launches both, the matmul as actq_split's programmatic dependent
+(PDL: its blocks queue their first weight stages while actq_split runs and
+wait for it before they read the workspace). All three multiply on the tensor cores,
 in bf16 operands that are exact (codes times powers of two; x as hi + lo,
 about 2^-17 of |x| left for raw float32 x, none for block_fp activations
 of width <= 9), so they differ from the plain version only in the order of
@@ -140,31 +143,37 @@ def bfp_matmul_subbyte_t_cuda(x2: torch.Tensor, packed: PackedBFPSubT,
 
 
 # K stride of the workspace of K2 and K3: a multiple of this (csrc kK2WsK),
-# so that every ring stage of K2's matmul reads whole rows of it
+# so that every ring stage of K2's matmul reads whole rows of it; also the
+# K of an actq_split block (csrc kSplitK), which flags its chunk of a row
 _WS_K = 512
 
 
 def _split_workspace(m: int, k_pad: int, device):
-    """(kw, workspace, hi, lo, lo_rows) of actq_split: hi and lo [m, kw]
-    bf16 and lo_rows [m] bool in one uint8 buffer, kw = k_pad rounded up to
-    a multiple of ``_WS_K``."""
+    """(kw, workspace, hi, lo, lo_flags) of actq_split: hi and lo [m, kw]
+    bf16 and lo_flags [m, kw / 512] bool (a chunk of 512 K of a row with a
+    nonzero lo) in one uint8 buffer, kw = k_pad rounded up to a multiple of
+    ``_WS_K``."""
     kw = -(-k_pad // _WS_K) * _WS_K
-    ws = torch.empty(4 * m * kw + m, dtype=torch.uint8, device=device)
+    nck = kw // _WS_K
+    ws = torch.empty(4 * m * kw + m * nck, dtype=torch.uint8, device=device)
     hi = ws[: 2 * m * kw].view(torch.bfloat16).view(m, kw)
     lo = ws[2 * m * kw: 4 * m * kw].view(torch.bfloat16).view(m, kw)
-    return kw, ws, hi, lo, ws[4 * m * kw:].view(torch.bool)
+    return kw, ws, hi, lo, ws[4 * m * kw:].view(torch.bool).view(m, nck)
 
 
 def actq_split_plain(x2: torch.Tensor, actq=None, k_pad: int | None = None):
     """Plain version of actq_split: q = actq(x2) (x2 itself for None),
     zero-padded to ``k_pad`` columns -> (hi = bf16(q), lo = bf16(q - hi),
-    lo_rows: whether a row has a nonzero lo)."""
+    lo_flags [M, ceil(k / 512)]: whether a chunk of 512 K of a row has a
+    nonzero lo; a row has one where any of its chunks has)."""
     q = x2 if actq is None else _actq_qdq(x2, actq)
     if k_pad is not None and k_pad > q.shape[1]:
         q = torch.nn.functional.pad(q, (0, k_pad - q.shape[1]))
     hi = q.to(torch.bfloat16)
     lo = (q - hi.float()).to(torch.bfloat16)
-    return hi, lo, (lo != 0).any(dim=1)
+    m, k = lo.shape
+    chunks = torch.nn.functional.pad(lo != 0, (0, -k % _WS_K)).view(m, -1, _WS_K)
+    return hi, lo, chunks.any(dim=2)
 
 
 def _check_actq(actq, name):
@@ -173,9 +182,9 @@ def _check_actq(actq, name):
 
 
 def actq_split_cuda(x2: torch.Tensor, actq=None, k_pad: int | None = None):
-    """actq_split alone: -> (hi, lo [M, kw] bf16, lo_rows [M] bool), kw =
-    ``k_pad`` (default K) rounded up to a multiple of 512; the plain version
-    padded to kw for a CPU tensor."""
+    """actq_split alone: -> (hi, lo [M, kw] bf16, lo_flags [M, kw / 512]
+    bool), kw = ``k_pad`` (default K) rounded up to a multiple of 512; the
+    plain version padded to kw for a CPU tensor."""
     name = "actq_split_cuda"
     k_pad = x2.shape[1] if k_pad is None else k_pad
     if not x2.is_cuda:
@@ -186,22 +195,23 @@ def actq_split_cuda(x2: torch.Tensor, actq=None, k_pad: int | None = None):
         raise ValueError(f"{name}: k_pad {k_pad} < K {x2.shape[1]}")
     _check_actq(actq, name)
     m = x2.shape[0]
-    kw, ws, hi, lo, lo_rows = _split_workspace(m, k_pad, x2.device)
+    kw, ws, hi, lo, lo_flags = _split_workspace(m, k_pad, x2.device)
     if m == 0:
-        return hi, lo, lo_rows
+        return hi, lo, lo_flags
     rc = _cuda.lib().lmq_actq_split(x2.data_ptr(), ws.data_ptr(), m, x2.shape[1], kw,
                                     *_actq_args(actq), _cuda.stream_ptr(x2))
     _cuda.check(rc, name)
     actq_split_cuda.launches += 1
-    return hi, lo, lo_rows
+    return hi, lo, lo_flags
 
 
 def _launch_after_split(entry: str, name: str, x2, packed, actq, k_pad: int,
                         *format_args) -> tuple[torch.Tensor, bool]:
-    """K2 or K3: actq_split into a workspace, then the matmul reading it,
-    through C entry point ``entry`` (one call launches both; their return
-    code is checked after both) -> (y, whether it launched: an empty
-    product launches nothing)."""
+    """K2 or K3: actq_split into a workspace, then the matmul reading it as
+    its programmatic dependent, through C entry point ``entry`` (one call
+    launches both; their return code is checked after both: a refused
+    launch raises, with no other launch in its place) -> (y, whether it
+    launched: an empty product launches nothing)."""
     _check_operands(x2, packed, name)
     bs = packed.block_size
     if bs < 1 or 128 % bs:
@@ -215,7 +225,7 @@ def _launch_after_split(entry: str, name: str, x2, packed, actq, k_pad: int,
     rc = getattr(_cuda.lib(), entry)(
         x2.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(), y.data_ptr(),
         ws.data_ptr(), m, n, packed.in_features, k_pad, kw, *format_args, bs,
-        *_actq_args(actq), _cuda.stream_ptr(x2),
+        *_actq_args(actq), 1, _cuda.stream_ptr(x2),
     )
     _cuda.check(rc, name)
     actq_split_cuda.launches += 1

@@ -25,8 +25,9 @@ the dense path on the dequantized codes (``packed_attention_decode_dense``,
 counted) where JAX's kernel refuses the cache too, as JAX's
 ``decode_step`` does outside ``attention_kernel_ok``, and on the CPU; on
 the card it raises where JAX's kernel would take the cache and K4/K5 do
-not (a head_dim off a multiple of 4, a head-major one past 1024, a block
-neither a power of two nor the head: ROADMAP fault 18).
+not (since fault 18's repair only a split that does not fit in shared
+memory: a head-major cache past 3011 dims a head at rep 8, a pos-major one
+past 65535).
 
 Under tensor parallelism (``parallel.tp.spmd`` around a local tree from
 ``parallel.shard_params``) the caches hold this rank's kv heads, and their

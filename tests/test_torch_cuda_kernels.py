@@ -11,7 +11,11 @@ position; the tiling probes (P4-P7): N off every column tile, a short
 last step of packing tiles or of a K band, M in {1, 3, 8, 9, 17}; P12 and
 P13 at batch 1, 3 and 32, positions 0, 15, 16 and 100, rep 2 with a short
 last block; P10 with L off its 256-column tile and off its 4-column loads,
-and misaligned codes.
+and misaligned codes. Since fault 18's repair K4 and K5 also at head_dims
+off 4, K/V blocks that are not powers of two and K5 past 1024 dims; and K2
+and K3, whose matmul starts as ``actq_split``'s programmatic dependent,
+on one workspace over 200 unsynchronised calls (each output its own x's,
+bit for bit) and with a lo term in one 512-K chunk of one row.
 
 Needs an NVIDIA GPU (marker ``cuda``); skips without one. Imports nothing of
 JAX, so it runs on a GPU host without it:
@@ -33,6 +37,8 @@ sum over every lane of the cache, is held relative to max|ctx|: 1e-4 with
 float32 dots, 1e-3 with bf16 dots (a score whose float32 sum lands on the
 other side of a bf16 rounding point moves by one bf16 step). P10 equals
 its plain version bit for bit (exact products summed in the same order)."""
+
+from unittest import mock
 
 import pytest
 import torch
@@ -255,6 +261,59 @@ def test_actq_split_matches_plain(dev, m, k, misaligned, actq):
     for g_, w_ in zip(got[:2], want[:2]):
         assert torch.equal(g_.view(torch.int16), w_.view(torch.int16))
     assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("kind", ["int8", "subbyte"])
+def test_pdl_matmuls_read_their_own_x(dev, kind):
+    """K2 and K3 start their matmul as actq_split's programmatic dependent:
+    its blocks queue weights while actq_split runs and must wait for it
+    before they read the workspace. 200 calls alternating x1 (raw float32:
+    lo terms) and x2 (quantized: none) on ONE workspace, with no
+    synchronisation: each output equals its own x's synchronised output
+    bit for bit (a matmul that read the workspace early would take the
+    other x's rows), and those are their plain versions' within 1e-4 of
+    max|y|."""
+    m, n, k = 8, 4096, 4096
+    w = _weight(n, k, 6).to(dev)
+    if kind == "int8":
+        packed, fn = tp.pack_block_fp(w, 6, 8, None, [1, 16]), dm.bfp_matmul_cuda
+    else:
+        packed, fn = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16]), dm.bfp_matmul_subbyte_cuda
+    g = torch.Generator().manual_seed(3)
+    xs = (torch.randn((m, k), generator=g).to(dev),
+          _qdq(torch.randn((m, k), generator=g) * 100).to(dev))
+    refs = [fn(x, packed) for x in xs]
+    torch.cuda.synchronize()
+    for x, ref in zip(xs, refs):
+        _close_rel(ref, dm.bfp_matmul_plain(x, packed))
+    one = dm._split_workspace(m, dm._k_padded(packed), dev)
+    with mock.patch.object(dm, "_split_workspace", lambda *_: one):
+        outs = [fn(xs[i % 2], packed) for i in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, refs[i % 2]) for i, y in enumerate(outs))
+
+
+@pytest.mark.parametrize("kind", ["int8", "subbyte"])
+def test_matmuls_or_every_chunk_flag(dev, kind):
+    """actq_split flags a row's lo a chunk of 512 K at a time, and K2 and
+    K3 take a row block's lo products where any chunk of any of its rows
+    has one: x quantized (no lo) but for its last 512 K in one row, raw
+    float32 there (a chunk before the last where the sub-byte k_pad pads
+    K). Skipping that chunk's lo would
+    move y by ~2^-9 of the chunk's share, past 1e-4 of max|y|."""
+    m, n, k = 24, 300, 4096
+    w = _weight(n, k, 6).to(dev)
+    if kind == "int8":
+        packed, fn = tp.pack_block_fp(w, 6, 8, None, [1, 16]), dm.bfp_matmul_cuda
+    else:
+        packed, fn = tp.pack_block_fp_subbyte(w, 6, 8, None, [1, 16]), dm.bfp_matmul_subbyte_cuda
+    g = torch.Generator().manual_seed(4)
+    x = _qdq(torch.randn((m, k), generator=g))
+    x[13, -512:] = torch.randn(512, generator=g) * 8
+    x = x.to(dev)
+    hi, lo, flags = dm.actq_split_cuda(x, None, dm._k_padded(packed))
+    assert flags.nonzero().tolist() == [[13, k // 512 - 1]]
+    _close_rel(fn(x, packed), dm.bfp_matmul_plain(x, packed))
 
 
 def test_int8_kernel_raises_on_bad_operands(dev):
@@ -481,6 +540,31 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     (3, 16, 2, 8, 1024, 8, 8, (16, 6, 8, None), [1023, 17, 500]),
     (2, 2, 2, 12, 128, 12, 4, (16, 6, 8, None), [127, 60]),
     (1, 2, 1, 1024, 64, 16, 16, (16, 6, 8, None), [63]),
+    # fault 18's repair, rep 1 and 8: head_dims off 4 (2, 6, 10, 18; V code
+    # rows padded to 4 bytes in shared memory, the last quad's dims past hd
+    # not stored) and 36, K/V blocks that are not powers of two (3, 5, 6,
+    # 9, 10, 12, 18, 20, 24, 36, 40), and K5 past 1024 dims (1280, 2048:
+    # P . V in passes of 1024 dims, its sums in shared memory)
+    (2, 2, 1, 2, 64, 2, 1, (16, 6, 8, None), [63, 5]),
+    (2, 2, 8, 2, 128, 1, 2, (32, 6, 8, None), [127, 40]),
+    (2, 4, 1, 6, 128, 6, 3, (16, 6, 8, None), [127, 0]),
+    (2, 2, 8, 6, 256, 3, 6, (64, 6, 8, None), [255, 100]),
+    (2, 4, 1, 10, 64, 10, 5, (16, 6, 8, None), [63, 20]),
+    (2, 2, 8, 10, 128, 5, 10, None, [127, 64]),
+    (2, 4, 1, 18, 128, 9, 6, (16, 6, 8, None), [127, 31]),
+    (2, 2, 8, 18, 64, 18, 9, (16, 6, 8, None), [63, 1]),
+    (2, 4, 1, 36, 256, 12, 4, (16, 6, 8, None), [255, 77]),
+    (2, 2, 8, 36, 128, 36, 12, (16, 6, 8, None), [127, 3]),
+    (2, 4, 1, 48, 256, 12, 12, (16, 6, 8, None), [255, 90]),
+    (2, 2, 8, 48, 512, 12, 24, (64, 6, 8, None), [511, 200]),
+    (2, 4, 1, 80, 256, 20, 20, (16, 6, 8, None), [255, 31]),
+    (2, 2, 8, 80, 256, 40, 20, (32, 6, 8, None), [255, 128]),
+    (2, 4, 1, 96, 256, 24, 24, (16, 6, 8, None), [255, 64]),
+    (2, 2, 8, 96, 128, 24, 12, (16, 6, 8, None), [127, 100]),
+    (2, 4, 1, 1280, 256, 16, 16, (16, 6, 8, None), [255, 70]),
+    (2, 2, 8, 1280, 256, 1, 20, (16, 6, 8, None), [255, 128]),
+    (2, 2, 1, 2048, 256, 16, 16, (16, 6, 8, None), [255, 17]),
+    (1, 2, 8, 2048, 256, 1, 1, (32, 6, 8, None), [255]),
 ]
 
 

@@ -6,12 +6,13 @@ block divides it, within its cap of 4096 x 128 cache elements; every
 quant config of ``configs/quantization/`` packs a cache in blocks of 16,
 so a Llama-family model at head_dim 48, 80, 96, 112 or 320 (or 8, a block
 of 16 cut to the head) decodes its packed cache through that kernel, and
-a config with blocks of 8 at head_dim 40. K4 and K5 take every multiple
-of 4 (K5 up to 1024): the C host splits such a head_dim into ring stages
-and dim groups that divide it (``ad.k4_tiles``, ``ad.k5_tiles``; K4's
-stage 80 of 320's dims, 40 of 40's, 8 of 8's), and K5's P . V idles the
-threads past its last whole position group. A power of two keeps the
-split it always had.
+a config with blocks of 8 at head_dim 40. K4 and K5 take every head_dim
+and every block that divides it (fault 18's repair: the off-4 head_dims,
+the other blocks and K5 past 1024 dims are in ``tests/test_torch_fault18.py``):
+the C host splits such a head_dim into ring stages and dim groups that
+divide it (``ad.k4_tiles``, ``ad.k5_tiles``; K4's stage 80 of 320's dims,
+40 of 40's, 8 of 8's), and K5's P . V idles the threads past its last
+whole position group. A power of two keeps the split it always had.
 
 The schedule replicas of ``tests/test_torch_k4.py`` and
 ``tests/test_torch_k5.py`` (which split the dims and positions as the
@@ -175,17 +176,18 @@ def test_every_multiple_of_16_splits_evenly(head_dims):
                 assert 1 <= pgs5 * (hd // 4) <= 256 and t >= 1
 
 
-@pytest.mark.parametrize("rep,hd,reason", [
-    (1, 2, "head_dim"), (1, 6, "head_dim"), (2, 90, "head_dim"), (1, 1040, "head_dim"),
-    (9, 80, "query rows")])
+@pytest.mark.parametrize("rep,hd,reason", [(9, 80, "query rows")])
 def test_what_the_kernels_still_refuse(rep, hd, reason):
-    """Outside the limits: a head_dim that is not a multiple of 4, a
-    head-major one past 1024 (K4 takes it), and more than 8 query rows a kv
-    head; a scale block that is neither a power of two nor the head."""
+    """Outside the limits: more than 8 query rows a kv head (which the JAX
+    package's kernel refuses too), and a scale block that does not divide
+    the head. Since fault 18's repair the head_dims off 4 (2, 6, 90) and K5
+    past 1024 dims (1040) are taken, and so is a block that is neither a
+    power of two nor the head (12 at head_dim 48)."""
     assert reason in ad.kernel_shape_error(rep, hd)
-    if hd == 1040:
-        assert ad.kernel_shape_error(rep, hd, pos_major=True) is None
-    assert "scale block" in ad.kernel_block_error(48, 12, 16)
+    for hd_taken in (2, 6, 90, 1040):
+        assert ad.kernel_shape_error(1, hd_taken) is None
+    assert "scale block" in ad.kernel_block_error(48, 7, 16)
+    assert ad.kernel_block_error(48, 12, 16) is None
     assert ad.kernel_block_error(12, 12, 4) is None
 
 

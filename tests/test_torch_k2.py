@@ -75,13 +75,13 @@ def test_actq_split_plain_is_the_jax_lanes_quantizer(m, k, actq):
     kw = -(-k // 512) * 512
     q = np.asarray(_jax_lanes_qdq(*actq)(jnp.asarray(np.pad(x, ((0, 0), (0, kw - k))))))
     q = torch.from_numpy(q.copy())
-    hi, lo, lo_rows = dm.actq_split_plain(torch.from_numpy(x), actq, kw)
+    hi, lo, lo_flags = dm.actq_split_plain(torch.from_numpy(x), actq, kw)
     want_hi = q.to(torch.bfloat16)
     want_lo = (q - want_hi.float()).to(torch.bfloat16)
     assert hi.shape == lo.shape == (m, kw)
     assert torch.equal(_bits(hi), _bits(want_hi))
     assert torch.equal(_bits(lo), _bits(want_lo))
-    assert torch.equal(lo_rows, (want_lo != 0).any(dim=1))
+    assert torch.equal(lo_flags.any(dim=1), (want_lo != 0).any(dim=1))
     assert not hi[:, k:].any() and not lo[:, k:].any()
 
 
@@ -261,13 +261,13 @@ def test_k2_wrappers_take_the_plain_versions_on_the_cpu():
 
 @pytest.mark.parametrize("m,k_pad", [(1, 64), (17, 1104), (256, 11264)])
 def test_split_workspace_is_the_kernels_layout(m, k_pad):
-    """hi at byte 0, lo at 2 m kw, lo_rows at 4 m kw (as
-    ``lmq_bfp_matmul_int8`` and ``lmq_actq_split`` read it), kw a multiple
-    of 512 at least k_pad."""
-    kw, ws, hi, lo, lo_rows = dm._split_workspace(m, k_pad, "cpu")
+    """hi at byte 0, lo at 2 m kw, lo_flags (a byte a row and 512 K) at
+    4 m kw (as ``lmq_bfp_matmul_int8`` and ``lmq_actq_split`` read it), kw
+    a multiple of 512 at least k_pad."""
+    kw, ws, hi, lo, lo_flags = dm._split_workspace(m, k_pad, "cpu")
     assert kw % 512 == 0 and k_pad <= kw < k_pad + 512
-    assert ws.numel() == 4 * m * kw + m
+    assert ws.numel() == 4 * m * kw + m * (kw // 512)
     base = ws.data_ptr()
-    assert (hi.data_ptr() - base, lo.data_ptr() - base, lo_rows.data_ptr() - base) == (
+    assert (hi.data_ptr() - base, lo.data_ptr() - base, lo_flags.data_ptr() - base) == (
         0, 2 * m * kw, 4 * m * kw)
-    assert hi.shape == lo.shape == (m, kw) and lo_rows.shape == (m,)
+    assert hi.shape == lo.shape == (m, kw) and lo_flags.shape == (m, kw // 512)

@@ -3,15 +3,16 @@
 K5 (``llm_mixed_q_torch.kernels.attention_decode.packed_attention_decode_cuda``)
 runs decode attention over the head-major cache (K codes [b, nkv, hd, S],
 V codes [b, nkv, S, hd]) with a block a chunk of P positions of one kv head
-and its rep query rows, walked in tiles of T (``k5_geometry``; T >= 32
-wherever P >= 32, so min(T, 32) = min(P, 32)), in K4's phases:
+and its rep query rows, walked in tiles of T (``k5_geometry``; ``k5_tiles``
+halves T where two stages would not fit, below 32 past ~1000 dims a head),
+in K4's phases:
 
 1. the scores of the chunk into a workspace [b, nh, S];
 2. per query row, the max and the float64 denominator over every filled
-   position, and for a prob block longer than min(P, 32) the max of exp
+   position, and for a prob block longer than min(T, 32) the max of exp
    over each whole block (K4's stats kernel);
 3. per chunk, the probabilities and their block_fp quantization, a block of
-   at most min(P, 32) positions inside the chunk taking its max there and a
+   at most min(T, 32) positions inside the chunk taking its max there and a
    longer one phase 2's max of exp divided by the denominator; then
    P . deq(V) of the chunk into a partial [b, chunk, hd, nh];
 4. the partials of the filled chunks summed in chunk order (K4's sum
@@ -127,7 +128,7 @@ def k5_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, prob_q, denominator=f6
                 p = torch.exp(scores[bi, h, :, p0:p0 + n] - m) / denom
                 if prob_q is not None:
                     pbs, width, ew, eb = prob_q
-                    if pbs <= min(p_len, 32):  # blocks inside the chunk
+                    if pbs <= min(t_len, 32):  # blocks inside a tile of the chunk
                         padded = torch.nn.functional.pad(p, (0, p_len - n))
                         mx = padded.reshape(rep, p_len // pbs, pbs).amax(-1)
                         mx = mx.repeat_interleave(pbs, -1)[..., :n]

@@ -10,13 +10,14 @@ whenever the quant config permits, on either device, as JAX's do, and
   where JAX's kernel refuses the cache too (its ``attention_kernel_ok`` is
   False), as JAX's ``decode_step`` then decodes densely, and on the CPU;
 - on the card, a ValueError where JAX's kernel takes the cache and K4/K5
-  do not.
+  do not (since fault 18's repair only a split that does not fit in
+  shared memory: none of the configs here).
 
 Eight configs (name: hidden, heads, kv heads, max_len):
 ``head_dim_48`` (a multiple of 16 that is not a power of two: both take
 it at 48 positions), ``head_dim_320`` (past 256: both take it at 48
 positions), ``head_dim_6`` (not a multiple of 4, a block of 16 cut to the
-head: JAX's kernel takes it, K4/K5 do not), ``rep_16`` and ``rep_12``
+head: both take it since fault 18's repair), ``rep_16`` and ``rep_12``
 (16 and 12 query rows per kv head: both refuse), ``long_head_dim_48``
 (head_dim 48 at 12000 positions, past JAX's cap of 4096 x 128 elements,
 within K4/K5's limits), ``long_head_dim_320`` (head_dim 320 at 2048
@@ -83,7 +84,7 @@ CASES = {
 ROUTES = {
     "head_dim_48": ("kernel", "kernel"),
     "head_dim_320": ("kernel", "kernel"),
-    "head_dim_6": ("dense", None),
+    "head_dim_6": ("kernel", "kernel"),
     "rep_16": ("dense", "dense"),
     "rep_12": ("dense", "dense"),
     "long_head_dim_48": ("kernel", "kernel"),
@@ -179,11 +180,13 @@ def test_packed_decode_takes_the_dense_route_as_jax_does(name):
 
 
 def test_packed_decode_of_a_head_dim_the_kernels_refuse_on_the_cpu():
-    """head_dim 6, which JAX's kernel takes and K4/K5 do not: on the CPU
-    the dense route gives JAX's logits (JAX's CPU path is dense too)."""
+    """head_dim 6, which JAX's kernel takes and K4/K5 refused before fault
+    18's repair: the K4 wrapper (the cache is pos-major at 48 positions)
+    takes every layer, its plain version here, and gives JAX's logits; the
+    dense route is not called."""
     got, want, k4, k5, tc = _decode_against_jax("head_dim_6")
-    assert not k4.called and not k5.called
-    assert packed_attention_decode_dense.calls == tc.num_hidden_layers
+    assert k4.call_count == tc.num_hidden_layers and not k5.called
+    assert packed_attention_decode_dense.calls == 0
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
@@ -216,8 +219,9 @@ def test_generate_packs_outside_the_limits_as_jax_does(name):
 
 
 def test_batcher_packs_outside_the_limits():
-    """The batcher's default cache is packed too, outside the kernels'
-    limits (head_dim 6), and its rows are JAX's batcher's. (At such a
+    """The batcher's default cache is packed too at head_dim 6 (outside
+    the kernels' limits before fault 18's repair), and its rows are JAX's
+    batcher's. (At such a
     config a batcher row and ``generate``'s may differ in both packages for
     one prompt: the bucketed prefill quantizes other blocks.)"""
     jc, tc, jparams, tp, _ = _case("head_dim_6", seed=5)

@@ -209,12 +209,13 @@ def test_route_keeps_raw_float32_x(m, n, k, width, bs):
 def test_split_workspace_takes_the_subbyte_k_pad(m, k_pad):
     """The sub-byte k_pad is a multiple of the tile (640 at width 6), not
     of 512: kw rounds it up to a multiple of 512 (as lmq_bfp_matmul_subbyte
-    and actq_split read it), hi at byte 0, lo at 2 m kw, lo_rows at 4 m kw."""
-    kw, ws, hi, lo, lo_rows = dm._split_workspace(m, k_pad, "cpu")
+    and actq_split read it), hi at byte 0, lo at 2 m kw, lo_flags (a byte a
+    row and 512 K) at 4 m kw."""
+    kw, ws, hi, lo, lo_flags = dm._split_workspace(m, k_pad, "cpu")
     assert kw % 512 == 0 and k_pad <= kw < k_pad + 512
-    assert ws.numel() == 4 * m * kw + m
+    assert ws.numel() == 4 * m * kw + m * (kw // 512)
     base = ws.data_ptr()
-    assert (hi.data_ptr() - base, lo.data_ptr() - base, lo_rows.data_ptr() - base) == (
+    assert (hi.data_ptr() - base, lo.data_ptr() - base, lo_flags.data_ptr() - base) == (
         0, 2 * m * kw, 4 * m * kw)
     assert hi.shape == lo.shape == (m, kw)
 
