@@ -51,7 +51,13 @@
    prompts;
 5. holds one decode step's logits, kernel path against plain path (the
    plain path patches the wrappers here, in this script), and counts the
-   launches of that step; profiles decode steps of each format;
+   launches of that step; on copies of the same cache, the step with
+   ``attn_kernel=True`` (the same launches) and ``attn_kernel=False`` (the
+   matmul kernels, no K4/K5, the dense route a layer), the latter's logits
+   against the kernel route's, each a path of its own in the launch
+   counts; times both routes, wall and card busy ms, at each format's
+   serving layout (sub-byte at 256: K4, int8 at 512: K5); profiles decode
+   steps of each format;
 6. frees the Llama trees and builds OPT-6.7B widths (32 layers, random
    weights seed 0, W6A6 block_fp) twice: packed by ``init_opt_params``
    (transposed sub-byte words: K1) and with ``pack_common._to_t`` patched
@@ -269,9 +275,11 @@ import itertools
 import json
 import logging
 import math
+import os
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 from unittest import mock
 
@@ -720,6 +728,31 @@ def kernel_times(fn, calls=20):
             if e.device_type == DeviceType.CUDA}
 
 
+ROUTE_CALLS = 3  # decode steps a route is timed over
+# the cache length of each Llama format's serving run: generate's pos-major
+# cache (K4), the batcher's head-major one (K5)
+SERVING_MAX_LEN = {"sub-byte": 256, "int8": 512}
+
+
+def route_times(steps, calls=ROUTE_CALLS):
+    """{name: (wall ms, card busy ms)} of a call of each of ``steps``
+    {name: fn}: the median over ``calls`` calls on the host clock, the
+    routes taken in turn so that a drift of the shared host falls on each
+    alike, and the sum of ``kernel_times`` over ``calls`` calls."""
+    walls = {name: [] for name in steps}
+    for step in steps.values():
+        step()
+    for _ in range(calls):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (float(np.median(walls[name])), sum(kernel_times(step, calls).values()))
+            for name, step in steps.items()}
+
+
 def _k5_geometry_sweep(call, nkv, rep, s_len, flush):
     """K5's time at other geometries, (P, T) -> ms: chunks of 64 to 1024
     positions a block, tiles of 64 or 128 positions a ring stage, with the
@@ -890,10 +923,25 @@ def ragged_prompts(rng, n, vocab):
     return prompts, ids, mask
 
 
+def _decode_route_paths():
+    """run_llama's decode steps with the attention route forced, at batch 8
+    on the packed cache of max_len 256 (pos-major) and 512 (head-major):
+    attn_kernel=True takes K4 / K5, False the dense route on the packed
+    codes (no attention kernel)."""
+    paths = {}
+    for fmt, matmul in (("subbyte", ("bfp_matmul_subbyte_t",)),
+                        ("int8", ("bfp_matmul_int8", "actq_split"))):
+        for n, attention in ((256, "attn_decode_pos_major"), (512, "attn_decode_head_major")):
+            paths[f"decode_{fmt}_{n}_attn_kernel"] = matmul + (attention,)
+            paths[f"decode_{fmt}_{n}_dense"] = matmul + ("attn_decode_packed_dense",)
+    return paths
+
+
 # the kernels each main path must launch (and no other), by path
 PATHS = {
     "generate": ("bfp_matmul_subbyte_t", "attn_decode_pos_major"),
     "ContinuousBatcher": ("bfp_matmul_int8", "actq_split", "attn_decode_head_major"),
+    **_decode_route_paths(),
     "opt_generate_t": ("bfp_matmul_subbyte_t",),
     "opt_generate_lane_major": ("bfp_matmul_subbyte", "actq_split"),
     "ppl": (),  # the perplexity phase: fake quantization, no Hopper kernel
@@ -989,11 +1037,12 @@ def check_path_counts(path_counts):
                 check(c == 0, f"kernel {kname} was launched by the {path} run")
 
 
-def run_llama():
+def run_llama(smi):
     """Llama-2-7B widths: generate (K1 + K4), ContinuousBatcher (K2 with
-    actq_split + K5),
-    decode steps against the plain path, a profiled step. -> launch counts
-    by path. The trees are freed on return."""
+    actq_split + K5), decode steps against the plain path and with the
+    attention route forced both ways (``attn_kernel``), timed, and a
+    profiled step. -> launch counts by path. The trees are freed on
+    return."""
     from llm_mixed_q_torch.models.hf_loader import init_llama_params
     from llm_mixed_q_torch.models.llama import (
         ContinuousBatcher, LlamaQuantizedConfig, decode_step, generate,
@@ -1057,7 +1106,12 @@ def run_llama():
         f"{16 * new_tokens / t_srv:.1f} tokens/s ({t_srv:.2f} s); requests whose "
         f"tokens differ from generate's rows: {mismatched}")
 
-    # one decode step, kernel path against plain path, on the same cache
+    # one decode step, kernel path against plain path, on the same cache;
+    # the route forced by attn_kernel (True: K4/K5, False: the dense route on
+    # the packed codes) on copies of the cache as it was before the step
+    fields = ("k_codes", "k_scales", "v_codes", "v_scales")
+    route_ms = {}
+    t_loop = time.perf_counter()
     for label, params in (("sub-byte", sub), ("int8", int8)):
         for max_len in (256, 512):
             spec = kv_cache_pack_spec(config)
@@ -1067,24 +1121,57 @@ def run_llama():
             logits, lengths = prefill_into_cache(params, ids, mask, cache, config)
             tok = torch.argmax(logits, -1)[:, None]
             snapshot = [[t.clone() for t in f] for f in cache[:4]]
+            fresh = lambda: cache._replace(**dict(zip(fields, [[t.clone() for t in f]
+                                                               for f in snapshot])))
             reset_all_launch_counts()
             got = decode_step(params, tok, cache, lengths, config)
             step_counts = all_launch_counts()
-            cache2 = cache._replace(**dict(zip(
-                ("k_codes", "k_scales", "v_codes", "v_scales"), snapshot)))
+            route = f"decode_{label.replace('-', '')}_{max_len}"
+            reset_all_launch_counts()
+            forced = decode_step(params, tok, fresh(), lengths, config, attn_kernel=True)
+            path_counts[f"{route}_attn_kernel"] = all_launch_counts()
+            check(path_counts[f"{route}_attn_kernel"] == step_counts,
+                  f"attn_kernel=True launched {path_counts[f'{route}_attn_kernel']}, "
+                  f"the default route {step_counts}")
+            reset_all_launch_counts()
+            dense = decode_step(params, tok, fresh(), lengths, config, attn_kernel=False)
+            path_counts[f"{route}_dense"] = all_launch_counts()
+            check(path_counts[f"{route}_dense"]["attn_decode_packed_dense"] == LAYERS,
+                  f"attn_kernel=False: {path_counts[f'{route}_dense']}")
+            check_path_counts({k: path_counts[k] for k in (f"{route}_attn_kernel",
+                                                            f"{route}_dense")})
             with plain_path():
-                want = decode_step(params, tok, cache2, lengths, config)
-            check(all_launch_counts() == step_counts, "the plain path launched a kernel")
+                want = decode_step(params, tok, fresh(), lengths, config)
+            check(all_launch_counts() == path_counts[f"{route}_dense"],
+                  "the plain path launched a kernel")
             log(f"launches in one decode step ({label}, max_len {max_len}): "
-                f"{ {k: c for k, c in step_counts.items() if c} }")
+                f"{ {k: c for k, c in step_counts.items() if c} }; attn_kernel=False: "
+                f"{ {k: c for k, c in path_counts[f'{route}_dense'].items() if c} }")
             rel = ((got - want).abs().max() / want.abs().max()).item()
+            rel_dense = ((dense - got).abs().max() / got.abs().max()).item()
             agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
             log(f"decode step logits, kernel vs plain ({label}, max_len {max_len}): "
-                f"max err {rel:.3e} of max|logit|, argmax agreement {agree:.3f}")
+                f"max err {rel:.3e} of max|logit|, argmax agreement {agree:.3f}; dense route "
+                f"vs kernel route {rel_dense:.3e}; attn_kernel=True vs default "
+                f"{(forced - got).abs().max().item():.3e}")
             # ulp-level differences of float32 sums flip a 5-bit rounding of
             # the re-quantized activations now and then; over 32 layers that
             # moves the logits by a few percent of their range at most
             check(rel <= 5e-2, f"decode logits differ: {rel}")
+            check(rel_dense <= 5e-2, f"dense-route decode logits differ: {rel_dense}")
+            if max_len == SERVING_MAX_LEN[label]:  # the layout of the format's serving run
+                route_ms[label] = route_times({
+                    name: partial(decode_step, params, tok, cache, lengths, config,
+                                  attn_kernel=attn_kernel)
+                    for name, attn_kernel in (("kernel", True), ("dense", False))})
+    log(f"the decode steps' checks and the routes' times took "
+        f"{time.perf_counter() - t_loop:.1f} s")
+    for label, (kernel, dense) in ((k, (v["kernel"], v["dense"])) for k, v in route_ms.items()):
+        n = SERVING_MAX_LEN[label]
+        log(f"decode step ({label}, batch {BATCH}, {LAYERS} layers, max_len {n}: "
+            f"{'K4' if n == 256 else 'K5'}), wall / card busy ms, median of {ROUTE_CALLS} calls "
+            f"a route ({smi}): kernel route {kernel[0]:.3f} / {kernel[1]:.3f}, dense route "
+            f"{dense[0]:.3f} / {dense[1]:.3f}")
 
     check(not mismatched, f"batcher requests {mismatched} != generate rows")
 
@@ -2344,12 +2431,22 @@ def run_probes(peaks, flush, probes_lib):
 
     t0 = time.perf_counter()
     log("probe kernels vs plain versions and vs their production kernels:")
-    rows = check_subbyte_probes(peaks, flush)
-    rows.update(check_variant_probes(peaks, flush))
-    rows["probe_attention"] = check_attention_probe(peaks, flush)
-    rows.update(check_tile_probes(peaks, flush))
-    rows["probe_attention_v2"], rows["probe_attention_v3"] = check_k3_probes(peaks, flush)
-    rows["probe_expand"] = check_expand_probe(peaks, flush, probes_lib)
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    rows = timed("check_subbyte", lambda: check_subbyte_probes(peaks, flush))
+    rows.update(timed("check_variants", lambda: check_variant_probes(peaks, flush)))
+    rows["probe_attention"] = timed("check_attention", lambda: check_attention_probe(peaks, flush))
+    rows.update(timed("check_tiles", lambda: check_tile_probes(peaks, flush)))
+    rows["probe_attention_v2"], rows["probe_attention_v3"] = timed(
+        "check_k3", lambda: check_k3_probes(peaks, flush))
+    rows["probe_expand"] = timed("check_expand",
+                                 lambda: check_expand_probe(peaks, flush, probes_lib))
 
     # one timed chain of 100 calls a variant (the entry points' default is 3:
     # cut to 1 to leave the script's time limit room for the
@@ -2366,10 +2463,11 @@ def run_probes(peaks, flush, probes_lib):
                       ("kexp", lambda: kexp.run(8192, 32, reps=PROBE_REPS, log=log))):
         reset_all_launch_counts()
         torch.cuda.synchronize()
-        times[path] = run()
+        times[path] = timed(path, run)
         torch.cuda.synchronize()
         counts[path] = all_launch_counts()
     check_path_counts(counts)
+    log(f"phase 9's parts, seconds: {secs}")
 
     # ms of each (probe, variant): sums over the four shapes of the entry
     # points' chains; production: the kernel the entry point prints beside it
@@ -4233,8 +4331,11 @@ def run_parallel(smi):
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
+        # the ranks are one host: each holds the host's (global) batches
+        env = {**os.environ, "LOCAL_WORLD_SIZE": str(P13_RANKS)}
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                   "--parallel-rank", str(r), str(port), str(tmp)], cwd=ROOT)
+                                   "--parallel-rank", str(r), str(port), str(tmp)], cwd=ROOT,
+                                  env=env)
                  for r in range(P13_RANKS)]
         try:
             for p in procs:
@@ -4512,6 +4613,7 @@ def main(only=None):
         rows, path_counts = run_probes(peaks, flush, libs["probes"])
         log(json.dumps({"kernels": kernel_entries(rows, path_counts)}))
         return
+    t0 = time.perf_counter()
     log(f"kernels vs plain versions at 7B decode shapes, batch {BATCH} (the matmuls also "
         f"{PREFILL_M} rows):")
     rows = check_matmul_kernels(peaks, flush)
@@ -4527,9 +4629,14 @@ def main(only=None):
                 r[pre + "bound_by"] = ("bytes" if r[pre + "bound_bytes_ms"] >= r[pre + "bound_ops_ms"]
                                        else "operations")
 
-    path_counts = run_llama()
+    log(f"phase 2 (the kernels against their plain versions) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_counts = run_llama(smi)
+    log(f"phases 3-5 (Llama) took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     path_counts.update(run_opt())
+    log(f"phase 6 (OPT) took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     ppl, path_counts["ppl"] = run_ppl()
     torch.cuda.empty_cache()

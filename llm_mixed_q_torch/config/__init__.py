@@ -1,5 +1,10 @@
 from .sampler import decode_ast_value, sample_a_dict_of_list, sample_a_list
-from .schema import OP_TO_ENTRIES, QUANT_ARITH_ENTRIES, parse_node_config
+from .schema import (
+    OP_TO_ENTRIES,
+    QUANT_ARITH_ENTRIES,
+    cp_weight_entries_to_bias,
+    parse_node_config,
+)
 from .stat_to_int import (
     create_nested_dict,
     find_int_frac_width,

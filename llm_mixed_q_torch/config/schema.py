@@ -128,3 +128,16 @@ def parse_node_config(config: dict, op: str, strict: bool = True) -> dict:
         else:
             _cp(config, p_config, entries[entry], strict)
     return p_config
+
+
+def cp_weight_entries_to_bias(config: dict, p_config: dict, arith: str, strict=True):
+    """Copy a node's weight entries to its bias keys where the bias keys are
+    missing (reference quant_config_parser.py:184-200)."""
+    entries = QUANT_ARITH_ENTRIES[arith]
+    if all(k in config for k in entries["bias_entries"]):
+        _cp(config, p_config, entries["bias_entries"], strict)
+    else:
+        for wk, bk in zip(entries["weight_entries"], entries["bias_entries"]):
+            if not strict and wk not in config:
+                continue
+            p_config[bk] = deepcopy(config[wk])

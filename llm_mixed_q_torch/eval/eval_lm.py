@@ -21,9 +21,11 @@ def _first_tensor(tree):
 
 
 @torch.inference_mode()
-def eval_lm_wikitext2(forward_fn, params, eval_dataloader, num_samples: int | None = None) -> dict:
+def eval_lm_wikitext2(forward_fn, params, eval_dataloader, num_samples: int | None = None,
+                      progress_bar: bool = False) -> dict:
     """``forward_fn(params, input_ids, attention_mask, labels)["loss"]`` over
-    the batches, each moved to the parameters' device."""
+    the batches, each moved to the parameters' device. ``progress_bar`` is
+    accepted and ignored, as in the JAX package."""
     device = _first_tensor(params).device
     losses = []
     seq_len = None

@@ -17,6 +17,9 @@ from .packing import (
     PackedBFP,
     PackedBFPSub,
     PackedBFPSubT,
+    bfp_decode_lastdim,
+    bfp_encode_lastdim,
+    effective_block_len,
     pack_block_fp,
     pack_block_fp_subbyte,
     pack_block_fp_subbyte_t,

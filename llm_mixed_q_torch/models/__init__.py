@@ -30,7 +30,12 @@ from .bert import (
     parse_bert_quantized_config,
     quantize_bert_params_ptq,
 )
-from .hf_loader import bert_params_from_flat, llama_params_from_flat, opt_params_from_flat
+from .hf_loader import (
+    bert_params_from_flat,
+    llama_params_from_flat,
+    load_flat_state_dict,
+    opt_params_from_flat,
+)
 from .llama import (
     LlamaQuantizedConfig,
     format_stat_profiled_int_config_llama_quantized,

@@ -17,7 +17,9 @@ layouts, chosen exactly as the JAX package chooses them:
 
 ``generate`` and ``ContinuousBatcher`` pack the cache whenever the quant
 config permits (``kv_cache_pack_spec``), on either device, as the JAX
-package does. Decode attention over a packed cache is routed by shape
+package does. ``decode_step`` and ``generate`` take the JAX package's
+``attn_kernel``: True forces the kernel wrappers, False the dense route on
+the packed codes, and None (the default) routes a packed cache by shape
 (``packed_decode_route``): it calls the kernel wrappers when every layer
 is within the kernels' limits (``attention_kernel_error``), which launch
 K4/K5 on the card and compute their plain versions on the CPU; it takes
@@ -49,6 +51,7 @@ from ...kernels.attention_decode import (
     attend_dense,
     packed_attention_decode_batch_cuda,
     packed_attention_decode_cuda,
+    attention_kernel_error,
     packed_attention_decode_dense,
     packed_decode_route,
     prob_q_spec,
@@ -305,18 +308,44 @@ def _attention_cached(params, hidden, cache_layer, positions, cos, sin, config,
     return row_parallel_linear(ctx, params["o_proj"], qc("o_proj"), quantize_weights)
 
 
+def _uses_kernel(config, max_len: int, device, pos_major: bool, spec, attn_kernel) -> bool:
+    """Whether decode attention reads a cache of ``max_len`` positions (packed
+    with K/V blocks ``spec`` in layout ``pos_major``, or the float32 cache
+    for ``spec`` None) through the kernel wrappers, by ``attn_kernel``: None
+    routes by ``packed_decode_route``, False takes the dense route, True the
+    wrappers. True raises ValueError on a float32 cache, as the JAX package
+    does, and where ``attention_kernel_error`` refuses the cache, on either
+    device: the JAX package would interpret its kernel off the TPU on some
+    of these caches, the port holds the CPU to the card's limits."""
+    if attn_kernel is None:
+        return spec is not None and packed_decode_route(
+            config, max_len, device, pos_major, spec) == "kernel"
+    if not attn_kernel:
+        return False
+    if spec is None:
+        raise ValueError("attn_kernel=True requires a packed KV cache")
+    error = attention_kernel_error(config, max_len, pos_major, spec)
+    if error is not None:
+        raise ValueError(f"attn_kernel=True: the decode-attention kernels refuse this "
+                         f"packed cache ({error})")
+    return True
+
+
 @torch.no_grad()
 def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
-                quantize_weights: bool = True):
+                quantize_weights: bool = True, attn_kernel: bool | None = None):
     """One decode step -> logits [b, vocab]; ``cache`` is updated in place.
 
     ``position``: int or per-sequence [b] (ragged batches): each sequence's
     K/V lands at its own offset, RoPE uses its own position, attention
-    masks beyond it. A packed cache decodes by ``packed_decode_route``:
-    through the attention kernels (their plain versions on the CPU) within
-    their limits, else through the dense route on its dequantized codes
-    where JAX's kernel refuses it too, and on the CPU; on the card it
-    raises ValueError where JAX's kernel would take it."""
+    masks beyond it. ``attn_kernel``: True forces the attention kernels
+    (their plain versions on the CPU; a packed cache required), False the
+    dense route on a packed cache's dequantized codes
+    (``packed_attention_decode_dense``), None routes a packed cache by
+    ``packed_decode_route``: through the kernels within their limits, else
+    through the dense route where JAX's kernel refuses it too, and on the
+    CPU; on the card it raises ValueError where JAX's kernel would take it
+    (``_uses_kernel``)."""
     packed = isinstance(cache, PackedKVCache)
     pack_spec = (cache.bs_k, cache.bs_v) if packed else None
     b = token.shape[0]
@@ -325,8 +354,8 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
     positions = positions.expand(b).contiguous() if positions.ndim == 0 else positions
     hidden = embed(params, token)
     max_len = cache.max_len if packed else cache.shape[4]
-    use_kernel = packed and packed_decode_route(
-        config, max_len, device, cache.pos_major, pack_spec) == "kernel"
+    use_kernel = _uses_kernel(config, max_len, device, packed and cache.pos_major, pack_spec,
+                              attn_kernel)
     cos, sin = rope_tables(max_len, config.head_dim, config.rope_theta, device)
     for i, layer_params in enumerate(params["layers"]):
         residual = hidden
@@ -418,11 +447,11 @@ def _cache_spec(config, packed_kv):
     return spec
 
 
-def _new_cache(config, batch, max_len, spec, device, pos_major=None):
+def _new_cache(config, batch, max_len, spec, device, pos_major=None, attn_kernel=None):
+    if spec is not None and pos_major is None:
+        pos_major = packed_cache_layout(config, max_len)[0]
+    _uses_kernel(config, max_len, device, pos_major, spec, attn_kernel)  # raises before any work
     if spec is not None:
-        if pos_major is None:
-            pos_major = packed_cache_layout(config, max_len)[0]
-        packed_decode_route(config, max_len, device, pos_major, spec)  # raises before any work
         return init_packed_kv_cache(config, batch, max_len, spec, device, pos_major)
     return init_kv_cache(config, batch, max_len, device)
 
@@ -432,7 +461,8 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
              max_new_tokens: int = 32, max_len: int | None = None,
              quantize_weights: bool = True, packed_kv: bool | None = None,
              eos_token_id: int | None = None, temperature: float = 0.0,
-             top_k: int = 0, seed: int = 0, device=None) -> np.ndarray:
+             top_k: int = 0, seed: int = 0, attn_kernel: bool | None = None,
+             device=None) -> np.ndarray:
     """Batched generation over the fixed-size quantized KV cache.
 
     Right-padded ragged prompts use each sequence's true length (from the
@@ -440,7 +470,9 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
     sequence (its remaining slots hold EOS); ``temperature``/``top_k``
     sample with a ``torch.Generator`` seeded from ``seed``. ``packed_kv``:
     True/False forces the packed / fake-quant cache, None picks as
-    ``_cache_spec`` says. Runs on ``device`` (the card unless "cpu"); the
+    ``_cache_spec`` says. ``attn_kernel`` routes every decode step's
+    attention as ``decode_step``'s does (checked before the prefill; the
+    prefill attends densely). Runs on ``device`` (the card unless "cpu"); the
     parameters must already live there. -> tokens [b, max_new_tokens]."""
     device = resolve_device(device)
     input_ids = _as_index(input_ids, device)
@@ -450,7 +482,7 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
     if max_len is None:
         max_len = prompt_len + max_new_tokens
     spec = _cache_spec(config, packed_kv)
-    cache = _new_cache(config, b, max_len, spec, device)
+    cache = _new_cache(config, b, max_len, spec, device, attn_kernel=attn_kernel)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     sample = _sample_fn(temperature, top_k, generator)
@@ -459,7 +491,7 @@ def generate(params, config: LlamaQuantizedConfig, input_ids, attention_mask=Non
                                          config, quantize_weights)
     return decode_loop(
         lambda last, positions: decode_step(params, last[:, None], cache, positions,
-                                            config, quantize_weights),
+                                            config, quantize_weights, attn_kernel),
         logits, lengths, max_new_tokens, eos_token_id, sample)
 
 

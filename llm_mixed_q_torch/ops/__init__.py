@@ -1,0 +1,2 @@
+from . import quantizers
+from .quantizers import QUANTIZER_MAP, get_quantizer

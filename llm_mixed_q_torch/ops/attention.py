@@ -8,7 +8,9 @@ reference quantizes the normalized probabilities, which a one-pass online
 softmax cannot reproduce, so there are two passes: the first takes each
 row's exact max and its online sum of exponentials, the second recomputes
 each chunk's scores, forms the normalized probs, quantizes them and
-accumulates p_q @ v. Chunks are multiples of 16, so [1, 16] blocks on the
+accumulates p_q @ v. ``BLOCK_LOG_MATMUL_QUANTIZES_Y`` is bound from
+``ops.functions`` at import, as the JAX package binds it: the switch here
+is this module's own. Chunks are multiples of 16, so [1, 16] blocks on the
 kv axis tile as in the naive path; fully masked positions get probs of
 exactly 0, which the zero-preserving quantizers pass through.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .functions import _quantize_matmul_operand
+from .functions import BLOCK_LOG_MATMUL_QUANTIZES_Y, _quantize_matmul_operand
 
 NEG_INF = -1e9
 
@@ -35,7 +37,8 @@ def _chunk_scores(qq, k_chunk, mask_chunk, mm0_cfg, sqrt_hd):
     """Quantized matmul_0 for one kv chunk, plus the mask: [..., S, chunk]
     float32 scores. Divides by sqrt_hd, as the naive path does."""
     kt = k_chunk.transpose(2, 3)  # [b, h, d, chunk]
-    if not mm0_cfg.get("bypass", False) and mm0_cfg["name"] != "block_log":
+    if not mm0_cfg.get("bypass", False) and (mm0_cfg["name"] != "block_log"
+                                             or BLOCK_LOG_MATMUL_QUANTIZES_Y):
         kt = _q4(kt, mm0_cfg, "weight")
     s = torch.matmul(qq, kt) / sqrt_hd
     if mask_chunk is not None:
@@ -67,7 +70,8 @@ def chunked_quantized_attention(q, k, v, mask, mm0_cfg: dict, mm1_cfg: dict,
 
     # the chunk-independent operand quantization
     qq = q if mm0_cfg.get("bypass", False) else _q4(q, mm0_cfg, "data_in")
-    if not mm1_cfg.get("bypass", False) and mm1_cfg["name"] != "block_log":
+    if not mm1_cfg.get("bypass", False) and (mm1_cfg["name"] != "block_log"
+                                             or BLOCK_LOG_MATMUL_QUANTIZES_Y):
         v = _q4(v, mm1_cfg, "weight")  # [1, 16] blocks along d, a row each
 
     starts = range(0, K + pad, chunk)

@@ -4,7 +4,7 @@
 As in the JAX package, a "log" matmul is a plain log matmul (the
 reference maps it onto the block_log one), and a block_log matmul
 quantizes only x (the reference builds its y quantizer and never applies
-it)."""
+it) unless ``BLOCK_LOG_MATMUL_QUANTIZES_Y`` is switched on."""
 
 from __future__ import annotations
 
@@ -13,6 +13,10 @@ from functools import partial
 import torch
 
 from .quantizers import get_quantizer
+
+# a block_log matmul quantizes its y operand only with this switch on (the
+# JAX package's switch, off by default); read at each call
+BLOCK_LOG_MATMUL_QUANTIZES_Y = False
 
 BLOCK_ARITHS = ("block_fp", "block_minifloat", "block_log")
 
@@ -65,7 +69,7 @@ def quantized_matmul(x, y, config: dict, style: str = "matmul"):
     if config.get("bypass", False):
         return torch.matmul(x, y)
     x = _quantize_matmul_operand(x, config, "data_in")
-    if config["name"] != "block_log":
+    if config["name"] != "block_log" or BLOCK_LOG_MATMUL_QUANTIZES_Y:
         y = _quantize_matmul_operand(y, config, "weight")
     return torch.matmul(x, y)
 

@@ -5,7 +5,7 @@ from .block_fp import _block_fp_qdq, block_fp_quantizer
 from .block_log import _block_log_qdq, block_log_quantizer
 from .block_minifloat import _block_minifloat_qdq, block_minifloat_quantizer
 from .blocking import block_abs_max, infer_block_shape
-from .integer import _integer_qdq, integer_quantizer
+from .integer import _integer_qdq, integer_fraction, integer_quantizer
 from .log import _log_qdq, log_quantizer
 from .minifloat import (
     _minifloat_denorm_qdq,

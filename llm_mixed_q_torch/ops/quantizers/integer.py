@@ -4,6 +4,8 @@ round half to even."""
 
 from __future__ import annotations
 
+from math import log2
+
 import torch
 
 from .ste import ste
@@ -22,3 +24,13 @@ def _integer_qdq(x: torch.Tensor, width: int, frac_width: int,
 
 
 integer_quantizer = ste(_integer_qdq)
+
+
+def integer_fraction(width: int, frac_choices: list, min_value: float,
+                     max_value: float) -> int:
+    """The largest frac_width among ``frac_choices`` that leaves the integer
+    bits a value range needs (reference integer.py:98-105)."""
+    max_half_range = max(abs(min_value), abs(max_value))
+    int_width = int(log2(max(0.5, max_half_range))) + 2
+    frac_width = max(0, width - int_width)
+    return max(filter(lambda x: x <= frac_width, frac_choices))

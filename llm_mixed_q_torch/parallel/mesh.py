@@ -20,21 +20,28 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+_BATCH_AXES = ("dcn", "data")  # a batch is cut over these (``batch_spec_hybrid``)
 
 
 class Mesh:
     """A grid of ranks over named axes (("data", "model"), or ("dcn",
     "data", "model") for ``distributed.make_hybrid_mesh``): ``shape``
     {axis: size}, this rank's ``coords`` {axis: index}, and
-    ``group(axis)``, the process group of the ranks that differ from this
-    one only along ``axis`` (None for an axis of size 1). A mesh of one
-    rank needs no process group."""
+    ``group(axes)``, the process group of the ranks that differ from this
+    one only along ``axes`` (None where they all have size 1). A mesh of
+    one rank needs no process group. ``host_size`` is the ranks a host
+    (the port's counterpart of a JAX process's devices), recorded when the
+    mesh is built (``distributed._host_size``); ``groups`` holds the groups
+    of several axes, which the mesh's maker builds."""
 
-    def __init__(self, data: int = 1, model: int = 1, device_mesh=None, dcn: int | None = None):
+    def __init__(self, data: int = 1, model: int = 1, device_mesh=None, dcn: int | None = None,
+                 host_size: int = 1, groups: dict | None = None):
         self.shape = {"data": data, "model": model}
         if dcn is not None:
             self.shape = {"dcn": dcn, **self.shape}
         self.device_mesh = device_mesh
+        self.host_size = host_size
+        self.groups = groups or {}
         if device_mesh is None:
             self.coords = dict.fromkeys(self.shape, 0)
         else:
@@ -45,17 +52,23 @@ class Mesh:
         return math.prod(self.shape.values())
 
     @property
-    def data_index(self) -> tuple[int, int]:
-        """(this rank's slice of the batch, the slices): over "dcn" and
-        "data" together, as the JAX package's ``P(("dcn", "data"))``."""
-        dcn = self.shape.get("dcn", 1)
-        return (self.coords.get("dcn", 0) * self.shape["data"] + self.coords["data"],
-                dcn * self.shape["data"])
+    def host(self) -> tuple[int, int]:
+        """(this rank's host, the hosts of the world): a host is
+        ``host_size`` contiguous ranks."""
+        if self.device_mesh is None:
+            return 0, 1
+        return dist.get_rank() // self.host_size, max(dist.get_world_size() // self.host_size, 1)
 
-    def group(self, axis: str):
-        if self.device_mesh is None or self.shape[axis] == 1:
+    def group(self, axes):
+        """``axes``: an axis name, or a tuple of them (those the mesh lacks
+        are left out)."""
+        axes = (axes,) if isinstance(axes, str) else axes
+        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if self.device_mesh is None or not axes:
             return None
-        return self.device_mesh.get_group(axis)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self.groups[axes]
 
     def whole_group(self):
         """The group of every rank of the mesh (None for one rank)."""
@@ -85,7 +98,10 @@ def make_mesh(data: int = 1, model: int = 1, device_type: str | None = None) -> 
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     from torch.distributed.device_mesh import init_device_mesh
 
-    return Mesh(data, model, init_device_mesh(device_type, (data, model), mesh_dim_names=AXES))
+    from .distributed import _host_size
+
+    return Mesh(data, model, init_device_mesh(device_type, (data, model), mesh_dim_names=AXES),
+                host_size=_host_size())
 
 
 def shard(mesh: Mesh, tree, spec_tree):

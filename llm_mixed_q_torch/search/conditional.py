@@ -10,10 +10,15 @@ formatter adds the matmul / rope nodes before the eval.
 
 from __future__ import annotations
 
+import logging
+
 from ..config.stat_to_int import transform_stat_profile_to_int_quant_config
 from ..models import get_stat_config_formatter
 from ..utils.dict_tools import flatten_dict
 from .search import SearchQuantisationForClassification
+
+logger = logging.getLogger(__name__)
+
 
 class SearchIntQuantisationForClassification(SearchQuantisationForClassification):
     def __init__(

@@ -71,5 +71,7 @@ class StatManager:
             col.update(weight)
             self.weight_collect_updated[name] = True
 
-    def finalize(self) -> dict:
+    def finalize(self, show_progress_bar: bool = False) -> dict:
+        """Each statistic's result (``show_progress_bar`` accepted and
+        ignored, as in the JAX package)."""
         return {name: stat.compute() for name, stat in self.registered_stats.items()}

@@ -56,7 +56,7 @@ from torch.distributed.tensor import DTensor
 
 from ..models import get_model_fn
 from ..parallel import tp
-from ..parallel.distributed import global_batch, process_allgather_scalar
+from ..parallel.distributed import _global_batch_slice, batch_spec_hybrid, process_allgather_scalar
 from ..parallel.sharding import leaf_spec, local_part, shard_params
 
 logger = logging.getLogger(__name__)
@@ -342,7 +342,10 @@ def make_qat_train_step(arch, task, config, optimizer, mesh=None, fsdp=False):
 
         return train_step
 
-    data, n_data = mesh.group("data"), mesh.shape["data"]
+    (axes,) = batch_spec_hybrid()
+    data = mesh.group(axes)  # the ranks of this rank's "model" index
+    n_data = math.prod(mesh.shape.get(a, 1) for a in axes)
+    dcn, n_dcn = mesh.group("dcn"), mesh.shape.get("dcn", 1)
 
     def train_step(params, batch):
         leaves = [t for _, t in named_leaves(leaves_of(params)) if t.requires_grad]
@@ -353,9 +356,9 @@ def make_qat_train_step(arch, task, config, optimizer, mesh=None, fsdp=False):
         total = weight.clone()
         if data is not None:
             dist.all_reduce(total, group=data)
-        # the rank's share of the global mean, times the data ranks: every
-        # gradient is averaged over them (FSDP's reduce-scatter, DDP's sum
-        # divided below)
+        # the rank's share of the global mean, times the batch's parts: every
+        # gradient is averaged over them (DDP's sum divided below; FSDP's
+        # reduce-scatter over "data", then a sum over "dcn" divided below)
         scale = (weight / total * n_data).float()
         with tp.spmd(mesh):
             if isinstance(params, FSDPTree):
@@ -364,7 +367,13 @@ def make_qat_train_step(arch, task, config, optimizer, mesh=None, fsdp=False):
                 loss = forward(params, batch) * scale
         loss.backward()
         for t, g in zip(leaves, held):
-            if data is not None and t.grad is not None and not isinstance(t, DTensor):
+            if t.grad is not None and isinstance(t, DTensor):
+                if dcn is not None:
+                    with torch.no_grad():
+                        part = t.grad.to_local()
+                        dist.all_reduce(part, group=dcn)
+                        part.div_(n_dcn)
+            elif data is not None and t.grad is not None:
                 dist.all_reduce(t.grad, group=data)  # DDP
                 t.grad.div_(n_data)
             if g is not None:
@@ -521,7 +530,7 @@ def train_qat(
                 skip -= 1
                 continue
             if layout is not None:
-                batch, _ = global_batch(mesh, batch)
+                batch = _global_batch_slice(mesh, batch)
             loss = step_fn(tree, _to_device(batch, device))
             global_step += 1
             if metrics is not None:

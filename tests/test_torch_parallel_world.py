@@ -33,7 +33,15 @@ the inputs drawn from numpy seeds. The scenarios:
   batch's;
 - ``train_qat`` on the mesh with ``fsdp``: its checkpoint restores on one
   process, and a resume under the same world is bit-equal to the
-  uninterrupted run."""
+  uninterrupted run;
+- last, two simulated hosts of 2 ranks (``initialize(local_device_count=2)``)
+  on the hybrid meshes (dcn, data, model) = (2, 2, 1) and (2, 1, 2)
+  (ROADMAP fault 19): each rank's rows of ``global_batch`` from its host's
+  local batch are the rows of JAX's device at the same coordinates under
+  ``batch_spec_hybrid()`` (JAX's ``device_put`` of the stacked global
+  batch on 4 of the virtual devices), where the contract before the repair
+  took others; one QAT step from host-local batches (DP on both meshes,
+  FSDP on the first) is JAX's step on the global batch, held as above."""
 
 import functools
 import os
@@ -66,6 +74,8 @@ from llm_mixed_q_tpu.models.opt import OPTQuantizedConfig as JaxOPT
 from llm_mixed_q_tpu.models.opt import serving as jax_opt_serving
 from llm_mixed_q_tpu.models.opt.pack import pack_opt_params as jax_pack_opt
 from llm_mixed_q_tpu.parallel import make_mesh as jax_make_mesh
+from llm_mixed_q_tpu.parallel.distributed import batch_spec_hybrid as jax_batch_spec_hybrid
+from llm_mixed_q_tpu.parallel.distributed import make_hybrid_mesh as jax_make_hybrid_mesh
 from llm_mixed_q_tpu.parallel import shard_params as jax_shard_params
 from llm_mixed_q_tpu.train.qat import make_adamw as jax_make_adamw
 from llm_mixed_q_tpu.train.qat import make_qat_train_step as jax_qat_step
@@ -150,7 +160,8 @@ def _inputs():
             "qat_kw": QAT_KW, "qat_quant": QUANT["bfp_6bit"], "qat_trees": qat_trees,
             "lr": LR, "wd": WD, "cls_batch": cls_batch(0, n=4, seed=5),
             "lm_batch": _lm_batch(),
-            "ckpt_batches": [cls_batch(0, n=4, seed=s) for s in (21, 22)]}
+            "ckpt_batches": [cls_batch(0, n=4, seed=s) for s in (21, 22)],
+            "host_rows": np.random.default_rng(19).integers(0, 1000, size=(8, 3))}
 
 
 @pytest.fixture(scope="module")
@@ -359,3 +370,59 @@ def test_resume_under_the_world_is_bit_equal(world):
         assert full.keys() == resumed.keys()
         for k in full:
             np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
+
+
+HYBRID = {"2x2x1": (2, 2, 1), "2x1x2": (2, 1, 2)}
+
+
+def _jax_rows(rows, shape):
+    """{(dcn, data, model): rows} of JAX's devices: the global batch put on
+    a hybrid mesh of 4 of the virtual devices under ``batch_spec_hybrid()``."""
+    mesh = jax_make_hybrid_mesh(*shape, devices=jax.devices()[:4])
+    arr = jax.device_put(rows, NamedSharding(mesh, jax_batch_spec_hybrid()))
+    return {tuple(int(i) for i in np.argwhere(mesh.devices == s.device)[0]): np.asarray(s.data)
+            for s in arr.addressable_shards}
+
+
+def _coords(part):
+    c = part["coords"]
+    return c["dcn"], c["data"], c["model"]
+
+
+@pytest.mark.parametrize("name", list(HYBRID))
+def test_host_local_batches_give_jax_devices_rows(world, name):
+    inp, results, _ = world
+    want = _jax_rows(inp["host_rows"], HYBRID[name])
+    parts = [r["hosts"][name] for r in results]
+    assert sorted(p["host"] for p in parts) == [(0, 2), (0, 2), (1, 2), (1, 2)]
+    assert sorted(map(_coords, parts)) == sorted(want)
+    for p in parts:
+        assert p["global_shape"] == inp["host_rows"].shape
+        np.testing.assert_array_equal(p["rows"], want[_coords(p)])
+
+
+def test_the_old_contract_took_other_rows(world):
+    """Fault 19 before its repair: a rank cut its host's local batch as if
+    it were the global batch, so on (2, 2, 1) each rank kept a quarter of
+    its host's half and the ranks together held half of the global batch,
+    not JAX's rows."""
+    inp, results, _ = world
+    want = _jax_rows(inp["host_rows"], HYBRID["2x2x1"])
+    parts = [r["hosts"]["2x2x1"] for r in results]
+    assert all(len(p["old_rows"]) == len(p["rows"]) // 2 for p in parts)
+    assert all(not np.array_equal(p["old_rows"], want[_coords(p)]) for p in parts)
+    held = np.concatenate([p["old_rows"] for p in parts])
+    assert len(np.unique(held, axis=0)) == len(inp["host_rows"]) // 2
+
+
+@pytest.mark.parametrize("name,mode", [("2x2x1", "dp"), ("2x2x1", "fsdp"), ("2x1x2", "dp")])
+def test_qat_step_from_host_local_batches_matches_jax(world, name, mode):
+    inp, results, _ = world
+    want_loss, want_grads, want, start = _jax_step(id(inp), "cls_batch", "cls")
+    steps = [r["hosts"][name][mode] for r in results]
+    losses = [s["loss"] for s in steps]
+    assert len(set(losses)) == 1, losses
+    np.testing.assert_allclose(losses[0], want_loss, rtol=1e-5)
+    got = next(s for s in steps if s["params"])
+    _close_to_leaf_max(got["grads"], want_grads, 1e-4, "grad")
+    _close_after_adam(got["params"], want, start, want_grads)

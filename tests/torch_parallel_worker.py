@@ -1,5 +1,6 @@
 """One rank of the 4-rank gloo world of ``tests/test_torch_parallel_world.py``
-(a data = 2 x model = 2 mesh on the CPU, one intra-op thread a rank).
+(a data = 2 x model = 2 mesh on the CPU, one intra-op thread a rank; last,
+two simulated hosts of 2 ranks on hybrid meshes).
 
 Imports torch and the port only, never JAX: the test process prepares the
 inputs (the JAX package's trees as numpy, the batches) in
@@ -33,6 +34,11 @@ from llm_mixed_q_torch.models.llama import (  # noqa: E402
 from llm_mixed_q_torch.models.llama.modeling import llama_for_causal_lm  # noqa: E402
 from llm_mixed_q_torch.models.llama.serving import _new_cache, kv_cache_pack_spec  # noqa: E402
 from llm_mixed_q_torch.parallel import global_batch, make_mesh, shard_params  # noqa: E402
+from llm_mixed_q_torch.parallel.distributed import (  # noqa: E402
+    _global_batch_slice,
+    initialize,
+    make_hybrid_mesh,
+)
 from llm_mixed_q_torch.parallel import tp  # noqa: E402
 from llm_mixed_q_torch.train.qat import (  # noqa: E402
     MeshLayout,
@@ -121,7 +127,9 @@ def serve(mesh, inp):
     return out
 
 
-def _qat_step(mesh, inp, fsdp, batch_key, task):
+def _qat_step(mesh, inp, fsdp, arrays, task):
+    """One QAT step on this rank's part of ``arrays``, the global batch on
+    one host, the host's local batch on several."""
     config = _config(inp["qat_kw"], inp["qat_quant"])
     tree = shard_for_training(params_from_jax(inp["qat_trees"][task], device="cpu"), mesh,
                               fsdp, config)
@@ -131,7 +139,7 @@ def _qat_step(mesh, inp, fsdp, batch_key, task):
     # their mean, the same gradients
     optimizer = MultiSteps(*make_adamw(local, inp["lr"], inp["wd"]), every_k=2)
     step = make_qat_train_step("llama", task, config, optimizer, mesh, fsdp)
-    batch = _slice(mesh, **inp[batch_key])
+    batch = _slice(mesh, **arrays)
     layout = MeshLayout(mesh, fsdp)
     loss = step(tree, batch)
     grads = {"/" + "/".join(map(str, p)): layout.full(t.grad, layout.spec(p, t)).numpy()
@@ -147,9 +155,9 @@ def _qat_step(mesh, inp, fsdp, batch_key, task):
 def qat(mesh, inp):
     """One QAT step of the cls model under DP x TP, without and with fsdp,
     and of the LM on a batch whose data slices hold unequal token counts."""
-    return {"dp_tp": _qat_step(mesh, inp, False, "cls_batch", "cls"),
-            "fsdp": _qat_step(mesh, inp, True, "cls_batch", "cls"),
-            "lm_unequal": _qat_step(mesh, inp, False, "lm_batch", "lm")}
+    return {"dp_tp": _qat_step(mesh, inp, False, inp["cls_batch"], "cls"),
+            "fsdp": _qat_step(mesh, inp, True, inp["cls_batch"], "cls"),
+            "lm_unequal": _qat_step(mesh, inp, False, inp["lm_batch"], "lm")}
 
 
 def checkpoint(mesh, inp, workdir):
@@ -174,6 +182,36 @@ def checkpoint(mesh, inp, workdir):
     return {"full": flat(full), "resumed": flat(resumed), "loss": hist[0]["loss"]}
 
 
+def _host_local(mesh, batch):
+    """This rank's host's rows of a global batch: its local batch."""
+    host, hosts = mesh.host
+    return {k: v[host * len(v) // hosts:(host + 1) * len(v) // hosts] for k, v in batch.items()}
+
+
+def two_hosts(inp):
+    """Two hosts of 2 ranks (``initialize(local_device_count=2)``: the world
+    is up, so it records the host size only), on the hybrid meshes
+    (dcn, data, model) = (2, 2, 1) and (2, 1, 2): this rank's rows of
+    ``global_batch`` from its host's local batch, and of the global slice of
+    that local batch (the contract before fault 19's repair); one QAT step
+    from host-local batches, DP on both meshes and FSDP on (2, 2, 1)."""
+    initialize(local_device_count=2)
+    out = {}
+    for shape in ((2, 2, 1), (2, 1, 2)):
+        mesh = make_hybrid_mesh(*shape, device_type="cpu")
+        local = _host_local(mesh, {"rows": inp["host_rows"]})
+        name = "x".join(map(str, shape))
+        rows, shapes = global_batch(mesh, local)
+        out[name] = {"coords": mesh.coords, "host": mesh.host, "rows": rows["rows"],
+                     "global_shape": shapes["rows"],
+                     "old_rows": _global_batch_slice(mesh, local)["rows"],
+                     "dp": _qat_step(mesh, inp, False, _host_local(mesh, inp["cls_batch"]), "cls")}
+        if shape[1] > 1:
+            out[name]["fsdp"] = _qat_step(mesh, inp, True, _host_local(mesh, inp["cls_batch"]),
+                                          "cls")
+    return out
+
+
 def main(rank: int, world: int, port: int, workdir: Path):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
@@ -184,7 +222,8 @@ def main(rank: int, world: int, port: int, workdir: Path):
             inp = pickle.load(f)
         out = {"coords": mesh.coords, "forward": forward(mesh, inp),
                "families": family_forward(mesh, inp), "serve": serve(mesh, inp),
-               "qat": qat(mesh, inp), "checkpoint": checkpoint(mesh, inp, workdir)}
+               "qat": qat(mesh, inp), "checkpoint": checkpoint(mesh, inp, workdir),
+               "hosts": two_hosts(inp)}  # last: it sets the host size for the process
     except Exception:
         out = {"error": traceback.format_exc()}
     with open(workdir / f"rank{rank}.pkl", "wb") as f:
