@@ -17,10 +17,9 @@
 //   [1, bs] runs of positions, positions past positions[b] counting as
 //   exactly 0 (as exp(-1e9 - m) = 0 makes them on the TPU);
 //   ctx = P . deq(V), float32.
-// Both take rep 1..8 query rows a kv head, every head_dim (K4: up to
-// 65535; K5: wherever two ring stages fit in shared memory, up to 3011
-// dims at rep 8 and a scale a code) and every K and V scale block that divides
-// it: a power of two keeps the tiles, thread groups and shifts it always
+// Both take rep 1..8 query rows a kv head, every head_dim (the wrappers
+// bound the operands and the workspace to 32-bit indices) and every K and
+// V scale block that divides it: a power of two keeps the tiles, thread groups and shifts it always
 // had, another head_dim gets tiles and dim groups that divide it (chosen
 // by kernels/attention_decode.py: k4_tiles, k5_tiles, and checked by the
 // host code here), and K5's P . V idles the threads past its last whole
@@ -32,8 +31,11 @@
 // package's layout), whose last, partial group of 4 dims is computed and
 // not stored. Past 128 dims, K4 walks a head in ring stages, each stage's
 // dims summed into the same scores and written to their own rows of P .
-// V's partials; past 1024 dims, K5's P . V walks a head in passes of 1024
-// dims, each pass's sums kept in shared memory from tile to tile.
+// V's partials; past 1024 dims, K5's P . V walks a chunk once for each
+// pass of 1024 dims, each pass's sums in registers; and where two ring
+// stages of all of a head's dims do not fit (past 3011 dims at rep 8 and a
+// scale a code), K5's scores walk each tile's dims in passes of a divisor
+// of hd, q's rows over those dims staged with the K codes.
 //
 // What bounds them on an H100: the cache bytes (1 byte per code + 4/bs per
 // scale, K and V) of the filled positions over the 3.35 TB/s memory rate;
@@ -598,9 +600,6 @@ cudaError_t allow_dynamic_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the longest head_dim K4 takes (K5's is where its ring stages fit)
-constexpr int kK4MaxHd = (1 << 16) - 1;
-
 // a scale block of bs dims that divides the head
 bool block_ok(int bs, int hd) { return bs >= 1 && hd % bs == 0; }
 
@@ -656,9 +655,10 @@ int launch_k4(const void* q, const void* kc, const void* ks, const void* vc, con
               int S, int bs_k, int bs_v, int G, int P, int dims, int dgs, int pgs,
               float sqrt_hd, lmq::BfpSpec pq, cudaStream_t stream) {
   const int lP = ilog2(P);
-  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || hd < 1 || hd > kK4MaxHd ||
+  if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || hd < 1 ||
       !block_ok(bs_k, hd) || !block_ok(bs_v, hd) || G < 1 || G > nkv || G * rep > kK4Rows ||
-      lP < 0 || P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30))
+      lP < 0 || P * G > kK4Lanes || (pq.on && ilog2(pq.bs) < 0) || (long long)S * nkv > (1LL << 30) ||
+      (long long)b * ((S + P - 1) / P) * hd * nkv * rep >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   K4Shape s{};
   s.b = b, s.nkv = nkv, s.rep = rep, s.hd = hd, s.S = S, s.L = S * nkv;
@@ -736,10 +736,15 @@ struct K5Shape {
   int cstr, sstr, pstr;    // K tile: a code row (bytes), a scale row (floats); a score row
   int dgs, pgs;            // scores: dim groups; P . V: position groups
   int hdp;                 // hd rounded up to 4: a V code row and a row of P . V's sums
-  int qfl;                 // floats of q's rows in shared memory (rep * hd rounded up to 4)
+  int kd, np1, ksp;        // scores: head dims a ring stage (a divisor of hd); its passes
+                           // (hd / kd); the K scale rows of a stage
+  int qfl, qstr;           // q's rows in shared memory: floats kept for the whole call
+                           // (rep * hd rounded up to 4; 0 with passes); a row's stride
   int vw, npass;           // P . V: threads of a position group (4 dims each); passes
+  int vrow, vss;           // P . V: a stage's V code row (bytes) and scale row (floats)
   int stage1, stage2;      // bytes of a ring stage: K tile, V tile
-  int kco, vco;            // bytes of a K / V stage's codes, rounded up to 16 (scales follow)
+  int kco, vco, kqo;       // bytes of a K / V stage's codes, rounded up to 16 (scales
+                           // follow); a K stage's q rows (with passes), after its scales
   int red1;                // floats of the scores kernel's dim-group sums
   int kc16, ks16, vc16, vs16, q16;  // 16-byte copies (else an element at a time)
   int vc4;                 // V codes by 4-byte copies (where vc16 is off; hd % 4 == 0)
@@ -796,17 +801,21 @@ __device__ __forceinline__ void k5_queue_rows(T* dst, int dstr, const T* src, in
 }
 
 // Phase 1: scores of the block's rep query rows over its chunk, a tile of
-// T positions at a time through a 2-stage cp.async ring: a stage holds hd
-// runs of the tile's code bytes ([hd][cstr]) and hd / bs_k runs of its
-// scale floats ([ksr][sstr]); q's rep rows ([rep][hd]) come first, once.
-// Thread (quad lq, dim group dg) takes positions 4 lq .. 4 lq + 3 of the
-// tile and dims dg * hd / dgs .. of REP rows (0: s.rep at run time): one
-// 4-byte code load a dim and one q load a row serve the four positions,
-// and q . codes over the dims of one scale row (a run of min(hd / dgs,
-// bs_k) dims, the next run the next row) is multiplied by that row's four
-// scales (one 16-byte load); the dim groups are summed in order.
-// -> scores [b, nh, S].
-template <int REP>
+// T positions at a time through a 2-stage cp.async ring: a stage holds kd
+// runs of the tile's code bytes ([kd][cstr]) and their scale floats
+// ([ksp][sstr]); q's rep rows ([rep][hd]) come first, once. Where kd < hd
+// (np1 passes: a head too long for two stages of all its dims) the ring
+// walks each tile's dims in passes of kd, each stage also holding q's rows
+// over its dims ([rep][qstr]), the sums kept in registers from pass to
+// pass. Thread (quad lq, dim group dg) takes positions 4 lq .. 4 lq + 3 of
+// the tile and dims dg * kd / dgs .. of a stage, REP rows (0: s.rep at run
+// time): one 4-byte code load a dim and one q load a row serve the four
+// positions, and q . codes over the dims of one scale row (a run of
+// min(kd / dgs, bs_k) dims, the next run the next row) is multiplied by
+// that row's four scales (one 16-byte load); the dim groups are summed in
+// order. PASSES: an instance of its own for np1 > 1, so that the others
+// keep their code. -> scores [b, nh, S].
+template <int REP, bool PASSES>
 __global__ void __launch_bounds__(kK5Threads)
 k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
                  const float* __restrict__ ks, const int* __restrict__ positions,
@@ -816,42 +825,58 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   K5Block k;
   if (!k5_block(s, positions, k)) return;
   const int rep = REP ? REP : s.rep;
-  float* qs = reinterpret_cast<float*>(smem_k5);  // [rep][hd]
+  float* qs = reinterpret_cast<float*>(smem_k5);  // [rep][hd], without passes
   float* red = qs + s.qfl;                        // [dgs][rep][pstr]
   uint8_t* ring = reinterpret_cast<uint8_t*>(red + s.red1);
+  const bool passes = PASSES;
+  const int np1 = PASSES ? s.np1 : 1;
 
   const int8_t* kcb = kc + k.bh * s.hd * s.S + k.p0;
   const float* ksb = ks + k.bh * s.ksr * s.S + k.p0;
-  auto load = [&](int t) {
-    uint8_t* kt = ring + (t & 1) * s.stage1;
+  const float* qb = q + k.row0 * s.hd;
+  const int nu = k.nt * np1;  // stages: tile u / np1, pass u % np1
+  auto load = [&](int u) {
+    uint8_t* kt = ring + (u & 1) * s.stage1;
+    const int t = PASSES ? u / np1 : u, d0 = (u - t * np1) * s.kd;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
-    k5_queue_rows(kt, s.cstr, reinterpret_cast<const uint8_t*>(kcb) + t0, s.hd, n, s.S, s.kc16);
-    k5_queue_rows(reinterpret_cast<float*>(kt + s.kco), s.sstr, ksb + t0, s.ksr, n, s.S,
+    k5_queue_rows(kt, s.cstr, reinterpret_cast<const uint8_t*>(kcb) + (size_t)d0 * s.S + t0,
+                  s.kd, n, s.S, s.kc16);
+    k5_queue_rows(reinterpret_cast<float*>(kt + s.kco), s.sstr,
+                  ksb + (size_t)block_of(d0, s.bs_k, s.lbs_k) * s.S + t0, s.ksp, n, s.S,
                   s.ks16);
+    if (passes)
+      k5_queue_rows(reinterpret_cast<float*>(kt + s.kqo), s.qstr, qb + d0, rep, s.kd, s.hd,
+                    s.q16);
   };
-  k5_queue_rows(qs, 0, q + k.row0 * s.hd, 1, rep * s.hd, 0, s.q16);
+  if (!passes) k5_queue_rows(qs, 0, qb, 1, rep * s.hd, 0, s.q16);
   load(0);
   cp_async_commit();
 
   const int nq = (s.T + 3) >> 2, lq = threadIdx.x % nq, dg = threadIdx.x / nq;
-  const int dpg = s.hd / s.dgs, l0 = 4 * lq;
+  const int dpg = s.kd / s.dgs, l0 = 4 * lq;
   const int run = min(dpg, s.bs_k);  // a thread's dims under one scale row
-  const int kr0 = block_of(dg * dpg, s.bs_k, s.lbs_k);  // the scale row of its first dim
+  // the stage's scale row of its first dim (a stage starts on a block or
+  // inside one)
+  const int kr0 = block_of(dg * dpg, s.bs_k, s.lbs_k);
   float* out = scores + k.row0 * s.S + k.p0;
-  for (int t = 0; t < k.nt; ++t) {
-    if (t + 1 < k.nt) load(t + 1);
+  float acc[4][RM];
+  for (int u = 0; u < nu; ++u) {
+    if (u + 1 < nu) load(u + 1);
     cp_async_commit();
-    cp_async_wait(1);  // this thread's copies of tile t have landed
+    cp_async_wait(1);  // this thread's copies of stage u have landed
     __syncthreads();   // everyone's have
-    const uint8_t* kt = ring + (t & 1) * s.stage1;
+    const uint8_t* kt = ring + (u & 1) * s.stage1;
     const float* kst = reinterpret_cast<const float*>(kt + s.kco);
+    const float* qt = passes ? reinterpret_cast<const float*>(kt + s.kqo) : qs;
+    const int t = PASSES ? u / np1 : u, pass = u - t * np1;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
     const bool active = dg < s.dgs && l0 < n;
-    float acc[4][RM];
+    if (pass == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+        for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+    }
     if (active) {
       // q . codes over the dims of one scale row, then times the scales
       for (int i0 = 0, kr = kr0; i0 < dpg; i0 += run, ++kr) {
@@ -868,7 +893,7 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 #pragma unroll
           for (int r = 0; r < RM; ++r) {
             if (!REP && r >= rep) break;
-            const float qv = qs[r * s.hd + d];
+            const float qv = qt[r * s.qstr + d];
 #pragma unroll
             for (int j = 0; j < 4; ++j) part[j][r] = fmaf(qv, c[j], part[j][r]);
           }
@@ -883,6 +908,9 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
             acc[j][r] = fmaf(part[j][r], sc[j], acc[j][r]);
           }
       }
+    }
+    const bool last = pass == np1 - 1;
+    if (active && last) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (l0 + j >= n) break;
@@ -893,7 +921,8 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
         }
       }
     }
-    __syncthreads();  // the sums are in; tile t's stage is free for tile t + 2
+    __syncthreads();  // the sums are in; stage u is free for stage u + 2
+    if (!last) continue;
     for (int i = threadIdx.x; i < rep * n; i += kK5Threads) {
       const int r = i / n, pp = i % n;
       float a = red[r * s.pstr + pp];
@@ -915,11 +944,15 @@ k5_scores_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 // dims folds its scale into the probability; the dims past hd of the last
 // quad are computed and not stored) and positions pg, pg + pgs, ... of
 // every tile, the groups summed in order at the end. Past 1024 dims
-// (npass > 1, one position group) a thread takes dims 4 dq + 1024 i .. in
-// pass i, each pass's sums kept in shared memory [rep][hdp] from tile to
-// tile.
+// (npass > 1, one position group) the ring walks the chunk once a pass of
+// 1024 dims: a stage holds those dims of the tile's code rows ([T][vrow])
+// and the scales that cover them ([T][vss]), a thread takes dims 4 dq +
+// 1024 i .. of pass i, its sums kept in registers from tile to tile and
+// written at the pass's end; the chunk's probabilities are built in the
+// first pass and kept for the others ([P][rep]). PASSES: an instance of its own for npass > 1, so that the
+// others keep their code.
 // -> partial [b, nch, hd, nh].
-template <int REP>
+template <int REP, bool PASSES>
 __global__ void __launch_bounds__(kK5Threads)
 k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
              const int8_t* __restrict__ vc, const float* __restrict__ vs,
@@ -930,19 +963,36 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
   K5Block k;
   if (!k5_block(s, positions, k)) return;
   const int rep = REP ? REP : s.rep, nh = s.nkv * rep;
-  float* prT = reinterpret_cast<float*>(smem_k5);  // [T][rep]
-  float* mrow = prT + s.T * rep;
+  const int npr = PASSES ? s.P : s.T;  // positions whose probabilities are kept
+  float* prT = reinterpret_cast<float*>(smem_k5);  // [T][rep], with passes [P][rep]
+  float* mrow = prT + npr * rep;
   float* drow = mrow + rep;
-  // the ring after them (16-byte aligned); at the end, the position
-  // groups' sums [pgs][rep][hdp] in its place, or, with passes, after it
-  uint8_t* ring = smem_k5 + ((4 * (s.T * rep + 2 * rep) + 15) & ~15);
-  const bool passes = s.npass > 1;
-  float* red = reinterpret_cast<float*>(passes ? ring + 2 * s.stage2 : ring);
+  // the ring after them (16-byte aligned); at the end, without passes,
+  // the position groups' sums [pgs][rep][hdp] in its place
+  uint8_t* ring = smem_k5 + ((4 * (npr * rep + 2 * rep) + 15) & ~15);
+  const bool passes = PASSES;
+  float* red = reinterpret_cast<float*>(ring);
 
   const size_t pos0 = k.bh * s.S + k.p0;  // the chunk's first position in the cache
-  auto load = [&](int t) {
-    uint8_t* vt = ring + (t & 1) * s.stage2;
+  const int nu = PASSES ? k.nt * s.npass : k.nt;  // stages: pass u / nt, tile u % nt
+  auto load = [&](int u) {
+    uint8_t* vt = ring + (u & 1) * s.stage2;
+    const int i = PASSES ? u / k.nt : 0, t = u - i * k.nt;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
+    if (passes) {  // pass i's dims of each position: a row of codes, its scales
+      const int g0 = 4 * s.vw * i, w = min(4 * s.vw, s.hd - g0);
+      const int sb0 = block_of(g0, s.bs_v, s.lbs_v);
+      const int ns = block_of(g0 + w - 1, s.bs_v, s.lbs_v) - sb0 + 1;
+      const int8_t* src = vc + (pos0 + t0) * s.hd + g0;
+      if (s.vc4 && !s.vc16)
+        k5_queue_rows(reinterpret_cast<uint32_t*>(vt), s.vrow / 4,
+                      reinterpret_cast<const uint32_t*>(src), n, w / 4, s.hd / 4, false);
+      else
+        k5_queue_rows(reinterpret_cast<int8_t*>(vt), s.vrow, src, n, w, s.hd, s.vc16);
+      k5_queue_rows(reinterpret_cast<float*>(vt + s.vco), s.vss,
+                    vs + (pos0 + t0) * s.vsc + sb0, n, ns, s.vsc, s.vs16 && sb0 % 4 == 0);
+      return;
+    }
     if (s.vc16)
       k5_queue_rows(reinterpret_cast<int8_t*>(vt), 0, vc + (pos0 + t0) * s.hd, 1, n * s.hd, 0,
                     true);
@@ -967,8 +1017,6 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     mrow[r] = stats[k.row0 + r];
     drow[r] = stats[(size_t)s.b * nh + k.row0 + r];
   }
-  if (passes)
-    for (int i = threadIdx.x; i < rep * s.hdp; i += kK5Threads) red[i] = 0.f;
   const float* emax = stats + 2 * (size_t)s.b * nh + k.row0 * nlb;  // [rep][nlb]
   __syncthreads();
 
@@ -983,22 +1031,24 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
 #pragma unroll
     for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
 
-  // P . deq(V) of the tile's positions pg, pg + pgs, ... < n for dims
-  // dd .. dd + 3 into a, a loop for each way of taking the scales (a loop
-  // that tested the way at each position ran 12% slower at rep 1 on an
-  // H100); each dim's scale row taken once, clamped to the head's last for
-  // the dims past hd, which are not stored
-  auto pv = [&](float (&a)[4][RM], int dd, const uint8_t* vt, const float* vst, int n) {
+  // P . deq(V) of the tile's positions pg, pg + pgs, ... < n for the
+  // stage's dims dd .. dd + 3 (the head's gd .. gd + 3; the stage's scales
+  // start at the head's scale sb0) into a, a loop for each way of taking
+  // the scales (a loop that tested the way at each position ran 12% slower
+  // at rep 1 on an H100); each dim's scale taken once, clamped to the
+  // head's last for the dims past hd, which are not stored
+  auto pv = [&](float (&a)[4][RM], int dd, int gd, int sb0, const uint8_t* vt,
+                const float* vst, const float* pr, int n) {
     if (s.vfold) {  // one scale for the four dims: folded into the probability
-      const int si = block_of(dd, s.bs_v, s.lbs_v);
+      const int si = block_of(gd, s.bs_v, s.lbs_v) - sb0;
       for (int pp = pg; pp < n; pp += s.pgs) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hdp + dd) ^ 0x80808080u;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.vrow + dd) ^ 0x80808080u;
         const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
-        const float sc = vst[pp * s.vsc + si];
+        const float sc = vst[pp * s.vss + si];
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           if (!REP && r >= rep) break;
-          const float ps = prT[pp * rep + r] * sc;
+          const float ps = pr[pp * rep + r] * sc;
 #pragma unroll
           for (int j = 0; j < 4; ++j) a[j][r] = fmaf(ps, c[j], a[j][r]);
         }
@@ -1007,14 +1057,14 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
     }
     int si[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) si[j] = block_of(min(dd + j, s.hd - 1), s.bs_v, s.lbs_v);
+    for (int j = 0; j < 4; ++j) si[j] = block_of(min(gd + j, s.hd - 1), s.bs_v, s.lbs_v) - sb0;
     for (int pp = pg; pp < n; pp += s.pgs) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.hdp + dd) ^ 0x80808080u;
-      const float* srow = vst + pp * s.vsc;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vt + pp * s.vrow + dd) ^ 0x80808080u;
+      const float* srow = vst + pp * s.vss;
       const float c[4] = {k4_code(w, 0), k4_code(w, 1), k4_code(w, 2), k4_code(w, 3)};
       float v[4];
       if (s.vs4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(srow + dd);
+        const float4 v4 = *reinterpret_cast<const float4*>(srow + (PASSES ? si[0] : dd));
         v[0] = c[0] * v4.x, v[1] = c[1] * v4.y, v[2] = c[2] * v4.z, v[3] = c[3] * v4.w;
       } else {
 #pragma unroll
@@ -1023,21 +1073,28 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         if (!REP && r >= rep) break;
-        const float pr = prT[pp * rep + r];
+        const float p = pr[pp * rep + r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) a[j][r] = fmaf(pr, v[j], a[j][r]);
+        for (int j = 0; j < 4; ++j) a[j][r] = fmaf(p, v[j], a[j][r]);
       }
     }
   };
 
-  for (int t = 0; t < k.nt; ++t) {
-    if (t + 1 < k.nt) load(t + 1);
+  // the block's rows of the partials (taken where they are written, so
+  // that no register holds them through the loop)
+  auto pout = [&]() {
+    return partial + ((size_t)k.b * s.nch + k.c) * s.hd * nh + (size_t)k.h * rep;
+  };
+  for (int u = 0; u < nu; ++u) {
+    if (u + 1 < nu) load(u + 1);
     cp_async_commit();
+    const int i = PASSES ? u / k.nt : 0, t = u - i * k.nt;
     const int t0 = t << s.lT, n = min(s.T, k.np - t0);
-    // the tile's probabilities, element (r, pp) at r * T + pp: a warp holds
-    // 32 consecutive ones, so an aligned block of <= min(T, 32) is a run of
-    // its lanes
-    for (int e = threadIdx.x; e < nel32; e += kK5Threads) {
+    float* pr = PASSES ? prT + t0 * rep : prT;  // the tile's probabilities
+    // the tile's probabilities (with passes, in the first), element (r, pp)
+    // at r * T + pp: a warp holds 32 consecutive ones, so an aligned block
+    // of <= min(T, 32) is a run of its lanes
+    for (int e = threadIdx.x; e < (i == 0 ? nel32 : 0); e += kK5Threads) {
       const int r = e >> s.lT, pp = e & (s.T - 1);
       const bool live = e < nel && pp < n;
       float p = 0.f;
@@ -1052,49 +1109,52 @@ k5_pv_kernel(const float* __restrict__ scores, const float* __restrict__ stats,
         }
         p = lmq::bfp_qdq(p, mx, pq);
       }
-      if (e < nel) prT[pp * rep + r] = p;
+      if (e < nel) pr[pp * rep + r] = p;
     }
-    cp_async_wait(1);  // this thread's copies of tile t have landed
+    cp_async_wait(1);  // this thread's copies of stage u have landed
     __syncthreads();   // everyone's have, and the probabilities are in
-    const uint8_t* vt = ring + (t & 1) * s.stage2;
+    const uint8_t* vt = ring + (u & 1) * s.stage2;
     const float* vst = reinterpret_cast<const float*>(vt + s.vco);
+    const int gd = 4 * s.vw * i + d0;  // the head's dims of this thread's quad
     if (!passes) {
-      if (pv_on) pv(acc, d0, vt, vst, n);
-    } else {  // each pass's sums from shared memory through acc and back
-      for (int i = 0; i < s.npass && d0 + 4 * s.vw * i < s.hd; ++i) {
-        const int dd = d0 + 4 * s.vw * i;
+      if (pv_on) pv(acc, d0, d0, 0, vt, vst, pr, n);
+    } else if (gd < s.hd) {  // pass i's sums in acc from tile to tile
+      if (t == 0) {
 #pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          if (!REP && r >= rep) break;
-          const float4 v4 = *reinterpret_cast<const float4*>(red + r * s.hdp + dd);
-          acc[0][r] = v4.x, acc[1][r] = v4.y, acc[2][r] = v4.z, acc[3][r] = v4.w;
-        }
-        pv(acc, dd, vt, vst, n);
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          if (!REP && r >= rep) break;
-          *reinterpret_cast<float4*>(red + r * s.hdp + dd) =
-              make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+          for (int r = 0; r < RM; ++r) acc[j][r] = 0.f;
+      }
+      pv(acc, d0, gd, block_of(4 * s.vw * i, s.bs_v, s.lbs_v), vt, vst, pr, n);
+      if (t == k.nt - 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (gd + j >= s.hd) break;
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            if (!REP && r >= rep) break;
+            pout()[(size_t)(gd + j) * nh + r] = acc[j][r];
+          }
         }
       }
     }
-    __syncthreads();  // tile t's stage and the probabilities are free
+    __syncthreads();  // stage u and the probabilities are free
   }
-  if (!passes) {  // the position groups' sums [pgs][rep][hdp], in the ring's place
+  if constexpr (PASSES) return;
+  // the position groups' sums [pgs][rep][hdp], in the ring's place
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      if ((!REP && r >= rep) || !pv_on) break;
-      *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hdp + d0) =
-          make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
-    }
-    __syncthreads();
+  for (int r = 0; r < RM; ++r) {
+    if ((!REP && r >= rep) || !pv_on) break;
+    *reinterpret_cast<float4*>(red + (pg * rep + r) * s.hdp + d0) =
+        make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
   }
-  float* pout = partial + ((size_t)k.b * s.nch + k.c) * s.hd * nh + (size_t)k.h * rep;
+  __syncthreads();
+  float* po = pout();
   for (int o = threadIdx.x; o < rep * s.hd; o += kK5Threads) {
     const int d = o / rep, r = o % rep;
     float a = red[r * s.hdp + d];
     for (int g = 1; g < s.pgs; ++g) a += red[(g * rep + r) * s.hdp + d];
-    pout[(size_t)d * nh + r] = a;
+    po[(size_t)d * nh + r] = a;
   }
 }
 
@@ -1110,27 +1170,42 @@ struct K5Args {
   cudaStream_t stream;
 };
 
-template <int REP>
+// P1: the scores' passes (np1 > 1: one instance, REP 0, beside P . V's
+// passes, which also serve a head of one pass); P2: P . V's (npass > 1)
+template <int REP, bool P1, bool P2>
 int launch_k5_phases(const K5Shape& s, const K4Shape& s4, const K5Args& a) {
-  cudaError_t err = allow_dynamic_smem((const void*)k5_scores_kernel<REP>, a.smem1);
-  if (err == cudaSuccess) err = allow_dynamic_smem((const void*)k5_pv_kernel<REP>, a.smem2);
+  cudaError_t err = allow_dynamic_smem((const void*)k5_scores_kernel<REP, P1>, a.smem1);
+  if (err == cudaSuccess) err = allow_dynamic_smem((const void*)k5_pv_kernel<REP, P2>, a.smem2);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(s.nch, s.nkv, s.b);
-  k5_scores_kernel<REP><<<grid, kK5Threads, a.smem1, a.stream>>>(
+  k5_scores_kernel<REP, P1><<<grid, kK5Threads, a.smem1, a.stream>>>(
       a.q, a.kc, a.ks, a.positions, a.scores, s, a.sqrt_hd);
   k4_stats_kernel<<<dim3(s.nkv * s.rep, s.b), kK4Threads, 0, a.stream>>>(
       a.scores, a.positions, a.stats, s4, a.lpb);
-  k5_pv_kernel<REP><<<grid, kK5Threads, a.smem2, a.stream>>>(
+  k5_pv_kernel<REP, P2><<<grid, kK5Threads, a.smem2, a.stream>>>(
       a.scores, a.stats, a.vc, a.vs, a.positions, a.partial, s, a.pq, s4.nlb);
   const dim3 grid4((s.hd * s.nkv * s.rep + kK4Threads - 1) / kK4Threads, s.b);
   k4_sum_kernel<<<grid4, kK4Threads, 0, a.stream>>>(a.partial, a.positions, a.out, s4);
   return (int)cudaGetLastError();
 }
 
+// REP 1, 2, 4 and 8 have instances of their own; 3, 5, 6 and 7 take s.rep
+// at run time
+template <bool P2>
+int launch_k5_rep(const K5Shape& s, const K4Shape& s4, const K5Args& a) {
+  switch (s.rep) {
+    case 1: return launch_k5_phases<1, false, P2>(s, s4, a);
+    case 2: return launch_k5_phases<2, false, P2>(s, s4, a);
+    case 4: return launch_k5_phases<4, false, P2>(s, s4, a);
+    case 8: return launch_k5_phases<8, false, P2>(s, s4, a);
+    default: return launch_k5_phases<0, false, P2>(s, s4, a);
+  }
+}
+
 int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, const void* vs,
               const void* positions, void* out, void* ws, int b, int nkv, int rep, int hd,
-              int S, int bs_k, int bs_v, int P, int T, int dgs, int pgs, float sqrt_hd,
-              lmq::BfpSpec pq, cudaStream_t stream) {
+              int S, int bs_k, int bs_v, int P, int T, int dims, int dgs, int pgs,
+              float sqrt_hd, lmq::BfpSpec pq, cudaStream_t stream) {
   const int lP = ilog2(P);
   if (b < 1 || nkv < 1 || S < 1 || rep < 1 || rep > kRepMax || hd < 1 || !block_ok(bs_k, hd) ||
       !block_ok(bs_v, hd) || lP < 0 || ilog2(T) < 0 || T > P || (pq.on && ilog2(pq.bs) < 0))
@@ -1141,35 +1216,56 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
   s.bs_k = bs_k, s.bs_v = bs_v, s.lbs_k = ilog2(bs_k), s.lbs_v = ilog2(bs_v);
   s.ksr = hd / bs_k, s.vsc = hd / bs_v;
   s.hdp = (hd + 3) & ~3;
-  s.qfl = (rep * hd + 3) & ~3;
   // P . V: a thread 4 dims of a pass, up to 1024 dims a pass
   const int nd4 = s.hdp / 4;
   s.vw = nd4 < kK5Threads ? nd4 : kK5Threads;
   s.npass = (nd4 + s.vw - 1) / s.vw;
-  // the ring stage's positions, the scores' dim groups (each group's runs
-  // under one K scale) and P . V's position groups (the threads past pgs
-  // whole groups of vw idle; one group where a head takes passes), chosen
-  // by the caller (kernels/attention_decode.py: k5_tiles): checked here,
-  // two ring stages fitting in each kernel's shared memory
+  // the ring stage's positions and head dims of the scores (all of hd, or
+  // passes of a divisor that fits the K blocks), the scores' dim groups
+  // (each group's runs under one K scale) and P . V's position groups (the
+  // threads past pgs whole groups of vw idle; one group where a head takes
+  // passes), chosen by the caller (kernels/attention_decode.py: k5_tiles):
+  // checked here, two ring stages fitting in each kernel's shared memory
   const int nq = (T + 3) / 4;
-  if (dgs < 1 || hd % dgs || !fits_blocks(hd / dgs, bs_k) || dgs * nq > kK5Threads ||
-      pgs < 1 || pgs * s.vw > kK5Threads || (s.npass > 1 && pgs != 1))
+  const bool p2 = s.npass > 1 || (dims >= 1 && dims < hd);  // P . V's instance with passes
+  if (dims < 1 || hd % dims || !fits_blocks(dims, bs_k) || dgs < 1 || dims % dgs ||
+      !fits_blocks(dims / dgs, bs_k) || dgs * nq > kK5Threads || pgs < 1 ||
+      pgs * s.vw > kK5Threads || (p2 && pgs != 1))
     return (int)cudaErrorInvalidValue;
   s.T = T, s.lT = ilog2(T), s.dgs = dgs, s.pgs = pgs;
+  s.kd = dims, s.np1 = hd / dims, s.ksp = k4_scale_rows(dims, bs_k);
+  s.qfl = s.np1 > 1 ? 0 : (rep * hd + 3) & ~3;
+  s.qstr = s.np1 > 1 ? (dims + 3) & ~3 : hd;
   // a K code row: 16-byte copies of T >= 16 positions, else element
   // copies into rows of 4-byte words
   s.cstr = T >= 16 ? (T + 15) & ~15 : (T + 3) & ~3;
   s.sstr = (T + 3) & ~3;
   s.pstr = T + 1;
   s.red1 = (dgs * rep * s.pstr + 3) & ~3;
-  s.kco = (hd * s.cstr + 15) & ~15;
-  s.stage1 = s.kco + 4 * s.ksr * s.sstr;
-  s.vco = (T * s.hdp + 15) & ~15;
-  s.stage2 = s.vco + 4 * ((T * s.vsc + 3) & ~3);
+  s.kco = (dims * s.cstr + 15) & ~15;
+  s.kqo = s.kco + 4 * s.ksp * s.sstr;
+  s.stage1 = s.kqo + (s.np1 > 1 ? 4 * rep * s.qstr : 0);
+  // P . V's stage: rows of all hd, or with passes of a pass's 1024 dims
+  // and the most scales a pass's dims take
+  s.vrow = p2 ? 4 * s.vw : s.hdp;
+  s.vss = s.vsc;
+  if (p2) {
+    int most = 0;
+    for (int g0 = 0; g0 < hd; g0 += s.vrow) {
+      const int g1 = (g0 + s.vrow < hd ? g0 + s.vrow : hd) - 1;
+      const int ns = block_of(g1, bs_v, s.lbs_v) -
+                     block_of(g0, bs_v, s.lbs_v) + 1;
+      most = ns > most ? ns : most;
+    }
+    s.vss = (most + 3) & ~3;
+  }
+  s.vco = (T * s.vrow + 15) & ~15;
+  s.stage2 = s.vco + 4 * ((T * s.vss + 3) & ~3);
   const int smem1 = 4 * (s.qfl + s.red1) + 2 * s.stage1;
   const int ring2 = 2 * s.stage2, red2 = 4 * pgs * rep * s.hdp;
-  const int smem2 = ((4 * (T * rep + 2 * rep) + 15) & ~15) +
-                    (s.npass > 1 ? ring2 + red2 : (ring2 > red2 ? ring2 : red2));
+  // with passes the chunk's probabilities, else the tile's
+  const int smem2 = ((4 * ((p2 ? P : T) * rep + 2 * rep) + 15) & ~15) +
+                    (p2 ? ring2 : (ring2 > red2 ? ring2 : red2));
   if (smem1 > kSmemMax || smem2 > kSmemMax) return (int)cudaErrorInvalidValue;
   // 16-byte copies where every run starts on 16 bytes and ends inside its
   // row when rounded up to 16 bytes: codes by the position (K) or by hd % 16
@@ -1181,7 +1277,7 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
   s.vc16 = al(vc) && hd % 16 == 0;
   s.vc4 = !s.vc16 && hd % 4 == 0 && reinterpret_cast<uintptr_t>(vc) % 4 == 0;
   s.vs16 = al(vs) && s.vsc % 4 == 0;
-  s.q16 = al(q) && hd % 4 == 0;
+  s.q16 = al(q) && hd % 4 == 0 && dims % 4 == 0;
   s.vfold = bs_v % 4 == 0;
   s.vs4 = bs_v == 1 && hd % 4 == 0;
 
@@ -1207,13 +1303,8 @@ int launch_k5(const void* q, const void* kc, const void* ks, const void* vc, con
   a.out = (float*)out;
   a.smem1 = smem1, a.smem2 = smem2, a.lpb = lpb, a.sqrt_hd = sqrt_hd, a.pq = pq;
   a.stream = stream;
-  switch (rep) {
-    case 1: return launch_k5_phases<1>(s, s4, a);
-    case 2: return launch_k5_phases<2>(s, s4, a);
-    case 4: return launch_k5_phases<4>(s, s4, a);
-    case 8: return launch_k5_phases<8>(s, s4, a);
-    default: return launch_k5_phases<0>(s, s4, a);
-  }
+  if (s.np1 > 1) return launch_k5_phases<0, true, true>(s, s4, a);
+  return p2 ? launch_k5_rep<true>(s, s4, a) : launch_k5_rep<false>(s, s4, a);
 }
 
 }  // namespace
@@ -1241,15 +1332,16 @@ int lmq_attn_decode_pos_major(const void* q, const void* kc, const void* ks,
 // V [b, nkv, S, hd] / [b, nkv, S, hd/bs]; ws: float32 scores [b, nh, S],
 // partials [b, ceil(S / P), hd, nh] and stats; a block covers P positions
 // of one kv head (kernels/attention_decode.py: k5_geometry), in ring stages
-// of T positions, dgs dim groups and pgs position groups (k5_tiles)
+// of T positions and dims head dims, dgs dim groups and pgs position
+// groups (k5_tiles)
 int lmq_attn_decode_head_major(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* positions,
                                void* out, void* ws, int b, int nkv, int rep, int hd, int S,
-                               int bs_k, int bs_v, int P, int T, int dgs, int pgs,
-                               float sqrt_hd, int pq_on, int pq_bs, int pq_width, int pq_emin,
-                               int pq_emax, void* stream) {
+                               int bs_k, int bs_v, int P, int T, int dims, int dgs,
+                               int pgs, float sqrt_hd, int pq_on, int pq_bs, int pq_width,
+                               int pq_emin, int pq_emax, void* stream) {
   return launch_k5(q, kc, ks, vc, vs, positions, out, ws, b, nkv, rep, hd, S, bs_k, bs_v, P, T,
-                   dgs, pgs, sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
+                   dims, dgs, pgs, sqrt_hd, lmq::BfpSpec{pq_on, pq_bs, pq_width, pq_emin, pq_emax},
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -63,9 +63,10 @@ _SIGNATURES = {
         "lmq_attn_decode_pos_major": [_P] * 8 + [_I] * 12 + [_F] + [_I] * 5 + [_P],
         # q, kc, ks, vc, vs, positions, out, ws (scores, partials, stats), b,
         # nkv, rep, hd, S, bs_k, bs_v, P, T (a block's positions, a ring
-        # stage's), dgs, pgs (dim and position groups), sqrt_hd, pq_on, pq_bs,
-        # pq_width, pq_emin, pq_emax, stream
-        "lmq_attn_decode_head_major": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 5 + [_P],
+        # stage's), dims (the scores' head dims a ring stage), dgs, pgs (dim
+        # and position groups), sqrt_hd, pq_on, pq_bs, pq_width, pq_emin,
+        # pq_emax, stream
+        "lmq_attn_decode_head_major": [_P] * 8 + [_I] * 12 + [_F] + [_I] * 5 + [_P],
     },
     "probes": {
         # x, words, scales, y, M, N, Kx, k_pad, width, bs, layout, variant,

@@ -39,25 +39,22 @@ departs from the JAX reference, which sums in float32 (ROADMAP, faults).
 
 ``attend_dense`` serves the float32 fake-quant cache. A packed cache is
 routed by shape (``packed_decode_route``): through the kernels where
-``attention_kernel_error`` finds none of their limits passed; through
+``attention_kernel_error`` finds none of their limits passed, and through
 ``packed_attention_decode_dense`` (the dense path on the dequantized
 codes, no kernel, its layer calls counted) where the JAX package's kernel
 refuses it too (``reference_kernel_error``: its ``attention_kernel_ok`` is
-False), as the JAX package's ``decode_step`` then decodes densely; and on
-the card it raises where the JAX package's kernel takes the cache and
-these do not. The kernels take rep 1..8, every head_dim (K4 up to
-65535) and every K/V scale block that divides it (``kernel_shape_error``,
-``kernel_block_error``), wherever ``k4_tiles`` / ``k5_tiles`` find a split
-whose ring stages fit in shared memory (the C host checks the split): a
-head_dim off 4 keeps the JAX package's cache layout and is padded to 4
-dims only in shared memory, a block that is not a power of two takes its
-scale rows by a counter or a quotient, and K5 walks a head of more than
-1024 dims in passes. Within the JAX package's cap of 4096 x 128 cache
-elements and its 8 query rows, what the card still refuses is a cache
-whose split does not fit: a head-major one past 3011 dims a head at rep 8
-and a scale a code (5433 with one scale a head; at most 174 positions
-under that cap), or a pos-major one past 65535 dims (at most 8
-positions).
+False), as the JAX package's ``decode_step`` then decodes densely. The
+kernels take rep 1..8, every head_dim and every K/V scale block that
+divides it (``kernel_shape_error``, ``kernel_block_error``), with a split
+that ``k4_tiles`` / ``k5_tiles`` find and the C host checks: a head_dim
+off 4 keeps the JAX package's cache layout and is padded to 4 dims only
+in shared memory, a block that is not a power of two takes its scale rows
+by a counter or a quotient, K4 walks a head in ring stages of at most 128
+dims, K5's P . V walks a head of more than 1024 dims in passes, and K5's
+scores walk a head in passes of a divisor of it where two stages of all
+its dims do not fit in shared memory (past 3011 dims at rep 8 and a
+scale a code). So every cache that the JAX package's kernel takes, the
+kernels take.
 """
 
 from __future__ import annotations
@@ -73,7 +70,6 @@ from .packing import effective_block_len
 
 NEG_INF = float(np.finfo(np.float32).min)
 _REP_MAX = 8  # GQA query rows per kv head the kernels take
-_HD_MAX = 2**16 - 1  # the longest head_dim the kernels take (csrc kK4MaxHd)
 _THREADS = 256
 _SMEM_MAX = 227 * 1024  # shared memory a block (csrc kSmemMax)
 # the JAX package's cap on its decode-attention kernel's cache: max_len *
@@ -203,33 +199,64 @@ def k5_pv_threads(hd: int) -> tuple[int, int]:
     return vw, -(-nd4 // vw)
 
 
+def _divisors(n: int) -> list[int]:
+    """n's divisors, longest first."""
+    small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
+    return sorted({*small, *(n // d for d in small)}, reverse=True)
+
+
+def _k5_pv_stage(t: int, hd: int, bs_v: int, passes: bool) -> int:
+    """Bytes of a ring stage of K5's P . V: t rows of all hd codes (rounded
+    up to 4) and their hd / bs_v scales; with ``passes``, t rows of a
+    pass's dims (``k5_pv_threads``) and the most scales a pass's dims take."""
+    vw, _ = k5_pv_threads(hd)
+    if not passes:
+        return ((t * _round4(hd) + 15) & ~15) + 4 * _round4(t * (hd // bs_v))
+    pw = 4 * vw
+    most = max((min(g0 + pw, hd) - 1) // bs_v - g0 // bs_v + 1 for g0 in range(0, hd, pw))
+    return ((t * pw + 15) & ~15) + 4 * _round4(t * _round4(most))
+
+
 def k5_tiles(nkv: int, rep: int, hd: int, s_len: int, bs_k: int, bs_v: int):
-    """(T, dgs, pgs) of a K5 call, which its C host checks: the
+    """(T, dims, dgs, pgs) of a K5 call, which its C host checks: the
     positions a ring stage holds (``k5_geometry``'s T, halved until two
-    stages fit in shared memory), the dim groups of the scores kernel
-    (``_dim_groups`` of hd, each group's runs under one K scale) and the
-    whole groups of ``k5_pv_threads``' vw threads of P . V (256 // vw; the
-    threads past them idle; 1 where a head takes passes, whose sums then
-    sit in shared memory beside the ring). q's rows, a V code row and a row
+    stages fit in shared memory), the head dims of a stage of the scores
+    kernel (all of hd where two such stages fit at some T, else the longest
+    divisor of hd that fits the K blocks at the longest T: the scores then
+    walk each tile in passes of it), the dim groups of the scores kernel
+    (``_dim_groups`` of a stage's dims, each group's runs under one K
+    scale) and the whole groups of ``k5_pv_threads``' vw threads of P . V
+    (256 // vw; the threads past them idle; 1 where a head takes passes,
+    each pass a walk of the chunk of its own, the chunk's probabilities
+    kept from the first). Without passes q's rows, a V code row and a row
     of P . V's sums take hd rounded up to 4 in shared memory. None where
-    nothing fits."""
-    _, t = k5_geometry(nkv, rep, s_len)
-    hdp, (vw, npass) = _round4(hd), k5_pv_threads(hd)
-    ksr, vsc, pgs = hd // bs_k, hd // bs_v, _THREADS // vw
-    while t >= 1:
-        cstr = (t + 15) & ~15 if t >= 16 else _round4(t)
-        sstr, nq = _round4(t), (t + 3) // 4
-        dgs = _dim_groups(hd, _THREADS // nq, bs_k)
-        red1 = (dgs * rep * (t + 1) + 3) & ~3
-        kco = (hd * cstr + 15) & ~15  # a stage's K codes, rounded up to 16 bytes
-        smem1 = 4 * (_round4(rep * hd) + red1) + 2 * (kco + 4 * ksr * sstr)
-        stage2 = ((t * hdp + 15) & ~15) + 4 * ((t * vsc + 3) & ~3)
-        red2 = 4 * pgs * rep * hdp
-        ring2 = 2 * stage2 + red2 if npass > 1 else max(2 * stage2, red2)
-        smem2 = ((4 * (t * rep + 2 * rep) + 15) & ~15) + ring2
-        if max(smem1, smem2) <= _SMEM_MAX:
-            return t, dgs, pgs
-        t //= 2
+    nothing fits (no cache: a stage of one position and one dim always
+    does)."""
+    p, t_top = k5_geometry(nkv, rep, s_len)
+    vw, npass = k5_pv_threads(hd)
+    for whole in (True, False):
+        t = t_top
+        while t >= 1:
+            cstr = (t + 15) & ~15 if t >= 16 else _round4(t)
+            sstr, nq = _round4(t), (t + 3) // 4
+            for dims in [hd] if whole else _divisors(hd)[1:]:
+                if not _fits_blocks(dims, bs_k):
+                    continue
+                passes = npass > 1 or dims < hd  # P . V's
+                pgs = 1 if passes else _THREADS // vw
+                stage2 = _k5_pv_stage(t, hd, bs_v, passes)
+                ring2 = 2 * stage2 if passes else max(2 * stage2, 4 * pgs * rep * _round4(hd))
+                smem2 = ((4 * ((p if passes else t) * rep + 2 * rep) + 15) & ~15) + ring2
+                dgs = _dim_groups(dims, _THREADS // nq, bs_k)
+                red1 = (dgs * rep * (t + 1) + 3) & ~3
+                ksp = 1 if bs_k >= dims else dims // bs_k
+                stage1 = ((dims * cstr + 15) & ~15) + 4 * ksp * sstr
+                q_floats = _round4(rep * hd) if whole else 0
+                if not whole:
+                    stage1 += 4 * rep * _round4(dims)
+                if max(4 * (q_floats + red1) + 2 * stage1, smem2) <= _SMEM_MAX:
+                    return t, dims, dgs, pgs
+            t //= 2
     return None
 
 
@@ -342,16 +369,16 @@ def _prob_q_args(prob_q):
 def kernel_shape_error(rep: int, hd: int) -> str | None:
     """Why the decode-attention kernels (K4, K5) are not given ``rep``
     query rows per kv head at head_dim ``hd``, or None. They take rep 1..8
-    and every head_dim from 1 to 65535,
-    at any cache length: K4 and K5 walk the cache in chunks, and neither
-    keeps anything in shared memory that grows with it (the wrappers bound
-    the operands and the workspace to 32-bit indices). Whether a split of
-    the head fits in shared memory is ``k4_tiles`` / ``k5_tiles``' to say
+    and every head_dim from 1, at any cache length: K4 and K5 walk the
+    cache in chunks and a head in ring stages of its dims, and neither
+    keeps anything in shared memory that grows with either (the wrappers
+    bound the operands and the workspace to 32-bit indices). The split of
+    the head is ``k4_tiles`` / ``k5_tiles``' to find
     (``attention_kernel_error``)."""
     if not 1 <= rep <= _REP_MAX:
         return f"{rep} query rows per kv head (the kernels take 1..{_REP_MAX})"
-    if not 1 <= hd <= _HD_MAX:
-        return f"head_dim {hd} is not from 1 to {_HD_MAX}"
+    if hd < 1:
+        return f"head_dim {hd} is not 1 or more"
     return None
 
 
@@ -577,22 +604,24 @@ def reference_kernel_error(config, max_len: int) -> str | None:
     return _prob_q_error(config, max_len)
 
 
-def packed_decode_route(config, max_len: int, device, pos_major: bool,
+def packed_decode_route(config, max_len: int, pos_major: bool,
                         blocks: tuple[int, int]) -> str:
     """How ``decode_step`` attends over a packed cache of ``max_len``
-    positions, of layout ``pos_major`` and K/V ``blocks``, on ``device``:
-    "kernel" where ``attention_kernel_error`` finds none of the kernels'
-    limits passed (the wrappers launch K4/K5 on the card and compute their
-    plain versions on the CPU); else "dense"
-    (``packed_attention_decode_dense``) where the JAX package's kernel
-    refuses the cache too, as its ``decode_step`` then decodes densely, and
-    on the CPU, where it always does. On the card, where the JAX package's
-    kernel takes the cache and these kernels do not, raises ValueError."""
+    positions, of layout ``pos_major`` and K/V ``blocks``, under
+    ``attn_kernel=None``, on either device: "kernel" where
+    ``attention_kernel_error`` finds none of the kernels' limits passed
+    (the wrappers launch K4/K5 on the card and compute their plain
+    versions on the CPU); "dense" (``packed_attention_decode_dense``,
+    counted in its ``calls``) where the JAX package's kernel refuses the
+    cache too (``reference_kernel_error``), as its ``decode_step`` then
+    decodes densely. The kernels take every cache that the JAX package's
+    kernel takes; a cache that it takes and they refuse raises
+    ValueError, as ``attn_kernel=True`` does on any cache they refuse
+    (``models.llama.serving._uses_kernel``)."""
     error = attention_kernel_error(config, max_len, pos_major, blocks)
     if error is None:
         return "kernel"
-    if torch.device(device).type != "cuda" or reference_kernel_error(config, max_len):
+    if reference_kernel_error(config, max_len):
         return "dense"
-    raise ValueError(
-        f"the decode-attention kernels refuse a packed cache that the JAX package's "
-        f"kernel takes ({error}); pass packed_kv=False for the float32 cache")
+    raise ValueError(f"the decode-attention kernels refuse a packed cache that the JAX "
+                     f"package's kernel takes ({error})")

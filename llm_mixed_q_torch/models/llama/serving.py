@@ -20,16 +20,13 @@ config permits (``kv_cache_pack_spec``), on either device, as the JAX
 package does. ``decode_step`` and ``generate`` take the JAX package's
 ``attn_kernel``: True forces the kernel wrappers, False the dense route on
 the packed codes, and None (the default) routes a packed cache by shape
-(``packed_decode_route``): it calls the kernel wrappers when every layer
-is within the kernels' limits (``attention_kernel_error``), which launch
-K4/K5 on the card and compute their plain versions on the CPU; it takes
-the dense path on the dequantized codes (``packed_attention_decode_dense``,
-counted) where JAX's kernel refuses the cache too, as JAX's
-``decode_step`` does outside ``attention_kernel_ok``, and on the CPU; on
-the card it raises where JAX's kernel would take the cache and K4/K5 do
-not (since fault 18's repair only a split that does not fit in shared
-memory: a head-major cache past 3011 dims a head at rep 8, a pos-major one
-past 65535).
+(``packed_decode_route``), on either device: it calls the kernel wrappers
+when every layer is within the kernels' limits (``attention_kernel_error``),
+which launch K4/K5 on the card and compute their plain versions on the
+CPU, and takes the dense path on the dequantized codes
+(``packed_attention_decode_dense``, counted) where JAX's kernel refuses
+the cache too, as JAX's ``decode_step`` does outside
+``attention_kernel_ok``. K4/K5 take every cache that JAX's kernel takes.
 
 Under tensor parallelism (``parallel.tp.spmd`` around a local tree from
 ``parallel.shard_params``) the caches hold this rank's kv heads, and their
@@ -308,7 +305,7 @@ def _attention_cached(params, hidden, cache_layer, positions, cos, sin, config,
     return row_parallel_linear(ctx, params["o_proj"], qc("o_proj"), quantize_weights)
 
 
-def _uses_kernel(config, max_len: int, device, pos_major: bool, spec, attn_kernel) -> bool:
+def _uses_kernel(config, max_len: int, pos_major: bool, spec, attn_kernel) -> bool:
     """Whether decode attention reads a cache of ``max_len`` positions (packed
     with K/V blocks ``spec`` in layout ``pos_major``, or the float32 cache
     for ``spec`` None) through the kernel wrappers, by ``attn_kernel``: None
@@ -319,7 +316,7 @@ def _uses_kernel(config, max_len: int, device, pos_major: bool, spec, attn_kerne
     of these caches, the port holds the CPU to the card's limits."""
     if attn_kernel is None:
         return spec is not None and packed_decode_route(
-            config, max_len, device, pos_major, spec) == "kernel"
+            config, max_len, pos_major, spec) == "kernel"
     if not attn_kernel:
         return False
     if spec is None:
@@ -342,10 +339,10 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
     (their plain versions on the CPU; a packed cache required), False the
     dense route on a packed cache's dequantized codes
     (``packed_attention_decode_dense``), None routes a packed cache by
-    ``packed_decode_route``: through the kernels within their limits, else
-    through the dense route where JAX's kernel refuses it too, and on the
-    CPU; on the card it raises ValueError where JAX's kernel would take it
-    (``_uses_kernel``)."""
+    ``packed_decode_route``: through the kernels within their limits, else,
+    where JAX's kernel refuses the cache too, through the dense route, on
+    either device; True raises ValueError on a cache that the kernels
+    refuse (``_uses_kernel``)."""
     packed = isinstance(cache, PackedKVCache)
     pack_spec = (cache.bs_k, cache.bs_v) if packed else None
     b = token.shape[0]
@@ -354,7 +351,7 @@ def decode_step(params, token, cache, position, config: LlamaQuantizedConfig,
     positions = positions.expand(b).contiguous() if positions.ndim == 0 else positions
     hidden = embed(params, token)
     max_len = cache.max_len if packed else cache.shape[4]
-    use_kernel = _uses_kernel(config, max_len, device, packed and cache.pos_major, pack_spec,
+    use_kernel = _uses_kernel(config, max_len, packed and cache.pos_major, pack_spec,
                               attn_kernel)
     cos, sin = rope_tables(max_len, config.head_dim, config.rope_theta, device)
     for i, layer_params in enumerate(params["layers"]):
@@ -450,7 +447,7 @@ def _cache_spec(config, packed_kv):
 def _new_cache(config, batch, max_len, spec, device, pos_major=None, attn_kernel=None):
     if spec is not None and pos_major is None:
         pos_major = packed_cache_layout(config, max_len)[0]
-    _uses_kernel(config, max_len, device, pos_major, spec, attn_kernel)  # raises before any work
+    _uses_kernel(config, max_len, pos_major, spec, attn_kernel)  # raises before any work
     if spec is not None:
         return init_packed_kv_cache(config, batch, max_len, spec, device, pos_major)
     return init_kv_cache(config, batch, max_len, device)

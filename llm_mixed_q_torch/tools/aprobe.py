@@ -43,7 +43,7 @@ from ..kernels.attention_decode import (
     attend_dense,
     packed_attention_decode_batch_cuda,
 )
-from .timing import chain_ms
+from .timing import SetupClock, chain_ms
 
 _PROBE_THREADS = 256
 _PROBE_SMEM_MAX = 227 * 1024
@@ -190,7 +190,8 @@ def run(batch=32, s_len=256, reps=30, device=None, seed=0, log=print) -> dict:
     times."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    inputs = make_inputs(batch, s_len, seed, device)
+    clock = SetupClock("aprobe", device)
+    inputs = clock(lambda: make_inputs(batch, s_len, seed, device))
     q, kc, ks, vc, vs, pos = inputs
     nbytes = sum(t.numel() * t.element_size() for t in inputs[1:5])
     log(f"shape: b={batch} nh={NH} hd={HD} S={s_len} lanes={s_len * NKV} "
@@ -209,6 +210,7 @@ def run(batch=32, s_len=256, reps=30, device=None, seed=0, log=print) -> dict:
             continue
         ms = out[label] = chain_ms([fn], reps=reps)
         log(f"{label:>16s}: {ms * 1e3:8.1f} us  {ms * 1e3 / batch:6.2f} us/elem")
+    clock.log(log)
     return out
 
 

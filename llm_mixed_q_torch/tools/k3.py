@@ -50,7 +50,7 @@ from ..kernels.attention_decode import (
     packed_attention_decode_batch_cuda,
 )
 from . import aprobe
-from .timing import chain_ms
+from .timing import SetupClock, chain_ms
 
 NH = NKV = 32
 REP = 1
@@ -212,9 +212,10 @@ def run(batch=32, reps=5, device=None, seed=0, only="", log=print) -> dict:
     plain version once and returns max|ctx| in place of the times."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    inputs = make_inputs(batch, seed, device)
+    clock = SetupClock("k3", device)
+    inputs = clock(lambda: make_inputs(batch, seed, device))
     q, kc, ks, vc, vs, pos = inputs
-    masks = resident_masks(device=device)
+    masks = clock(lambda: resident_masks(device=device))
     nbytes = sum(t.numel() * t.element_size() for t in inputs[1:5])
     log(f"shape: b={batch} nh={NH} hd={HD} S={S} lanes={S * NKV} cache={nbytes / 1e6:.1f}MB "
         "(K4 dots in float32 on float32 q; the v2/v3 kernels in bf16, as the TPU's ship line)")
@@ -233,6 +234,7 @@ def run(batch=32, reps=5, device=None, seed=0, only="", log=print) -> dict:
             continue
         ms = out[label] = chain_ms([fn], reps=reps)
         log(f"{label:>12s}: {ms * 1e3:8.1f} us  {ms * 1e3 / batch:6.2f} us/elem")
+    clock.log(log)
     return out
 
 

@@ -38,7 +38,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels import _cuda
-from .timing import chain_ms, copies_for
+from .timing import SetupClock, chain_ms, copies_for
 
 HD = 128
 ROWS = 8
@@ -123,13 +123,14 @@ def run(l=8192, b=32, reps=3, device=None, seed=0, log=print) -> dict:
     once and returns max|y| in place of the times."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    inputs = make_inputs(l, b, seed, device)
+    clock = SetupClock("kexp", device)
+    inputs = clock(lambda: make_inputs(l, b, seed, device))
     data = (inputs[1].numel() + 4 * inputs[2].numel()) / 1e6
     log(f"B={b} L={l} codes+scales={data:.1f}MB, with q and the output "
         f"{nbytes_of(l, b) / 1e6:.1f}MB")
     # on the card, copies past twice the L2, so no call finds its inputs there
-    sets = [inputs] + [tuple(t.clone() for t in inputs)
-                       for _ in range(copies_for(nbytes_of(l, b)) - 1 if on_card else 0)]
+    sets = [inputs] + clock(lambda: [tuple(t.clone() for t in inputs) for _ in range(
+        copies_for(nbytes_of(l, b)) - 1 if on_card else 0)])
     got = {}
     for instance in VARIANTS:
         if on_card:
@@ -147,6 +148,7 @@ def run(l=8192, b=32, reps=3, device=None, seed=0, log=print) -> dict:
         extra = "" if instance == "none" else (
             f"  (+{(out[name] - got['none']) * 1e3:6.1f} us dequant)")
         log(f"  {name:>9s} ({instance:>6s}): {out[name] * 1e3:7.1f} us" + extra)
+    clock.log(log)
     return out
 
 

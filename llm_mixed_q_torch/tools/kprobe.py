@@ -41,7 +41,6 @@ import math
 from functools import partial
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from .. import resolve_device
@@ -59,7 +58,7 @@ from ..kernels.packing import (
     unpack,
 )
 from . import ksub
-from .timing import card_peaks, chain_ms, copies_for
+from .timing import SetupClock, card_peaks, chain_ms, copies_for, normal_draws
 
 # the library's instances of subbyte_tile: name -> (cols, tps); c32_t1 is
 # K3's former CUDA-core design without its activation quantizer (K3 now runs
@@ -199,34 +198,35 @@ def stream_bytes(fmt: str, operand, m: int, k: int, n: int) -> int:
 
 
 def run_rows(rows: list[str], table: dict, shapes=ksub.SHAPES, device=None, reps=3, seed=0,
-             log=print) -> dict:
+             log=print, name="kprobe") -> dict:
     """Time each row of ``table`` named in ``rows`` at each shape; -> {shape:
     {fmt: {row: ms}, "bytes": {row: bytes moved}, "steps": {row: steps},
     "blocks": {row: blocks}, "per_sm": {row: blocks an SM}}}. On the CPU,
-    runs each plain version once and returns max|y| in place of the times."""
+    runs each plain version once and returns max|y| in place of the times.
+    ``name``: the entry point, under which its set-up seconds are kept."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
     peak = card_peaks(torch.cuda.get_device_name(device))[0] if on_card else None
     sms = torch.cuda.get_device_properties(device).multi_processor_count if on_card else None
-    rng = np.random.default_rng(seed)
+    normal = normal_draws(seed, device)
+    clock = SetupClock(name, device)
     fmts = {table[r].fmt for r in rows}
     out = {}
     for sname, (n, k) in shapes.items():
-        w0 = lambda: torch.tensor(rng.standard_normal((n, k)) * 0.02, dtype=torch.float32,
-                                  device=device)
-        x = torch.tensor(rng.standard_normal((ksub.M, k)), dtype=torch.float32,
-                         device=device).to(torch.bfloat16).float()
+        w0 = lambda: normal((n, k), 0.02)
+        x = clock(lambda: normal((ksub.M, k)).to(torch.bfloat16).float())
         ops = {}
         for fmt, packer in (("sub", pack_block_fp_subbyte), ("int8", pack_block_fp)):
             if fmt in fmts:
                 draw = lambda: packer(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
-                ops[fmt] = [draw()]
+                ops[fmt] = clock(lambda: [draw()])
                 copies = copies_for(packed_nbytes(ops[fmt][0])) if on_card else 1
-                ops[fmt] += [draw() for _ in range(copies - 1)]
+                ops[fmt] += clock(lambda: [draw() for _ in range(copies - 1)])
         if "bf16" in fmts:  # the yardstick dequantizes the packed copies
             src = next(iter(ops.values()))
             copies = copies_for(2 * n * k) if on_card else 1
-            ops["bf16"] = [unpack(src[i % len(src)], torch.bfloat16) for i in range(copies)]
+            ops["bf16"] = clock(lambda: [unpack(src[i % len(src)], torch.bfloat16)
+                                         for i in range(copies)])
         sub_info = ""
         if "sub" in ops:
             p = ops["sub"][0]
@@ -257,6 +257,7 @@ def run_rows(rows: list[str], table: dict, shapes=ksub.SHAPES, device=None, reps
             else:
                 log(f"  {row:>18s}: max|y| {value:.6g} (plain version, cpu){grid}")
         del ops
+    clock.log(log)
     return out
 
 

@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 from functools import partial
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,7 +45,7 @@ from ..kernels.packing import (
     packed_nbytes,
     transpose_subbyte,
 )
-from .timing import card_peaks, chain_ms, copies_for
+from .timing import SetupClock, card_peaks, chain_ms, copies_for, normal_draws
 
 WIDTH, BLOCK = 6, 16
 M = 8
@@ -196,19 +195,18 @@ def run(shapes=SHAPES, device=None, reps=3, seed=0, log=print) -> dict:
     device = resolve_device(device)
     on_card = device.type == "cuda"
     peak = card_peaks(torch.cuda.get_device_name(device))[0] if on_card else None
-    rng = np.random.default_rng(seed)
+    normal = normal_draws(seed, device)
+    clock = SetupClock("ksub", device)
     out = {}
     for sname, (n, k) in shapes.items():
-        draw = lambda: pack_block_fp_subbyte(
-            torch.tensor(rng.standard_normal((n, k)) * 0.02, dtype=torch.float32, device=device),
-            WIDTH, 8, 127, [1, BLOCK])
-        lane_major = [draw()]
+        draw = lambda: pack_block_fp_subbyte(normal((n, k), 0.02), WIDTH, 8, 127, [1, BLOCK])
+        lane_major = clock(lambda: [draw()])
         nb = packed_nbytes(lane_major[0])
-        lane_major += [draw() for _ in range((copies_for(nb) if on_card else 1) - 1)]
+        lane_major += clock(lambda: [draw() for _ in range((copies_for(nb) if on_card else 1) - 1)])
         packs = {"lane_major": lane_major,
-                 "transposed": [transpose_subbyte(p) for p in lane_major]}
+                 "transposed": clock(lambda: [transpose_subbyte(p) for p in lane_major])}
         k_pad = _k_padded(lane_major[0])
-        x0 = torch.tensor(rng.standard_normal((M, k_pad)), dtype=torch.float32, device=device)
+        x0 = clock(lambda: normal((M, k_pad)))
         xk = x0[:, :k].contiguous()
         bound = f"bound at {peak / 1e12} TB/s {nb / peak * 1e6:.1f} us" if on_card else "cpu"
         log(f"{sname}: N={n} K={k} M={M} bytes={nb / 1e6:.1f}MB copies={len(packs['transposed'])} "
@@ -231,6 +229,7 @@ def run(shapes=SHAPES, device=None, reps=3, seed=0, log=print) -> dict:
                 log(f"  {label:>26s}: {ms * 1e3:8.1f} us  ({nb / ms / 1e6:6.0f} GB/s, "
                     f"{nb / ms / 1e-3 / peak:.3f} of peak)")
         del packs, lane_major
+    clock.log(log)
     return out
 
 

@@ -205,7 +205,8 @@ ROWS = {**{name: int8_row(*spec) for name, spec in INT8_INSTANCES.items()},
 def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print, cases=None) -> dict:
     """P6, P5 and P7: the instances of ``cases`` (TPU case names, all by
     default) and the rows beside them at each shape (``kprobe.run_rows``)."""
-    return run_rows(rows_for(cases, CASES, BESIDE), ROWS, shapes, device, reps, seed, log)
+    return run_rows(rows_for(cases, CASES, BESIDE), ROWS, shapes, device, reps, seed, log,
+                    name="ktune7b")
 
 
 def main(argv=None):

@@ -34,14 +34,13 @@ from __future__ import annotations
 import argparse
 from functools import partial
 
-import numpy as np
 import torch
 
 from .. import resolve_device
 from ..kernels.dequant_matmul import _k_padded
 from ..kernels.packing import pack_block_fp_subbyte, packed_nbytes, transpose_subbyte
 from . import ksub
-from .timing import card_peaks, chain_ms, copies_for
+from .timing import SetupClock, card_peaks, chain_ms, copies_for, normal_draws
 
 VARIANTS = ("v2", "v3")
 # TPU case names of the same instance: tile widths (bn) are Mosaic tiling
@@ -127,20 +126,19 @@ def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print) -> dict:
     device = resolve_device(device)
     on_card = device.type == "cuda"
     peak = card_peaks(torch.cuda.get_device_name(device))[0] if on_card else None
-    rng = np.random.default_rng(seed)
+    normal = normal_draws(seed, device)
+    clock = SetupClock("kvariants", device)
     out = {}
     for sname, (n, k) in shapes.items():
-        draw = lambda: pack_block_fp_subbyte(
-            torch.tensor(rng.standard_normal((n, k)) * 0.02, dtype=torch.float32, device=device),
-            ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
-        lane_major = [draw()]
+        draw = lambda: pack_block_fp_subbyte(normal((n, k), 0.02), ksub.WIDTH, 8, 127,
+                                             [1, ksub.BLOCK])
+        lane_major = clock(lambda: [draw()])
         nb = packed_nbytes(lane_major[0])
-        lane_major += [draw() for _ in range((copies_for(nb) if on_card else 1) - 1)]
-        packs = {"transposed": [transpose_subbyte(p) for p in lane_major],
+        lane_major += clock(lambda: [draw() for _ in range((copies_for(nb) if on_card else 1) - 1)])
+        packs = {"transposed": clock(lambda: [transpose_subbyte(p) for p in lane_major]),
                  "lane_major": lane_major}
         # the same bf16 x for every row: the production kernels take [M, K]
-        x = torch.tensor(rng.standard_normal((ksub.M, k)), dtype=torch.float32,
-                         device=device).to(torch.bfloat16).float()
+        x = clock(lambda: normal((ksub.M, k)).to(torch.bfloat16).float())
         bound = f"bound at {peak / 1e12} TB/s {nb / peak * 1e6:.1f} us" if on_card else "cpu"
         log(f"{sname}: N={n} K={k} K_pad={_k_padded(lane_major[0])} M={ksub.M} "
             f"bytes={nb / 1e6:.1f}MB copies={len(lane_major)} {bound}")
@@ -157,6 +155,7 @@ def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print) -> dict:
                 res[layout][v] = chain_ms(fns, reps=reps) if on_card else fns[0]().abs().max().item()
                 log_row(log, label, on_card, res[layout][v], nb, peak)
         del packs, lane_major
+    clock.log(log)
     return out
 
 

@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 from functools import partial
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -53,7 +52,7 @@ from ..kernels.packing import (
 )
 from . import ksub
 from .kvariants import ENTRY_VARIANTS, check_block, log_row
-from .timing import card_peaks, chain_ms, copies_for
+from .timing import SetupClock, card_peaks, chain_ms, copies_for, normal_draws
 
 # by stored scale dtype
 SUB_VARIANTS = {torch.float32: "v4_f32s", torch.bfloat16: "v4_bf16s"}
@@ -200,20 +199,21 @@ def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print, which="all")
     device = resolve_device(device)
     on_card = device.type == "cuda"
     peak = card_peaks(torch.cuda.get_device_name(device))[0] if on_card else None
-    rng = np.random.default_rng(seed)
+    normal = normal_draws(seed, device)
+    clock = SetupClock("kvariants2", device)
     out = {}
     for sname, (n, k) in shapes.items():
-        w0 = lambda: torch.tensor(rng.standard_normal((n, k)) * 0.02, dtype=torch.float32,
-                                  device=device)
-        x = torch.tensor(rng.standard_normal((ksub.M, k)), dtype=torch.float32,
-                         device=device).to(torch.bfloat16).float()
+        w0 = lambda: normal((n, k), 0.02)
+        x = clock(lambda: normal((ksub.M, k)).to(torch.bfloat16).float())
         res = out[sname] = {"bytes": {}}
         log(f"{sname}: N={n} K={k} M={ksub.M}" + ("" if on_card else " (cpu)"))
         if which in ("i", "all"):
-            p8 = [pack_block_fp(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])]
-            p8 += [pack_block_fp(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
-                   for _ in range((copies_for(stored_nbytes(p8[0])) if on_card else 1) - 1)]
-            stored = {v: [stored_scales(p, dt) for p in p8] for dt, v in INT8_VARIANTS.items()}
+            p8 = clock(lambda: [pack_block_fp(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])])
+            p8 += clock(lambda: [
+                pack_block_fp(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
+                for _ in range((copies_for(stored_nbytes(p8[0])) if on_card else 1) - 1)])
+            stored = clock(lambda: {v: [stored_scales(p, dt) for p in p8]
+                                    for dt, v in INT8_VARIANTS.items()})
             rows = [("K2", "int8 K2 (i_base)", [partial(bfp_matmul_cuda, x, p, None) for p in p8],
                      stored_nbytes(p8[0]))]
             rows += [(v, f"int8 {v}", [partial(int8_variant, x, p, dt) for p in stored[v]],
@@ -224,13 +224,14 @@ def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print, which="all")
             del p8, stored
         if which in ("s", "all"):
             draw = lambda: pack_block_fp_subbyte(w0(), ksub.WIDTH, 8, 127, [1, ksub.BLOCK])
-            lane_major = [draw()]
-            lane_major += [draw() for _ in range(
-                (copies_for(stored_nbytes(lane_major[0])) if on_card else 1) - 1)]
+            lane_major = clock(lambda: [draw()])
+            lane_major += clock(lambda: [draw() for _ in range(
+                (copies_for(stored_nbytes(lane_major[0])) if on_card else 1) - 1)])
             for layout in ("transposed", "lane_major"):
-                packs = lane_major if layout == "lane_major" else [
-                    transpose_subbyte(p) for p in lane_major]
-                stored = {v: [stored_scales(p, dt) for p in packs] for dt, v in SUB_VARIANTS.items()}
+                packs = lane_major if layout == "lane_major" else clock(
+                    lambda: [transpose_subbyte(p) for p in lane_major])
+                stored = clock(lambda: {v: [stored_scales(p, dt) for p in packs]
+                                        for dt, v in SUB_VARIANTS.items()})
                 prod = ksub.PRODUCTION[layout]
                 rows = [("production", f"{layout} {'K1' if layout == 'transposed' else 'K3'} (s_base)",
                          [partial(prod, x, p, None) for p in packs], stored_nbytes(packs[0]))]
@@ -241,6 +242,7 @@ def run(shapes=ksub.SHAPES, device=None, reps=3, seed=0, log=print, which="all")
                 _time_rows(rows, on_card, reps, peak, log, res[layout])
                 del packs, stored
             del lane_major
+    clock.log(log)
     return out
 
 

@@ -140,6 +140,17 @@ def make_adamw(params, learning_rate: float, weight_decay: float = 0.0,
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_at)
 
 
+def _optax_adamw(params, learning_rate: float, weight_decay: float = 1e-4):
+    """``optax.adamw(learning_rate)`` with its defaults, as the repo's root
+    scripts train (b1 0.9, b2 0.999, eps 1e-8, ``weight_decay`` decoupled on
+    every leaf that requires grad: no mask, no schedule) -> a ``MultiSteps``
+    that updates at every micro-step."""
+    leaves = [t for _, t in named_leaves(params) if t.requires_grad]
+    optimizer = torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
+    return MultiSteps(optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambda _: 1.0))
+
+
 class MultiSteps:
     """Gradient accumulation as ``optax.MultiSteps``: ``step()`` after each
     micro-batch's backward; every ``every_k``-th call divides the summed

@@ -16,7 +16,12 @@ against the JAX package:
 - name parity: every public top-level name of every module of
   ``llm_mixed_q_tpu/`` has a counterpart in the port's module at the same
   path, and every parameter of a public function or method of the same
-  name there, but for a list of JAX constructs, each with its stand-in.
+  name there, but for a list of JAX constructs, each with its stand-in;
+  and so has every public top-level name and parameter of the repo's root
+  scripts that drive the JAX package (``ROOT_SCRIPTS``:
+  ``__graft_entry__.py`` in ``llm_mixed_q_torch.graft_entry``,
+  ``quality.py`` in ``llm_mixed_q_torch.quality``), but ``bench.py``,
+  which waits for the port's ``benchmark`` PR.
 
 Tolerances: logits within 1e-4 of max|logit| (float32 sums in another
 order; ``tests/test_torch_llama.py``; block_log's subnormal departure,
@@ -25,6 +30,7 @@ ROADMAP fault 10, stays inside it), losses within 1e-5 relative
 
 import ast
 import importlib
+import importlib.util
 import inspect
 from copy import deepcopy
 from pathlib import Path
@@ -356,6 +362,30 @@ def test_every_public_name_has_a_counterpart():
     assert not missing, missing
     for module, name in NAME_EXCEPTIONS:  # the list names only what JAX has
         assert name in _public_names(dict(_modules())[module]), (module, name)
+
+
+# the repo's root scripts that drive the JAX package: their counterparts in
+# the port, or why there is none yet (``chip_smoke.py`` is the port's own)
+ROOT_SCRIPTS = {"__graft_entry__": "graft_entry", "quality": "quality"}
+ROOT_SCRIPT_EXCEPTIONS = {"bench": "the benchmark, ported in the `benchmark` PR"}
+
+
+def test_every_root_script_is_ported_or_excepted():
+    scripts = {p.stem for p in ROOT.glob("*.py")} - {"chip_smoke"}
+    assert scripts == set(ROOT_SCRIPTS) | set(ROOT_SCRIPT_EXCEPTIONS)
+    for name in ROOT_SCRIPT_EXCEPTIONS:
+        assert importlib.util.find_spec(f"llm_mixed_q_torch.{name}") is None
+
+
+@pytest.mark.parametrize("script", list(ROOT_SCRIPTS))
+def test_every_public_name_of_a_root_script_has_a_counterpart(script):
+    path = ROOT / f"{script}.py"
+    port = _port(ROOT_SCRIPTS[script])
+    names = _public_names(path)
+    assert names and not [n for n in sorted(names) if not hasattr(port, n)]
+    for qualname, params in _public_functions(path).items():
+        have = inspect.signature(getattr(port, qualname)).parameters
+        assert not [p for p in params if p not in have], qualname
 
 
 def test_every_parameter_has_a_counterpart():

@@ -565,6 +565,16 @@ ATTN_CASES = [  # b, nkv, rep, hd, s_len, bs_k, bs_v, prob_q, positions
     (2, 2, 8, 1280, 256, 1, 20, (16, 6, 8, None), [255, 128]),
     (2, 2, 1, 2048, 256, 16, 16, (16, 6, 8, None), [255, 17]),
     (1, 2, 8, 2048, 256, 1, 1, (32, 6, 8, None), [255]),
+    # fault 21's repair: K5's scores in passes of a divisor of the head
+    # (1004 of 3012 at rep 8 and a scale a code; 494 of 5434 with one scale
+    # a head; 1 of the prime 7919, V codes a byte at a time), P . V a walk
+    # of the chunk a pass of 1024 dims; K4 past 65535 dims
+    (2, 2, 8, 3012, 174, 1, 1, (2, 6, 8, None), [173, 60]),
+    (1, 2, 8, 5434, 96, 5434, 5434, (16, 6, 8, None), [95]),
+    (1, 2, 3, 7919, 16, 1, 1, (16, 6, 8, None), [15]),
+    (2, 2, 8, 3012, 128, 12, 4, (16, 6, 8, None), [127, 3]),
+    (1, 1, 1, 65536, 8, 16, 16, None, [7]),
+    (1, 1, 2, 70000, 8, 16, 8, None, [5]),
 ]
 
 

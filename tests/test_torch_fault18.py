@@ -25,7 +25,14 @@ cache past 1024 dims a head (1280, 2048). Here, for each:
 
 The CUDA kernels are held against their plain versions at these shapes on
 the card (``tests/test_torch_cuda_kernels.py`` ``ATTN_CASES``,
-``chip_smoke.py --search-only`` part 1)."""
+``chip_smoke.py --search-only`` part 1).
+
+Fault 21's repair: the caches that JAX's kernel takes and for which K4/K5
+found no split that fits in shared memory (``FAULT21``: head-major past
+3011 dims at rep 8, pos-major past 65535 dims) now have one, through K5's
+scores walking a head in passes of a divisor of it, K5's P . V walking a
+chunk once a pass of 1024 dims, and K4 taking every head_dim: their route
+is "kernel" under ``attn_kernel=None`` and ``attn_kernel=True``."""
 
 import tomllib
 
@@ -40,7 +47,7 @@ from llm_mixed_q_tpu.models.llama import serving as jax_serving
 from llm_mixed_q_torch.kernels import attention_decode as ad
 from llm_mixed_q_torch.kernels.packing import bfp_encode_lastdim
 from llm_mixed_q_torch.models.llama import LlamaQuantizedConfig
-from llm_mixed_q_torch.models.llama.serving import packed_cache_layout
+from llm_mixed_q_torch.models.llama.serving import _uses_kernel, packed_cache_layout
 from llm_mixed_q_torch.ops.quantizers import _block_fp_qdq
 from test_torch_head_dims import _head_major
 from test_torch_k4 import _inputs as k4_inputs
@@ -65,12 +72,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _quant_config(bs):
-    """bfp_6bit.toml with the weight blocks [1, bs] (the K/V cache's), its
-    data_in blocks (the prob quantizer's among them) left at [1, 16]."""
+def _quant_config(bs, prob_bs=16):
+    """bfp_6bit.toml with the weight blocks [1, bs] (the K/V cache's) and
+    the data_in blocks (the prob quantizer's among them) [1, prob_bs]."""
     with open(BFP6, "rb") as f:
         qc = tomllib.load(f)
     qc["default"]["weight_block_size"] = [1, bs]
+    qc["default"]["data_in_block_size"] = [1, prob_bs]
     return qc
 
 
@@ -101,8 +109,59 @@ def test_route_takes_the_kernels(name):
         assert blocks == spec and pos_major == (nkv * max_len <= ad.BATCH_KERNEL_MAX_LANES)
         assert ad.reference_kernel_error(tc, max_len) is None
         assert ad.attention_kernel_error(tc, max_len, pos_major, blocks) is None
-        assert ad.packed_decode_route(tc, max_len, torch.device("cuda"), pos_major,
-                                      blocks) == "kernel"
+        assert ad.packed_decode_route(tc, max_len, pos_major, blocks) == "kernel"
+
+
+# name: (head_dim, K/V block, prob block, kv heads, rep, max_len): caches
+# within JAX's cap for which K4/K5 had no split that fits in shared memory.
+# Head-major (nkv x max_len past 8192 lanes) at 3012 dims, rep 8 and a
+# scale a code, at 174 positions (prob blocks of 2 tile them) and 160; at
+# 5434 dims with one scale a head; pos-major at 65536 dims (K4 took at
+# most 65535).
+FAULT21 = {"hd3012_s174": (3012, 1, 2, 48, 8, 174), "hd3012_s160": (3012, 1, 16, 52, 8, 160),
+           "hd5434_one_scale": (5434, 5434, 16, 86, 8, 96),
+           "pos_major_hd65536": (65536, 16, 8, 1, 1, 8)}
+
+
+@pytest.mark.parametrize("name", list(FAULT21))
+def test_fault_21_caches_take_the_kernels(name):
+    """Fault 21: JAX packs the cache and its kernel takes it, and so do
+    K4/K5 now (the route raised on the card before): the route is "kernel"
+    under ``attn_kernel=None`` and True, with K5's scores in passes of a
+    divisor of the head."""
+    hd, bs, prob_bs, nkv, rep, max_len = FAULT21[name]
+    qc = _quant_config(bs, prob_bs)
+    kw = dict(vocab_size=96, hidden_size=hd * nkv * rep, intermediate_size=64,
+              num_hidden_layers=2, num_attention_heads=nkv * rep, num_key_value_heads=nkv,
+              max_position_embeddings=max_len)
+    jc, tc = JaxConfig(**kw, quant_config=qc), LlamaQuantizedConfig(**kw, quant_config=qc)
+    assert tc.head_dim == hd and max_len * hd <= CAP
+    spec = jax_serving.kv_cache_pack_spec(jc)
+    assert spec == (bs, bs) and jattn.attention_kernel_ok(jc, max_len)
+    pos_major, blocks = packed_cache_layout(tc, max_len)
+    assert blocks == spec and pos_major == (nkv * max_len <= ad.BATCH_KERNEL_MAX_LANES)
+    assert pos_major == (name == "pos_major_hd65536")
+    assert ad.reference_kernel_error(tc, max_len) is None
+    assert ad.attention_kernel_error(tc, max_len, pos_major, blocks) is None
+    if pos_major:
+        _check_k4_split(nkv, rep, hd, max_len, bs, bs)
+    else:
+        _check_k5_split(nkv, rep, hd, max_len, bs, bs)
+        assert ad.k5_tiles(nkv, rep, hd, max_len, bs, bs)[1] < hd
+    assert ad.packed_decode_route(tc, max_len, pos_major, blocks) == "kernel"
+    assert _uses_kernel(tc, max_len, pos_major, blocks, None)
+    assert _uses_kernel(tc, max_len, pos_major, blocks, True)
+
+
+def test_fault_21_edge_is_where_fault_18_left_it():
+    """The head-major split at rep 8 and a scale a code keeps all of the
+    head in a stage of the scores up to 3011 dims (at 174 positions, the
+    JAX cap's longest there), and past it walks the head in passes of its
+    longest divisor that fits (1506 of 3012) at the longest T that fits."""
+    assert ad.k5_tiles(1, 8, 3011, 174, 1, 1) == (4, 3011, 1, 1)
+    t, dims, dgs, pgs = ad.k5_tiles(1, 8, 3012, 174, 1, 1)
+    assert dims < 3012 and 3012 % dims == 0 and t >= 4
+    _check_k5_split(1, 8, 3012, 174, 1, 1)
 
 
 def _check_k4_split(nkv, rep, hd, s_len, bs_k, bs_v):
@@ -117,12 +176,14 @@ def _check_k4_split(nkv, rep, hd, s_len, bs_k, bs_v):
 
 def _check_k5_split(nkv, rep, hd, s_len, bs_k, bs_v):
     """k5_tiles' split, as the C host checks it: a head past 1024 dims
-    takes passes of 1024 with one position group."""
-    t, dgs, pgs = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    takes passes of 1024 with one position group; the scores' stage dims
+    divide the head and fit the K blocks."""
+    t, dims, dgs, pgs = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
     p, _ = ad.k5_geometry(nkv, rep, s_len)
     vw, npass = ad.k5_pv_threads(hd)
-    dpg = hd // dgs
-    assert t & (t - 1) == 0 and t <= p and hd % dgs == 0
+    dpg = dims // dgs
+    assert hd % dims == 0 and (dims % bs_k == 0 or bs_k % dims == 0)
+    assert t & (t - 1) == 0 and t <= p and dims % dgs == 0
     assert dpg % bs_k == 0 or bs_k % dpg == 0
     assert dgs * ((t + 3) // 4) <= 256 and 1 <= pgs * vw <= 256
     assert (npass > 1) == (hd > 1024) and (npass == 1 or pgs == 1)

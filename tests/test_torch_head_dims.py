@@ -148,7 +148,8 @@ def test_power_of_two_head_dims_keep_their_split(nkv, rep, s_len, bs_k, bs_v):
         while 2 * old * nq <= 256 and 2 * old <= dims:
             old *= 2
         assert dgs == old
-        t, dgs5, pgs5 = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+        t, dims5, dgs5, pgs5 = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+        assert dims5 == hd
         nq5, old5 = (t + 3) // 4, 1
         while 2 * old5 * nq5 <= 256 and 2 * old5 <= hd:
             old5 *= 2
@@ -170,7 +171,8 @@ def test_every_multiple_of_16_splits_evenly(head_dims):
                 dims, dgs, _ = ad.k4_tiles(4, rep, hd, 256, bs_k, bs_v)
                 assert hd % dims == 0 and dims % 16 == 0 and dims % dgs == 0
                 assert all(dims % bs == 0 or bs % dims == 0 for bs in (bs_k, bs_v))
-                t, dgs5, pgs5 = ad.k5_tiles(4, rep, hd, 512, bs_k, bs_v)
+                t, dims5, dgs5, pgs5 = ad.k5_tiles(4, rep, hd, 512, bs_k, bs_v)
+                assert dims5 == hd
                 dpg = hd // dgs5
                 assert hd % dgs5 == 0 and (dpg % bs_k == 0 or bs_k % dpg == 0)
                 assert 1 <= pgs5 * (hd // 4) <= 256 and t >= 1
@@ -211,8 +213,7 @@ def test_the_card_routes_these_head_dims_to_the_kernels(hidden, heads, nkv):
     for max_len in (64, 256):
         layout = packed_cache_layout(tc, max_len)
         assert ad.attention_kernel_error(tc, max_len, *layout) is None
-        assert ad.packed_decode_route(tc, max_len, torch.device("cuda"), *layout) == "kernel"
-        assert ad.packed_decode_route(tc, max_len, "cpu", *layout) == "kernel"
+        assert ad.packed_decode_route(tc, max_len, *layout) == "kernel"
 
 
 def test_generate_at_head_dim_80_matches_jax():

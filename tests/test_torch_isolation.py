@@ -1,4 +1,5 @@
-"""The port stands alone: with ``jax`` and ``llm_mixed_q_tpu`` blocked from
+"""The port stands alone: with ``jax``, ``llm_mixed_q_tpu`` and the repo's
+root scripts that drive it (``quality``, ``__graft_entry__``) blocked from
 import, it imports (chip_smoke.py, the probes of ``llm_mixed_q_torch.tools``
 and the ``cli``, ``datasets``, ``eval`` and ``train`` subpackages included)
 and runs Llama and OPT generation, the perplexity path under the new
@@ -7,7 +8,8 @@ the eight probe entry points on the CPU, a packed BERT classifier, an
 incremental Llama decode step (``make_prefill_and_decode``), a statistic
 profile with its integer config, a memory density, and a prompting search
 with its best trial's eval; ``parallel/`` and the EMNLP drivers import,
-and the perplexity driver runs a CI-scale arm."""
+and the perplexity driver runs a CI-scale arm; ``graft_entry`` and
+``quality`` import, and ``entry()``'s forward runs."""
 
 import subprocess
 import sys
@@ -18,15 +20,17 @@ REPO = Path(__file__).resolve().parent.parent
 SCRIPT = r'''
 import importlib.abc, sys
 
+BLOCKED = ("jax", "jaxlib", "llm_mixed_q_tpu", "quality", "__graft_entry__")
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "llm_mixed_q_tpu"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked: {name}")
         return None
 
 sys.meta_path.insert(0, Block())
 for mod in list(sys.modules):
-    if mod.split(".")[0] in ("jax", "jaxlib", "llm_mixed_q_tpu"):
+    if mod.split(".")[0] in BLOCKED:
         del sys.modules[mod]
 
 import pkgutil
@@ -57,7 +61,12 @@ assert {"llm_mixed_q_torch.cli.evals", "llm_mixed_q_torch.datasets.wikitext2",
         "llm_mixed_q_torch.experiments.emnlp.section_4_2_perplexity",
         "llm_mixed_q_torch.experiments.emnlp.section_4_2_downstream",
         "llm_mixed_q_torch.experiments.emnlp.section_4_3_qat",
-        "llm_mixed_q_torch.experiments.emnlp.section_4_4_search"} <= set(sys.modules)
+        "llm_mixed_q_torch.experiments.emnlp.section_4_4_search",
+        "llm_mixed_q_torch.graft_entry", "llm_mixed_q_torch.quality"} <= set(sys.modules)
+from llm_mixed_q_torch.graft_entry import entry
+
+fn, args = entry(device="cpu")
+assert fn(*args).shape == (2, 64, 256)
 
 import tempfile
 from llm_mixed_q_torch.experiments.emnlp import section_4_2_perplexity
@@ -219,7 +228,7 @@ with tempfile.TemporaryDirectory() as d:
     study = search.search_prompting(["sst"], 16, examples_by_task=examples)
     best = search.evaluate_best_trials_prompting(study, ["sst"], examples_by_task=examples)
 assert len(study.trials) == 2 and 0 <= best["mean_acc"] <= 1
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "llm_mixed_q_tpu")]
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ISOLATED-OK")
 '''
 

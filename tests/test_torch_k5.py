@@ -104,7 +104,8 @@ def k5_schedule(q, kc, ks, vc, vs, positions, bs_k, bs_v, prob_q, denominator=f6
     b, nkv, rep, hd = q.shape
     s_len = vc.shape[2]
     p_len, _ = ad.k5_geometry(nkv, rep, s_len)
-    t_len, dgs, pgs = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    t_len, dims, dgs, pgs = ad.k5_tiles(nkv, rep, hd, s_len, bs_k, bs_v)
+    assert dims == hd  # the replica keeps all of the head in a stage of the scores
     nch = -(-s_len // p_len)
     sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32)
     vd = vc.float() * vs.repeat_interleave(bs_v, 3)  # [b, nkv, S, hd]

@@ -191,14 +191,14 @@ def test_prob_q_spec_and_gates_match_jax():
     (1, 128, 56000, None), (8, 128, 6800, None), (1, 128, 131072, None),
     (8, 128, 8192, None), (9, 128, 64, "query rows"), (1, 96, 64, None),
     (1, 272, 64, None), (1, 512, 64, None), (1, 1040, 64, None),
-    (2, 2048, 64, None), (1, 2**16, 64, "head_dim")])
+    (2, 2048, 64, None), (1, 2**16, 8, None), (8, 3012, 174, None), (1, 0, 64, "head_dim")])
 def test_attention_kernel_limits(rep, hd, s_len, reason):
     """The limits of csrc/attention_decode.cu, which the wrappers raise on
-    and by which serving picks its route: rep 1..8 and a head_dim from 1 to
-    65535 (``_launch_attention``), at any cache length; both refusals lie
-    outside the JAX package's kernel too (rep > 8; 65536 dims at 64
-    positions pass its cap of 4096 x 128 elements). Since fault 18's repair
-    K5 takes 1040 and 2048 dims."""
+    and by which serving picks its route: rep 1..8 and a head_dim from 1
+    (``_launch_attention``), at any cache length; the refusals lie outside
+    the JAX package's kernel too (rep > 8). Since fault 18's repair K5
+    takes 1040 and 2048 dims, since fault 21's 65536 (K4 took at most 65535)
+    and 3012 at rep 8."""
     error = tattn.kernel_shape_error(rep, hd)
     assert (error is None) if reason is None else (reason in error)
     if reason is not None:

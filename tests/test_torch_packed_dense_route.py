@@ -8,10 +8,10 @@ whenever the quant config permits, on either device, as JAX's do, and
   versions on the CPU;
 - "dense" (``packed_attention_decode_dense``, counted a layer a call)
   where JAX's kernel refuses the cache too (its ``attention_kernel_ok`` is
-  False), as JAX's ``decode_step`` then decodes densely, and on the CPU;
-- on the card, a ValueError where JAX's kernel takes the cache and K4/K5
-  do not (since fault 18's repair only a split that does not fit in
-  shared memory: none of the configs here).
+  False), as JAX's ``decode_step`` then decodes densely;
+- the same route on either device: the kernels take every cache that
+  JAX's kernel takes (fault 21's repair, held in
+  ``tests/test_torch_fault18.py``).
 
 Eight configs (name: hidden, heads, kv heads, max_len):
 ``head_dim_48`` (a multiple of 16 that is not a power of two: both take
@@ -80,18 +80,18 @@ CASES = {
     "long_head_dim_320": (640, 2, 2, 2048),
     "long_gqa_cache": (2048, 16, 2, 8192),
 }
-# name: (the route on the CPU, on the card; None: raises)
+# name: the route, on either device
 ROUTES = {
-    "head_dim_48": ("kernel", "kernel"),
-    "head_dim_320": ("kernel", "kernel"),
-    "head_dim_6": ("kernel", "kernel"),
-    "rep_16": ("dense", "dense"),
-    "rep_12": ("dense", "dense"),
-    "long_head_dim_48": ("kernel", "kernel"),
-    "long_head_dim_320": ("kernel", "kernel"),
-    "long_gqa_cache": ("kernel", "kernel"),
+    "head_dim_48": "kernel",
+    "head_dim_320": "kernel",
+    "head_dim_6": "kernel",
+    "rep_16": "dense",
+    "rep_12": "dense",
+    "long_head_dim_48": "kernel",
+    "long_head_dim_320": "kernel",
+    "long_gqa_cache": "kernel",
 }
-DENSE_IN_BOTH = [name for name, (_, card) in ROUTES.items() if card == "dense"]
+DENSE_IN_BOTH = [name for name, route in ROUTES.items() if route == "dense"]
 K5 = "packed_attention_decode_cuda"
 K4 = "packed_attention_decode_batch_cuda"
 
@@ -130,19 +130,13 @@ def test_default_cache_is_packed_where_jax_packs(name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_route_follows_both_packages_kernels(name):
-    """The route on each device, and ``reference_kernel_error`` as JAX's
-    ``attention_kernel_ok`` says."""
+    """The route (the same on either device), and ``reference_kernel_error``
+    as JAX's ``attention_kernel_ok`` says."""
     jc, tc, _, _, max_len = _case(name)
     layout = serving.packed_cache_layout(tc, max_len)
     assert (reference_kernel_error(tc, max_len) is None) == attention_kernel_ok(jc, max_len)
-    assert (attention_kernel_error(tc, max_len, *layout) is None) == (ROUTES[name][0] == "kernel")
-    cpu, card = ROUTES[name]
-    assert packed_decode_route(tc, max_len, "cpu", *layout) == cpu
-    if card is None:
-        with pytest.raises(ValueError, match="packed_kv=False"):
-            packed_decode_route(tc, max_len, torch.device("cuda"), *layout)
-    else:
-        assert packed_decode_route(tc, max_len, torch.device("cuda"), *layout) == card
+    assert (attention_kernel_error(tc, max_len, *layout) is None) == (ROUTES[name] == "kernel")
+    assert packed_decode_route(tc, max_len, *layout) == ROUTES[name]
 
 
 def _decode_against_jax(name):
@@ -210,7 +204,7 @@ def test_generate_packs_outside_the_limits_as_jax_does(name):
     want = np.asarray(jax_serving.generate(jp, jc, ids, max_new_tokens=new, max_len=max_len))
     kernels.reset_launch_counts()
     got = generate(tp, tc, ids, max_new_tokens=new, max_len=max_len, device="cpu")
-    dense = tc.num_hidden_layers * (new - 1) if ROUTES[name][0] == "dense" else 0
+    dense = tc.num_hidden_layers * (new - 1) if ROUTES[name] == "dense" else 0
     assert kernels.launch_counts()["attn_decode_packed_dense"] == dense
     np.testing.assert_array_equal(got, want)
     f32 = generate(tp, tc, ids, max_new_tokens=new, max_len=max_len, packed_kv=False,
@@ -273,7 +267,7 @@ def test_the_card_routes_head_dims_320_40_and_8_to_the_kernels(hd, bs, nkv, max_
     assert serving.packed_cache_layout(tc, max_len) == (pos_major, spec)
     assert attention_kernel_ok(jc, max_len)
     assert attention_kernel_error(tc, max_len, pos_major, spec) is None
-    assert packed_decode_route(tc, max_len, torch.device("cuda"), pos_major, spec) == "kernel"
+    assert packed_decode_route(tc, max_len, pos_major, spec) == "kernel"
     cache = _new_cache(tc, 1, max_len, spec, torch.device("cpu"))
     assert isinstance(cache, PackedKVCache) and cache.pos_major == pos_major
 

@@ -34,6 +34,11 @@ the inputs drawn from numpy seeds. The scenarios:
 - ``train_qat`` on the mesh with ``fsdp``: its checkpoint restores on one
   process, and a resume under the same world is bit-equal to the
   uninterrupted run;
+- ``graft_entry.dryrun_multichip(4)`` on the (dcn, data, model) = (1, 2, 2)
+  hybrid mesh, and its helper ``_dryrun`` there fed JAX's tree: the QAT
+  loss within rtol 1e-5 on every rank and the decode step's logits within
+  1e-4 of max|logit| of the JAX script's steps on 4 virtual devices
+  (``tests/test_torch_graft_entry.py:jax_dryrun``);
 - last, two simulated hosts of 2 ranks (``initialize(local_device_count=2)``)
   on the hybrid meshes (dcn, data, model) = (2, 2, 1) and (2, 1, 2)
   (ROADMAP fault 19): each rank's rows of ``global_batch`` from its host's
@@ -59,6 +64,7 @@ import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 from test_torch_cls import _np, cls_batch
+from test_torch_graft_entry import jax_dryrun
 from test_torch_llama import _flat
 from test_torch_qat import _close_to_leaf_max
 
@@ -79,6 +85,7 @@ from llm_mixed_q_tpu.parallel.distributed import make_hybrid_mesh as jax_make_hy
 from llm_mixed_q_tpu.parallel import shard_params as jax_shard_params
 from llm_mixed_q_tpu.train.qat import make_adamw as jax_make_adamw
 from llm_mixed_q_tpu.train.qat import make_qat_train_step as jax_qat_step
+from llm_mixed_q_torch.graft_entry import _DRYRUN_KW, BFP6
 from llm_mixed_q_torch.models.hf_loader import params_from_jax
 from llm_mixed_q_torch.train.qat import (
     MultiSteps,
@@ -161,6 +168,8 @@ def _inputs():
             "lr": LR, "wd": WD, "cls_batch": cls_batch(0, n=4, seed=5),
             "lm_batch": _lm_batch(),
             "ckpt_batches": [cls_batch(0, n=4, seed=s) for s in (21, 22)],
+            "graft_tree": _np(jax_init(JaxConfig(**_DRYRUN_KW, quant_config=BFP6), task="lm",
+                                       seed=0)),
             "host_rows": np.random.default_rng(19).integers(0, 1000, size=(8, 3))}
 
 
@@ -370,6 +379,22 @@ def test_resume_under_the_world_is_bit_equal(world):
         assert full.keys() == resumed.keys()
         for k in full:
             np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
+
+
+def test_graft_dryrun_on_the_world_matches_jax(world):
+    inp, results, _ = world
+    want_loss, want_logits, tree = jax_dryrun(2, 2)
+    for k, v in _flat(tree).items():
+        np.testing.assert_array_equal(v, _flat(inp["graft_tree"])[k], err_msg=k)
+    parts = [r["graft"] for r in results]
+    assert sorted(tuple(p["coords"].values()) for p in parts) == [
+        (0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)]
+    for p in parts:  # the loss of the global batch on every rank
+        np.testing.assert_allclose(p["loss"], want_loss, rtol=1e-5)
+    got = np.concatenate([p["logits"] for p in sorted(parts, key=lambda p: p["coords"]["data"])
+                          if p["coords"]["model"] == 0])
+    assert got.shape == want_logits.shape == (4, 128)
+    _close_to_max(got, want_logits)
 
 
 HYBRID = {"2x2x1": (2, 2, 1), "2x1x2": (2, 1, 2)}

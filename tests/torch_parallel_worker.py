@@ -1,6 +1,7 @@
 """One rank of the 4-rank gloo world of ``tests/test_torch_parallel_world.py``
-(a data = 2 x model = 2 mesh on the CPU, one intra-op thread a rank; last,
-two simulated hosts of 2 ranks on hybrid meshes).
+(a data = 2 x model = 2 mesh on the CPU, one intra-op thread a rank; then
+``graft_entry.dryrun_multichip(4)`` on the (1, 2, 2) hybrid mesh; last, two
+simulated hosts of 2 ranks on hybrid meshes).
 
 Imports torch and the port only, never JAX: the test process prepares the
 inputs (the JAX package's trees as numpy, the batches) in
@@ -212,6 +213,19 @@ def two_hosts(inp):
     return out
 
 
+def graft(inp):
+    """``dryrun_multichip(4)`` on the world (its own init), then its helper
+    on the (1, 2, 2) hybrid mesh from JAX's tree: the QAT loss and this
+    rank's decode logits."""
+    from llm_mixed_q_torch import graft_entry
+
+    graft_entry.dryrun_multichip(dist.get_world_size(), device="cpu")
+    mesh = make_hybrid_mesh(1, 2, 2, device_type="cpu")
+    tree = lambda: params_from_jax(inp["graft_tree"], device="cpu")
+    loss, logits = graft_entry._dryrun(mesh, tree(), tree(), "cpu")
+    return {"coords": mesh.coords, "loss": loss, "logits": logits.numpy()}
+
+
 def main(rank: int, world: int, port: int, workdir: Path):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
@@ -223,6 +237,7 @@ def main(rank: int, world: int, port: int, workdir: Path):
         out = {"coords": mesh.coords, "forward": forward(mesh, inp),
                "families": family_forward(mesh, inp), "serve": serve(mesh, inp),
                "qat": qat(mesh, inp), "checkpoint": checkpoint(mesh, inp, workdir),
+               "graft": graft(inp),
                "hosts": two_hosts(inp)}  # last: it sets the host size for the process
     except Exception:
         out = {"error": traceback.format_exc()}
